@@ -145,6 +145,13 @@ def _install_hypothesis_shim() -> None:
     sys.modules["hypothesis.strategies"] = st
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs a CUDA device; skips from a fixture when none is visible",
+    )
+
+
 try:  # real hypothesis wins when available
     import hypothesis  # noqa: F401
 except ImportError:  # pragma: no cover - depends on environment
