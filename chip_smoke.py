@@ -6,8 +6,8 @@
 Needs one CUDA device, ``nvcc`` (``$CUDA_HOME`` or ``/usr/local/cuda``) and
 scipy; imports nothing of JAX or of the JAX package.  Phases:
 
-1. print the card's name and power limit; build the three kernels from
-   ``src/repro_torch/kernels/csrc`` (nvcc, sm_90a);
+1. print the card's name and power limit; build the four kernels from
+   ``src/repro_torch/kernels/csrc`` (nvcc, sm_90a, all in parallel);
 2. hold each kernel against its plain torch version on the card, at the
    paper's Table 1 sizes (``cant``, ``ldoor`` at scale 1.0), with x from
    ``default_rng(0)``.  Tolerance per row i: |kernel - plain| <=
@@ -25,7 +25,22 @@ scipy; imports nothing of JAX or of the JAX package.  Phases:
 5. times per kernel (CUDA events, median of 25 single launches, L2
    flushed before each): kernel, plain version, one cuSPARSE call through
    ``torch.sparse_csr_tensor`` (``library_ms``), and the bound of the
-   function itself (see ``bound``), whatever format the kernel stores.
+   function itself (see ``bound``), whatever format the kernel stores;
+6. sparse right-hand sides (SpMSpV) on the power-law graphs webbase-1M and
+   torso1 at scale 1.0, x sorted unique indices from ``default_rng``:
+   the scatter kernel against its plain version (at nnz(x) = n/256 and
+   n/4, all four engine buckets on webbase-1M); then, with the launch
+   counts set to 0, ``SparseOperator.build(webbase, x_nnz=B)`` at the four
+   default buckets, a pinned ``spmspv/cuda`` operator, a tuned
+   ``SparseEngine`` answering 65 ``submit_sparse`` requests (one thicker
+   than n/4, which goes to the dense k=1 lane) and an engine whose sparse
+   lane is pinned to ``spmspv/cuda`` at ``async_depth`` 2 and 0, all
+   against a scipy float64 oracle; last the scatter's times at the four
+   buckets (kernel, plain ``index_add_``, which is also the library call,
+   the bound 8*T + 4*m bytes) beside a whole ``apply_sparse`` and one
+   cuSPARSE ``torch.mv`` on the densified x.  The scatter's atomics reorder
+   each row's sum: a row that breaks 1e-5 * (|A| |x|)_i is printed with its
+   term count k_i and held to k_i * 2**-24 * (|A| |x|)_i instead.
 
 Any failed check exits non-zero.  The last lines are the card's name and
 power limit, one JSON object with the kernel table, and the JSON status
@@ -85,6 +100,14 @@ def main() -> None:
         sell_spmv_plain,
         stages_x_in_smem,
     )
+    from repro_torch.kernels.spmspv import (
+        expand_products,
+        pad_sparse_rhs,
+        spmspv_prepare,
+        spmspv_scatter,
+        spmspv_scatter_plain,
+        work_bucket,
+    )
     from repro_torch.launch import serve as serve_cli
     from repro_torch.runtime.engine import SparseEngine
     from repro_torch.tune import (
@@ -105,11 +128,21 @@ def main() -> None:
         record["phases_s"][name] = round(time.perf_counter() - t0, 3)
         print(f"[{name}] done in {record['phases_s'][name]:.1f}s", flush=True)
 
+    lap_t = [time.perf_counter()]
+
+    def lap(name: str) -> None:
+        """Seconds since the previous lap, printed and kept in the record."""
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        record.setdefault("laps_s", {})[name] = round(now - lap_t[0], 3)
+        print(f"  [{name}: {now - lap_t[0]:.2f}s]", flush=True)
+        lap_t[0] = now
+
     # -- phase 1: card and build ------------------------------------------
     t0 = time.perf_counter()
     smi = smi_line()
-    print(f"card: {smi}; torch {torch.__version__} cuda {torch.version.cuda}",
-          flush=True)
+    print(f"card: {smi}; torch {torch.__version__} cuda {torch.version.cuda} "
+          f"numpy {np.__version__}", flush=True)
     targets = _build.ensure_built()
     for name, path in targets.items():
         ptxas = [ln for ln in _build.BUILD_LOG.get(name, "").splitlines()
@@ -488,7 +521,274 @@ def main() -> None:
               cant, k,
               nbytes(p["blocks"], p["block_cols"], p["indptr"], p["xb"])
               + 4 * p["grid_shape"][0] * p["block_shape"][0] * k)
+    del A, preps
+    torch.cuda.empty_cache()
     phase_done("times", t0)
+
+    # -- phase 6: sparse right-hand sides (SpMSpV) --------------------------
+    t0 = time.perf_counter()
+    print("phase 6: sparse right-hand sides on webbase-1M and torso1", flush=True)
+    graphs = {name: generate(name, scale=1.0) for name in ("webbase-1M", "torso1")}
+    G64, G_abs, G_pat = {}, {}, {}
+    for name, g in graphs.items():
+        G64[name] = sp.csr_matrix((g.data.astype(np.float64), g.indices, g.indptr),
+                                  shape=g.shape)
+        G_abs[name] = abs(G64[name])
+        G_pat[name] = sp.csr_matrix((np.ones(g.nnz), g.indices, g.indptr),
+                                    shape=g.shape)
+        print(f"{name}: {g.shape[0]}x{g.shape[1]} nnz={g.nnz}, longest row "
+              f"{int(np.diff(g.indptr).max())}, longest column "
+              f"{int(np.bincount(g.indices).max())}")
+    web = graphs["webbase-1M"]
+    m_w, n_w = web.shape
+    buckets = (n_w // 256, n_w // 64, n_w // 16, n_w // 4)  # the engine's
+    sp_limits = record["spmspv_limits"] = {}
+
+    def sparse_x(n_: int, nx: int, seed: int = 0):
+        rng_ = np.random.default_rng(seed)
+        idx = np.sort(rng_.choice(n_, size=nx, replace=False)).astype(np.int64)
+        return idx, rng_.standard_normal(nx).astype(np.float32)
+
+    def sparse_oracle(name: str, idx, val):
+        """(y64, (|A| |x|), k_i = the touched terms of each row)."""
+        x64 = np.zeros(graphs[name].shape[1])
+        x64[idx] = val
+        mask = np.zeros_like(x64)
+        mask[idx] = 1.0
+        return G64[name] @ x64, G_abs[name] @ np.abs(x64), G_pat[name] @ mask
+
+    def check_sparse(what: str, got, ref, scale, terms, quiet=False) -> float:
+        """Per row |got - ref| <= 1e-5 * scale_i; a row that breaks it is
+        printed with its term count k_i and held to k_i * 2**-24 * scale_i."""
+        got = torch.as_tensor(got, device=dev).double()
+        ref = torch.as_tensor(ref, device=dev).double()
+        scale = torch.as_tensor(scale, device=dev).double()
+        terms = torch.as_tensor(terms, device=dev).double()
+        if got.shape != ref.shape or not bool(torch.isfinite(got).all()):
+            fail(f"{what}: shape {tuple(got.shape)} vs {tuple(ref.shape)} or "
+                 "non-finite output")
+        err = (got - ref).abs()
+        lim = TOL * scale
+        used = "1e-5"
+        if bool((err > lim).any()):
+            i = int(torch.argmax(err - lim))
+            print(f"  {what}: {int((err > lim).sum())} rows break 1e-5, worst row "
+                  f"{i}: err {float(err[i]):.3e}, (|A||x|)_i {float(scale[i]):.3e}, "
+                  f"k_i = {int(terms[i])} terms; limit becomes k_i * 2^-24")
+            lim = torch.clamp(terms * 2.0**-24, min=TOL) * scale
+            used = "k_i*2^-24"
+            if bool((err > lim).any()):
+                j = int(torch.argmax(err - lim))
+                fail(f"{what}: row {j} err {float(err[j]):.3e} > k_i * 2^-24 * "
+                     f"{float(scale[j]):.3e} with k_i = {int(terms[j])}")
+        sp_limits[what] = used
+        worst = float(err.max()) if err.numel() else 0.0
+        if not quiet:
+            print(f"  ok {what}: max_abs_err {worst:.3e} (limit {used})")
+        return worst
+
+    # 6a: the scatter kernel against its plain version on the card
+    sp_prep_web = None
+    for name, g in graphs.items():
+        m_, n_ = g.shape
+        prep = spmspv_prepare(g, device=dev)
+        for B in buckets if name == "webbase-1M" else (n_ // 256, n_ // 4):
+            idx, val = sparse_x(n_, B)
+            xi, xv = pad_sparse_rhs(idx, val, B, n_)
+            T = int(prep["col_len_np"][xi].sum())
+            G = work_bucket(T, g.nnz)
+            rows, prods = expand_products(prep, torch.as_tensor(xi, device=dev),
+                                          torch.as_tensor(xv, device=dev), G)
+            y = spmspv_scatter(rows, prods, m=m_, total=T)
+            yp = spmspv_scatter_plain(rows, prods, m_, T)
+            torch.cuda.synchronize()
+            _, scale, _ = sparse_oracle(name, idx, val)
+            terms = torch.bincount(rows[:T].long(), minlength=m_)
+            errs[f"spmspv_scatter/{name}/B{B}"] = check_sparse(
+                f"spmspv_scatter {name} x_nnz={B} (T={T}, G={G}, max k_i "
+                f"{int(terms.max())})", y, yp, scale, terms)
+            del rows, prods, y, yp
+        if name == "webbase-1M":
+            sp_prep_web = prep
+        del prep
+    torch.cuda.empty_cache()
+    phase_done("spmspv_kernel_vs_plain", t0)
+
+    # 6b: the sparse-RHS main path on webbase-1M, launches counted
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    print("phase 6b: sparse-RHS main path on webbase-1M", flush=True)
+    sp_tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_sp_")
+    sp_cache = PlanCache(Path(sp_tmp.name) / "plans.json")
+    pinned_sp = make("spmspv", "cuda", slab=4096)
+    lap_t[0] = time.perf_counter()
+    for B in buckets:
+        op = SparseOperator.build(web, x_nnz=B, cache=sp_cache, device=dev)
+        lap(f"build x_nnz={B}")
+        report_search(f"webbase-1M spmspv x_nnz={B}", op)
+        idx, val = sparse_x(n_w, B, seed=1)
+        y64, scale, terms = sparse_oracle("webbase-1M", idx, val)
+        y = op.apply_sparse(idx, val)
+        check_sparse(f"tuned x_nnz={B} apply_sparse vs float64 oracle", y, y64,
+                     scale, terms)
+        check_sparse(f"tuned x_nnz={B} op @ (idx, val) vs apply_sparse",
+                     op @ (idx, val), y, scale, terms)
+        pin = SparseOperator.from_candidate(web, pinned_sp, x_nnz=B, device=dev)
+        check_sparse(f"pinned {pinned_sp.key()} x_nnz={B} vs float64 oracle",
+                     pin.apply_sparse(idx, val), y64, scale, terms)
+        del op, pin
+        lap(f"checks x_nnz={B}")
+    # 64 requests spread over the four buckets, then one thicker than n/4
+    rng = np.random.default_rng(2)
+    lows = (0,) + buckets[:-1]
+    sizes = [int(rng.integers(lo + 1, hi + 1)) for lo, hi in zip(lows, buckets)
+             for _ in range(16)]
+    rng.shuffle(sizes)
+    sizes.append(buckets[-1] + 1000)
+    sp_reqs = [sparse_x(n_w, s_, seed=100 + j) for j, s_ in enumerate(sizes)]
+    sp_oracles = [sparse_oracle("webbase-1M", i_, v_) for i_, v_ in sp_reqs]
+    lap("65 requests and their oracles")
+
+    def check_answers(label: str, ys) -> float:
+        worst = max(check_sparse(f"{label} request {j}", y_, o[0], o[1], o[2],
+                                 quiet=True)
+                    for j, (y_, o) in enumerate(zip(ys, sp_oracles)))
+        print(f"  ok {label}: {len(ys)} answers vs float64 oracle, max_abs_err "
+              f"{worst:.3e}")
+        return worst
+
+    eng_sp = SparseEngine(web, ks=(1,), cache=sp_cache, device=dev)
+    lap("tuned engine built")
+    futs = []
+    for i_, v_ in sp_reqs:  # one at a time: each latency is one request's
+        futs.append(eng_sp.submit_sparse(i_, v_))
+        futs[-1].result()
+    lap("tuned engine served")
+    check_answers("tuned engine", [f.result() for f in futs])
+    lap("tuned engine checked")
+    summary = eng_sp.stats.summary()
+    lat_by_bucket = {}
+    for f in futs:
+        key = f"spmspv{f.bucket[1]}" if isinstance(f.bucket, tuple) else f"dense k={f.bucket}"
+        lat_by_bucket.setdefault(key, []).append(f.latency_s * 1e3)
+    lat_by_bucket = {key: round(float(np.median(v)), 4)
+                     for key, v in lat_by_bucket.items()}
+    sparse_plans = {B: op.plan.candidate.key() for B, op in eng_sp._sparse_ops.items()}
+    print(f"  tuned engine sparse plans: {sparse_plans}")
+    print(f"  tuned engine stats: {summary}")
+    print(f"  tuned engine median latency by lane (ms): {lat_by_bucket}")
+    record["spmspv_engine"] = {"plans": sparse_plans, "stats": summary,
+                               "median_latency_ms": lat_by_bucket}
+    if sorted(summary["sparse_by_bucket"]) != sorted(f"spmspv{B}" for B in buckets):
+        fail(f"tuned engine did not serve every x-nnz bucket: "
+             f"{summary['sparse_by_bucket']}")
+    if summary["by_bucket"] != {1: 1}:
+        fail(f"the oversize request did not take the dense k=1 lane: "
+             f"{summary['by_bucket']}")
+    ys_by_depth = {}
+    pin_cache = PlanCache()  # the second engine loads the first one's plans
+    for depth in (2, 0):
+        eng_ = SparseEngine(web, ks=(1,), ops={1: eng_sp.ops[1]}, cache=pin_cache,
+                            device=dev, async_depth=depth, candidates=[pinned_sp])
+        lap(f"pinned engine async_depth={depth} built")
+        futs_ = [eng_.submit_sparse(i_, v_) for i_, v_ in sp_reqs]
+        eng_.drain()
+        ys_by_depth[depth] = [f.result() for f in futs_]
+        lap(f"pinned engine async_depth={depth} served")
+        lanes = {op.plan.candidate for op in eng_._sparse_ops.values()}
+        if lanes != {pinned_sp}:
+            fail(f"pinned engine's sparse lane ran {lanes}")
+        check_answers(f"pinned engine async_depth={depth}", ys_by_depth[depth])
+        eng_.close()
+    for j, (ya, ys_) in enumerate(zip(ys_by_depth[2], ys_by_depth[0])):
+        o = sp_oracles[j]
+        check_sparse(f"pinned engine request {j}: async vs sync", ya, ys_, o[1],
+                     o[2], quiet=True)
+    print("  ok pinned engine: async_depth=2 agrees with async_depth=0 within "
+          "the tolerance (the scatter's atomics make it not bitwise)")
+    lap("pinned engines checked")
+    eng_sp.close()
+    torch.cuda.synchronize()
+    sp_launches = dict(_build.LAUNCHES)
+    print(f"  launches over phase 6b: {sp_launches}")
+    if sp_launches.get("spmspv_scatter", 0) <= 0:
+        fail("kernel spmspv_scatter was never launched on the sparse-RHS main path")
+    record["spmspv_launches"] = sp_launches
+    sp_tmp.cleanup()
+    torch.cuda.empty_cache()
+    phase_done("spmspv_main_path", t0)
+
+    # 6c: times at the four webbase buckets
+    t0 = time.perf_counter()
+    print("phase 6c: spmspv times on webbase-1M (median of 25, L2 flushed)",
+          flush=True)
+
+    def wall_ms(fn) -> float:
+        """Host clock around fn() and a synchronise: a whole request."""
+        for _ in range(3):
+            fn()
+        ts = []
+        for _ in range(REPS):
+            flush.zero_()
+            torch.cuda.synchronize()
+            t_ = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t_) * 1e3)
+        return float(np.median(ts))
+
+    A_web = torch.sparse_csr_tensor(
+        torch.as_tensor(web.indptr, device=dev), torch.as_tensor(web.indices, device=dev),
+        torch.as_tensor(web.data, device=dev), size=web.shape, check_invariants=False)
+    for B in buckets:
+        idx, val = sparse_x(n_w, B)
+        xi, xv = pad_sparse_rhs(idx, val, B, n_w)
+        T = int(sp_prep_web["col_len_np"][xi].sum())
+        G = work_bucket(T, web.nnz)
+        xi_d = torch.as_tensor(xi, device=dev)
+        xv_d = torch.as_tensor(xv, device=dev)
+        rows, prods = expand_products(sp_prep_web, xi_d, xv_d, G)
+        x_dense = torch.zeros(n_w, device=dev)
+        x_dense[torch.as_tensor(idx, device=dev)] = torch.as_tensor(val, device=dev)
+        pin = SparseOperator.from_candidate(web, pinned_sp, x_nnz=B, device=dev)
+        fn_bytes, ops_ = 8 * T + 4 * m_w, T
+        bytes_s, ops_s = fn_bytes / HBM_BYTES_PER_S, ops_ / FP32_FLOPS
+        row = {
+            "name": "spmspv_scatter",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/spmspv_scatter.cu",
+            "replaces": "src/repro/kernels/spmspv.py:212",
+            "shape": f"webbase-1M x_nnz={B} T={T} G={G}",
+            "launches": int(sp_launches.get("spmspv_scatter", 0)),
+            "max_abs_err": errs[f"spmspv_scatter/webbase-1M/B{B}"],
+            "ms": time_ms(lambda: spmspv_scatter(rows, prods, m=m_w, total=T)),
+            "plain_ms": time_ms(lambda: spmspv_scatter_plain(rows, prods, m_w, T)),
+            "bound_ms": max(bytes_s, ops_s) * 1e3,
+            "bound_by": "bytes" if bytes_s >= ops_s else "operations",
+            "bytes": int(fn_bytes),
+            "flops": int(ops_),
+            "library_ms": time_ms(lambda: torch.zeros(m_w, device=dev).index_add_(
+                0, rows[:T], prods[:T])),
+            "x_nnz": B,
+            "T": T,
+            "G": G,
+            "padded_share_G_over_T": G / T if T else None,
+            "expand_ms": time_ms(lambda: expand_products(sp_prep_web, xi_d, xv_d, G)),
+            "zero_fill_ms": time_ms(lambda: torch.zeros(m_w, device=dev)),
+            "apply_sparse_ms": wall_ms(lambda: pin.apply_sparse(idx, val)),
+            "cusparse_dense_mv_ms": time_ms(lambda: torch.mv(A_web, x_dense)),
+        }
+        kernels.append(row)
+        print(f"  spmspv_scatter [{row['shape']}]: {row['ms']:.4f} ms, plain "
+              f"{row['plain_ms']:.4f}, index_add_ {row['library_ms']:.4f}, bound "
+              f"{row['bound_ms']:.4f} ({row['bound_by']}), G/T "
+              f"{row['padded_share_G_over_T']:.2f}, expand {row['expand_ms']:.4f}, "
+              f"zero fill {row['zero_fill_ms']:.4f}; whole apply_sparse "
+              f"{row['apply_sparse_ms']:.4f} ms vs cuSPARSE mv on the densified x "
+              f"{row['cusparse_dense_mv_ms']:.4f} ms; launches {row['launches']}",
+              flush=True)
+        del rows, prods, pin
+    phase_done("spmspv_times", t0)
 
     record["kernels"] = kernels
     record["card"] = smi

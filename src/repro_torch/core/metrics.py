@@ -27,7 +27,21 @@ __all__ = [
     "spmv_app_bytes",
     "spmm_app_bytes",
     "matrix_bandwidth",
+    "sorted_unique",
 ]
+
+
+def sorted_unique(keys: np.ndarray) -> np.ndarray:
+    """``np.unique(keys)`` through one sort.  From numpy 2.3 on, ``np.unique``
+    takes a hash-table path that is far slower than a sort on millions of
+    distinct int64 keys (seconds against tens of milliseconds)."""
+    s = np.sort(keys, axis=None)
+    if s.size == 0:
+        return s
+    keep = np.empty(s.size, dtype=bool)
+    keep[0] = True
+    np.not_equal(s[1:], s[:-1], out=keep[1:])
+    return s[keep]
 
 
 def ucld_per_row(a: CSRMatrix, line_width: int = 8) -> np.ndarray:
@@ -37,7 +51,7 @@ def ucld_per_row(a: CSRMatrix, line_width: int = 8) -> np.ndarray:
     rows = np.repeat(np.arange(m, dtype=np.int64), lengths)
     n_lines_per_col = -(-n // line_width)
     key = rows * n_lines_per_col + a.indices // line_width
-    uniq_rows = np.unique(key) // n_lines_per_col  # one entry per (row, line)
+    uniq_rows = sorted_unique(key) // n_lines_per_col  # one entry per (row, line)
     lines_touched = np.bincount(uniq_rows.astype(np.int64), minlength=m)
     out = np.ones(m, dtype=np.float64)  # empty rows count as perfectly dense
     nz = lengths > 0
@@ -60,7 +74,7 @@ def utd(a: CSRMatrix, tile: tuple[int, int] = (8, 128)) -> float:
     tiles = (rows // tr).astype(np.int64) * (
         -(-a.shape[1] // tc)
     ) + a.indices // tc
-    n_tiles = np.unique(tiles).shape[0]
+    n_tiles = sorted_unique(tiles).shape[0]
     if n_tiles == 0:
         return 1.0
     return a.nnz / (n_tiles * tr * tc)

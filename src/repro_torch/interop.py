@@ -19,7 +19,7 @@ from repro_torch.kernels.ops import from_arrays
 __all__ = ["split", "prep_from_arrays"]
 
 _ARRAY_KEYS = ("cols", "vals", "row_perm", "block_rows", "block_cols", "blocks",
-               "bounds")
+               "bounds", "col_start", "col_len", "rows")
 
 
 def split(prep: dict[str, Any]) -> tuple[dict, dict]:
@@ -40,6 +40,6 @@ def split(prep: dict[str, Any]) -> tuple[dict, dict]:
 
 def prep_from_arrays(fmt: str, arrays: dict, meta: dict, device) -> dict[str, Any]:
     """The port's prepared dict for ``fmt`` (``"bcsr"``, ``"sell"``,
-    ``"sell_blocked"`` or ``"sell_blocked_stacked"``) on ``device``, built
-    from host arrays such as :func:`split` returns."""
+    ``"sell_blocked"``, ``"sell_blocked_stacked"`` or ``"spmspv"``) on
+    ``device``, built from host arrays such as :func:`split` returns."""
     return from_arrays(fmt, arrays, meta, device)

@@ -44,7 +44,7 @@ __all__ = [
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-SOURCES = ("sell_spmv", "sell_spmv_blocked", "bcsr_spmm")
+SOURCES = ("sell_spmv", "sell_spmv_blocked", "bcsr_spmm", "spmspv_scatter")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17",

@@ -53,9 +53,10 @@ def from_arrays(fmt: str, arrays: dict, meta: dict, device) -> dict[str, Any]:
     """A prepared dict on ``device`` from host arrays and static metadata.
 
     ``fmt`` is ``"bcsr"``, ``"sell"``, ``"sell_blocked"`` (one SELL per
-    column slab; ``arrays = {"slabs": [...], "bounds": ...}``) or
-    ``"sell_blocked_stacked"``.  The BCSR block-row pointer the CUDA kernel
-    walks is derived here from the row-sorted ``block_rows``.
+    column slab; ``arrays = {"slabs": [...], "bounds": ...}``),
+    ``"sell_blocked_stacked"`` or ``"spmspv"`` (the CSC view; its host
+    ``col_len_np`` is kept beside the tensors).  The BCSR block-row pointer
+    the CUDA kernel walks is derived here from the row-sorted ``block_rows``.
     """
 
     def t(v):
@@ -99,6 +100,13 @@ def from_arrays(fmt: str, arrays: dict, meta: dict, device) -> dict[str, Any]:
         ]
         return {"slabs": slabs, "bounds": bounds,
                 "shape": tuple(int(v) for v in meta["shape"])}
+    if fmt == "spmspv":
+        prep = {key: t(arrays[key])
+                for key in ("col_start", "col_len", "rows", "vals")}
+        prep["col_len_np"] = np.array(arrays["col_len"], dtype=np.int32)
+        prep["shape"] = tuple(int(v) for v in meta["shape"])
+        prep["nnz"] = int(meta["nnz"])
+        return prep
     raise ValueError(f"unknown prepared format: {fmt}")
 
 

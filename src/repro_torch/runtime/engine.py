@@ -19,17 +19,27 @@ event recorded after its launch; a batch retires (futures filled, latency
 stamped, stats recorded) once its event has completed, strictly in FIFO
 order.  ``submit()`` returns a future — ``req.result(timeout=)`` blocks for
 exactly that request.  Async and synchronous (``async_depth=0``) engines
-run the same closures and kernels, so their results are bitwise equal.
+run the same closures and kernels, so their dense results are bitwise equal.
 
 ``max_wait_s`` adds admission control: a partial bucket is held back until
 its oldest request has waited that long, so a lone request under SLO never
 waits for a wide bucket to fill.
+
+``submit_sparse(indices, values)`` serves a *sparse* x: the request rounds
+up to the smallest of ``x_nnz_buckets`` (default n/256, n/64, n/16, n/4)
+and runs the ``kind="spmspv"`` plan tuned for that bucket, built on first
+use.  Sparse requests dispatch at once, one per launch, and share the
+in-flight window.  Their sums go through atomics on the card, so an async
+and a synchronous engine agree within float32 rounding there, not bit for
+bit; a request thicker than the largest bucket is densified onto the dense
+k = 1 lane.
 
     eng = SparseEngine(a)            # tunes (or cache-loads) all buckets, on cuda
     reqs = [eng.submit(x) for x in xs]
     eng.drain()                      # dispatches k-bucketed batches
     reqs[0].y, reqs[0].latency_s     # per-request result + latency
     eng.stats.summary()              # occupancy / padding / bucket counts
+    eng.submit_sparse(idx, val)      # y = A @ x for a sparse x
 """
 from __future__ import annotations
 
@@ -45,6 +55,7 @@ import torch
 
 from repro_torch.core.device import resolve
 from repro_torch.core.formats import CSRMatrix
+from repro_torch.kernels.spmspv import pad_sparse_rhs, validate_sparse_rhs
 from repro_torch.runtime.executable import fused_batch_executable
 from repro_torch.tune import PlanCache, SparseOperator
 
@@ -74,10 +85,12 @@ class EngineRequest:
     """One queued y = A @ x request — a future filled in at retirement."""
 
     rid: int
-    x: Any  # (n,) float32 tensor on the engine's device
+    x: Any  # (n,) float32 tensor on the engine's device, or host (idx, val)
     t_submit: float
     t_done: float | None = None
-    bucket: int | None = None  # k-bucket the request was dispatched in
+    # k-bucket the request was dispatched in; a sparse request carries
+    # ("spmspv", <x-nnz bucket>), so the two bucket spaces never collide.
+    bucket: Any = None
     _ys: torch.Tensor | None = None  # the whole batch result
     _col: int = 0  # this request's column of _ys
     _exc: BaseException | None = None
@@ -135,9 +148,17 @@ class EngineStats:
     latencies_s: list = dataclasses.field(default_factory=list)
     failed_requests: int = 0  # resolved with an exception, not served
     failed_batches: int = 0
+    # Sparse dispatches per x-nnz bucket ("spmspv<B>" keys).  They stay out
+    # of the k-bucket occupancy figures: each serves exactly one request.
+    sparse_dispatched: dict = dataclasses.field(default_factory=dict)
 
-    def record(self, bucket: int, n_real: int, lats: Iterable[float]) -> None:
+    def record(self, bucket, n_real: int, lats: Iterable[float]) -> None:
         self.n_dispatches += 1
+        if isinstance(bucket, tuple):  # ("spmspv", B)
+            key = f"spmspv{bucket[1]}"
+            self.sparse_dispatched[key] = self.sparse_dispatched.get(key, 0) + 1
+            self.latencies_s.extend(lats)
+            return
         self.dispatched[bucket] = self.dispatched.get(bucket, 0) + 1
         self.occupied_cols += n_real
         self.padded_cols += bucket - n_real
@@ -161,6 +182,7 @@ class EngineStats:
             "requests": self.n_requests,
             "dispatches": self.n_dispatches,
             "by_bucket": dict(sorted(self.dispatched.items())),
+            "sparse_by_bucket": dict(sorted(self.sparse_dispatched.items())),
             "occupancy": round(self.occupancy, 4),
             "padded_occupancy": round(self.padded_occupancy, 4),
             "served_cols": self.occupied_cols,
@@ -181,12 +203,13 @@ class SparseEngine:
     tuning one.  ``device`` is where the engine serves (``"cuda"`` unless
     the caller passes ``"cpu"``).  ``max_wait_s`` caps how long a request
     may wait for its bucket to fill.  ``async_depth`` (0..2) is the
-    in-flight window.  Remaining keyword arguments pass through to
+    in-flight window.  ``x_nnz_buckets`` are the sparse lane's nnz(x)
+    buckets.  Remaining keyword arguments pass through to
     :meth:`SparseOperator.build`.
 
     **Dtype policy.** The engine serves float32.  A non-f32 ``submit()``
-    input is cast — warning once per engine — or, under
-    ``strict_dtype=True``, refused with ``TypeError``.
+    input (or ``submit_sparse()`` values) is cast — warning once per
+    engine — or, under ``strict_dtype=True``, refused with ``TypeError``.
 
     A batch whose launch or device execution fails resolves every future
     in it with that exception (``result()`` raises it); older batches
@@ -204,6 +227,7 @@ class SparseEngine:
         strict_dtype: bool = False,
         ops: dict[int, SparseOperator] | None = None,
         device: str | torch.device = "cuda",
+        x_nnz_buckets: Sequence[int] | None = None,
         **build_kwargs: Any,
     ):
         if not ks:
@@ -228,6 +252,14 @@ class SparseEngine:
             self.ops = SparseOperator.build_multi(
                 a, ks=self.ks, cache=cache, device=self.device, **build_kwargs
             )
+        # The sparse lane: plans per nnz(x) bucket, built on first use.
+        self._cache = cache
+        self._build_kwargs = dict(build_kwargs)
+        if x_nnz_buckets is None:
+            n = a.shape[1]
+            x_nnz_buckets = (n // 256, n // 64, n // 16, n // 4)
+        self.x_nnz_buckets = tuple(sorted({max(1, int(b)) for b in x_nnz_buckets}))
+        self._sparse_ops: dict[int, SparseOperator] = {}
         self._queue: deque[EngineRequest] = deque()
         self._inflight: deque[tuple] = deque()  # (ys, event, reqs, bucket, take)
         self._rid = 0
@@ -263,22 +295,8 @@ class SparseEngine:
             raise ValueError(
                 f"expected x of shape ({self.shape[1]},), got {tuple(x.shape)}"
             )
-        is_f32 = x.dtype in (torch.float32, np.float32)
-        if not is_f32:
-            if self.strict_dtype:
-                raise TypeError(
-                    f"submit() got dtype {x.dtype}; this engine serves "
-                    "float32 and strict_dtype=True forbids the implicit cast"
-                )
-            if not self._dtype_warned:
-                self._dtype_warned = True
-                warnings.warn(
-                    f"SparseEngine.submit: casting {x.dtype} input to float32 "
-                    "(the engine's serving dtype) — submit float32 to avoid "
-                    "the cast, or build the engine with strict_dtype=True to "
-                    "make this an error; warning once per engine",
-                    stacklevel=2,
-                )
+        if x.dtype not in (torch.float32, np.float32):
+            self._dtype_policy("submit", x.dtype)
         if isinstance(x, np.ndarray):
             x = torch.tensor(x, dtype=torch.float32, device=self.device)
         else:
@@ -289,6 +307,61 @@ class SparseEngine:
         self._queue.append(req)
         self.stats.n_requests += 1
         return req
+
+    def submit_sparse(self, indices, values) -> EngineRequest:
+        """Serve y = A @ x for a sparse x given as sorted (indices, values).
+
+        The request goes to the smallest ``x_nnz_buckets`` entry >= nnz(x)
+        and is launched at once through that bucket's ``kind="spmspv"``
+        plan; it shares the in-flight window and retires like a dense
+        batch.  Bad coordinates raise ``ValueError``; values follow the
+        engine's float32 policy.  A request thicker than the largest bucket
+        is densified onto the dense k = 1 lane.
+        """
+        self._check_open()
+        n = self.shape[1]
+        idx, val = validate_sparse_rhs(indices, values, n)
+        if val.dtype != np.float32:
+            self._dtype_policy("submit_sparse", val.dtype)
+            val = val.astype(np.float32)
+        bucket = next((b for b in self.x_nnz_buckets if b >= idx.size), None)
+        if bucket is None:
+            x = np.zeros((n,), np.float32)
+            x[idx] = val
+            return self.submit(x)
+        req = EngineRequest(rid=self._rid, x=(idx, val), t_submit=time.perf_counter(),
+                            _engine=self)
+        self._rid += 1
+        self.stats.n_requests += 1
+        self._dispatch(("spmspv", bucket), [req])
+        return req
+
+    def _dtype_policy(self, what: str, dtype) -> None:
+        """A non-float32 input: raise under ``strict_dtype``, else warn
+        (once per engine) and let the caller cast."""
+        if self.strict_dtype:
+            raise TypeError(
+                f"{what}() got dtype {dtype}; this engine serves float32 and "
+                "strict_dtype=True forbids the implicit cast"
+            )
+        if not self._dtype_warned:
+            self._dtype_warned = True
+            warnings.warn(
+                f"SparseEngine.{what}: casting {dtype} input to float32 (the "
+                "engine's serving dtype) — submit float32 to avoid the cast, "
+                "or build the engine with strict_dtype=True to make this an "
+                "error; warning once per engine",
+                stacklevel=3,
+            )
+
+    def _sparse_op(self, bucket: int) -> SparseOperator:
+        op = self._sparse_ops.get(bucket)
+        if op is None:
+            op = self._sparse_ops[bucket] = SparseOperator.build(
+                self.a, x_nnz=bucket, cache=self._cache, device=self.device,
+                **self._build_kwargs,
+            )
+        return op
 
     # -- dispatch -----------------------------------------------------------
     def _bucket_for(self, n_pending: int) -> tuple[int, int]:
@@ -319,7 +392,12 @@ class SparseEngine:
             self._retire_ready()  # use the hold to resolve finished batches
             return 0
         bucket, take = self._bucket_for(len(self._queue))
-        reqs = [self._queue.popleft() for _ in range(take)]
+        self._dispatch(bucket, [self._queue.popleft() for _ in range(take)])
+        return take
+
+    def _dispatch(self, bucket, reqs: list) -> None:
+        """Launch one batch once the in-flight window has room; a launch
+        that raises fails its futures after older batches retire."""
         window = max(1, self.async_depth)
         while len(self._inflight) >= window:
             self._retire_one()
@@ -328,16 +406,21 @@ class SparseEngine:
         except Exception as exc:
             self.flush()  # older batches retire first: FIFO holds
             self._fail(reqs, exc)
-            return take
-        self._inflight.append((ys, event, reqs, bucket, take))
+            return
+        self._inflight.append((ys, event, reqs, bucket, len(reqs)))
         if self.async_depth == 0:
             self._retire_one()
-        return take
 
-    def _launch(self, bucket: int, reqs: list) -> tuple:
-        xs = [r.x for r in reqs]
-        xs.extend([self._zero] * (bucket - len(xs)))  # burst tail padding
-        ys = self._exec(bucket)(*xs)
+    def _launch(self, bucket, reqs: list) -> tuple:
+        if isinstance(bucket, tuple):  # ("spmspv", B): one sparse request
+            idx, val = reqs[0].x
+            # Host (xi, xv): the runner picks its work bucket on the host.
+            ys = self._sparse_op(bucket[1])._run(
+                pad_sparse_rhs(idx, val, bucket[1], self.shape[1]))
+        else:
+            xs = [r.x for r in reqs]
+            xs.extend([self._zero] * (bucket - len(xs)))  # burst tail padding
+            ys = self._exec(bucket)(*xs)
         event = None
         if self.device.type == "cuda":
             event = torch.cuda.Event()

@@ -23,6 +23,7 @@ from .operator import (
     prepare,
     prepare_cached,
     runner,
+    sparse_rhs_runner,
 )
 from .plan import PLAN_VERSION, Plan, PlanCache, default_cache, fingerprint
 from .timing import time_fn
@@ -49,5 +50,6 @@ __all__ = [
     "prepare_cached",
     "prune",
     "runner",
+    "sparse_rhs_runner",
     "time_fn",
 ]

@@ -3,9 +3,9 @@
 A *candidate* is one (format, impl, params) point of the cross-product the
 paper sweeps by hand: CSR gather + row sum (Fig 4's vectorized tier),
 SELL-C-sigma with sigma in {1, 64, 256} and resident vs column-slabbed x
-(Fig 5 / cache blocking), and BCSR with the Table 2 block shapes.  The
-impl ``cuda`` names the hand-written kernels; ``ref`` and ``vector`` the
-plain torch tiers.  Keys match the JAX package's with ``pallas`` renamed,
+(Fig 5 / cache blocking), BCSR with the Table 2 block shapes, and for a
+sparse x the bucket SpMSpV tier.  The impl ``cuda`` names the hand-written
+kernels; ``ref`` and ``vector`` the plain torch tiers.  Keys match the JAX package's with ``pallas`` renamed,
 e.g. ``sell/cuda[C=8,chunk_tile=8,sigma=64]``.
 
 Pruning happens *before* any format is materialized or timed, from the
@@ -23,7 +23,7 @@ from typing import Any
 import numpy as np
 
 from repro_torch.core.formats import CSRMatrix
-from repro_torch.core.metrics import spmm_app_bytes, spmv_app_bytes
+from repro_torch.core.metrics import sorted_unique, spmm_app_bytes, spmv_app_bytes
 from repro_torch.kernels.ops import ONCHIP_BUDGET_BYTES
 
 from .features import MatrixFeatures
@@ -71,7 +71,7 @@ class Candidate:
     """One point of the search space; params is a sorted tuple of pairs so
     the dataclass stays hashable."""
 
-    fmt: str  # csr | sell | sell_blocked | bcsr
+    fmt: str  # csr | sell | sell_blocked | bcsr | spmspv
     impl: str  # vector | ref | cuda
     params: tuple = ()
 
@@ -106,8 +106,17 @@ def enumerate_candidates(
     exceeds the on-chip budget, although both of its runners serve k = 1
     only — there they fail every SpMM search (recorded in
     ``SparseOperator.search_failures``).
+
+    ``kind="spmspv"`` (a sparse x) is the SpMV space, every tier timed
+    through a densify wrapper, plus the bucket SpMSpV tier, so the
+    dense-versus-sparse crossover is measured on one operand.
     """
     del k  # the SpMM space does not depend on the width
+    if kind == "spmspv":
+        return enumerate_candidates(feats, "spmv") + [
+            make("spmspv", "ref"),
+            make("spmspv", "cuda", slab=4096),
+        ]
     cands: list[Candidate] = [make("csr", "vector")]
     if kind == "spmv":
         for sigma in SELL_SIGMAS:
@@ -128,7 +137,9 @@ def enumerate_candidates(
                          n_slabs=n_slabs, chunk_tile=8)
                 )
     else:
-        raise ValueError(f"unknown kind {kind!r}: this port tunes spmv and spmm")
+        raise ValueError(
+            f"unknown kind {kind!r}: this port tunes spmv, spmm and spmspv"
+        )
     for block in BCSR_BLOCKS:
         cands.append(make("bcsr", "ref", block=block))
         cands.append(make("bcsr", "cuda", block=block))
@@ -164,7 +175,7 @@ def bcsr_block_count(a: CSRMatrix, block: tuple[int, int]) -> int:
     rows = np.repeat(np.arange(a.shape[0], dtype=np.int64), np.diff(a.indptr))
     gn = -(-a.shape[1] // bk)
     key = (rows // bm) * gn + a.indices.astype(np.int64) // bk
-    return int(np.unique(key).size)
+    return int(sorted_unique(key).size)
 
 
 def estimate_cost(
@@ -176,16 +187,30 @@ def estimate_cost(
     val_bytes: int = 4,
     idx_bytes: int = 4,
     on_cpu: bool = False,
+    sparse_rhs: bool = False,
 ) -> float:
     """Abstract cost (bytes x impl slowdown) of running this candidate.
 
     Only relative magnitudes matter: prune() compares candidates against
     the cheapest estimate for the same matrix.  ``on_cpu`` says the
-    candidates run on a CPU device.
+    candidates run on a CPU device.  ``sparse_rhs`` prices serving a sparse
+    x: the spmspv tier pays for the touched columns only (scaled by
+    ``feats.x_density``), every dense tier for one extra densify pass.
     """
     m, n = a.shape
     p = cand.param_dict
-    if cand.fmt == "csr":
+    if cand.fmt == "spmspv":
+        # The CSC gather of the touched (row, value) pairs, the product
+        # stream's write and scatter read-back, the x coordinates with their
+        # column-table lookups, and y.
+        density = min(max(float(feats.x_density), 0.0), 1.0)
+        touched = density * float(a.nnz)
+        bytes_ = (
+            3.0 * touched * (val_bytes + idx_bytes)
+            + density * n * (2 * idx_bytes + val_bytes)
+            + m * val_bytes
+        )
+    elif cand.fmt == "csr":
         bytes_ = (
             spmv_app_bytes(m, n, a.nnz, val_bytes, idx_bytes)
             if k == 1
@@ -213,6 +238,8 @@ def estimate_cost(
         )
     else:
         raise ValueError(f"unknown candidate format: {cand.fmt}")
+    if sparse_rhs and cand.fmt != "spmspv":
+        bytes_ = float(bytes_) + n * val_bytes  # densify x first
     slowdown = CPU_KERNEL_SLOWDOWN if (cand.impl == "cuda" and on_cpu) else 1.0
     cost = (float(bytes_) + OVERHEAD_BYTES) * slowdown
     if not math.isfinite(cost):

@@ -49,14 +49,18 @@ class MatrixFeatures:
         return out
 
 
-def extract(a: CSRMatrix, *, k: int = 1, val_bytes: int = 4) -> MatrixFeatures:
-    """Structural features; degenerate inputs (nnz = 0, m = 0) stay finite,
-    since every consumer ranks by these numbers."""
+def extract(
+    a: CSRMatrix, *, k: int = 1, val_bytes: int = 4, x_nnz: int | None = None
+) -> MatrixFeatures:
+    """Structural features; ``x_nnz`` sets the sparse-RHS density axis.
+    Degenerate inputs (nnz = 0, m = 0) stay finite, since every consumer
+    ranks by these numbers."""
     m, n = a.shape
     lengths = np.diff(a.indptr).astype(np.float64)
     mean = float(lengths.mean()) if m else 0.0
     cv = float(lengths.std() / mean) if mean > 0 else 0.0
     x_bytes = int(n) * int(k) * val_bytes
+    x_density = 1.0 if x_nnz is None else min(max(int(x_nnz), 0) / max(int(n), 1), 1.0)
     return MatrixFeatures(
         m=m,
         n=n,
@@ -68,4 +72,5 @@ def extract(a: CSRMatrix, *, k: int = 1, val_bytes: int = 4) -> MatrixFeatures:
         bandwidth=matrix_bandwidth(a),
         x_bytes=x_bytes,
         x_fits_vmem=x_bytes <= ONCHIP_BUDGET_BYTES,
+        x_density=x_density,
     )

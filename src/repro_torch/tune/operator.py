@@ -3,6 +3,8 @@
     from repro_torch.tune import SparseOperator
     op = SparseOperator.build(csr)          # autotuned (plan-cached) SpMV, on cuda
     y = op @ x
+    sop = SparseOperator.build(csr, x_nnz=B)  # tuned for a sparse x of <= B nonzeros
+    y = sop.apply_sparse(indices, values)     # or sop @ (indices, values)
 
 ``build`` runs the paper's whole selection pipeline: extract structural
 features, enumerate the format x impl x params cross-product, prune it with
@@ -39,6 +41,7 @@ from repro_torch.core.spmv import (
 )
 from repro_torch.kernels import _build
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels import spmspv as kspmspv
 
 from .candidates import (
     DEFAULT_PRUNE_FACTOR,
@@ -60,6 +63,7 @@ __all__ = [
     "prepare_cached",
     "runner",
     "search_skips",
+    "sparse_rhs_runner",
 ]
 
 
@@ -98,6 +102,8 @@ def prepare(a: CSRMatrix, cand: Candidate, *, device) -> dict[str, Any]:
         )
     if cand.fmt == "bcsr":
         return kops.bcsr_prepare(bcsr_from_csr(a, tuple(p["block"])), device)
+    if cand.fmt == "spmspv":
+        return kspmspv.spmspv_prepare(a, device=device)
     raise ValueError(f"unknown candidate format: {cand.fmt}")
 
 
@@ -188,6 +194,11 @@ def runner(
     :class:`NoSpMMTier` at bind time for k > 1.
     """
     m, n = a.shape
+    if cand.fmt == "spmspv":
+        raise ValueError(
+            "spmspv candidates take a sparse operand — bind them through "
+            "sparse_rhs_runner(a, cand, prep, x_nnz=...) instead of runner()"
+        )
     if cand.fmt == "csr":
         return csr_bind(prep["dev"], n_rows=m, k=k)
 
@@ -227,6 +238,40 @@ def runner(
         return fn
 
     raise ValueError(f"unknown candidate format: {cand.fmt}")
+
+
+def sparse_rhs_runner(
+    a: CSRMatrix,
+    cand: Candidate,
+    prep: dict[str, Any],
+    *,
+    x_nnz: int,
+    device: torch.device,
+) -> Callable[[tuple], torch.Tensor]:
+    """Bind ANY candidate into ``fn((xi, xv)) -> y`` over a sparse RHS.
+
+    ``xi``/``xv`` are (x_nnz,) padded host arrays (sentinel index n, value
+    0; see :func:`~repro_torch.kernels.spmspv.pad_sparse_rhs`).  ``spmspv``
+    candidates run the bucket tier; every dense tier is wrapped in a
+    densify step ahead of its k = 1 runner, so the search times dense and
+    sparse tiers on the same operand.  The densify writes into an (n + 1,)
+    buffer and keeps ``[:n]``: the sentinel slots land in the dropped
+    entry.  Real indices are validated unique, so it is deterministic.
+    """
+    bucket = max(int(x_nnz), 1)
+    n = a.shape[1]
+    if cand.fmt == "spmspv":
+        return kspmspv.spmspv_bind(prep, bucket, impl=cand.impl, **cand.param_dict)
+    base = runner(a, cand, prep, k=1)
+
+    def fn(sx):
+        xi, xv = sx
+        x = torch.zeros(n + 1, dtype=torch.float32, device=device)
+        x[torch.as_tensor(np.asarray(xi), device=device).long()] = torch.as_tensor(
+            np.asarray(xv, dtype=np.float32), device=device)
+        return base(x[:n])
+
+    return fn
 
 
 def search_skips(exc: Exception, device: torch.device) -> bool:
@@ -270,7 +315,12 @@ class SparseOperator:
         # Candidate key -> the exception that disqualified it in the search.
         self.search_failures = dict(search_failures or {})
         self._prep = prep
-        self._run = runner(a, plan.candidate, prep, k=plan.k)
+        if plan.kind == "spmspv":
+            # plan.k carries the x-nnz bucket; the runner takes (xi, xv).
+            self._run = sparse_rhs_runner(a, plan.candidate, prep, x_nnz=plan.k,
+                                          device=device)
+        else:
+            self._run = runner(a, plan.candidate, prep, k=plan.k)
         self._csr_dev: dict | None = prep.get("dev")  # fallback path, lazy
 
     # -- construction -------------------------------------------------------
@@ -289,10 +339,18 @@ class SparseOperator:
         seed: int = 0,
         race: bool = True,
         device: str | torch.device = "cuda",
+        x_nnz: int | None = None,
     ) -> "SparseOperator":
         """Autotune (or fetch the cached plan for) this matrix.
 
         k=None tunes SpMV; k=<width> tunes SpMM with an (n, k) operand.
+        ``x_nnz=<bucket>`` tunes for a *sparse* x instead (kind="spmspv"):
+        the dense SpMV tiers, each timed through its densify wrapper, and
+        the bucket SpMSpV tier, all on one random sorted x of ``x_nnz``
+        nonzeros.  ``plan.k`` stores the bucket, so the cache keys sparse
+        plans per bucket as it keys SpMM plans per k.  Serve with
+        ``op.apply_sparse(indices, values)`` or ``op @ (indices, values)``.
+        Mutually exclusive with ``k``.
         ``candidates`` overrides enumeration (pruning still applies);
         ``force_search`` ignores a cached plan.  Plans taken on another
         backend or at another (m, n, nnz) are misses.
@@ -310,6 +368,12 @@ class SparseOperator:
         device = resolve(device)
         kind = "spmv" if k is None else "spmm"
         kk = 1 if k is None else int(k)
+        if x_nnz is not None:
+            if k is not None:
+                raise ValueError("x_nnz= (sparse RHS) is mutually exclusive with k=")
+            kind = "spmspv"
+            kk = max(int(x_nnz), 1)  # plan.k carries the x-nnz bucket
+        sparse_kind = kind == "spmspv"
         fp = fingerprint(a)
         backend = backend_name(device)
         scale = [int(a.shape[0]), int(a.shape[1]), int(a.nnz)]
@@ -324,21 +388,35 @@ class SparseOperator:
         if device.type == "cuda":
             _build.ensure_built()
 
-        feats = extract(a, k=kk)
+        width = 1 if sparse_kind else kk  # the dense operand's width
+        feats = extract(a, k=width, x_nnz=kk if sparse_kind else None)
         cands = (
             list(candidates)
             if candidates is not None
-            else enumerate_candidates(feats, kind, k=kk)
+            else enumerate_candidates(feats, kind, k=width)
         )
         on_cpu = device.type == "cpu"
-        costs = {c: estimate_cost(a, c, feats, k=kk, on_cpu=on_cpu) for c in cands}
+        costs = {
+            c: estimate_cost(a, c, feats, k=width, on_cpu=on_cpu,
+                             sparse_rhs=sparse_kind)
+            for c in cands
+        }
         survivors = sorted(prune(costs, factor=prune_factor), key=costs.get)
 
         rng = np.random.default_rng(seed)
-        shape = (a.shape[1],) if kk == 1 else (a.shape[1], kk)
-        x = torch.as_tensor(
-            rng.standard_normal(shape).astype(np.float32), device=device
-        )
+        if sparse_kind:
+            # One random sorted sparse x probes every survivor, as host
+            # arrays: the spmspv runners pick the work bucket on the host.
+            n = a.shape[1]
+            nx = min(kk, n)
+            idx = np.sort(rng.choice(n, size=nx, replace=False)).astype(np.int64)
+            val = rng.standard_normal(nx).astype(np.float32)
+            x = kspmspv.pad_sparse_rhs(idx, val, kk, n)
+        else:
+            shape = (a.shape[1],) if kk == 1 else (a.shape[1], kk)
+            x = torch.as_tensor(
+                rng.standard_normal(shape).astype(np.float32), device=device
+            )
 
         measurements: dict[str, float] = {}
         failures: dict[str, Exception] = {}
@@ -350,9 +428,13 @@ class SparseOperator:
         for c in survivors:
             try:
                 prep = prepare_cached(a, c, fp=fp, device=device)
-                fn = runner(a, c, prep, k=kk)
+                if sparse_kind:
+                    fn = sparse_rhs_runner(a, c, prep, x_nnz=kk, device=device)
+                else:
+                    fn = runner(a, c, prep, k=kk)
                 abort = RACE_FACTOR * best[0] if (race and best is not None) else None
-                t = time_fn(fn, x, warmup=warmup_eff, timed=timed, abort_above=abort)
+                t = time_fn(fn, x, warmup=warmup_eff, timed=timed, abort_above=abort,
+                            device=device)
             except Exception as exc:
                 if not search_skips(exc, device):
                     raise RuntimeError(
@@ -405,13 +487,27 @@ class SparseOperator:
         *,
         k: int | None = None,
         device: str | torch.device = "cuda",
+        x_nnz: int | None = None,
     ) -> "SparseOperator":
-        """Build with a forced candidate — no search, no cache."""
+        """Build with a forced candidate — no search, no cache.
+
+        ``x_nnz=<bucket>`` pins for a sparse RHS (serve with
+        ``apply_sparse``); ``spmspv`` candidates need it, and a dense
+        candidate pinned so serves through its densify wrapper.
+        """
         device = resolve(device)
-        kk = 1 if k is None else int(k)
+        if x_nnz is not None and k is not None:
+            raise ValueError("x_nnz= is mutually exclusive with k=")
+        if cand.fmt == "spmspv" and x_nnz is None:
+            raise ValueError("spmspv candidates need x_nnz= (the sparse-RHS nnz bucket)")
+        if x_nnz is not None:
+            kind, kk = "spmspv", max(int(x_nnz), 1)
+        else:
+            kk = 1 if k is None else int(k)
+            kind = "spmv" if kk == 1 else "spmm"
         plan = Plan(
             fingerprint=fingerprint(a),
-            kind="spmv" if kk == 1 else "spmm",
+            kind=kind,
             fmt=cand.fmt,
             impl=cand.impl,
             params=_plan_params(cand),
@@ -448,11 +544,36 @@ class SparseOperator:
         return table
 
     # -- application --------------------------------------------------------
+    def apply_sparse(self, indices, values) -> torch.Tensor:
+        """y = A x for a sparse x given as sorted ``(indices, values)``.
+
+        Only operators built with ``x_nnz=`` take sparse operands; the
+        coordinates are validated (bounds, strictly increasing) and padded
+        to the plan's bucket.  More nonzeros than the bucket is an error:
+        build a wider bucket, or let the engine's ``submit_sparse`` pick it.
+        """
+        if self.plan.kind != "spmspv":
+            raise ValueError(
+                "apply_sparse needs an operator built for sparse RHS "
+                "(SparseOperator.build(a, x_nnz=...)); this plan is kind="
+                f"{self.plan.kind!r}.  For a dense x use op @ x."
+            )
+        n = self.shape[1]
+        idx, val = kspmspv.validate_sparse_rhs(indices, values, n)
+        return self._run(kspmspv.pad_sparse_rhs(idx, val, self.plan.k, n))
+
     def __matmul__(self, x) -> torch.Tensor:
+        if isinstance(x, tuple):  # sparse RHS as (indices, values)
+            return self.apply_sparse(*x)
         if not isinstance(x, torch.Tensor):
             x = torch.as_tensor(np.asarray(x, dtype=np.float32), device=self.device)
         elif x.device != self.device:
             raise ValueError(f"x is on {x.device}, this operator on {self.device}")
+        if self.plan.kind == "spmspv":
+            # A dense x on a sparse-RHS plan (plan.k is an nnz bucket, not a
+            # width): the CSR fallback.
+            fn = spmv_csr if x.dim() == 1 else spmm_csr
+            return fn(self._csr_fallback(), x, n_rows=self.shape[0])
         if x.dim() == 1:
             if self.plan.k == 1:
                 return self._run(x)

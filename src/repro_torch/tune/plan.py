@@ -64,7 +64,7 @@ def fingerprint(a: CSRMatrix) -> str:
 @dataclasses.dataclass
 class Plan:
     fingerprint: str
-    kind: str  # "spmv" | "spmm"
+    kind: str  # "spmv" | "spmm" | "spmspv"
     fmt: str
     impl: str
     params: dict[str, Any]
@@ -72,7 +72,7 @@ class Plan:
     measured_s: float
     n_candidates: int  # enumerated
     n_measured: int  # survived pruning and were timed
-    k: int = 1  # dense-operand width (1 for spmv)
+    k: int = 1  # dense-operand width (1 for spmv); the x-nnz bucket for spmspv
     backend: str = ""  # "cpu" or "cuda:<card name>" ("" = unknown)
     scale: list = dataclasses.field(default_factory=list)  # [m, n, nnz]
     n_raced: int = 0  # survivors abandoned by racing after one rep

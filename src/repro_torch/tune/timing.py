@@ -79,10 +79,13 @@ def time_fn(
     warmup: int = WARMUP,
     timed: int = TIMED,
     abort_above: float | None = None,
+    device: torch.device | None = None,
 ) -> float:
     """Median time (seconds) over ``timed`` runs after ``warmup``.
 
-    The device is that of the first tensor argument.  A floored ``timed``
+    The device is ``device``, else that of the first tensor argument (a
+    sparse operand is a host tuple, so its search names the device).  A
+    floored ``timed``
     forces ``warmup >= 1``, and so does racing, so a cold first call never
     enters the median or triggers an abort.
     """
@@ -93,7 +96,7 @@ def time_fn(
     if abort_above is not None:
         warmup = max(warmup, 1)
     warmup = _floor_from_env(_ENV_WARMUP, int(warmup))
-    device = _device_of(args)
+    device = _device_of(args) if device is None else torch.device(device)
     for _ in range(warmup):
         fn(*args)
     if device.type == "cuda":

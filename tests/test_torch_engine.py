@@ -1,7 +1,8 @@
 """The port's SparseEngine: per-request agreement with the JAX package's
 engine under pinned plan tables, async == sync bit for bit, FIFO futures,
-k-bucket round-up, admission control, lifecycle, dtype policy, and the
-serve CLI on the CPU."""
+k-bucket round-up, admission control, lifecycle, dtype policy, the sparse
+lane (``submit_sparse``, run on both packages) and the serve CLI on the
+CPU."""
 import time
 import warnings
 
@@ -186,6 +187,112 @@ def test_close_dtype_policy_and_shape_checks():
     r = graceful.submit(x64.astype(np.float32))
     graceful.close()
     assert r.done and not r.failed
+
+
+# ---------------------------------------------------------------------------
+# The sparse lane: the JAX package's submit_sparse tests, run on both packages
+# ---------------------------------------------------------------------------
+def both_engine(pkg, d, **kw):
+    if pkg == "repro":
+        return JEngine(j_csr_from_dense(d), cache=jt.PlanCache(), warmup=0,
+                       timed=1, **kw)
+    return engine(csr_from_dense(d), **kw)
+
+
+def sparse_request(seed, n, nx):
+    rng = np.random.default_rng(seed)
+    idx = np.sort(rng.choice(n, size=nx, replace=False)).astype(np.int64)
+    val = rng.standard_normal(nx).astype(np.float32)
+    x = np.zeros(n, np.float32)
+    x[idx] = val
+    return idx, val, x
+
+
+@pytest.mark.parametrize("pkg", ["repro", "port"])
+def test_submit_sparse_matches_dense_oracle_and_buckets_by_nnz(pkg):
+    d, _ = small(seed=70)
+    eng = both_engine(pkg, d, ks=(1,), x_nnz_buckets=(4, 16))
+    idx, val, x = sparse_request(71, 128, 3)
+    fut = eng.submit_sparse(idx, val)
+    eng.drain()
+    assert_rowtol(np.asarray(fut.result()), d.astype(np.float64) @ x, d, x)
+    # nnz=3 rounds up to the 4-bucket; stats keep the sparse lane apart
+    s = eng.stats.summary()
+    assert s["sparse_by_bucket"] == {"spmspv4": 1} and s["by_bucket"] == {}
+    assert fut.bucket == ("spmspv", 4)
+
+
+@pytest.mark.parametrize("pkg", ["repro", "port"])
+def test_submit_sparse_oversize_falls_back_to_densify(pkg):
+    d, _ = small(seed=72)
+    eng = both_engine(pkg, d, ks=(1,), x_nnz_buckets=(4,))
+    idx, val, x = sparse_request(73, 128, 9)
+    fut = eng.submit_sparse(idx, val)  # nnz=9 > largest bucket 4
+    eng.drain()
+    assert_rowtol(np.asarray(fut.result()), d.astype(np.float64) @ x, d, x)
+    s = eng.stats.summary()
+    assert s["sparse_by_bucket"] == {}  # served by the dense k=1 lane
+    assert s["by_bucket"] == {1: 1}
+
+
+@pytest.mark.parametrize("pkg", ["repro", "port"])
+def test_submit_sparse_rejects_bad_indices_loudly(pkg):
+    d, _ = small(seed=74)
+    eng = both_engine(pkg, d, ks=(1,), x_nnz_buckets=(8,))
+    val2 = np.ones(2, np.float32)
+    with pytest.raises(ValueError, match="outside"):
+        eng.submit_sparse(np.array([0, 128], np.int64), val2)
+    with pytest.raises(ValueError, match="strictly increasing"):
+        eng.submit_sparse(np.array([5, 2], np.int64), val2)
+    with pytest.raises(ValueError, match="strictly increasing"):  # duplicates
+        eng.submit_sparse(np.array([3, 3], np.int64), val2)
+    with pytest.raises(ValueError, match="integer"):
+        eng.submit_sparse(np.array([0.0, 1.0]), val2)
+    with pytest.raises(ValueError, match="1-D"):
+        eng.submit_sparse(np.array([[0, 1]], np.int64), val2)
+    with pytest.raises(ValueError, match="same length"):
+        eng.submit_sparse(np.array([0, 1], np.int64), np.ones(3, np.float32))
+    assert eng.stats.n_requests == 0
+
+
+@pytest.mark.parametrize("pkg", ["repro", "port"])
+def test_submit_sparse_strict_dtype_raises_instead_of_casting(pkg):
+    d, _ = small(seed=75)
+    eng = both_engine(pkg, d, ks=(1,), x_nnz_buckets=(8,), strict_dtype=True)
+    with pytest.raises(TypeError, match="float32"):
+        eng.submit_sparse(np.array([1, 2], np.int64), np.ones(2, np.float64))
+
+
+def test_sparse_lane_shares_the_window_and_agrees_with_repro():
+    """Sparse and dense requests interleave in one FIFO window; the default
+    buckets are the JAX package's; a pinned spmspv/cuda lane (plain scatter
+    on the CPU) answers as the JAX package's pinned pallas lane does."""
+    d, a = small(seed=76)
+    assert engine(a, ks=(1,)).x_nnz_buckets == JEngine(
+        j_csr_from_dense(d), ks=(1,), cache=jt.PlanCache(), warmup=0,
+        timed=1).x_nnz_buckets == (1, 2, 8, 32)
+    reqs = [sparse_request(77 + i, 128, nx) for i, nx in enumerate((1, 5, 20, 2))]
+    xs = xs_for(a, 3, seed=78)
+    results = []
+    for pkg, mod, impl, kw in (("repro", jt, "pallas", {}),
+                               ("port", tt, "cuda", {"device": "cpu"})):
+        eng = both_engine(pkg, d, ks=(1, 4), x_nnz_buckets=(2, 8, 32), async_depth=2)
+        for b in eng.x_nnz_buckets:  # pin the sparse lane
+            eng._sparse_ops[b] = mod.SparseOperator.from_candidate(
+                eng.a, mod.make("spmspv", impl, slab=4096), x_nnz=b, **kw)
+        futs = [eng.submit_sparse(*reqs[0][:2])]
+        futs += [eng.submit(x) for x in xs]
+        futs += [eng.submit_sparse(*r[:2]) for r in reqs[1:]]
+        assert eng.in_flight <= 2
+        eng.drain()
+        results.append(([np.asarray(f.result()) for f in futs],
+                        eng.stats.summary()["sparse_by_bucket"]))
+    (jy, jb), (ty, tb) = results
+    assert tb == jb == {"spmspv2": 2, "spmspv8": 1, "spmspv32": 1}
+    wants = [r[2] for r in reqs[:1]] + xs + [r[2] for r in reqs[1:]]
+    for y_j, y_t, x in zip(jy, ty, wants):
+        assert_rowtol(y_t, y_j, d, x)
+        assert_rowtol(y_t, d.astype(np.float64) @ x, d, x)
 
 
 def test_engine_on_cuda_without_a_card_raises():

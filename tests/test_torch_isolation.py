@@ -29,6 +29,7 @@ def _env():
 def test_importing_every_module_loads_no_jax_and_no_repro():
     mods = list(_modules())
     assert "repro_torch.runtime.engine" in mods and "repro_torch.interop" in mods
+    assert "repro_torch.kernels.spmspv" in mods
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
