@@ -10,22 +10,35 @@ scipy; imports nothing of JAX or of the JAX package.  Phases:
    ``src/repro_torch/kernels/csrc`` (nvcc, sm_90a, all in parallel);
 2. hold each kernel against its plain torch version on the card, at the
    paper's Table 1 sizes (``cant``, ``ldoor`` at scale 1.0), with x from
-   ``default_rng(0)``.  Tolerance per row i: |kernel - plain| <=
-   1e-5 * (|A| |x|)_i, because only the summation order differs.  Also
-   checks that the csr/vector tier is bitwise repeatable on the card;
+   ``default_rng(0)``: SELL, the column-slab kernel (2 slabs), BCSR at
+   all three block shapes and k in {1, 4, 16, 64}, at k in {3, 17, 100}
+   on 8x8 blocks (N tiles masked past k), on (12, 8) and (8, 32) blocks
+   at k = 3 and 64 (the generic path, for shapes the specialised paths do
+   not take), and at k = 64 on (128, 128) blocks of a seeded random
+   4096 x 4096 block matrix.  Tolerance per row
+   i: |kernel - plain| <= 1e-5 * (|A| |x|)_i, because only the summation
+   order differs.  The column-slab and BCSR kernels must also give the
+   same bits on a second launch, and the csr/vector tier is checked
+   bitwise repeatable on the card;
 3. the tuned main path: ``SparseOperator.build`` on cant for SpMV and k=16
    (fresh plan cache), an ldoor SpMV search over a cut candidate list, and
-   pinned column-slab operators on cant (shared-memory x) and ldoor
-   (global x); every result against a scipy float64 oracle;
-4. serving on cant: a tuned ``SparseEngine`` answers 64 requests; an engine
-   pinned to sell/cuda (k=1) and bcsr/cuda (k>1) answers 64 more, async
-   equal to ``async_depth=0`` bit for bit; ``repro_torch.launch.serve
-   --sparse cant --scale 1.0`` serves 64 more from the plan cache; every
-   kernel's launch count over phases 3-4 must be > 0;
+   pinned column-slab operators on cant and ldoor; every result against a
+   scipy float64 oracle;
+4. serving on cant: a tuned ``SparseEngine`` answers 64 requests (the
+   search behind each of its buckets is printed); an engine pinned to
+   sell/cuda (k=1) and bcsr/cuda (k>1) answers 64 more, async equal to
+   ``async_depth=0`` bit for bit; ``repro_torch.launch.serve --sparse cant
+   --scale 1.0`` serves 64 more from the plan cache; every kernel's launch
+   count over phases 3-4 must be > 0;
 5. times per kernel (CUDA events, median of 25 single launches, L2
    flushed before each): kernel, plain version, one cuSPARSE call through
    ``torch.sparse_csr_tensor`` (``library_ms``), and the bound of the
-   function itself (see ``bound``), whatever format the kernel stores;
+   function itself (see ``bound``).
+   BCSR rows (three block shapes x k in {1, 4, 16, 64}, and (128, 128) at
+   k = 64) add ``format_floor_ms``, the least time for the work the format
+   stores: the larger of its bytes over 3.35 TB/s and its flops over 67
+   TFLOP/s.  Column-slab rows add ``read_bytes``, the bytes left to read
+   once each chunk stops at its width ``chunk_w``;
 6. sparse right-hand sides (SpMSpV) on the power-law graphs webbase-1M and
    torso1 at scale 1.0, x sorted unique indices from ``default_rng``:
    the scatter kernel against its plain version (at nnz(x) = n/256 and
@@ -87,7 +100,7 @@ def main() -> None:
     import numpy as np
     import scipy.sparse as sp
 
-    from repro_torch.core.formats import bcsr_from_csr, sell_from_csr
+    from repro_torch.core.formats import CSRMatrix, bcsr_from_csr, sell_from_csr
     from repro_torch.core.spmv import csr_prepare, spmm_csr, spmv_csr
     from repro_torch.data.suite import generate
     from repro_torch.kernels import _build
@@ -98,7 +111,6 @@ def main() -> None:
         sell_spmv_blocked,
         sell_spmv_blocked_plain,
         sell_spmv_plain,
-        stages_x_in_smem,
     )
     from repro_torch.kernels.spmspv import (
         expand_products,
@@ -223,48 +235,98 @@ def main() -> None:
             del p, y, yp
         del sell
         torch.cuda.empty_cache()
-    for name, smem in (("cant", True), ("ldoor", False)):
+    def repeatable(what: str, fn) -> None:
+        """Two launches on the same operands agree bit for bit."""
+        if not torch.equal(fn(), fn()):
+            fail(f"{what}: two launches differ")
+
+    for name in ("cant", "ldoor"):
         a, x = mats[name], xs[name]
         p = kops.sell_prepare_blocked_stacked(a, 2, device=dev)
-        if stages_x_in_smem(p["slab_n"]) != smem:
-            fail(f"{name}: slab_n {p['slab_n']} does not take the "
-                 f"{'shared' if smem else 'global'}-memory path")
         x_pad = torch.zeros(2 * p["slab_n"], device=dev)
         x_pad[: a.shape[1]] = x
-        y = sell_spmv_blocked(p["cols"], p["vals"], x_pad, p["row_perm"],
-                              n_rows=a.shape[0], slab_n=p["slab_n"])
+
+        def run_blocked(p=p, x_pad=x_pad, a=a):
+            return sell_spmv_blocked(p["cols"], p["vals"], x_pad, p["row_perm"],
+                                     n_rows=a.shape[0], slab_n=p["slab_n"],
+                                     chunk_w=p["chunk_w"])
+
+        y = run_blocked()
         yp = sell_spmv_blocked_plain(p["cols"], p["vals"], x_pad, p["row_perm"],
-                                     a.shape[0], p["slab_n"])
+                                     a.shape[0], p["slab_n"], p["chunk_w"])
         torch.cuda.synchronize()
-        path = "smem" if smem else "global"
-        errs[f"sell_spmv_blocked/{name}/{path}"] = check(
-            f"sell_spmv_blocked {name} n_slabs=2 ({path} x)", y, yp,
-            row_scale(name, x))
+        errs[f"sell_spmv_blocked/{name}"] = check(
+            f"sell_spmv_blocked {name} n_slabs=2", y, yp, row_scale(name, x))
+        repeatable(f"sell_spmv_blocked {name}", run_blocked)
         preps[f"blocked/{name}"] = dict(p, x_pad=x_pad)
         del y, yp
     cant = mats["cant"]
     m, n = cant.shape
-    for block in BCSR_BLOCKS:
-        p = kops.bcsr_prepare(bcsr_from_csr(cant, block), dev)
+
+    def bcsr_case(label: str, p: dict, X, scale) -> dict:
+        """The kernel against its plain version (and against itself) on X;
+        returns the prepared dict with the blocked X beside it."""
         gm, gn = p["grid_shape"]
         bm, bk = p["block_shape"]
-        for k in K_BUCKETS:
-            X = torch.as_tensor(
-                np.random.default_rng(0).standard_normal((n, k)).astype(np.float32),
-                device=dev)
-            xb = torch.zeros((gn * bk, k), device=dev)
-            xb[:n] = X
-            xb = xb.view(gn, bk, k)
-            y = bcsr_spmm(p["blocks"], p["block_cols"], p["indptr"], xb)
-            yp = bcsr_spmm_plain(p["blocks"], p["block_cols"], p["indptr"], xb)
-            torch.cuda.synchronize()
-            scale = row_scale("cant", X)
-            errs[f"bcsr_spmm/{block[0]}x{block[1]}/k{k}"] = check(
-                f"bcsr_spmm cant {block} k={k}",
-                y.reshape(gm * bm, k)[:m], yp.reshape(gm * bm, k)[:m], scale)
-            if block == (8, 8):
-                preps[f"bcsr/k{k}"] = dict(p, xb=xb)
-            del y, yp
+        rows, k = X.shape
+        xb = torch.zeros((gn * bk, k), device=dev)
+        xb[:rows] = X
+        xb = xb.view(gn, bk, k)
+
+        def run():
+            return bcsr_spmm(p["blocks"], p["block_cols"], p["indptr"], xb)
+
+        y = run()
+        yp = bcsr_spmm_plain(p["blocks"], p["block_cols"], p["indptr"], xb)
+        torch.cuda.synchronize()
+        m_ = scale.shape[0]
+        errs[f"bcsr_spmm/{label}"] = check(
+            f"bcsr_spmm {label}", y.reshape(gm * bm, k)[:m_],
+            yp.reshape(gm * bm, k)[:m_], scale)
+        repeatable(f"bcsr_spmm {label}", run)
+        return dict(p, xb=xb)
+
+    def rand_x(rows: int, k: int):
+        return torch.as_tensor(
+            np.random.default_rng(0).standard_normal((rows, k)).astype(np.float32),
+            device=dev)
+
+    for block in BCSR_BLOCKS:
+        p = kops.bcsr_prepare(bcsr_from_csr(cant, block), dev)
+        # the bucket widths, then widths whose last N tile is masked
+        for k in K_BUCKETS + ((3, 17, 100) if block == (8, 8) else ()):
+            X = rand_x(n, k)
+            label = f"{block[0]}x{block[1]}/k{k}"
+            q = bcsr_case(label, p, X, row_scale("cant", X))
+            if k in K_BUCKETS:
+                preps[f"bcsr/{label}"] = q
+            del q
+    for block, k in (((12, 8), 3), ((8, 32), 64)):  # the generic path
+        X = rand_x(n, k)
+        bcsr_case(f"{block[0]}x{block[1]}/k{k}",
+                  kops.bcsr_prepare(bcsr_from_csr(cant, block), dev), X,
+                  row_scale("cant", X))
+    # (128, 128) blocks, as the sparse FFN stores them: a seeded random
+    # block matrix of 32 x 32 block positions, a quarter of them stored.
+    rng_b = np.random.default_rng(0)
+    present = rng_b.random((32, 32)) < 0.25
+    dense = np.zeros((4096, 4096), np.float32)
+    for bi, bj in zip(*np.nonzero(present)):
+        dense[bi * 128:(bi + 1) * 128, bj * 128:(bj + 1) * 128] = (
+            rng_b.standard_normal((128, 128)))
+    ffn = sp.csr_matrix(dense)
+    ffn_csr = CSRMatrix(ffn.shape, ffn.indptr.astype(np.int32),
+                        ffn.indices.astype(np.int32), ffn.data)
+    mats["ffn128"] = ffn_csr
+    A64["ffn128"] = ffn.astype(np.float64)
+    d = csr_prepare(ffn_csr, dev)
+    d["data"] = d["data"].abs()
+    abs_csr["ffn128"] = d
+    del dense, ffn
+    X = rand_x(4096, 64)
+    preps["bcsr/128x128/k64"] = bcsr_case(
+        "128x128/k64", kops.bcsr_prepare(bcsr_from_csr(ffn_csr, (128, 128)), dev),
+        X, row_scale("ffn128", X))
     csr = csr_prepare(cant, dev)
     X16 = torch.as_tensor(
         np.random.default_rng(0).standard_normal((n, 16)).astype(np.float32),
@@ -358,6 +420,8 @@ def main() -> None:
     plans = {k: op.plan.candidate.key() for k, op in eng.ops.items()}
     print(f"  tuned engine plans: {plans}")
     record["engine_plans"] = plans
+    for k, op in eng.ops.items():
+        report_search(f"tuned engine k={k}", op)
     check_served("tuned engine, 64 requests vs float64 oracle",
                  serve(eng, req_dev[:64]), req_host[:64])
     print(f"  tuned engine stats: {eng.stats.summary()}")
@@ -397,8 +461,7 @@ def main() -> None:
     torch.cuda.synchronize()
     launches = dict(_build.LAUNCHES)
     print(f"  launches over phases 3-4: {launches}")
-    for key in ("sell_spmv", "sell_spmv_blocked", "sell_spmv_blocked.smem",
-                "sell_spmv_blocked.global", "bcsr_spmm"):
+    for key in ("sell_spmv", "sell_spmv_blocked", "bcsr_spmm"):
         if launches.get(key, 0) <= 0:
             fail(f"kernel {key} was never launched on the main path")
     record["launches"] = launches
@@ -437,18 +500,20 @@ def main() -> None:
     def nbytes(*ts) -> int:
         return int(sum(t.numel() * t.element_size() for t in ts))
 
-    def bound(a, k: int) -> tuple[int, int]:
-        """Bytes and flops that Y = A X needs, whatever the format: A as CSR
-        (a value and a column index per nonzero, m + 1 row pointers), X
+    def bound(a, k: int, a_bytes: int) -> tuple[int, int]:
+        """Bytes and flops that Y = A X needs: A read once, as CSR (a value
+        and a column index per nonzero, m + 1 row pointers) or as the
+        kernel's format reads it (``a_bytes``), whichever is smaller; X
         read once, Y written once; 2 flops per nonzero and column of X."""
         m_, n_ = a.shape
-        return 8 * a.nnz + 4 * (m_ + 1) + 4 * (n_ + m_) * k, 2 * a.nnz * k
+        a_min = min(8 * a.nnz + 4 * (m_ + 1), a_bytes)
+        return a_min + 4 * (n_ + m_) * k, 2 * a.nnz * k
 
     kernels = []
 
     def entry(name, source, replaces, launch_key, err_key, shape, kernel, plain,
-              library, a, k, stored_bytes):
-        fn_bytes, flops = bound(a, k)
+              library, a, k, a_bytes, stored_bytes, **extra):
+        fn_bytes, flops = bound(a, k, a_bytes)
         bytes_s = fn_bytes / HBM_BYTES_PER_S
         flops_s = flops / FP32_FLOPS
         row = {
@@ -467,12 +532,15 @@ def main() -> None:
             "flops": int(flops),
             "stored_bytes": int(stored_bytes),
             "library_ms": time_ms(library),
+            **extra,
         }
         kernels.append(row)
+        more = "".join(f", {key} {v:.4f}" if isinstance(v, float) else
+                       f", {key} {v}" for key, v in extra.items())
         print(f"  {name} [{shape}]: {row['ms']:.4f} ms, plain {row['plain_ms']:.4f}, "
               f"cuSPARSE {row['library_ms']:.4f}, bound {row['bound_ms']:.4f} "
               f"({row['bound_by']}, {row['bytes'] / 1e6:.1f} MB needed, "
-              f"{row['stored_bytes'] / 1e6:.1f} MB stored), "
+              f"{row['stored_bytes'] / 1e6:.1f} MB stored){more}, "
               f"launches {row['launches']}", flush=True)
 
     for name in ("cant", "ldoor"):
@@ -487,41 +555,57 @@ def main() -> None:
               lambda: sell_spmv_plain(p["cols"], p["vals"], x, p["row_perm"],
                                       a.shape[0]),
               lambda: torch.mv(A, x), a, 1,
+              nbytes(p["cols"], p["vals"], p["row_perm"]),
               nbytes(p["cols"], p["vals"], p["row_perm"], x) + 4 * a.shape[0])
         del A
-    for name, path in (("cant", "smem"), ("ldoor", "global")):
+    for name in ("cant", "ldoor"):
         p, a = preps[f"blocked/{name}"], mats[name]
         A = csr_lib(name)
         x = xs[name]
+        # what chunk_w leaves to read of A: 8 rows x (4-byte column + 4-byte
+        # value) per slot, chunk_w and row_perm; then x once, y once
+        read_a = 64 * int(p["chunk_w"].sum()) + nbytes(p["chunk_w"], p["row_perm"])
+        read_bytes = read_a + nbytes(p["x_pad"]) + 4 * a.shape[0]
         entry("sell_spmv_blocked", "src/repro_torch/kernels/csrc/sell_spmv_blocked.cu",
               "src/repro/kernels/sell_spmv.py:98", "sell_spmv_blocked",
-              f"sell_spmv_blocked/{name}/{path}",
-              f"{name} 2 slabs W={p['cols'].shape[3]} ({path} x)",
+              f"sell_spmv_blocked/{name}",
+              f"{name} 2 slabs W={p['cols'].shape[3]}",
               lambda: sell_spmv_blocked(p["cols"], p["vals"], p["x_pad"],
                                         p["row_perm"], n_rows=a.shape[0],
-                                        slab_n=p["slab_n"]),
+                                        slab_n=p["slab_n"], chunk_w=p["chunk_w"]),
               lambda: sell_spmv_blocked_plain(p["cols"], p["vals"], p["x_pad"],
                                               p["row_perm"], a.shape[0],
-                                              p["slab_n"]),
-              lambda: torch.mv(A, x), a, 1,
-              nbytes(p["cols"], p["vals"], p["row_perm"], p["x_pad"])
-              + 4 * a.shape[0])
+                                              p["slab_n"], p["chunk_w"]),
+              lambda: torch.mv(A, x), a, 1, read_a,
+              nbytes(p["cols"], p["vals"], p["chunk_w"], p["row_perm"], p["x_pad"])
+              + 4 * a.shape[0],
+              read_bytes=int(read_bytes))
         del A
-    A = csr_lib("cant")
-    for k in K_BUCKETS:
-        p = preps[f"bcsr/k{k}"]
-        Xk = p["xb"].reshape(-1, k)[:n].contiguous()
-        entry("bcsr_spmm", "src/repro_torch/kernels/csrc/bcsr_spmm.cu",
-              "src/repro/kernels/bcsr_spmm.py:56", "bcsr_spmm",
-              f"bcsr_spmm/8x8/k{k}", f"cant 8x8 blocks k={k}",
-              lambda: bcsr_spmm(p["blocks"], p["block_cols"], p["indptr"], p["xb"]),
-              lambda: bcsr_spmm_plain(p["blocks"], p["block_cols"], p["indptr"],
-                                      p["xb"]),
-              (lambda: torch.mv(A, Xk[:, 0])) if k == 1 else (lambda: A @ Xk),
-              cant, k,
-              nbytes(p["blocks"], p["block_cols"], p["indptr"], p["xb"])
-              + 4 * p["grid_shape"][0] * p["block_shape"][0] * k)
-    del A, preps
+    for name, block, ks in [("cant", b, K_BUCKETS) for b in BCSR_BLOCKS] + [
+            ("ffn128", (128, 128), (64,))]:
+        A = csr_lib(name)
+        a = mats[name]
+        for k in ks:
+            label = f"{block[0]}x{block[1]}/k{k}"
+            p = preps[f"bcsr/{label}"]
+            Xk = p["xb"].reshape(-1, k)[: a.shape[1]].contiguous()
+            stored = (nbytes(p["blocks"], p["block_cols"], p["indptr"], p["xb"])
+                      + 4 * p["grid_shape"][0] * p["block_shape"][0] * k)
+            stored_flops = 2 * p["blocks"].numel() * k
+            floor = max(stored / HBM_BYTES_PER_S, stored_flops / FP32_FLOPS) * 1e3
+            entry("bcsr_spmm", "src/repro_torch/kernels/csrc/bcsr_spmm.cu",
+                  "src/repro/kernels/bcsr_spmm.py:56", "bcsr_spmm",
+                  f"bcsr_spmm/{label}", f"{name} {block[0]}x{block[1]} blocks k={k}",
+                  lambda: bcsr_spmm(p["blocks"], p["block_cols"], p["indptr"],
+                                    p["xb"]),
+                  lambda: bcsr_spmm_plain(p["blocks"], p["block_cols"], p["indptr"],
+                                          p["xb"]),
+                  (lambda: torch.mv(A, Xk[:, 0])) if k == 1 else (lambda: A @ Xk),
+                  a, k, nbytes(p["blocks"], p["block_cols"], p["indptr"]), stored,
+                  stored_flops=int(stored_flops),
+                  format_floor_ms=floor)
+        del A
+    del preps
     torch.cuda.empty_cache()
     phase_done("times", t0)
 

@@ -155,8 +155,13 @@ def check(source: str, code: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {code} ({err(code).decode()})")
 
 
-def expect(t: torch.Tensor, name: str, dtype, device, ndim: int) -> None:
-    """Refuse an operand the kernel cannot take."""
+def expect(t: torch.Tensor, name: str, dtype, device, ndim: int,
+           align: int = 0) -> None:
+    """Refuse an operand the kernel cannot take.
+
+    ``align``: the byte boundary the operand's first element must sit on,
+    for a kernel that reads it in vectors.  A misaligned vector load would
+    fault the whole CUDA context instead of raising here."""
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if t.dtype != dtype:
@@ -165,6 +170,11 @@ def expect(t: torch.Tensor, name: str, dtype, device, ndim: int) -> None:
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {ndim}-D")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+    if align and t.data_ptr() % align:
+        raise ValueError(
+            f"{name} must start on a {align}-byte boundary (a view at storage "
+            f"offset {t.storage_offset()} does not; pass a copy)"
+        )
 
 
 def stream(device: torch.device) -> int:

@@ -3,10 +3,14 @@
 :func:`bcsr_spmm` (``csrc/bcsr_spmm.cu``) replaces the TPU kernel
 ``repro.kernels.bcsr_spmm.bcsr_spmm_pallas``.  Where the TPU kernel walks a
 row-sorted block stream against a VMEM-resident output strip, the CUDA
-kernel walks a block-row pointer (``indptr``, built by ``ops.bcsr_prepare``)
-so that each output element has one owning thread.  The TPU kernel's
-zero-block padding to ``block_tile`` and its VMEM clamp on the N tile do not
-apply here.
+kernel walks a block-row pointer (``indptr``, built by ``ops.bcsr_prepare``):
+one warp owns a block row's 8-row group and an N tile and keeps its outputs
+in registers.  At k = 1 and 4 the warp's lanes split the stored values
+instead.  The source note says which path serves which shape; every block
+shape and every k is taken.  ``blocks`` and ``x_blocked`` are read in
+16-byte vectors, so each must start on a 16-byte boundary (any tensor torch
+allocates does; an offset view may not, and is refused).  The TPU kernel's zero-block padding to
+``block_tile`` and its VMEM clamp on the N tile do not apply here.
 
 A wrapper runs the plain version only because its operand lies on the CPU;
 for a CUDA tensor it launches its kernel or raises.
@@ -46,10 +50,10 @@ def bcsr_spmm(
     if x_blocked.device.type == "cpu":
         return bcsr_spmm_plain(blocks, block_cols, indptr, x_blocked)
     dev = x_blocked.device
-    _build.expect(blocks, "blocks", torch.float32, dev, 3)
+    _build.expect(blocks, "blocks", torch.float32, dev, 3, align=16)
     _build.expect(block_cols, "block_cols", torch.int32, dev, 1)
     _build.expect(indptr, "indptr", torch.int32, dev, 1)
-    _build.expect(x_blocked, "x_blocked", torch.float32, dev, 3)
+    _build.expect(x_blocked, "x_blocked", torch.float32, dev, 3, align=16)
     n_blocks, bm, bk = blocks.shape
     _, bk2, k = x_blocked.shape
     gm = indptr.shape[0] - 1
@@ -58,8 +62,6 @@ def bcsr_spmm(
             f"BCSR shapes blocks {tuple(blocks.shape)} block_cols "
             f"{tuple(block_cols.shape)} x_blocked {tuple(x_blocked.shape)}"
         )
-    if bm * min(k, 64) > 1024:
-        raise ValueError(f"block height {bm} too tall for one thread block")
     y = torch.empty((gm, bm, k), dtype=torch.float32, device=dev)
     if gm == 0 or k == 0:
         return y

@@ -1,41 +1,46 @@
 // Column-slab SELL SpMV on Hopper: the slabs share one row permutation, so
-// y[row_perm[i]] = sum_s sum_w vals[s, i, w] * x[s * slab_n + cols[s, i, w]].
+// y[row_perm[i]] = sum_s sum_{w < chunk_w[s, chunk(i)]} vals[s, i, w] *
+//                  x[s * slab_n + cols[s, i, w]].
 //
 // Replaces the TPU kernel src/repro/kernels/sell_spmv.py::sell_spmv_blocked_pallas.
 //
-// Bound: device-memory bytes (cols + vals of every slab read once, x and y
-// once; 2 flops per slot).
+// Bound: device-memory bytes (the cols + vals slots each chunk holds, x and
+// y once; 2 flops per slot) and, below that, latency: every slot is a
+// gather into x that depends on the load of its column.
 //
-// Design: each warp takes one chunk of 8 rows x 4 lanes at a time, as in
-// sell_spmv.cu, and no row's sum ever leaves the chip.  Two paths, chosen by
-// the wrapper (stage = 1 when an x slab fits in shared memory):
-//
-// * global x (stage = 0): the slab loop is the inner loop of each chunk.  A
-//   lane's running sum stays in a register across all slabs, x is gathered
-//   from global memory through the read-only path, and the 4 lanes reduce once
-//   at the end.
-// * staged x (stage = 1): the TPU's sequential slab grid becomes the outer
-//   loop of a persistent block that owns a contiguous range of chunks.  Per
-//   slab the block copies the x slab to shared memory, so the gather hits
-//   shared memory and each block reads x once per slab.  The running sums of
-//   the block's rows sit in shared memory beside the slab, each written and
-//   re-read by the same lane in slab order 0, 1, ...
-//
-// Either way: no atomics, a fixed summation order (deterministic), and the
-// total goes straight to y[row_perm[i]] (the un-permute is fused, as in
-// sell_spmv.cu).
+// Design: each warp takes one chunk of 8 rows x 4 lanes; the slab loop is the
+// inner loop, so a row's sum stays in registers across all slabs and never
+// leaves the chip.  All slabs share one padded width W, but a chunk of one
+// slab holds far fewer slots: the loop stops at chunk_w[s, chunk] (the
+// chunk's last stored slot, rounded up to 4), so no padded slot is loaded.
+// A width is rounded up to a multiple of 4 and clamped to [0, W], as the
+// plain version's mask does, so none reads past its row.
+// A lane loads 16 bytes of cols and of vals at a time (a row's slots start
+// on 16-byte boundaries, since W is a multiple of 4) and two such groups per
+// step, so up to 8 gathers are in flight; two accumulators, added in a
+// fixed order at the end, break the FMA chain.  The 4 lanes of a row meet
+// in a fixed shuffle, and the total goes straight to y[row_perm[i]] (the
+// un-permute is fused, as in sell_spmv.cu): no atomics, deterministic.
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kC = 8;
-constexpr int kLanes = 4;
-constexpr int kGlobalThreads = 256;
-constexpr int kStageThreads = 1024;
+constexpr int kThreads = 256;
+constexpr unsigned kFull = 0xffffffffu;
 
-__global__ void __launch_bounds__(kGlobalThreads)
-sell_spmv_blocked_global(const int* __restrict__ cols,
+__device__ __forceinline__ void slot4(float& acc0, float& acc1, const float* xs,
+                                      int4 c, float4 v) {
+  acc0 = fmaf(v.x, __ldg(xs + c.x), acc0);
+  acc1 = fmaf(v.y, __ldg(xs + c.y), acc1);
+  acc0 = fmaf(v.z, __ldg(xs + c.z), acc0);
+  acc1 = fmaf(v.w, __ldg(xs + c.w), acc1);
+}
+
+__global__ void __launch_bounds__(kThreads)
+sell_spmv_blocked_kernel(const int* __restrict__ cols,
                          const float* __restrict__ vals,
+                         const int* __restrict__ chunk_w,
                          const float* __restrict__ x,
                          const int* __restrict__ row_perm,
                          float* __restrict__ y, int n_slabs,
@@ -44,141 +49,53 @@ sell_spmv_blocked_global(const int* __restrict__ cols,
   const long long chunk =
       (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
   if (chunk >= n_chunks) return;  // the whole warp leaves together
-  const int r = lane >> 2;
   const int q = lane & 3;
-  const long long i = chunk * kC + r;
+  const long long i = chunk * kC + (lane >> 2);
   const long long slab_elems = n_chunks * kC * (long long)W;
-  float acc = 0.f;
+  float acc0 = 0.f, acc1 = 0.f;
+  int cw = __ldg(chunk_w + chunk);
   for (int s = 0; s < n_slabs; ++s) {
+    const int cw_next =
+        s + 1 < n_slabs ? __ldg(chunk_w + (long long)(s + 1) * n_chunks + chunk) : 0;
     const long long base = s * slab_elems + i * (long long)W;
+    const int4* c4 = reinterpret_cast<const int4*>(cols + base);
+    const float4* v4 = reinterpret_cast<const float4*>(vals + base);
     const float* xs = x + (long long)s * slab_n;
-    for (int w = q; w < W; w += kLanes) {
-      acc = fmaf(__ldg(vals + base + w), __ldg(xs + __ldg(cols + base + w)), acc);
+    const int ng = min(max(cw, 0) + 3, W) >> 2;  // groups of 4; lane q takes q, q + 4, ...
+    int g = q;
+    for (; g + 4 < ng; g += 8) {
+      const int4 ca = __ldcs(c4 + g), cb = __ldcs(c4 + g + 4);
+      const float4 va = __ldcs(v4 + g), vb = __ldcs(v4 + g + 4);
+      slot4(acc0, acc1, xs, ca, va);
+      slot4(acc0, acc1, xs, cb, vb);
     }
+    if (g < ng) slot4(acc0, acc1, xs, __ldcs(c4 + g), __ldcs(v4 + g));
+    cw = cw_next;
   }
-  acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-  acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+  float acc = acc0 + acc1;
+  acc += __shfl_xor_sync(kFull, acc, 1);
+  acc += __shfl_xor_sync(kFull, acc, 2);
   if (q == 0) {
     const int row = row_perm[i];
     if (row >= 0) y[row] = acc;
   }
 }
 
-__global__ void __launch_bounds__(kStageThreads)
-sell_spmv_blocked_staged(const int* __restrict__ cols,
-                         const float* __restrict__ vals,
-                         const float* __restrict__ x,
-                         const int* __restrict__ row_perm,
-                         float* __restrict__ y, int n_slabs,
-                         long long n_chunks, int W, long long slab_n,
-                         long long chunks_per_block) {
-  extern __shared__ float smem[];
-  float* xs = smem;            // slab_n floats: the current x slab
-  float* sums = smem + slab_n;  // chunks_per_block * 8 running row sums
-  const int warps = blockDim.x >> 5;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int r = lane >> 2;
-  const int q = lane & 3;
-  const long long c0 = (long long)blockIdx.x * chunks_per_block;
-  const long long c1 = min(c0 + chunks_per_block, n_chunks);
-  const long long slab_elems = n_chunks * kC * (long long)W;
-  for (int s = 0; s < n_slabs; ++s) {
-    const float* xsrc = x + (long long)s * slab_n;
-    __syncthreads();  // every warp is done with the previous slab
-    for (long long t = threadIdx.x; t < slab_n; t += blockDim.x) xs[t] = xsrc[t];
-    __syncthreads();
-    const int* cs = cols + (long long)s * slab_elems;
-    const float* vs = vals + (long long)s * slab_elems;
-    for (long long chunk = c0 + warp; chunk < c1; chunk += warps) {
-      const long long i = chunk * kC + r;
-      const long long base = i * (long long)W;
-      float acc = 0.f;
-      for (int w = q; w < W; w += kLanes) {
-        acc = fmaf(__ldg(vs + base + w), xs[__ldg(cs + base + w)], acc);
-      }
-      acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-      acc += __shfl_xor_sync(0xffffffffu, acc, 2);
-      if (q == 0) {
-        const long long local = (chunk - c0) * kC + r;
-        const float tot = (s == 0) ? acc : sums[local] + acc;
-        if (s + 1 < n_slabs) {
-          sums[local] = tot;
-        } else {
-          const int row = row_perm[i];
-          if (row >= 0) y[row] = tot;
-        }
-      }
-    }
-  }
-}
-
-int launch_global(const int* cols, const float* vals, const float* x,
-                  const int* row_perm, float* y, int n_slabs, long long n_chunks,
-                  int W, long long slab_n, cudaStream_t stream) {
-  const long long warps = kGlobalThreads / 32;
-  const long long grid = (n_chunks + warps - 1) / warps;
-  if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  sell_spmv_blocked_global<<<(unsigned)grid, kGlobalThreads, 0, stream>>>(
-      cols, vals, x, row_perm, y, n_slabs, n_chunks, W, slab_n);
-  return (int)cudaGetLastError();
-}
-
-int launch_staged(const int* cols, const float* vals, const float* x,
-                  const int* row_perm, float* y, int n_slabs, long long n_chunks,
-                  int W, long long slab_n, cudaStream_t stream) {
-  auto kernel = sell_spmv_blocked_staged;
-  const long long warps = kStageThreads / 32;
-  const long long chunk_bytes = kC * sizeof(float);
-  const long long x_bytes = slab_n * (long long)sizeof(float);
-  int device = 0, sms = 0, limit = 0, per_sm = 0;
-  cudaError_t err;
-  if ((err = cudaGetDevice(&device)) != cudaSuccess) return (int)err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                               device);
-  if (err != cudaSuccess) return (int)err;
-  // The slab plus one chunk of row sums per warp must fit, or the wrapper
-  // should have chosen the global path.
-  if (x_bytes + warps * chunk_bytes > limit) return (int)cudaErrorInvalidValue;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             limit);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, kernel, kStageThreads, (size_t)(x_bytes + warps * chunk_bytes));
-  if (err != cudaSuccess) return (int)err;
-  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  // As many blocks as fit on the SMs at once, unless their row sums would
-  // not fit beside the slab: then more blocks, each owning fewer chunks.
-  long long grid = (n_chunks + warps - 1) / warps;
-  if (grid > (long long)sms * per_sm) grid = (long long)sms * per_sm;
-  long long per_block = (n_chunks + grid - 1) / grid;
-  const long long max_per_block = (limit - x_bytes) / chunk_bytes;
-  if (per_block > max_per_block) per_block = max_per_block;
-  grid = (n_chunks + per_block - 1) / per_block;
-  if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  const size_t smem = (size_t)(x_bytes + per_block * chunk_bytes);
-  kernel<<<(unsigned)grid, kStageThreads, smem, stream>>>(
-      cols, vals, x, row_perm, y, n_slabs, n_chunks, W, slab_n, per_block);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" int sell_spmv_blocked_launch(const int* cols, const float* vals,
-                                        const float* x, const int* row_perm,
-                                        float* y, int n_slabs,
-                                        long long n_chunks, int W,
-                                        long long slab_n, int stage,
-                                        void* stream) {
+                                        const int* chunk_w, const float* x,
+                                        const int* row_perm, float* y,
+                                        int n_slabs, long long n_chunks, int W,
+                                        long long slab_n, void* stream) {
   if (n_chunks <= 0 || n_slabs <= 0) return 0;
-  if (W < 1 || slab_n < 1) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (stage) {
-    return launch_staged(cols, vals, x, row_perm, y, n_slabs, n_chunks, W, slab_n, s);
-  }
-  return launch_global(cols, vals, x, row_perm, y, n_slabs, n_chunks, W, slab_n, s);
+  if (W < 4 || W % 4 != 0 || slab_n < 1) return (int)cudaErrorInvalidValue;
+  const long long warps = kThreads / 32;
+  const long long grid = (n_chunks + warps - 1) / warps;
+  if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  sell_spmv_blocked_kernel<<<(unsigned)grid, kThreads, 0, (cudaStream_t)stream>>>(
+      cols, vals, chunk_w, x, row_perm, y, n_slabs, n_chunks, W, slab_n);
+  return (int)cudaGetLastError();
 }
 
 extern "C" const char* kernel_error_string(int code) {

@@ -39,6 +39,7 @@ __all__ = [
     "sell_spmv_blocked",
     "sell_prepare_blocked_stacked",
     "sell_spmv_blocked_stacked",
+    "slab_chunk_widths",
 ]
 
 # The x footprint above which the tuner adds column-slab SELL candidates.
@@ -55,8 +56,11 @@ def from_arrays(fmt: str, arrays: dict, meta: dict, device) -> dict[str, Any]:
     ``fmt`` is ``"bcsr"``, ``"sell"``, ``"sell_blocked"`` (one SELL per
     column slab; ``arrays = {"slabs": [...], "bounds": ...}``),
     ``"sell_blocked_stacked"`` or ``"spmspv"`` (the CSC view; its host
-    ``col_len_np`` is kept beside the tensors).  The BCSR block-row pointer
-    the CUDA kernel walks is derived here from the row-sorted ``block_rows``.
+    ``col_len_np`` is kept beside the tensors).  What the CUDA kernels walk
+    is derived here from the arrays themselves, so a dict carried across
+    from ``repro`` gets it too: the BCSR block-row pointer from the
+    row-sorted ``block_rows``, and the column-slab widths ``chunk_w`` (see
+    :func:`slab_chunk_widths`).
     """
 
     def t(v):
@@ -85,6 +89,7 @@ def from_arrays(fmt: str, arrays: dict, meta: dict, device) -> dict[str, Any]:
             prep["chunk_tile"] = int(meta.get("chunk_tile", 8))
         else:
             prep["slab_n"] = int(meta["slab_n"])
+            prep["chunk_w"] = t(slab_chunk_widths(arrays["cols"], arrays["vals"]))
         return prep
     if fmt == "sell_blocked":
         m = int(meta["shape"][0])
@@ -108,6 +113,19 @@ def from_arrays(fmt: str, arrays: dict, meta: dict, device) -> dict[str, Any]:
         prep["nnz"] = int(meta["nnz"])
         return prep
     raise ValueError(f"unknown prepared format: {fmt}")
+
+
+def slab_chunk_widths(cols, vals) -> np.ndarray:
+    """(n_slabs, n_chunks) int32 widths of stacked column slabs: one past
+    the last slot that holds a nonzero value or a nonzero column in any of
+    a chunk's rows, rounded up to a multiple of 4 (0 for a chunk with
+    none).  A stored (column 0, value 0.0) at the end of a chunk counts as
+    padding; it adds nothing to the product."""
+    cols, vals = np.asarray(cols), np.asarray(vals)
+    held = ((vals != 0) | (cols != 0)).any(axis=2)  # (n_slabs, n_chunks, W)
+    W = held.shape[-1]
+    width = np.where(held.any(axis=-1), W - np.argmax(held[..., ::-1], axis=-1), 0)
+    return np.minimum(-(-width // 4) * 4, W).astype(np.int32)
 
 
 # ---------------------------------------------------------------------------
@@ -241,8 +259,10 @@ def sell_prepare_blocked_stacked(a: CSRMatrix, n_slabs: int, C: int = 8,
     per-slab partial sums align positionally and the kernel accumulates
     them across slabs.  All slabs share one width W (the most nonzeros of
     any (row, slab) cell, rounded up to 8): cols/vals are
-    (n_slabs, n_chunks, C, W).  Slab widths are uniform
-    (``slab_n = ceil(n / n_slabs)``; x is zero-padded to n_slabs * slab_n).
+    (n_slabs, n_chunks, C, W), as in the JAX package.  Beside them,
+    ``chunk_w`` (n_slabs, n_chunks) says how many slots of each chunk the
+    kernel reads.  Slab widths are uniform (``slab_n = ceil(n /
+    n_slabs)``; x is zero-padded to n_slabs * slab_n).
     """
     m, n = a.shape
     slab_n = max(1, -(-n // n_slabs))
@@ -299,5 +319,5 @@ def sell_spmv_blocked_stacked(prep: dict[str, Any], x: torch.Tensor) -> torch.Te
     x_pad[: x.shape[0]] = x
     return _sell_blocked_kernel(
         prep["cols"], prep["vals"], x_pad, prep["row_perm"],
-        n_rows=prep["shape"][0], slab_n=slab_n,
+        n_rows=prep["shape"][0], slab_n=slab_n, chunk_w=prep["chunk_w"],
     )

@@ -25,20 +25,11 @@ from repro_torch.core.spmv import spmv_sell, unpermute
 from . import _build
 
 __all__ = [
-    "MAX_SMEM_BYTES",
     "sell_spmv",
     "sell_spmv_plain",
     "sell_spmv_blocked",
     "sell_spmv_blocked_plain",
-    "stages_x_in_smem",
 ]
-
-# Dynamic shared memory one block may use on an H100 (227 KB): the blocked
-# kernel stages an x slab there, beside the running sums of at least one
-# chunk of 8 rows per warp of its 1024-thread block, when both fit; it
-# gathers x from global memory otherwise.
-MAX_SMEM_BYTES = 232_448
-_STAGED_SUMS_BYTES = 32 * 8 * 4
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
@@ -94,20 +85,28 @@ def sell_spmv(
 # ---------------------------------------------------------------------------
 # Column-slab SELL over one shared row permutation
 # ---------------------------------------------------------------------------
-def stages_x_in_smem(slab_n: int) -> bool:
-    """Whether the blocked kernel stages each x slab in shared memory."""
-    return int(slab_n) * 4 + _STAGED_SUMS_BYTES <= MAX_SMEM_BYTES
-
-
-def sell_spmv_blocked_plain(cols, vals, x, row_perm, n_rows: int,
-                            slab_n: int) -> torch.Tensor:
+def sell_spmv_blocked_plain(cols, vals, x, row_perm, n_rows: int, slab_n: int,
+                            chunk_w) -> torch.Tensor:
     """Per-slab chunk-local gathers summed in slab order 0, 1, ..., then
-    the un-permute — the kernel's arithmetic in plain torch."""
-    n_slabs, n_chunks, C, _ = cols.shape
+    the un-permute — the kernel's arithmetic in plain torch.
+
+    Like the kernel, a chunk of slab s reads only its slots w <
+    ``chunk_w[s, chunk]``, the width rounded up to a multiple of 4 and
+    clamped to [0, W] (the prepare gives such widths, so this changes none
+    of them).  Past that width every slot is padding (column
+    0, value 0.0), which adds nothing unless x at the slab's first column
+    is inf or NaN.  In that case the padding a row still reads below its
+    chunk's width already turns the row to NaN, as every padded slot did
+    before the widths existed: skipping the rest changes no finite answer.
+    """
+    n_slabs, n_chunks, C, W = cols.shape
+    slot = torch.arange(W, device=x.device)
     sums = torch.zeros(n_chunks * C, dtype=x.dtype, device=x.device)
     for s in range(n_slabs):
         xs = x[s * slab_n : (s + 1) * slab_n]
-        sums = sums + (vals[s] * xs[cols[s].long()]).sum(dim=-1).reshape(-1)
+        held = slot < ((chunk_w[s].to(slot.dtype) + 3) // 4 * 4)[:, None, None]
+        prod = torch.where(held, vals[s] * xs[cols[s].long()], 0.0)
+        sums = sums + prod.sum(dim=-1).reshape(-1)
     return unpermute(sums, row_perm, n_rows)
 
 
@@ -119,39 +118,54 @@ def sell_spmv_blocked(
     *,
     n_rows: int,
     slab_n: int,
+    chunk_w: torch.Tensor,  # (n_slabs, n_chunks) int32
 ) -> torch.Tensor:
-    """y = A @ x over column slabs sharing one row permutation."""
+    """y = A @ x over column slabs sharing one row permutation, each chunk
+    of each slab read up to its own width ``chunk_w``.
+
+    The kernel reads slots w < ``chunk_w[s, chunk]`` with the width
+    rounded up to a multiple of 4 and clamped to [0, W], as the plain
+    version's mask does, so no width reads past its row; the prepare gives
+    multiples of 4.  ``cols`` and ``vals`` are read in 16-byte vectors and
+    must start on a 16-byte boundary."""
     n_slabs, n_chunks, C, W = cols.shape
     if x.shape[0] != n_slabs * slab_n:
         raise ValueError(
             f"x has {x.shape[0]} entries, expected n_slabs * slab_n = "
             f"{n_slabs * slab_n}"
         )
+    if tuple(chunk_w.shape) != (n_slabs, n_chunks):
+        raise ValueError(
+            f"chunk_w has shape {tuple(chunk_w.shape)}, expected "
+            f"(n_slabs, n_chunks) = {(n_slabs, n_chunks)}"
+        )
     if x.device.type == "cpu":
-        return sell_spmv_blocked_plain(cols, vals, x, row_perm, n_rows, slab_n)
+        return sell_spmv_blocked_plain(cols, vals, x, row_perm, n_rows, slab_n,
+                                       chunk_w)
     dev = x.device
-    _build.expect(cols, "cols", torch.int32, dev, 4)
-    _build.expect(vals, "vals", torch.float32, dev, 4)
+    _build.expect(cols, "cols", torch.int32, dev, 4, align=16)
+    _build.expect(vals, "vals", torch.float32, dev, 4, align=16)
+    _build.expect(chunk_w, "chunk_w", torch.int32, dev, 2)
     _build.expect(x, "x", torch.float32, dev, 1)
     _build.expect(row_perm, "row_perm", torch.int32, dev, 1)
-    if C != 8 or vals.shape != cols.shape or row_perm.shape[0] != n_chunks * C:
+    if (C != 8 or W % 4 != 0 or vals.shape != cols.shape
+            or row_perm.shape[0] != n_chunks * C):
         raise ValueError(
             f"blocked SELL shapes cols {tuple(cols.shape)} vals "
-            f"{tuple(vals.shape)} row_perm {tuple(row_perm.shape)}"
+            f"{tuple(vals.shape)} row_perm {tuple(row_perm.shape)}: need C = 8, "
+            "W a multiple of 4 and matching shapes"
         )
     y = torch.empty(n_rows, dtype=torch.float32, device=dev)
     if n_chunks == 0 or n_slabs == 0:
         return y.zero_()
-    stage = stages_x_in_smem(slab_n)
     fn = _build.function(
         "sell_spmv_blocked", "sell_spmv_blocked_launch",
-        [_P, _P, _P, _P, _P, _I, _LL, _I, _LL, _I, _P],
+        [_P, _P, _P, _P, _P, _P, _I, _LL, _I, _LL, _P],
     )
     with torch.cuda.device(dev):
-        code = fn(cols.data_ptr(), vals.data_ptr(), x.data_ptr(),
-                  row_perm.data_ptr(), y.data_ptr(),
-                  n_slabs, n_chunks, W, int(slab_n), int(stage), _build.stream(dev))
+        code = fn(cols.data_ptr(), vals.data_ptr(), chunk_w.data_ptr(),
+                  x.data_ptr(), row_perm.data_ptr(), y.data_ptr(),
+                  n_slabs, n_chunks, W, int(slab_n), _build.stream(dev))
     _build.check("sell_spmv_blocked", code, "sell_spmv_blocked launch")
     _build.LAUNCHES["sell_spmv_blocked"] += 1
-    _build.LAUNCHES["sell_spmv_blocked.smem" if stage else "sell_spmv_blocked.global"] += 1
     return y

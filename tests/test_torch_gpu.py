@@ -32,7 +32,6 @@ from repro_torch.kernels.sell_spmv import (
     sell_spmv_blocked,
     sell_spmv_blocked_plain,
     sell_spmv_plain,
-    stages_x_in_smem,
 )
 
 TOL = 1e-5
@@ -77,43 +76,170 @@ def test_gpu_sell_kernel_matches_plain(cuda_device, chunk_tile):
     assert_rowtol(y.cpu().numpy(), yp.cpu().numpy(), a, x)
 
 
+def _blocked_run(p, x_pad, n_rows):
+    y = sell_spmv_blocked(p["cols"], p["vals"], x_pad, p["row_perm"], n_rows=n_rows,
+                          slab_n=p["slab_n"], chunk_w=p["chunk_w"])
+    yp = sell_spmv_blocked_plain(p["cols"], p["vals"], x_pad, p["row_perm"], n_rows,
+                                 p["slab_n"], p["chunk_w"])
+    return y, yp
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("scale,n_slabs,path", [(1 / 16, 2, "smem"),
-                                                (1 / 16, 40, "smem"),
-                                                (1.0, 1, "global")])
-def test_gpu_sell_blocked_kernel_matches_plain(cuda_device, scale, n_slabs, path):
+@pytest.mark.parametrize("scale,n_slabs", [(1 / 16, 2), (1 / 16, 40), (1.0, 1)])
+def test_gpu_sell_blocked_kernel_matches_plain(cuda_device, scale, n_slabs):
     a, x = _gpu_case(scale)
     p = tops.sell_prepare_blocked_stacked(a, n_slabs, device=cuda_device)
-    assert stages_x_in_smem(p["slab_n"]) == (path == "smem")
-    before = _build.LAUNCHES[f"sell_spmv_blocked.{path}"]
+    before = _build.LAUNCHES["sell_spmv_blocked"]
     x_pad = torch.zeros(n_slabs * p["slab_n"], device=cuda_device)
     x_pad[: a.shape[1]] = torch.as_tensor(x, device=cuda_device)
-    y = sell_spmv_blocked(p["cols"], p["vals"], x_pad, p["row_perm"],
-                          n_rows=a.shape[0], slab_n=p["slab_n"])
-    yp = sell_spmv_blocked_plain(p["cols"], p["vals"], x_pad, p["row_perm"],
-                                 a.shape[0], p["slab_n"])
-    assert _build.LAUNCHES[f"sell_spmv_blocked.{path}"] == before + 1
+    y, yp = _blocked_run(p, x_pad, a.shape[0])
+    assert _build.LAUNCHES["sell_spmv_blocked"] == before + 1
     assert_rowtol(y.cpu().numpy(), yp.cpu().numpy(), a, x)
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("block", [(8, 8), (8, 16), (8, 128)])
+def test_gpu_sell_blocked_kernel_reads_each_chunk_to_its_width(cuda_device):
+    """Rows whose lengths differ by slab give chunk widths that vary across
+    chunks and slabs; the padding past each width is never read."""
+    rng = np.random.default_rng(3)
+    m, n, n_slabs = 1000, 1200, 3
+    slab = -(-n // n_slabs)
+    rows, cols = [], []
+    for r in range(m):
+        for s in range(n_slabs):
+            cnt = int(rng.integers(0, 4 + 20 * ((r // 64 + s) % 3 == 0)))
+            lo, hi = s * slab, min(n, (s + 1) * slab)
+            cols += sorted(rng.choice(np.arange(lo, hi), size=cnt, replace=False))
+            rows += [r] * cnt
+    A = sp.csr_matrix((rng.standard_normal(len(rows)).astype(np.float32),
+                       (rows, cols)), shape=(m, n))
+    a = tf.CSRMatrix((m, n), A.indptr.astype(np.int32), A.indices.astype(np.int32),
+                     A.data)
+    x = rng.standard_normal(n).astype(np.float32)
+    p = tops.sell_prepare_blocked_stacked(a, n_slabs, device=cuda_device)
+    cw = p["chunk_w"].cpu().numpy()
+    assert len(np.unique(cw)) > 3 and cw.mean() < 0.75 * p["cols"].shape[3]
+    assert not (cw == cw[:1]).all() and not (cw == cw[:, :1]).all()
+    x_pad = torch.zeros(n_slabs * p["slab_n"], device=cuda_device)
+    x_pad[:n] = torch.as_tensor(x, device=cuda_device)
+    y, yp = _blocked_run(p, x_pad, m)
+    assert_rowtol(y.cpu().numpy(), yp.cpu().numpy(), a, x)
+    assert_rowtol(y.cpu().numpy(), A.astype(np.float64) @ x, a, x)
+    # Poisoned padding past each chunk's width changes nothing.
+    w = torch.arange(p["cols"].shape[3], device=cuda_device)
+    pad = w >= p["chunk_w"][..., None, None]
+    vals = p["vals"].masked_fill(pad, float("nan"))
+    y2 = sell_spmv_blocked(p["cols"], vals, x_pad, p["row_perm"], n_rows=m,
+                           slab_n=p["slab_n"], chunk_w=p["chunk_w"])
+    assert torch.equal(y, y2)
+    # Widths from elsewhere: not multiples of 4, past W, below 0.  The
+    # kernel rounds each up to a multiple of 4 and clamps it to [0, W], as
+    # the plain version's mask does.
+    W = p["cols"].shape[3]
+    odd = torch.as_tensor(rng.integers(-3, W + 9, size=cw.shape).astype(np.int32),
+                          device=cuda_device)
+    assert bool((odd % 4 != 0).any()) and bool((odd > W).any())
+    y3 = sell_spmv_blocked(p["cols"], p["vals"], x_pad, p["row_perm"], n_rows=m,
+                           slab_n=p["slab_n"], chunk_w=odd)
+    yp3 = sell_spmv_blocked_plain(p["cols"], p["vals"], x_pad, p["row_perm"], m,
+                                  p["slab_n"], odd)
+    assert_rowtol(y3.cpu().numpy(), yp3.cpu().numpy(), a, x)
+
+
+def _bcsr_case(a, block, k, device, seed):
+    p = tops.bcsr_prepare(tf.bcsr_from_csr(a, block), device)
+    gn, bk = p["grid_shape"][1], p["block_shape"][1]
+    X = np.random.default_rng(seed).standard_normal((a.shape[1], k)).astype(np.float32)
+    xb = torch.zeros((gn * bk, k), device=device)
+    xb[: a.shape[1]] = torch.as_tensor(X, device=device)
+    return p, X, xb.view(gn, bk, k)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("block", [(8, 8), (8, 16), (8, 128), (128, 128)])
 def test_gpu_bcsr_kernel_matches_plain(cuda_device, block):
     a, _ = _gpu_case()
-    p = tops.bcsr_prepare(tf.bcsr_from_csr(a, block), cuda_device)
-    gn, bk = p["grid_shape"][1], p["block_shape"][1]
-    for k in (1, 4, 16, 64):
-        X = np.random.default_rng(k).standard_normal((a.shape[1], k)).astype(np.float32)
-        xb = torch.zeros((gn * bk, k), device=cuda_device)
-        xb[: a.shape[1]] = torch.as_tensor(X, device=cuda_device)
-        xb = xb.view(gn, bk, k)
+    m = a.shape[0]
+    for k in (1, 3, 4, 16, 17, 64, 100):
+        p, X, xb = _bcsr_case(a, block, k, cuda_device, k)
         y = bcsr_spmm(p["blocks"], p["block_cols"], p["indptr"], xb)
         yp = bcsr_spmm_plain(p["blocks"], p["block_cols"], p["indptr"], xb)
-        m = a.shape[0]
         y = y.reshape(-1, k)[:m].cpu().numpy()
         yp = yp.reshape(-1, k)[:m].cpu().numpy()
         for j in range(k):
-            assert_rowtol(y[:, j], yp[:, j], a, X[:, j], f"k={k}")
+            assert_rowtol(y[:, j], yp[:, j], a, X[:, j], f"{block} k={k}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("block", [(4, 4), (12, 8), (8, 32)])
+def test_gpu_bcsr_generic_path_matches_plain(cuda_device, block):
+    """Block shapes the specialised paths do not take (bm not a multiple of
+    8, bk not 8, 16 or 128) run the generic kernel: held against the plain
+    version, and the same bits on a second launch."""
+    a, _ = _gpu_case()
+    m = a.shape[0]
+    for k in (1, 3, 64):
+        p, X, xb = _bcsr_case(a, block, k, cuda_device, k)
+        run = lambda: bcsr_spmm(p["blocks"], p["block_cols"], p["indptr"], xb)
+        before = _build.LAUNCHES["bcsr_spmm"]
+        y = run()
+        assert _build.LAUNCHES["bcsr_spmm"] == before + 1
+        assert torch.equal(y, run()), (block, k)
+        yp = bcsr_spmm_plain(p["blocks"], p["block_cols"], p["indptr"], xb)
+        y = y.reshape(-1, k)[:m].cpu().numpy()
+        yp = yp.reshape(-1, k)[:m].cpu().numpy()
+        for j in range(k):
+            assert_rowtol(y[:, j], yp[:, j], a, X[:, j], f"{block} k={k}")
+
+
+@pytest.mark.gpu
+def test_gpu_wrappers_refuse_misaligned_operands(cuda_device):
+    """The BCSR and column-slab kernels read their operands in 16-byte
+    vectors: a contiguous view that does not start on a 16-byte boundary is
+    refused with a ValueError before any launch, and the card still works."""
+    a, x = _gpu_case()
+
+    def shifted(t):  # the same values, one element past an aligned start
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        v = buf[1:].view(t.shape)
+        v.copy_(t)
+        assert v.is_contiguous() and v.data_ptr() % 16
+        return v
+
+    p, _, xb = _bcsr_case(a, (8, 8), 16, cuda_device, 0)
+    before = _build.LAUNCHES["bcsr_spmm"]
+    for blocks, x_b, name in ((shifted(p["blocks"]), xb, "blocks"),
+                              (p["blocks"], shifted(xb), "x_blocked")):
+        with pytest.raises(ValueError, match=f"{name} must start on a 16-byte"):
+            bcsr_spmm(blocks, p["block_cols"], p["indptr"], x_b)
+    q = tops.sell_prepare_blocked_stacked(a, 2, device=cuda_device)
+    x_pad = torch.zeros(2 * q["slab_n"], device=cuda_device)
+    x_pad[: a.shape[1]] = torch.as_tensor(x, device=cuda_device)
+    for cols, vals, name in ((shifted(q["cols"]), q["vals"], "cols"),
+                             (q["cols"], shifted(q["vals"]), "vals")):
+        with pytest.raises(ValueError, match=f"{name} must start on a 16-byte"):
+            sell_spmv_blocked(cols, vals, x_pad, q["row_perm"], n_rows=a.shape[0],
+                              slab_n=q["slab_n"], chunk_w=q["chunk_w"])
+    assert _build.LAUNCHES["bcsr_spmm"] == before
+    y, yp = _blocked_run(q, x_pad, a.shape[0])
+    assert_rowtol(y.cpu().numpy(), yp.cpu().numpy(), a, x)
+
+
+@pytest.mark.gpu
+def test_gpu_redesigned_kernels_are_bitwise_repeatable(cuda_device):
+    """Two launches of the BCSR and column-slab kernels on the same operands
+    agree bit for bit: every output is summed in a fixed order."""
+    a, x = _gpu_case()
+    for block in ((8, 8), (8, 128), (128, 128)):
+        for k in (1, 4, 16, 64, 17):
+            p, _, xb = _bcsr_case(a, block, k, cuda_device, 0)
+            run = lambda: bcsr_spmm(p["blocks"], p["block_cols"], p["indptr"], xb)
+            assert torch.equal(run(), run()), (block, k)
+    p = tops.sell_prepare_blocked_stacked(a, 3, device=cuda_device)
+    x_pad = torch.zeros(3 * p["slab_n"], device=cuda_device)
+    x_pad[: a.shape[1]] = torch.as_tensor(x, device=cuda_device)
+    assert torch.equal(_blocked_run(p, x_pad, a.shape[0])[0],
+                       _blocked_run(p, x_pad, a.shape[0])[0])
 
 
 @pytest.mark.gpu

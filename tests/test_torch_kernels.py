@@ -24,10 +24,12 @@ from repro_torch.core.spmv import csr_prepare, spmm_csr, spmv_csr
 from repro_torch.kernels import _build
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels.bcsr_spmm import bcsr_spmm, bcsr_spmm_plain
 from repro_torch.kernels.sell_spmv import (
     sell_spmv,
+    sell_spmv_blocked,
+    sell_spmv_blocked_plain,
     sell_spmv_plain,
-    stages_x_in_smem,
 )
 
 # Small shapes: one torch thread keeps the parallel workers from
@@ -164,7 +166,7 @@ def test_sell_blocked_slabs_with_zero_nonzeros_and_empty_matrix():
 # ---------------------------------------------------------------------------
 # BCSR (bcsr_spmm_pallas)
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("block", [(8, 8), (8, 16), (8, 128)])
+@pytest.mark.parametrize("block", [(8, 8), (8, 16), (8, 128), (4, 4), (12, 8), (8, 32)])
 def test_bcsr_spmm_matches_pallas_kernel(block):
     d = rand_dense(5, m=150, n=140, density=0.1)
     d[8:16] = 0.0  # an empty block row
@@ -183,6 +185,33 @@ def test_bcsr_spmm_matches_pallas_kernel(block):
         X = np.random.default_rng(k).standard_normal((d.shape[1], k)).astype(np.float32)
         y_pallas = np.asarray(jops.bcsr_spmm(jprep, jnp.asarray(X), n_tile=min(128, k)))
         y_port = tops.bcsr_spmm(tprep, torch.as_tensor(X)).numpy()
+        for j in range(k):
+            assert_rowtol(y_port[:, j], y_pallas[:, j], d, X[:, j], f"k={k} col {j}")
+            assert_rowtol(y_port[:, j], d.astype(np.float64) @ X[:, j], d, X[:, j])
+
+
+def test_bcsr_128_blocks_pass_the_wrapper_and_match_pallas_kernel():
+    """(128, 128) blocks, as the sparse FFN stores them: the wrapper takes
+    any block height, and its result matches the JAX package's kernel."""
+    rng = np.random.default_rng(9)
+    d = np.zeros((384, 256), np.float32)
+    for bi, bj in ((0, 0), (0, 1), (2, 1)):  # block row 1 stays empty
+        d[bi * 128 : (bi + 1) * 128, bj * 128 : (bj + 1) * 128] = (
+            (rng.random((128, 128)) < 0.3) * rng.standard_normal((128, 128)))
+    jprep = jops.bcsr_prepare(jf.bcsr_from_csr(jf.csr_from_dense(d), (128, 128)))
+    tprep = interop.prep_from_arrays("bcsr", *interop.split(jprep), "cpu")
+    assert tprep["block_shape"] == (128, 128)
+    for k in (1, 64, 100):
+        X = rng.standard_normal((256, k)).astype(np.float32)
+        y_pallas = np.asarray(jops.bcsr_spmm(jprep, jnp.asarray(X), n_tile=min(128, k)))
+        y_port = tops.bcsr_spmm(tprep, torch.as_tensor(X)).numpy()
+        y_raw = bcsr_spmm(tprep["blocks"], tprep["block_cols"], tprep["indptr"],
+                          torch.as_tensor(X).view(2, 128, k))
+        np.testing.assert_array_equal(y_raw.reshape(384, k).numpy(), y_port)
+        np.testing.assert_array_equal(
+            y_raw.numpy(),
+            bcsr_spmm_plain(tprep["blocks"], tprep["block_cols"], tprep["indptr"],
+                            torch.as_tensor(X).view(2, 128, k)).numpy())
         for j in range(k):
             assert_rowtol(y_port[:, j], y_pallas[:, j], d, X[:, j], f"k={k} col {j}")
             assert_rowtol(y_port[:, j], d.astype(np.float64) @ X[:, j], d, X[:, j])
@@ -253,5 +282,12 @@ def test_wrappers_reject_nothing_on_cpu_and_count_no_cpu_launches():
     np.testing.assert_array_equal(
         sell_spmv(p["cols"], p["vals"], x, p["row_perm"], n_rows=24).numpy(),
         sell_spmv_plain(p["cols"], p["vals"], x, p["row_perm"], 24).numpy())
+    p = tops.sell_prepare_blocked_stacked(a, 2, device="cpu")
+    xp = torch.zeros(2 * p["slab_n"])
+    xp[:20] = x
+    np.testing.assert_array_equal(
+        sell_spmv_blocked(p["cols"], p["vals"], xp, p["row_perm"], n_rows=24,
+                          slab_n=p["slab_n"], chunk_w=p["chunk_w"]).numpy(),
+        sell_spmv_blocked_plain(p["cols"], p["vals"], xp, p["row_perm"], 24,
+                                p["slab_n"], p["chunk_w"]).numpy())
     assert sum(_build.LAUNCHES.values()) == 0
-    assert stages_x_in_smem(57_856) and not stages_x_in_smem(57_857)
