@@ -10,15 +10,16 @@ scipy; imports nothing of JAX or of the JAX package.  Phases:
    ``src/repro_torch/kernels/csrc`` (nvcc, sm_90a, all in parallel);
 2. hold each kernel against its plain torch version on the card, at the
    paper's Table 1 sizes (``cant``, ``ldoor`` at scale 1.0), with x from
-   ``default_rng(0)``: SELL, the column-slab kernel (2 slabs), BCSR at
+   ``default_rng(0)``: SELL (slot-major, each chunk read to its width
+   ``chunk_w``), the column-slab kernel (2 slabs), BCSR at
    all three block shapes and k in {1, 4, 16, 64}, at k in {3, 17, 100}
    on 8x8 blocks (N tiles masked past k), on (12, 8) and (8, 32) blocks
    at k = 3 and 64 (the generic path, for shapes the specialised paths do
    not take), and at k = 64 on (128, 128) blocks of a seeded random
    4096 x 4096 block matrix.  Tolerance per row
    i: |kernel - plain| <= 1e-5 * (|A| |x|)_i, because only the summation
-   order differs.  The column-slab and BCSR kernels must also give the
-   same bits on a second launch, and the csr/vector tier is checked
+   order differs.  The SELL, column-slab and BCSR kernels must also give
+   the same bits on a second launch, and the csr/vector tier is checked
    bitwise repeatable on the card;
 3. the tuned main path: ``SparseOperator.build`` on cant for SpMV and k=16
    (fresh plan cache), an ldoor SpMV search over a cut candidate list, and
@@ -37,23 +38,27 @@ scipy; imports nothing of JAX or of the JAX package.  Phases:
    BCSR rows (three block shapes x k in {1, 4, 16, 64}, and (128, 128) at
    k = 64) add ``format_floor_ms``, the least time for the work the format
    stores: the larger of its bytes over 3.35 TB/s and its flops over 67
-   TFLOP/s.  Column-slab rows add ``read_bytes``, the bytes left to read
-   once each chunk stops at its width ``chunk_w``;
+   TFLOP/s.  SELL and column-slab rows add ``read_bytes``, the bytes left
+   to read once each chunk stops at its width ``chunk_w``;
 6. sparse right-hand sides (SpMSpV) on the power-law graphs webbase-1M and
    torso1 at scale 1.0, x sorted unique indices from ``default_rng``:
-   the scatter kernel against its plain version (at nnz(x) = n/256 and
-   n/4, all four engine buckets on webbase-1M); then, with the launch
-   counts set to 0, ``SparseOperator.build(webbase, x_nnz=B)`` at the four
+   the fused expand-and-scatter kernel against its plain version
+   (expansion + ``index_add_``) at all four engine buckets on webbase-1M
+   and at nnz(x) = n/256 and n/4 on torso1; then, with the launch counts
+   set to 0, ``SparseOperator.build(webbase, x_nnz=B)`` at the four
    default buckets, a pinned ``spmspv/cuda`` operator, a tuned
    ``SparseEngine`` answering 65 ``submit_sparse`` requests (one thicker
    than n/4, which goes to the dense k=1 lane) and an engine whose sparse
    lane is pinned to ``spmspv/cuda`` at ``async_depth`` 2 and 0, all
-   against a scipy float64 oracle; last the scatter's times at the four
-   buckets (kernel, plain ``index_add_``, which is also the library call,
-   the bound 8*T + 4*m bytes) beside a whole ``apply_sparse`` and one
-   cuSPARSE ``torch.mv`` on the densified x.  The scatter's atomics reorder
-   each row's sum: a row that breaks 1e-5 * (|A| |x|)_i is printed with its
-   term count k_i and held to k_i * 2**-24 * (|A| |x|)_i instead.
+   against a scipy float64 oracle; the pinned lane must run no eager
+   expansion (counted), and ``torch.profiler`` lists the device work of
+   one pinned request; last the fused kernel's times at every checked
+   bucket beside its plain version (the old two-step device time),
+   ``index_add_`` on the pre-expanded stream (the library call), one
+   cuSPARSE ``torch.mv`` on the densified x, a whole ``apply_sparse`` and
+   the bound 8*T + 16*B + 4*m bytes.  The atomics reorder each row's sum: a
+   row that breaks 1e-5 * (|A| |x|)_i is printed with its term count k_i
+   and held to k_i * 2**-24 * (|A| |x|)_i instead.
 
 Any failed check exits non-zero.  The last lines are the card's name and
 power limit, one JSON object with the kernel table, and the JSON status
@@ -112,12 +117,15 @@ def main() -> None:
         sell_spmv_blocked_plain,
         sell_spmv_plain,
     )
+    from repro_torch.kernels import spmspv as kspmspv
     from repro_torch.kernels.spmspv import (
         expand_products,
         pad_sparse_rhs,
         spmspv_prepare,
         spmspv_scatter,
         spmspv_scatter_plain,
+        stage_sparse,
+        validate_sparse_rhs,
         work_bucket,
     )
     from repro_torch.launch import serve as serve_cli
@@ -219,26 +227,36 @@ def main() -> None:
     errs: dict[str, float] = {}
     preps: dict[str, dict] = {}
     print("phase 2: kernels against their plain versions", flush=True)
+
+    def repeatable(what: str, fn) -> None:
+        """Two launches on the same operands agree bit for bit."""
+        if not torch.equal(fn(), fn()):
+            fail(f"{what}: two launches differ")
+
     for name in ("ldoor", "cant"):
         a, x = mats[name], xs[name]
         sell = sell_from_csr(a, C=8, sigma=64, width_align=8)
         for ct in (8, 16):
             p = kops.sell_prepare(sell, ct, device=dev)
-            y = sell_spmv(p["cols"], p["vals"], x, p["row_perm"],
-                          n_rows=a.shape[0], chunk_tile=ct)
+
+            def run_sell(p=p, x=x, a=a, ct=ct):
+                return sell_spmv(p["cols"], p["vals"], x, p["row_perm"],
+                                 n_rows=a.shape[0], chunk_w=p["chunk_w"],
+                                 chunk_tile=ct)
+
+            y = run_sell()
             yp = sell_spmv_plain(p["cols"], p["vals"], x, p["row_perm"], a.shape[0])
             torch.cuda.synchronize()
             errs[f"sell_spmv/{name}/ct{ct}"] = check(
-                f"sell_spmv {name} chunk_tile={ct}", y, yp, row_scale(name, x))
+                f"sell_spmv {name} chunk_tile={ct} (W={p['cols'].shape[2]}, "
+                f"mean chunk_w {float(p['chunk_w'].float().mean()):.2f})",
+                y, yp, row_scale(name, x))
+            repeatable(f"sell_spmv {name} chunk_tile={ct}", run_sell)
             if ct == 8:
                 preps[f"sell/{name}"] = p
             del p, y, yp
         del sell
         torch.cuda.empty_cache()
-    def repeatable(what: str, fn) -> None:
-        """Two launches on the same operands agree bit for bit."""
-        if not torch.equal(fn(), fn()):
-            fail(f"{what}: two launches differ")
 
     for name in ("cant", "ldoor"):
         a, x = mats[name], xs[name]
@@ -546,17 +564,22 @@ def main() -> None:
     for name in ("cant", "ldoor"):
         p, x, a = preps[f"sell/{name}"], xs[name], mats[name]
         A = csr_lib(name)
+        # slot-major, one slot of a chunk is one 32-byte sector of cols and
+        # one of vals: 64 bytes per slot below each chunk's width
+        read_a = 64 * int(p["chunk_w"].sum()) + nbytes(p["chunk_w"], p["row_perm"])
         entry("sell_spmv", "src/repro_torch/kernels/csrc/sell_spmv.cu",
               "src/repro/kernels/sell_spmv.py:53", "sell_spmv",
               f"sell_spmv/{name}/ct8",
               f"{name} SELL-8-64 W={p['cols'].shape[2]} chunk_tile=8",
               lambda: sell_spmv(p["cols"], p["vals"], x, p["row_perm"],
-                                n_rows=a.shape[0], chunk_tile=8),
+                                n_rows=a.shape[0], chunk_w=p["chunk_w"],
+                                chunk_tile=8),
               lambda: sell_spmv_plain(p["cols"], p["vals"], x, p["row_perm"],
                                       a.shape[0]),
-              lambda: torch.mv(A, x), a, 1,
-              nbytes(p["cols"], p["vals"], p["row_perm"]),
-              nbytes(p["cols"], p["vals"], p["row_perm"], x) + 4 * a.shape[0])
+              lambda: torch.mv(A, x), a, 1, read_a,
+              nbytes(p["cols"], p["vals"], p["chunk_w"], p["row_perm"], x)
+              + 4 * a.shape[0],
+              read_bytes=int(read_a + nbytes(x) + 4 * a.shape[0]))
         del A
     for name in ("cant", "ldoor"):
         p, a = preps[f"blocked/{name}"], mats[name]
@@ -671,29 +694,31 @@ def main() -> None:
             print(f"  ok {what}: max_abs_err {worst:.3e} (limit {used})")
         return worst
 
-    # 6a: the scatter kernel against its plain version on the card
-    sp_prep_web = None
+    # 6a: the fused kernel against its plain version on the card
+    sp_preps, sp_cases = {}, []
     for name, g in graphs.items():
         m_, n_ = g.shape
         prep = spmspv_prepare(g, device=dev)
         for B in buckets if name == "webbase-1M" else (n_ // 256, n_ // 4):
             idx, val = sparse_x(n_, B)
             xi, xv = pad_sparse_rhs(idx, val, B, n_)
-            T = int(prep["col_len_np"][xi].sum())
-            G = work_bucket(T, g.nnz)
-            rows, prods = expand_products(prep, torch.as_tensor(xi, device=dev),
-                                          torch.as_tensor(xv, device=dev), G)
-            y = spmspv_scatter(rows, prods, m=m_, total=T)
-            yp = spmspv_scatter_plain(rows, prods, m_, T)
+            op = stage_sparse(prep, xi, xv)
+            T = op["total"]
+            y = spmspv_scatter(prep, op["xi"], op["xv"], op["offs"], op["first"],
+                               total=T, tile=op["tile"])
+            yp = spmspv_scatter_plain(prep, op["xi"], op["xv"], T)
             torch.cuda.synchronize()
             _, scale, _ = sparse_oracle(name, idx, val)
+            rows, _ = expand_products(prep, op["xi"], op["xv"], work_bucket(T, g.nnz))
             terms = torch.bincount(rows[:T].long(), minlength=m_)
+            n_blocks = op["first"].shape[0] - 1
             errs[f"spmspv_scatter/{name}/B{B}"] = check_sparse(
-                f"spmspv_scatter {name} x_nnz={B} (T={T}, G={G}, max k_i "
-                f"{int(terms.max())})", y, yp, scale, terms)
-            del rows, prods, y, yp
-        if name == "webbase-1M":
-            sp_prep_web = prep
+                f"spmspv_scatter {name} x_nnz={B} (T={T}, tile={op['tile']}, "
+                f"{n_blocks} blocks, max k_i {int(terms.max())})", y, yp, scale,
+                terms)
+            sp_cases.append((name, B, idx, val))
+            del rows, y, yp, op
+        sp_preps[name] = prep
         del prep
     torch.cuda.empty_cache()
     phase_done("spmspv_kernel_vs_plain", t0)
@@ -771,6 +796,16 @@ def main() -> None:
              f"{summary['by_bucket']}")
     ys_by_depth = {}
     pin_cache = PlanCache()  # the second engine loads the first one's plans
+    # The pinned lane runs the fused kernel alone: count every eager
+    # expansion made while its engines serve (the plain version's).
+    expansions = [0]
+    expand_eager = kspmspv.expand_products
+
+    def expand_counted(*args, **kwargs):
+        expansions[0] += 1
+        return expand_eager(*args, **kwargs)
+
+    kspmspv.expand_products = expand_counted
     for depth in (2, 0):
         eng_ = SparseEngine(web, ks=(1,), ops={1: eng_sp.ops[1]}, cache=pin_cache,
                             device=dev, async_depth=depth, candidates=[pinned_sp])
@@ -784,6 +819,12 @@ def main() -> None:
             fail(f"pinned engine's sparse lane ran {lanes}")
         check_answers(f"pinned engine async_depth={depth}", ys_by_depth[depth])
         eng_.close()
+    kspmspv.expand_products = expand_eager
+    print(f"  pinned engines: {expansions[0]} eager expansions over "
+          f"{2 * len(sp_reqs)} requests")
+    if expansions[0]:
+        fail(f"the pinned spmspv/cuda lane ran {expansions[0]} eager expansions")
+    record["spmspv_pinned_eager_expansions"] = expansions[0]
     for j, (ya, ys_) in enumerate(zip(ys_by_depth[2], ys_by_depth[0])):
         o = sp_oracles[j]
         check_sparse(f"pinned engine request {j}: async vs sync", ya, ys_, o[1],
@@ -791,21 +832,50 @@ def main() -> None:
     print("  ok pinned engine: async_depth=2 agrees with async_depth=0 within "
           "the tolerance (the scatter's atomics make it not bitwise)")
     lap("pinned engines checked")
+    # The device work of one pinned request, as the profiler lists it.
+    pin = SparseOperator.from_candidate(web, pinned_sp, x_nnz=buckets[0], device=dev)
+    idx, val = sparse_x(n_w, buckets[0], seed=1)
+    pin.apply_sparse(idx, val)
+    torch.cuda.synchronize()
+    before = _build.LAUNCHES["spmspv_scatter"]
+    try:
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            pin.apply_sparse(idx, val)
+            torch.cuda.synchronize()
+        device_work = [e.name for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA]
+    except RuntimeError as e:  # a measurement, not the path: record it
+        device_work = [f"profiler failed: {e!r}"]
+    print(f"  one pinned request, device work by the profiler: {device_work}")
+    record["spmspv_one_request_device_work"] = device_work
+    if _build.LAUNCHES["spmspv_scatter"] != before + 1:
+        fail("one pinned sparse request did not launch the fused kernel once")
+    kernels_seen = [w for w in device_work if "memcpy" not in w.lower()
+                    and "memset" not in w.lower()]
+    if device_work and not device_work[0].startswith("profiler failed") and (
+            len(kernels_seen) > 2
+            or sum("spmspv_scatter" in w for w in kernels_seen) != 1):
+        fail(f"one pinned sparse request ran other device kernels: {kernels_seen}")
+    del pin
+    lap("one pinned request profiled")
     eng_sp.close()
     torch.cuda.synchronize()
     sp_launches = dict(_build.LAUNCHES)
     print(f"  launches over phase 6b: {sp_launches}")
     if sp_launches.get("spmspv_scatter", 0) <= 0:
-        fail("kernel spmspv_scatter was never launched on the sparse-RHS main path")
+        fail("the fused kernel spmspv_scatter was never launched on the sparse-RHS "
+             "main path")
     record["spmspv_launches"] = sp_launches
     sp_tmp.cleanup()
     torch.cuda.empty_cache()
     phase_done("spmspv_main_path", t0)
 
-    # 6c: times at the four webbase buckets
+    # 6c: times at every bucket checked in 6a
     t0 = time.perf_counter()
-    print("phase 6c: spmspv times on webbase-1M (median of 25, L2 flushed)",
-          flush=True)
+    print("phase 6c: spmspv times on webbase-1M and torso1 (median of 25, L2 "
+          "flushed)", flush=True)
 
     def wall_ms(fn) -> float:
         """Host clock around fn() and a synchronise: a whole request."""
@@ -821,57 +891,80 @@ def main() -> None:
             ts.append((time.perf_counter() - t_) * 1e3)
         return float(np.median(ts))
 
-    A_web = torch.sparse_csr_tensor(
-        torch.as_tensor(web.indptr, device=dev), torch.as_tensor(web.indices, device=dev),
-        torch.as_tensor(web.data, device=dev), size=web.shape, check_invariants=False)
-    for B in buckets:
-        idx, val = sparse_x(n_w, B)
-        xi, xv = pad_sparse_rhs(idx, val, B, n_w)
-        T = int(sp_prep_web["col_len_np"][xi].sum())
-        G = work_bucket(T, web.nnz)
-        xi_d = torch.as_tensor(xi, device=dev)
-        xv_d = torch.as_tensor(xv, device=dev)
-        rows, prods = expand_products(sp_prep_web, xi_d, xv_d, G)
-        x_dense = torch.zeros(n_w, device=dev)
-        x_dense[torch.as_tensor(idx, device=dev)] = torch.as_tensor(val, device=dev)
-        pin = SparseOperator.from_candidate(web, pinned_sp, x_nnz=B, device=dev)
-        fn_bytes, ops_ = 8 * T + 4 * m_w, T
-        bytes_s, ops_s = fn_bytes / HBM_BYTES_PER_S, ops_ / FP32_FLOPS
-        row = {
-            "name": "spmspv_scatter",
-            "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/spmspv_scatter.cu",
-            "replaces": "src/repro/kernels/spmspv.py:212",
-            "shape": f"webbase-1M x_nnz={B} T={T} G={G}",
-            "launches": int(sp_launches.get("spmspv_scatter", 0)),
-            "max_abs_err": errs[f"spmspv_scatter/webbase-1M/B{B}"],
-            "ms": time_ms(lambda: spmspv_scatter(rows, prods, m=m_w, total=T)),
-            "plain_ms": time_ms(lambda: spmspv_scatter_plain(rows, prods, m_w, T)),
-            "bound_ms": max(bytes_s, ops_s) * 1e3,
-            "bound_by": "bytes" if bytes_s >= ops_s else "operations",
-            "bytes": int(fn_bytes),
-            "flops": int(ops_),
-            "library_ms": time_ms(lambda: torch.zeros(m_w, device=dev).index_add_(
-                0, rows[:T], prods[:T])),
-            "x_nnz": B,
-            "T": T,
-            "G": G,
-            "padded_share_G_over_T": G / T if T else None,
-            "expand_ms": time_ms(lambda: expand_products(sp_prep_web, xi_d, xv_d, G)),
-            "zero_fill_ms": time_ms(lambda: torch.zeros(m_w, device=dev)),
-            "apply_sparse_ms": wall_ms(lambda: pin.apply_sparse(idx, val)),
-            "cusparse_dense_mv_ms": time_ms(lambda: torch.mv(A_web, x_dense)),
-        }
-        kernels.append(row)
-        print(f"  spmspv_scatter [{row['shape']}]: {row['ms']:.4f} ms, plain "
-              f"{row['plain_ms']:.4f}, index_add_ {row['library_ms']:.4f}, bound "
-              f"{row['bound_ms']:.4f} ({row['bound_by']}), G/T "
-              f"{row['padded_share_G_over_T']:.2f}, expand {row['expand_ms']:.4f}, "
-              f"zero fill {row['zero_fill_ms']:.4f}; whole apply_sparse "
-              f"{row['apply_sparse_ms']:.4f} ms vs cuSPARSE mv on the densified x "
-              f"{row['cusparse_dense_mv_ms']:.4f} ms; launches {row['launches']}",
-              flush=True)
-        del rows, prods, pin
+    for _ in range(2000):  # bring the clocks back up after the profiler's pause
+        flush.zero_()
+    torch.cuda.synchronize()
+    for name in graphs:
+        g, prep = graphs[name], sp_preps[name]
+        m_, n_ = g.shape
+        A_lib = torch.sparse_csr_tensor(
+            torch.as_tensor(g.indptr, device=dev), torch.as_tensor(g.indices, device=dev),
+            torch.as_tensor(g.data, device=dev), size=g.shape, check_invariants=False)
+        for gname, B, idx, val in sp_cases:
+            if gname != name:
+                continue
+            xi, xv = pad_sparse_rhs(idx, val, B, n_)
+            op = stage_sparse(prep, xi, xv)
+            T = op["total"]
+            G = work_bucket(T, g.nnz)
+            rows, prods = expand_products(prep, op["xi"], op["xv"], G)
+            x_dense = torch.zeros(n_, device=dev)
+            x_dense[torch.as_tensor(idx, device=dev)] = torch.as_tensor(val, device=dev)
+            pin = SparseOperator.from_candidate(g, pinned_sp, x_nnz=B, device=dev)
+            fn_bytes, ops_ = 8 * T + 16 * B + 4 * m_, 2 * T
+            bytes_s, ops_s = fn_bytes / HBM_BYTES_PER_S, ops_ / FP32_FLOPS
+            row = {
+                "name": "spmspv_scatter",
+                "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/spmspv_scatter.cu",
+                "replaces": "src/repro/kernels/spmspv.py:212",
+                "shape": f"{name} x_nnz={B} T={T} tile={op['tile']} "
+                         f"blocks={op['first'].shape[0] - 1}",
+                "launches": int(sp_launches.get("spmspv_scatter", 0)),
+                "max_abs_err": errs[f"spmspv_scatter/{name}/B{B}"],
+                "ms": time_ms(lambda: spmspv_scatter(
+                    prep, op["xi"], op["xv"], op["offs"], op["first"], total=T,
+                    tile=op["tile"])),
+                "plain_ms": time_ms(lambda: spmspv_scatter_plain(
+                    prep, op["xi"], op["xv"], T)),
+                "bound_ms": max(bytes_s, ops_s) * 1e3,
+                "bound_by": "bytes" if bytes_s >= ops_s else "operations",
+                "bytes": int(fn_bytes),
+                "flops": int(ops_),
+                "library_ms": time_ms(lambda: torch.zeros(m_, device=dev).index_add_(
+                    0, rows[:T], prods[:T])),
+                "x_nnz": B,
+                "T": T,
+                "G": G,
+                "expand_ms": time_ms(lambda: expand_products(prep, op["xi"], op["xv"],
+                                                             G)),
+                "zero_fill_ms": time_ms(lambda: torch.zeros(m_, device=dev)),
+                "apply_sparse_ms": wall_ms(lambda: pin.apply_sparse(idx, val)),
+                # the whole request's host steps, each on the host clock
+                "host_validate_pad_ms": wall_ms(lambda: pad_sparse_rhs(
+                    *validate_sparse_rhs(idx, val, n_), B, n_)),
+                "host_stage_and_copy_ms": wall_ms(lambda: stage_sparse(prep, xi, xv)),
+                "launch_and_run_ms": wall_ms(lambda: spmspv_scatter(
+                    prep, op["xi"], op["xv"], op["offs"], op["first"], total=T,
+                    tile=op["tile"])),
+                "cusparse_dense_mv_ms": time_ms(lambda: torch.mv(A_lib, x_dense)),
+            }
+            kernels.append(row)
+            print(f"  spmspv_scatter [{row['shape']}]: {row['ms']:.4f} ms (zero "
+                  f"fill {row['zero_fill_ms']:.4f} + fused kernel), plain "
+                  f"(expand + index_add_) {row['plain_ms']:.4f}, expand alone "
+                  f"{row['expand_ms']:.4f}, index_add_ on the expanded stream "
+                  f"{row['library_ms']:.4f}, bound {row['bound_ms']:.4f} "
+                  f"({row['bound_by']}); whole apply_sparse "
+                  f"{row['apply_sparse_ms']:.4f} ms (host clock: validate + pad "
+                  f"{row['host_validate_pad_ms']:.4f}, stage + copy "
+                  f"{row['host_stage_and_copy_ms']:.4f}, launch + run "
+                  f"{row['launch_and_run_ms']:.4f}) vs cuSPARSE mv on the densified "
+                  f"x {row['cusparse_dense_mv_ms']:.4f} ms; launches "
+                  f"{row['launches']}", flush=True)
+            del rows, prods, pin, op
+        del A_lib
+    del sp_preps
     phase_done("spmspv_times", t0)
 
     record["kernels"] = kernels

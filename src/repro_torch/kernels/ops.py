@@ -59,8 +59,12 @@ def from_arrays(fmt: str, arrays: dict, meta: dict, device) -> dict[str, Any]:
     ``col_len_np`` is kept beside the tensors).  What the CUDA kernels walk
     is derived here from the arrays themselves, so a dict carried across
     from ``repro`` gets it too: the BCSR block-row pointer from the
-    row-sorted ``block_rows``, and the column-slab widths ``chunk_w`` (see
-    :func:`slab_chunk_widths`).
+    row-sorted ``block_rows``, and the chunk widths ``chunk_w`` of SELL and
+    of the column slabs (see :func:`slab_chunk_widths`).  A ``"sell"`` dict
+    stores ``cols``/``vals`` slot-major, (n_chunks, W, C) in memory, and
+    holds them as the logical (n_chunks, C, W) view of that storage: the
+    values equal ``repro``'s slot for slot, the plain tiers read the view,
+    and the SELL kernel reads each chunk's slots as whole sectors.
     """
 
     def t(v):
@@ -82,14 +86,22 @@ def from_arrays(fmt: str, arrays: dict, meta: dict, device) -> dict[str, Any]:
             "block_shape": tuple(int(v) for v in meta["block_shape"]),
             "shape": tuple(int(v) for v in meta["shape"]),
         }
-    if fmt in ("sell", "sell_blocked_stacked"):
+    if fmt == "sell":
+        # Stored slot-major, (n_chunks, W, C), and seen as the logical
+        # (n_chunks, C, W) view: one slot of a chunk is one 32-byte sector.
+        prep = {key: t(np.ascontiguousarray(np.swapaxes(arrays[key], 1, 2)))
+                .transpose(1, 2) for key in ("cols", "vals")}
+        prep["row_perm"] = t(arrays["row_perm"])
+        prep["chunk_w"] = t(slab_chunk_widths(arrays["cols"], arrays["vals"],
+                                              multiple=1))
+        prep["shape"] = tuple(int(v) for v in meta["shape"])
+        prep["chunk_tile"] = int(meta.get("chunk_tile", 8))
+        return prep
+    if fmt == "sell_blocked_stacked":
         prep = {key: t(arrays[key]) for key in ("cols", "vals", "row_perm")}
         prep["shape"] = tuple(int(v) for v in meta["shape"])
-        if fmt == "sell":
-            prep["chunk_tile"] = int(meta.get("chunk_tile", 8))
-        else:
-            prep["slab_n"] = int(meta["slab_n"])
-            prep["chunk_w"] = t(slab_chunk_widths(arrays["cols"], arrays["vals"]))
+        prep["slab_n"] = int(meta["slab_n"])
+        prep["chunk_w"] = t(slab_chunk_widths(arrays["cols"], arrays["vals"]))
         return prep
     if fmt == "sell_blocked":
         m = int(meta["shape"][0])
@@ -115,17 +127,18 @@ def from_arrays(fmt: str, arrays: dict, meta: dict, device) -> dict[str, Any]:
     raise ValueError(f"unknown prepared format: {fmt}")
 
 
-def slab_chunk_widths(cols, vals) -> np.ndarray:
-    """(n_slabs, n_chunks) int32 widths of stacked column slabs: one past
-    the last slot that holds a nonzero value or a nonzero column in any of
-    a chunk's rows, rounded up to a multiple of 4 (0 for a chunk with
-    none).  A stored (column 0, value 0.0) at the end of a chunk counts as
-    padding; it adds nothing to the product."""
+def slab_chunk_widths(cols, vals, multiple: int = 4) -> np.ndarray:
+    """int32 widths of SELL chunks, ``cols``/``vals`` of shape (..., C, W)
+    (stacked column slabs: (n_slabs, n_chunks); one SELL: (n_chunks,)):
+    one past the last slot that holds a nonzero value or a nonzero column
+    in any of a chunk's rows, rounded up to a multiple of ``multiple`` (0
+    for a chunk with none).  A stored (column 0, value 0.0) at the end of a
+    chunk counts as padding; it adds nothing to the product."""
     cols, vals = np.asarray(cols), np.asarray(vals)
-    held = ((vals != 0) | (cols != 0)).any(axis=2)  # (n_slabs, n_chunks, W)
+    held = ((vals != 0) | (cols != 0)).any(axis=-2)  # (..., W)
     W = held.shape[-1]
     width = np.where(held.any(axis=-1), W - np.argmax(held[..., ::-1], axis=-1), 0)
-    return np.minimum(-(-width // 4) * 4, W).astype(np.int32)
+    return np.minimum(-(-width // multiple) * multiple, W).astype(np.int32)
 
 
 # ---------------------------------------------------------------------------
@@ -198,7 +211,8 @@ def sell_spmv(prep: dict[str, Any], x: torch.Tensor) -> torch.Tensor:
     """y = A @ x through the SELL kernel (un-permute fused)."""
     return _sell_kernel(
         prep["cols"], prep["vals"], x, prep["row_perm"],
-        n_rows=prep["shape"][0], chunk_tile=prep["chunk_tile"],
+        n_rows=prep["shape"][0], chunk_w=prep["chunk_w"],
+        chunk_tile=prep["chunk_tile"],
     )
 
 

@@ -45,37 +45,58 @@ def sell_spmv_plain(cols, vals, x, row_perm, n_rows: int) -> torch.Tensor:
 
 
 def sell_spmv(
-    cols: torch.Tensor,  # (n_chunks, 8, W) int32
-    vals: torch.Tensor,  # (n_chunks, 8, W) float32
+    cols: torch.Tensor,  # (n_chunks, 8, W) int32, the slot-major view
+    vals: torch.Tensor,  # (n_chunks, 8, W) float32, the slot-major view
     x: torch.Tensor,  # (n,) float32
     row_perm: torch.Tensor,  # (n_chunks * 8,) int32, -1 = padding
     *,
     n_rows: int,
+    chunk_w: torch.Tensor,  # (n_chunks,) int32
     chunk_tile: int = 8,
 ) -> torch.Tensor:
-    """y = A @ x for A in SELL-C-sigma (C = 8); returns (n_rows,)."""
+    """y = A @ x for A in SELL-C-sigma (C = 8); returns (n_rows,).
+
+    ``cols`` and ``vals`` are the views :func:`~repro_torch.kernels.ops.
+    sell_prepare` makes: (n_chunks, 8, W) over slot-major storage, (n_chunks,
+    W, 8) in memory.  A row-major tensor is refused, not copied.  The kernel
+    reads each chunk's slots w < ``chunk_w[chunk]`` (clamped to [0, W]);
+    past its width a chunk holds padding (column 0, value 0.0), which the
+    plain version adds and the kernel skips: the two differ only where x at
+    column 0 is inf or NaN."""
+    for t, name in ((cols, "cols"), (vals, "vals")):
+        if t.dim() != 3 or not t.transpose(1, 2).is_contiguous():
+            raise ValueError(
+                f"{name} of shape {tuple(t.shape)} and strides {t.stride()} is "
+                "not the slot-major SELL view: pass the dict of "
+                "ops.sell_prepare (or ops.from_arrays), whose cols/vals are "
+                "(n_chunks, W, 8) in memory seen as (n_chunks, 8, W); a "
+                "row-major tensor is not copied here"
+            )
+    n_chunks, C, W = cols.shape
+    if (C != 8 or vals.shape != cols.shape or row_perm.shape[0] != n_chunks * C
+            or tuple(chunk_w.shape) != (n_chunks,)):
+        raise ValueError(
+            f"SELL shapes cols {tuple(cols.shape)} vals {tuple(vals.shape)} "
+            f"row_perm {tuple(row_perm.shape)} chunk_w {tuple(chunk_w.shape)}: "
+            "need C = 8, matching shapes and one width per chunk"
+        )
     if x.device.type == "cpu":
         return sell_spmv_plain(cols, vals, x, row_perm, n_rows)
     dev = x.device
-    _build.expect(cols, "cols", torch.int32, dev, 3)
-    _build.expect(vals, "vals", torch.float32, dev, 3)
+    _build.expect(cols.transpose(1, 2), "cols", torch.int32, dev, 3)
+    _build.expect(vals.transpose(1, 2), "vals", torch.float32, dev, 3)
+    _build.expect(chunk_w, "chunk_w", torch.int32, dev, 1)
     _build.expect(x, "x", torch.float32, dev, 1)
     _build.expect(row_perm, "row_perm", torch.int32, dev, 1)
-    n_chunks, C, W = cols.shape
-    if C != 8 or vals.shape != cols.shape or row_perm.shape[0] != n_chunks * C:
-        raise ValueError(
-            f"SELL shapes cols {tuple(cols.shape)} vals {tuple(vals.shape)} "
-            f"row_perm {tuple(row_perm.shape)}: need C = 8 and matching shapes"
-        )
     y = torch.empty(n_rows, dtype=torch.float32, device=dev)
     if n_chunks == 0:
         return y.zero_()
     fn = _build.function(
-        "sell_spmv", "sell_spmv_launch", [_P, _P, _P, _P, _P, _LL, _I, _I, _P]
+        "sell_spmv", "sell_spmv_launch", [_P, _P, _P, _P, _P, _P, _LL, _I, _I, _P]
     )
     with torch.cuda.device(dev):
-        code = fn(cols.data_ptr(), vals.data_ptr(), x.data_ptr(),
-                  row_perm.data_ptr(), y.data_ptr(), n_chunks, W,
+        code = fn(cols.data_ptr(), vals.data_ptr(), chunk_w.data_ptr(),
+                  x.data_ptr(), row_perm.data_ptr(), y.data_ptr(), n_chunks, W,
                   int(chunk_tile), _build.stream(dev))
     _build.check("sell_spmv", code, "sell_spmv launch")
     _build.LAUNCHES["sell_spmv"] += 1

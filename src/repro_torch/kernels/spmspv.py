@@ -6,23 +6,27 @@ The Azad–Buluc bucket SpMSpV, as the JAX package shapes it:
   starts and lengths plus the row/value streams), because a sparse x
   touches *columns*; a virtual length-0 sentinel column at index ``n``
   makes padded x slots free.  The arrays equal ``repro``'s.
-* :func:`expand_products` expands exactly the touched columns into a
-  ``(rows, products)`` stream: per-slot offsets from a cumsum over the
-  touched column lengths, and a ``searchsorted`` mapping every product
-  lane back to its x slot.  The stream is padded to a *work bucket* G from
-  a geometric ladder (:func:`work_bucket`), so its shapes stay static.
-* :func:`spmspv_scatter` accumulates the stream: ``y[rows[t]] += prods[t]``
-  for the true products t < total.  It launches ``csrc/spmspv_scatter.cu``,
-  which replaces the TPU kernel ``repro.kernels.spmspv.spmspv_scatter_pallas``;
-  :func:`spmspv_scatter_plain` is its plain torch version.
+* :func:`spmspv_scatter` launches ``csrc/spmspv_scatter.cu``, one kernel
+  that expands the touched columns and scatters their products,
+  ``y[rows[src]] += vals[src] * xv[slot]`` for the true products only.  It
+  replaces the TPU kernel ``repro.kernels.spmspv.spmspv_scatter_pallas``
+  together with the expansion that feeds it.  The host gives it the
+  cumulative touched-column offsets (:func:`touched_offsets`) and each
+  block's first slot (:func:`scatter_plan`).
+* :func:`spmspv_scatter_plain` is its plain torch version:
+  :func:`expand_products` expands the touched columns into a ``(rows,
+  products)`` stream padded to a *work bucket* G from a geometric ladder
+  (:func:`work_bucket`), exactly as ``repro`` does, and one ``index_add_``
+  adds its true products.
 
 Padding conventions: x slots pad with the sentinel column ``n`` and value
 0; product lanes past the true total carry (row 0, value 0).  An all-zero
-x is the smallest work bucket of pure padding and returns exact zeros.
+x has no products and returns exact zeros without a launch.
 
-:func:`spmspv_bind` takes the padded operands as HOST numpy arrays: it
-picks G on the host from ``col_len_np`` and copies the two short arrays to
-the device in one transfer, so a request never waits on a device value.
+:func:`spmspv_bind` takes the padded operands as HOST numpy arrays: the
+host finds the offsets and the block plan from ``col_len_np`` and copies
+them with xi and xv in one transfer, so a request never waits on a device
+value.
 """
 from __future__ import annotations
 
@@ -37,12 +41,17 @@ from .ops import from_arrays
 __all__ = [
     "WORK_BUCKET_BASE",
     "WORK_BUCKET_GROWTH",
+    "SCATTER_MAX_PER_THREAD",
+    "SCATTER_THREADS",
     "expand_products",
     "pad_sparse_rhs",
+    "scatter_plan",
     "spmspv_bind",
     "spmspv_prepare",
     "spmspv_scatter",
     "spmspv_scatter_plain",
+    "stage_sparse",
+    "touched_offsets",
     "validate_sparse_rhs",
     "work_bucket",
 ]
@@ -51,6 +60,11 @@ __all__ = [
 # rounded up to BASE (the JAX package's values).
 WORK_BUCKET_BASE = 256
 WORK_BUCKET_GROWTH = 4
+
+# The fused kernel's block: threads, and products a thread takes at most
+# (csrc/spmspv_scatter.cu: kThreads, kMaxPer).
+SCATTER_THREADS = 128
+SCATTER_MAX_PER_THREAD = 4
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
@@ -179,95 +193,173 @@ def expand_products(prep: dict, xi: torch.Tensor, xv: torch.Tensor, G: int):
     return rows, prods
 
 
-def spmspv_scatter_plain(rows: torch.Tensor, prods: torch.Tensor, m: int,
+def spmspv_scatter_plain(prep: dict, xi: torch.Tensor, xv: torch.Tensor,
                          total: int) -> torch.Tensor:
-    """The kernel's arithmetic in plain torch: y[rows[t]] += prods[t] over
-    the true products t < total (one ``index_add_``)."""
+    """The fused kernel's function in plain torch: :func:`expand_products`
+    into the work bucket, then one ``index_add_`` over the first ``total``
+    true products (the padded tail is never added)."""
+    m, _ = prep["shape"]
+    rows, prods = expand_products(prep, xi, xv, work_bucket(total, prep["nnz"]))
     y = torch.zeros(m, dtype=prods.dtype, device=prods.device)
     return y.index_add_(0, rows[:total], prods[:total])
 
 
-def spmspv_scatter(
-    rows: torch.Tensor,  # (G,) int32, row of each product
-    prods: torch.Tensor,  # (G,) float32
-    *,
-    m: int,
-    total: int,
-    slab: int = 4096,
-) -> torch.Tensor:
-    """y (m,) = scatter-add of the first ``total`` products of the stream.
+def touched_offsets(col_len: np.ndarray, xi: np.ndarray, out=None) -> np.ndarray:
+    """(B + 1,) int32 cumulative lengths of the touched columns: x slot s
+    owns products [offs[s], offs[s + 1]); offs[B] is the true total T.  On
+    the host, written into ``out`` when given (torch's CPU gather and
+    in-place cumsum on views of the numpy arrays: both beat numpy's at a
+    few 10^5 slots); T < nnz < 2**31 (guarded in :func:`spmspv_prepare`)."""
+    offs = np.empty(xi.shape[0] + 1, np.int32) if out is None else out
+    offs[0] = 0
+    tail = torch.from_numpy(offs)[1:]
+    torch.index_select(torch.from_numpy(col_len), 0,
+                       torch.from_numpy(np.ascontiguousarray(xi)), out=tail)
+    tail.cumsum_(0)
+    return offs
 
-    ``slab`` is the number of products each thread block covers.  The
-    padded tail (t >= total) is never read.
-    """
-    if rows.shape != prods.shape or rows.dim() != 1:
+
+def scatter_plan(offs: np.ndarray, slab: int = 4096, n_sm: int = 132,
+                 out=None) -> tuple[int, np.ndarray]:
+    """How the fused kernel splits the T = offs[-1] products: (tile,
+    first).  Block b takes products [b * tile, (b + 1) * tile); ``first``
+    (n_blocks + 1,) int32 holds the slot of each block's first product and,
+    last, the slot of product T - 1, so block b's products lie in slots
+    first[b] .. first[b + 1].  The tile is sized to the card: 1 to
+    ``SCATTER_MAX_PER_THREAD`` products for each of the block's
+    ``SCATTER_THREADS`` threads, as few as give 16 blocks per SM, capped at
+    ``slab``.  ``first`` is written into the start of ``out`` when given."""
+    total = int(offs[-1])
+    if total == 0:
+        first = np.zeros(1, np.int32) if out is None else out[:1]
+        first[0] = 0
+        return SCATTER_THREADS, first
+    per = -(-total // (SCATTER_THREADS * 16 * max(int(n_sm), 1)))
+    per = min(max(per, 1), SCATTER_MAX_PER_THREAD)
+    tile = min(SCATTER_THREADS * per, max(int(slab), 1))
+    n_blocks = -(-total // tile)
+    starts = np.empty(n_blocks + 1, np.int32)  # the same dtype as offs: no cast
+    np.multiply(np.arange(n_blocks), tile, out=starts[:-1], casting="unsafe")
+    starts[-1] = total - 1
+    first = np.empty(n_blocks + 1, np.int32) if out is None else out[:n_blocks + 1]
+    np.subtract(np.searchsorted(offs, starts, side="right"), 1, out=first,
+                casting="unsafe")
+    return tile, first
+
+
+def spmspv_scatter(
+    prep: dict,  # spmspv_prepare's CSC view
+    xi: torch.Tensor,  # (B,) int32 x slots (sentinel n = padding)
+    xv: torch.Tensor,  # (B,) float32
+    offs: torch.Tensor,  # (B + 1,) int32, touched_offsets
+    first: torch.Tensor,  # (n_blocks + 1,) int32, scatter_plan
+    *,
+    total: int,
+    tile: int,
+) -> torch.Tensor:
+    """y (m,) = A @ x for the padded sparse x (xi, xv): the fused
+    expand-and-scatter kernel over the ``total`` true products.
+
+    ``offs`` and ``first`` come from :func:`touched_offsets` and
+    :func:`scatter_plan` on the host, which also give ``total`` and
+    ``tile``, so nothing here waits on a device value.  On CPU tensors the
+    plain version runs (it needs only xi, xv and total)."""
+    B = xi.shape[0]
+    n_blocks = -(-int(total) // max(int(tile), 1))
+    if xi.dim() != 1 or tuple(xv.shape) != (B,) or tuple(offs.shape) != (B + 1,):
         raise ValueError(
-            f"rows {tuple(rows.shape)} and prods {tuple(prods.shape)} must be "
-            "1-D streams of the same length"
+            f"xi {tuple(xi.shape)}, xv {tuple(xv.shape)} and offs "
+            f"{tuple(offs.shape)} must be (B,), (B,) and (B + 1,)"
         )
-    if not 0 <= int(total) <= rows.shape[0]:
-        raise ValueError(f"total {total} is outside [0, {rows.shape[0]}]")
-    if prods.device.type == "cpu":
-        return spmspv_scatter_plain(rows, prods, m, total)
-    dev = prods.device
-    _build.expect(rows, "rows", torch.int32, dev, 1)
-    _build.expect(prods, "prods", torch.float32, dev, 1)
-    if int(slab) < 1:
-        raise ValueError(f"slab must be >= 1, got {slab}")
+    if int(total) < 0 or int(tile) < 1 or tuple(first.shape) != (n_blocks + 1,):
+        raise ValueError(
+            f"total {total} and tile {tile} give {n_blocks} blocks, so first "
+            f"must be ({n_blocks + 1},), got {tuple(first.shape)} (scatter_plan)"
+        )
+    if xv.device.type == "cpu":
+        return spmspv_scatter_plain(prep, xi, xv, total)
+    dev = xv.device
+    m, _ = prep["shape"]
+    for t, name, dtype in ((xi, "xi", torch.int32), (xv, "xv", torch.float32),
+                           (offs, "offs", torch.int32), (first, "first", torch.int32),
+                           (prep["col_start"], "col_start", torch.int32),
+                           (prep["rows"], "rows", torch.int32),
+                           (prep["vals"], "vals", torch.float32)):
+        _build.expect(t, name, dtype, dev, 1)
+    if int(tile) > SCATTER_THREADS * SCATTER_MAX_PER_THREAD:
+        raise ValueError(
+            f"tile {tile} exceeds {SCATTER_THREADS * SCATTER_MAX_PER_THREAD} "
+            "products a block (scatter_plan)"
+        )
     y = torch.zeros(m, dtype=torch.float32, device=dev)
     if total == 0:
         return y
     fn = _build.function(
-        "spmspv_scatter", "spmspv_scatter_launch", [_P, _P, _P, _LL, _I, _P]
+        "spmspv_scatter", "spmspv_scatter_launch",
+        [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     )
     with torch.cuda.device(dev):
-        code = fn(rows.data_ptr(), prods.data_ptr(), y.data_ptr(), int(total),
-                  int(slab), _build.stream(dev))
+        code = fn(prep["col_start"].data_ptr(), prep["rows"].data_ptr(),
+                  prep["vals"].data_ptr(), xi.data_ptr(), xv.data_ptr(),
+                  offs.data_ptr(), first.data_ptr(), y.data_ptr(), int(total),
+                  int(tile), n_blocks, _build.stream(dev))
     _build.check("spmspv_scatter", code, "spmspv_scatter launch")
     _build.LAUNCHES["spmspv_scatter"] += 1
     return y
 
 
-def _to_device(xi: np.ndarray, xv, device: torch.device):
-    """(xi, xv) on ``device`` in one host-to-device copy."""
-    B = xi.shape[0]
-    buf = np.empty(2 * B, np.int32)
-    buf[:B] = xi
-    buf[B:] = np.ascontiguousarray(xv, dtype=np.float32).view(np.int32)
-    d = torch.from_numpy(buf).to(device)
-    return d[:B], d[B:].view(torch.float32)
+def stage_sparse(prep: dict, xi, xv, *, slab: int = 4096, n_sm: int = 132) -> dict:
+    """The fused kernel's operands for one padded sparse x given as HOST
+    arrays: ``xi``, ``xv``, ``offs`` and ``first`` on the prep's device,
+    written into one int32 host buffer and sent in one host-to-device copy,
+    beside ``total`` and ``tile``, as :func:`spmspv_scatter` takes them.
+    ``n_sm`` sizes the tile (the card's SM count)."""
+    col_len = prep["col_len_np"]
+    B = int(np.shape(xi)[0])
+    # [xi | xv bits | offs | first]; the blocks are at most nnz / tile_min
+    max_blocks = -(-max(int(prep["nnz"]), 1) // min(SCATTER_THREADS,
+                                                    max(int(slab), 1)))
+    buf = np.empty(3 * B + 2 + max_blocks, np.int32)
+    xi_h, offs = buf[:B], buf[2 * B:3 * B + 1]
+    np.clip(np.asarray(xi), 0, col_len.size - 1, out=xi_h, casting="unsafe")
+    buf[B:2 * B] = np.asarray(xv, dtype=np.float32).view(np.int32)
+    touched_offsets(col_len, xi_h, out=offs)
+    tile, first = scatter_plan(offs, slab, n_sm, out=buf[3 * B + 1:])
+    used = 3 * B + 1 + first.shape[0]
+    d = torch.from_numpy(buf[:used]).to(prep["rows"].device)
+    return {"xi": d[:B], "xv": d[B:2 * B].view(torch.float32),
+            "offs": d[2 * B:3 * B + 1], "first": d[3 * B + 1:used],
+            "total": int(offs[-1]), "tile": tile}
 
 
 def spmspv_bind(prep: dict, x_nnz: int, *, impl: str = "ref", slab: int = 4096):
     """Bind ``fn((xi, xv)) -> y`` over padded (x_nnz,) HOST operands.
 
-    Per call the host gathers ``col_len_np[xi]`` to find the true product
-    count T, picks the work bucket G from the ladder, and copies xi and xv
-    to the device once.  ``impl="cuda"`` scatters through the CUDA kernel,
-    ``impl="ref"`` through the plain version.
+    Per call the host gathers ``col_len_np[xi]`` into the cumulative
+    offsets (the true product count T is the last), and copies what the
+    device needs in one transfer.  ``impl="cuda"`` runs the fused kernel
+    (zero fill + one launch; ``slab`` caps the products a block takes),
+    ``impl="ref"`` the plain version (expansion into the work bucket, then
+    ``index_add_``).
     """
     if impl not in ("ref", "cuda"):
         raise ValueError(f"unknown spmspv impl {impl!r}: ref or cuda")
-    col_len = prep["col_len_np"]
-    nnz = prep["nnz"]
-    m, _ = prep["shape"]
-    device = prep["rows"].device
     bucket = int(x_nnz)
+    device = prep["rows"].device
+    n_sm = (torch.cuda.get_device_properties(device).multi_processor_count
+            if device.type == "cuda" else 132)
 
     def fn(sx):
         xi, xv = sx
-        xi_host = np.clip(np.asarray(xi).astype(np.int32, copy=False),
-                          0, col_len.size - 1)
-        if xi_host.shape != (bucket,):
+        if np.shape(xi) != (bucket,):
             raise ValueError(
-                f"sparse operand has shape {xi_host.shape}; this runner takes "
+                f"sparse operand has shape {np.shape(xi)}; this runner takes "
                 f"({bucket},) padded slots (pad_sparse_rhs)"
             )
-        total = int(col_len[xi_host].sum())
-        rows, prods = expand_products(prep, *_to_device(xi_host, xv, device),
-                                      work_bucket(total, nnz))
+        op = stage_sparse(prep, xi, xv, slab=slab, n_sm=n_sm)
         if impl == "cuda":
-            return spmspv_scatter(rows, prods, m=m, total=total, slab=slab)
-        return spmspv_scatter_plain(rows, prods, m, total)
+            return spmspv_scatter(prep, op["xi"], op["xv"], op["offs"],
+                                  op["first"], total=op["total"], tile=op["tile"])
+        return spmspv_scatter_plain(prep, op["xi"], op["xv"], op["total"])
 
     return fn

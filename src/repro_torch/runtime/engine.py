@@ -414,7 +414,7 @@ class SparseEngine:
     def _launch(self, bucket, reqs: list) -> tuple:
         if isinstance(bucket, tuple):  # ("spmspv", B): one sparse request
             idx, val = reqs[0].x
-            # Host (xi, xv): the runner picks its work bucket on the host.
+            # Host (xi, xv): the runner reads them on the host (offsets, plan).
             ys = self._sparse_op(bucket[1])._run(
                 pad_sparse_rhs(idx, val, bucket[1], self.shape[1]))
         else:

@@ -406,7 +406,7 @@ class SparseOperator:
         rng = np.random.default_rng(seed)
         if sparse_kind:
             # One random sorted sparse x probes every survivor, as host
-            # arrays: the spmspv runners pick the work bucket on the host.
+            # arrays: the spmspv runners read them on the host.
             n = a.shape[1]
             nx = min(kk, n)
             idx = np.sort(rng.choice(n, size=nx, replace=False)).astype(np.int64)

@@ -4,9 +4,9 @@ Marked ``gpu``: the fixture skips them when no CUDA device is visible.  The
 file imports nothing of JAX, so it also runs on a machine with a card and
 no JAX:  ``PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py``.
 Tolerance per row i: |kernel - plain| <= 1e-5 * (|A| |x|)_i, since only the
-summation order differs.  The scatter's atomics reorder each row's k_i
-terms, so for it the limit is the larger of that and k_i * 2**-24 *
-(|A| |x|)_i, the worst case of a reordered float32 sum.
+summation order differs.  The fused SpMSpV kernel's atomics reorder each
+row's k_i terms, so for it the limit is the larger of that and k_i * 2**-24
+* (|A| |x|)_i, the worst case of a reordered float32 sum.
 """
 import numpy as np
 import pytest
@@ -24,6 +24,7 @@ from repro_torch.kernels.spmspv import (
     spmspv_prepare,
     spmspv_scatter,
     spmspv_scatter_plain,
+    stage_sparse,
     work_bucket,
 )
 from repro_torch.tune import PlanCache, SparseOperator, make
@@ -71,9 +72,60 @@ def test_gpu_sell_kernel_matches_plain(cuda_device, chunk_tile):
                           device=cuda_device)
     xt = torch.as_tensor(x, device=cuda_device)
     y = sell_spmv(p["cols"], p["vals"], xt, p["row_perm"], n_rows=a.shape[0],
-                  chunk_tile=chunk_tile)
+                  chunk_w=p["chunk_w"], chunk_tile=chunk_tile)
     yp = sell_spmv_plain(p["cols"], p["vals"], xt, p["row_perm"], a.shape[0])
     assert_rowtol(y.cpu().numpy(), yp.cpu().numpy(), a, x)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("width_align", [1, 8])
+def test_gpu_sell_kernel_reads_each_chunk_to_its_width(cuda_device, width_align):
+    """The slot-major SELL kernel on chunks of width 0 (a whole chunk of
+    empty rows), widths that vary chunk by chunk and, with width_align=1, a
+    W that is not a multiple of 8: against the plain version and the
+    float64 oracle, the same bits on a second launch, padding past each
+    width never read, and a row-major operand refused before any launch."""
+    rng = np.random.default_rng(4)
+    m, n = 700, 900
+    lengths = rng.integers(1, 14, size=m)
+    lengths[64:80] = 0  # sixteen empty rows in one sigma window: empty chunks
+    rows = np.repeat(np.arange(m), lengths)
+    cols = np.concatenate([np.sort(rng.choice(n, size=k, replace=False))
+                           for k in lengths])
+    A = sp.csr_matrix((rng.standard_normal(rows.size).astype(np.float32),
+                       (rows, cols)), shape=(m, n))
+    a = tf.CSRMatrix((m, n), A.indptr.astype(np.int32), A.indices.astype(np.int32),
+                     A.data)
+    x = rng.standard_normal(n).astype(np.float32)
+    p = tops.sell_prepare(tf.sell_from_csr(a, C=8, sigma=64, width_align=width_align),
+                          8, device=cuda_device)
+    W = p["cols"].shape[2]
+    cw = p["chunk_w"].cpu().numpy()
+    assert (W % 8 != 0) == (width_align == 1)
+    assert (cw == 0).sum() >= 2 and len(np.unique(cw)) > 5
+    xt = torch.as_tensor(x, device=cuda_device)
+
+    def run(vals=p["vals"]):
+        return sell_spmv(p["cols"], vals, xt, p["row_perm"], n_rows=m,
+                         chunk_w=p["chunk_w"], chunk_tile=8)
+
+    before = _build.LAUNCHES["sell_spmv"]
+    y = run()
+    assert _build.LAUNCHES["sell_spmv"] == before + 1
+    assert torch.equal(y, run())
+    yp = sell_spmv_plain(p["cols"], p["vals"], xt, p["row_perm"], m)
+    assert_rowtol(y.cpu().numpy(), yp.cpu().numpy(), a, x)
+    assert_rowtol(y.cpu().numpy(), A.astype(np.float64) @ x, a, x)
+    w = torch.arange(W, device=cuda_device)
+    poisoned = p["vals"].clone()  # keeps the slot-major strides
+    poisoned.masked_fill_(w >= p["chunk_w"][:, None, None], float("nan"))
+    assert poisoned.stride() == p["vals"].stride()
+    assert torch.equal(run(poisoned), y)
+    before = _build.LAUNCHES["sell_spmv"]
+    with pytest.raises(ValueError, match="slot-major SELL view.*ops.sell_prepare"):
+        sell_spmv(p["cols"].contiguous(), p["vals"], xt, p["row_perm"], n_rows=m,
+                  chunk_w=p["chunk_w"])
+    assert _build.LAUNCHES["sell_spmv"] == before
 
 
 def _blocked_run(p, x_pad, n_rows):
@@ -257,57 +309,109 @@ def test_gpu_search_raises_on_a_failing_launch(cuda_device, monkeypatch):
 
 
 def _sparse_case(name, frac, device):
+    """A suite matrix at 1/16 scale and a sparse x of n // frac entries that
+    always holds the longest column (a hub spanning many blocks)."""
     a = generate(name, scale=1 / 16)
     m, n = a.shape
     nx = max(1, n // frac)
     rng = np.random.default_rng(0)
-    idx = np.sort(rng.choice(n, size=nx, replace=False)).astype(np.int64)
-    val = rng.standard_normal(nx).astype(np.float32)
+    hub = int(np.argmax(np.bincount(a.indices, minlength=n)))
+    idx = np.union1d(rng.choice(n, size=nx, replace=False), [hub]).astype(np.int64)
+    val = rng.standard_normal(idx.size).astype(np.float32)
     x = np.zeros(n, np.float32)
     x[idx] = val
     prep = spmspv_prepare(a, device=device)
-    xi, xv = pad_sparse_rhs(idx, val, nx, n)
-    total = int(prep["col_len_np"][xi].sum())
-    rows, prods = expand_products(prep, torch.as_tensor(xi, device=device),
-                                  torch.as_tensor(xv, device=device),
-                                  work_bucket(total, a.nnz))
-    return a, x, rows, prods, total
+    xi, xv = pad_sparse_rhs(idx, val, idx.size, n)
+    return a, x, prep, xi, xv
+
+
+def _fused(prep, op):
+    return spmspv_scatter(prep, op["xi"], op["xv"], op["offs"], op["first"],
+                          total=op["total"], tile=op["tile"])
+
+
+def _terms(prep, op):
+    """k_i: the touched terms of each row, from the plain expansion."""
+    G = work_bucket(op["total"], prep["nnz"])
+    rows, _ = expand_products(prep, op["xi"], op["xv"], G)
+    return torch.bincount(rows[:op["total"]].long(),
+                          minlength=prep["shape"][0]).cpu().numpy()
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("name,frac", [("webbase-1M", 256), ("webbase-1M", 4),
-                                       ("torso1", 256), ("torso1", 4)])
+@pytest.mark.parametrize("name,frac", [("webbase-1M", 256), ("webbase-1M", 16),
+                                       ("webbase-1M", 4), ("torso1", 256),
+                                       ("torso1", 4)])
 def test_gpu_spmspv_scatter_matches_plain(cuda_device, name, frac):
-    a, x, rows, prods, total = _sparse_case(name, frac, cuda_device)
-    m = a.shape[0]
+    """The fused expand-and-scatter kernel against its plain version
+    (expansion + index_add_) at three densities, the hub column included."""
+    a, x, prep, xi, xv = _sparse_case(name, frac, cuda_device)
+    op = stage_sparse(prep, xi, xv)
+    assert op["total"] > 0
     before = _build.LAUNCHES["spmspv_scatter"]
-    y = spmspv_scatter(rows, prods, m=m, total=total)
-    yp = spmspv_scatter_plain(rows, prods, m, total)
+    y = _fused(prep, op)
+    yp = spmspv_scatter_plain(prep, op["xi"], op["xv"], op["total"])
     assert _build.LAUNCHES["spmspv_scatter"] == before + 1
-    terms = torch.bincount(rows[:total].long(), minlength=m).cpu().numpy()
+    terms = _terms(prep, op)
     assert_rowtol(y.cpu().numpy(), yp.cpu().numpy(), a, x, name, terms=terms)
-    # total = 0 launches nothing and gives exact zeros
-    z = spmspv_scatter(rows, prods, m=m, total=0)
+    assert_rowtol(y.cpu().numpy(), sp.csr_matrix(
+        (a.data.astype(np.float64), a.indices, a.indptr), shape=a.shape) @ x,
+        a, x, name, terms=terms)
+    # an all-sentinel x has no products: no launch, exact zeros
+    z = stage_sparse(prep, np.full_like(xi, a.shape[1]), np.zeros_like(xv))
+    assert z["total"] == 0
+    assert not bool(_fused(prep, z).any())
     assert _build.LAUNCHES["spmspv_scatter"] == before + 1
-    assert not bool(z.any())
-    # the lanes past total are never read, whatever they hold
-    rows[total:] = 1
-    prods[total:] = 1e30
-    y2 = spmspv_scatter(rows, prods, m=m, total=total)
-    assert_rowtol(y2.cpu().numpy(), yp.cpu().numpy(), a, x, name, terms=terms)
+
+
+@pytest.mark.gpu
+def test_gpu_spmspv_long_runs_of_empty_columns(cuda_device):
+    """A block whose products cross more slots than it stages in shared
+    memory (thousands of empty touched columns between two full ones)
+    searches device memory instead, with the same answer."""
+    rng = np.random.default_rng(9)
+    m, n = 4000, 6000
+    d = sp.random(m, n, density=0.002, random_state=1, format="csc",
+                  dtype=np.float32)
+    d = d.tolil()
+    d[:, 100:5000] = 0.0
+    A = sp.csr_matrix(d)
+    A.eliminate_zeros()
+    a = tf.CSRMatrix((m, n), A.indptr.astype(np.int32), A.indices.astype(np.int32),
+                     A.data.astype(np.float32))
+    idx = np.arange(50, 5100, dtype=np.int64)  # 4900 empty columns in the middle
+    val = rng.standard_normal(idx.size).astype(np.float32)
+    x = np.zeros(n, np.float32)
+    x[idx] = val
+    prep = spmspv_prepare(a, device=cuda_device)
+    xi, xv = pad_sparse_rhs(idx, val, idx.size, n)
+    op = stage_sparse(prep, xi, xv)
+    first = op["first"].cpu().numpy()
+    assert np.diff(first).max() > 1024  # a block spans more than it stages
+    y = _fused(prep, op)
+    yp = spmspv_scatter_plain(prep, op["xi"], op["xv"], op["total"])
+    terms = _terms(prep, op)
+    assert_rowtol(y.cpu().numpy(), yp.cpu().numpy(), a, x, terms=terms)
+    assert_rowtol(y.cpu().numpy(), A.astype(np.float64) @ x, a, x, terms=terms)
 
 
 @pytest.mark.gpu
 def test_gpu_spmspv_refused_launch_raises(cuda_device, monkeypatch):
-    """A refused scatter launch raises, at the wrapper and in a search: the
-    CUDA path never hands its work to the plain version."""
-    a, _, rows, prods, total = _sparse_case("webbase-1M", 256, cuda_device)
-    with pytest.raises(ValueError, match="is on cpu"):
-        spmspv_scatter(rows.cpu(), prods, m=a.shape[0], total=total)
+    """A refused launch raises, at the wrapper and in a search: the CUDA
+    path never hands its work to the plain version."""
+    a, _, prep, xi, xv = _sparse_case("webbase-1M", 256, cuda_device)
+    op = stage_sparse(prep, xi, xv)
+    with pytest.raises(ValueError, match="xi is on cpu"):
+        spmspv_scatter(prep, op["xi"].cpu(), op["xv"], op["offs"], op["first"],
+                       total=op["total"], tile=op["tile"])
+    with pytest.raises(ValueError, match="exceeds"):
+        spmspv_scatter(prep, op["xi"], op["xv"], op["offs"],
+                       op["first"][: -(-op["total"] // 1024) + 1],
+                       total=op["total"], tile=1024)
     _build.ensure_built()
     monkeypatch.setattr(_build, "function", lambda *args: (lambda *cargs: 1))
     with pytest.raises(RuntimeError, match="spmspv_scatter launch: CUDA error 1"):
-        spmspv_scatter(rows, prods, m=a.shape[0], total=total)
+        _fused(prep, op)
     cands = [make("csr", "vector"), make("spmspv", "cuda", slab=4096)]
     with pytest.raises(RuntimeError, match="spmspv/cuda.*CUDA error 1"):
         SparseOperator.build(a, x_nnz=a.shape[1] // 256, cache=PlanCache(),

@@ -280,7 +280,8 @@ def test_wrappers_reject_nothing_on_cpu_and_count_no_cpu_launches():
     x = torch.as_tensor(np.random.default_rng(0).standard_normal(20).astype(np.float32))
     p = tops.sell_prepare(tf.sell_from_csr(a, width_align=8), device="cpu")
     np.testing.assert_array_equal(
-        sell_spmv(p["cols"], p["vals"], x, p["row_perm"], n_rows=24).numpy(),
+        sell_spmv(p["cols"], p["vals"], x, p["row_perm"], n_rows=24,
+                  chunk_w=p["chunk_w"]).numpy(),
         sell_spmv_plain(p["cols"], p["vals"], x, p["row_perm"], 24).numpy())
     p = tops.sell_prepare_blocked_stacked(a, 2, device="cpu")
     xp = torch.zeros(2 * p["slab_n"])

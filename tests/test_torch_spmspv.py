@@ -2,9 +2,12 @@
 
 Same seeded numpy inputs on both sides: the CSC prepare, the work-bucket
 ladder and the product expansion must equal ``repro``'s bit for bit, the
-validation texts must match, and the scatter (its plain version on the CPU)
-must agree with ``repro``'s Pallas scatter in interpret mode on the streams
-``repro`` expanded, carried across with ``repro_torch.interop``.  Tolerance
+validation texts must match, the host plan of the fused expand-and-scatter
+kernel (offsets, true total, each block's first slot) must imply exactly
+``repro``'s expanded stream, and the fused wrapper (its plain version on
+the CPU) must agree with ``repro``'s expansion + Pallas scatter in
+interpret mode (``spmspv_pallas_fn``) on the same padded x, carried across
+with ``repro_torch.interop``.  Tolerance
 per row i: |port - repro| <= 1e-5 * (|A| |x|)_i, since only the summation
 order differs.  Then the tuner (enumeration, byte model, every candidate
 through ``from_candidate(x_nnz=)`` and ``op @ (idx, val)``, the plan cache)
@@ -149,29 +152,120 @@ def test_expand_products_equal_repro_bit_for_bit(nx, bucket):
 
 
 # ---------------------------------------------------------------------------
-# The scatter (spmspv_scatter_pallas), plain on the CPU
+# The fused expand-and-scatter (spmspv_scatter_pallas + its expansion)
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("nx,slab", [(6, 4096), (40, 256)])
-def test_scatter_matches_pallas_scatter_on_repro_streams(nx, slab):
-    d = rand_dense(4, m=120, n=96, density=0.12)
+def hub_dense(seed, m=1500, n=64):
+    """A column of m entries (a hub spanning many blocks), two empty
+    columns between touched ones, and a sprinkle elsewhere."""
+    rng = np.random.default_rng(seed)
+    d = ((rng.random((m, n)) < 0.02) * rng.standard_normal((m, n))).astype(np.float32)
+    d[:, 7] = rng.standard_normal(m).astype(np.float32)
+    d[:, 20:22] = 0.0
+    return d
+
+
+def plan_case(case):
+    """(dense A, idx, val, slab) for the host-plan and parity cases."""
+    if case == "hub":
+        d = hub_dense(20)
+        return d, np.array([3, 7, 20, 21, 40]), np.float32([0.5, -2.0, 1.0, 3.0, 0.25]), 128
+    d = rand_dense(21, m=120, n=96, density=0.12)
+    if case == "empty_x":
+        return d, np.zeros(0, np.int64), np.zeros(0, np.float32), 4096
+    if case == "empty_columns":
+        d[:, 10:60] = 0.0  # every touched column in between is empty
+        idx = np.array([2, 10, 11, 30, 59, 60, 95])
+        return d, idx, np.linspace(-1, 1, idx.size).astype(np.float32), 4096
+    idx, val, _ = sparse_x(22, 96, 40)
+    return d, idx, val, 256
+
+
+def emulate_fused_walk(prep, xi, xv, offs, first, tile):
+    """The kernel's indexing in numpy: block b walks products
+    [b*tile, (b+1)*tile) and finds each one's slot between first[b] and
+    first[b+1].  Returns the (rows, products) stream it adds, in t order."""
+    col_start, rows = prep["col_start"].numpy(), prep["rows"].numpy()
+    vals, total = prep["vals"].numpy(), int(offs[-1])
+    out_rows, out_prods = [], []
+    for b in range(first.size - 1):
+        lo, hi = int(first[b]), int(first[b + 1])
+        for t in range(b * tile, min(total, (b + 1) * tile)):
+            s = lo + int(np.searchsorted(offs[lo:hi + 1], t, side="right")) - 1
+            assert lo <= s <= hi and offs[s] <= t < offs[s + 1]
+            src = col_start[xi[s]] + t - offs[s]
+            out_rows.append(rows[src])
+            out_prods.append(np.float32(vals[src]) * np.float32(xv[s]))
+    return np.array(out_rows, np.int32), np.array(out_prods, np.float32)
+
+
+@pytest.mark.parametrize("case", ["empty_x", "all_sentinel", "empty_columns", "hub",
+                                  "random"])
+def test_host_plan_equals_what_repro_expansion_implies(case):
+    """offs, T and each block's first slot equal what repro's expansion
+    implies, and the kernel's walk over them adds exactly repro's stream."""
+    d, idx, val, slab = plan_case("empty_x" if case == "all_sentinel" else case)
+    n = d.shape[1]
+    bucket = 8 if case == "all_sentinel" else max(idx.size, 1) + 3
     jprep = jsp.spmspv_prepare(j_csr_from_dense(d))
-    idx, val, x = sparse_x(5, 96, nx)
-    jxi, jxv = jsp.pad_sparse_rhs(idx, val, nx, 96)
+    prep = tsp.spmspv_prepare(csr_from_dense(d), device="cpu")
+    xi, xv = tsp.pad_sparse_rhs(idx, val, bucket, n)
+    offs = tsp.touched_offsets(prep["col_len_np"], xi)
+    want = np.concatenate([[0], np.cumsum(np.asarray(jprep["col_len_np"])[xi])])
+    np.testing.assert_array_equal(offs, want)
+    assert offs.dtype == np.int32
+    total = int(offs[-1])
+    tile, first = tsp.scatter_plan(offs, slab)
+    n_blocks = -(-total // tile)
+    assert first.shape == (n_blocks + 1,) and first.dtype == np.int32
+    assert 1 <= tile <= min(slab, tsp.SCATTER_THREADS * tsp.SCATTER_MAX_PER_THREAD)
+    t = np.arange(total)
+    slot = np.searchsorted(offs, t, side="right") - 1  # the expansion's slot map
+    if total:
+        np.testing.assert_array_equal(first[:-1], slot[::tile])
+        assert first[-1] == slot[-1]
+        assert np.all(np.diff(first) >= 0)
+    G = jsp.work_bucket(total, jprep["nnz"])
+    jrows, jprods = jsp.expand_products(jprep, jnp.asarray(xi), jnp.asarray(xv), G)
+    rows, prods = emulate_fused_walk(prep, xi, xv, offs, first, tile)
+    np.testing.assert_array_equal(rows, np.asarray(jrows)[:total])
+    np.testing.assert_array_equal(prods.view(np.int32),
+                                  np.asarray(jprods)[:total].view(np.int32))
+    if case == "hub":
+        assert n_blocks >= 8 and np.sum(first[:-1] == first[1]) >= 6  # one hub
+    if case == "empty_columns":
+        assert np.sum(prep["col_len_np"][xi] == 0) >= 3
+
+
+@pytest.mark.parametrize("case,nx", [("random", 6), ("random", 40), ("hub", 5),
+                                     ("empty_columns", 7)])
+def test_scatter_matches_pallas_scatter_on_repro_streams(case, nx):
+    """The fused wrapper (its plain version on the CPU) against repro's
+    spmspv_pallas_fn in interpret mode on the same padded (xi, xv)."""
+    d, idx, val, slab = plan_case(case)
+    if case == "random":
+        idx, val, _ = sparse_x(5, d.shape[1], nx)
+    m, n = d.shape
+    x = np.zeros(n, np.float32)
+    x[idx] = val
+    jprep = jsp.spmspv_prepare(j_csr_from_dense(d))
+    jxi, jxv = jsp.pad_sparse_rhs(idx, val, nx, n)
     total = int(jprep["col_len_np"][jxi].sum())
     G = jsp.work_bucket(total, jprep["nnz"])
-    jrows, jprods = jsp.expand_products(jprep, jnp.asarray(jxi), jnp.asarray(jxv), G)
-    y_pallas = np.asarray(jsp.spmspv_scatter_pallas(
-        jrows, jprods, m=120, slab=np.gcd(slab, G), interpret=True))
+    y_pallas = np.asarray(jsp.spmspv_pallas_fn(jprep, G, slab, True)(
+        jnp.asarray(jxi), jnp.asarray(jxv)))
+    prep = carried(jprep)
     _build.reset_launches()
-    y_port = tsp.spmspv_scatter(torch.as_tensor(np.array(jrows)),
-                                torch.as_tensor(np.array(jprods)),
-                                m=120, total=total, slab=slab).numpy()
+    op = tsp.stage_sparse(prep, jxi, jxv, slab=slab)
+    assert op["total"] == total
+    y_port = tsp.spmspv_scatter(prep, op["xi"], op["xv"], op["offs"], op["first"],
+                                total=total, tile=op["tile"]).numpy()
     assert sum(_build.LAUNCHES.values()) == 0  # the plain version ran
     assert_rowtol(y_port, y_pallas, d, x, "port vs pallas")
     assert_rowtol(y_port, d.astype(np.float64) @ x, d, x, "port vs f64")
-    # the carried prepare through the bound runner gives the same y
-    fn = tsp.spmspv_bind(carried(jprep), nx, impl="cuda", slab=slab)
-    np.testing.assert_array_equal(fn((jxi, jxv)).numpy(), y_port)
+    # the bound runner gives the same y through either impl
+    for impl in ("cuda", "ref"):
+        fn = tsp.spmspv_bind(prep, nx, impl=impl, slab=slab)
+        np.testing.assert_array_equal(fn((jxi, jxv)).numpy(), y_port)
 
 
 def test_empty_x_and_empty_matrix_give_exact_zeros():
@@ -184,30 +278,57 @@ def test_empty_x_and_empty_matrix_give_exact_zeros():
             y = tsp.spmspv_bind(prep, 6, impl=impl)((xi, xv))
             assert y.shape == (24,) and y.dtype == torch.float32
             np.testing.assert_array_equal(y.numpy(), np.zeros(24, np.float32))
-    empty = tsp.spmspv_scatter(torch.zeros(256, dtype=torch.int32),
-                               torch.zeros(256), m=24, total=0)
-    np.testing.assert_array_equal(empty.numpy(), np.zeros(24, np.float32))
+        op = tsp.stage_sparse(prep, xi, xv)
+        assert op["total"] == 0 and op["first"].shape == (1,)
+        empty = tsp.spmspv_scatter(prep, op["xi"], op["xv"], op["offs"], op["first"],
+                                   total=0, tile=op["tile"])
+        np.testing.assert_array_equal(empty.numpy(), np.zeros(24, np.float32))
     g = tsp.work_bucket(0, 0)
     assert g == jsp.work_bucket(0, 0) and g % tsp.WORK_BUCKET_BASE == 0
 
 
 def test_scatter_reads_only_the_true_products():
-    rng = np.random.default_rng(15)
-    rows = torch.as_tensor(rng.integers(0, 10, 64).astype(np.int32))
-    prods = torch.as_tensor(rng.standard_normal(64).astype(np.float32))
-    y = tsp.spmspv_scatter(rows, prods, m=10, total=40)
-    want = np.zeros(10)
-    np.add.at(want, rows[:40].numpy(), prods[:40].numpy().astype(np.float64))
-    np.testing.assert_allclose(y.numpy(), want, rtol=1e-6, atol=1e-6)
+    """The plain version adds the first ``total`` products of the expanded
+    stream and none of the work bucket's padded tail; the fused plan's
+    blocks cover exactly those products."""
+    d = hub_dense(15, m=300, n=40)
+    prep = tsp.spmspv_prepare(csr_from_dense(d), device="cpu")
+    idx = np.array([1, 7, 20, 33])
+    val = np.float32([1.5, -0.5, 2.0, 1.0])
+    xi, xv = tsp.pad_sparse_rhs(idx, val, 6, 40)
+    offs = tsp.touched_offsets(prep["col_len_np"], xi)
+    T = int(offs[-1])
+    G = tsp.work_bucket(T, prep["nnz"])
+    assert G > T  # a padded tail exists
+    rows, prods = tsp.expand_products(prep, torch.as_tensor(xi), torch.as_tensor(xv), G)
+    for total in (T, T // 2):
+        y = tsp.spmspv_scatter_plain(prep, torch.as_tensor(xi), torch.as_tensor(xv),
+                                     total)
+        want = np.zeros(300)
+        np.add.at(want, rows[:total].numpy(), prods[:total].numpy().astype(np.float64))
+        np.testing.assert_allclose(y.numpy(), want, rtol=1e-6, atol=1e-6)
+    for slab in (1, 100, 4096):
+        tile, first = tsp.scatter_plan(offs, slab)
+        n_blocks = first.size - 1
+        assert (n_blocks - 1) * tile < T <= n_blocks * tile
 
 
 def test_scatter_and_bind_refuse_bad_operands():
-    rows, prods = torch.zeros(8, dtype=torch.int32), torch.zeros(8)
-    with pytest.raises(ValueError, match="outside"):
-        tsp.spmspv_scatter(rows, prods, m=4, total=9)
-    with pytest.raises(ValueError, match="same length"):
-        tsp.spmspv_scatter(rows, prods[:4], m=4, total=4)
     prep = tsp.spmspv_prepare(csr_from_dense(rand_dense(7, m=16, n=16)), device="cpu")
+    xi, xv = tsp.pad_sparse_rhs(np.arange(3), np.ones(3, np.float32), 4, 16)
+    op = tsp.stage_sparse(prep, xi, xv)
+    args = (op["xi"], op["xv"], op["offs"], op["first"])
+    kw = {"total": op["total"], "tile": op["tile"]}
+    with pytest.raises(ValueError, match=r"must be \(B,\), \(B,\) and \(B \+ 1,\)"):
+        tsp.spmspv_scatter(prep, op["xi"], op["xv"][:3], *args[2:], **kw)
+    with pytest.raises(ValueError, match=r"must be \(B,\)"):
+        tsp.spmspv_scatter(prep, op["xi"], op["xv"], op["offs"][:4], op["first"], **kw)
+    with pytest.raises(ValueError, match="scatter_plan"):
+        tsp.spmspv_scatter(prep, *args[:3], op["first"][:1], **kw)
+    with pytest.raises(ValueError, match="scatter_plan"):
+        tsp.spmspv_scatter(prep, *args, total=op["total"], tile=0)
+    with pytest.raises(ValueError, match="scatter_plan"):
+        tsp.spmspv_scatter(prep, *args, total=-1, tile=op["tile"])
     with pytest.raises(ValueError, match="ref or cuda"):
         tsp.spmspv_bind(prep, 4, impl="pallas")
     with pytest.raises(ValueError, match="padded slots"):
