@@ -58,7 +58,27 @@ scipy; imports nothing of JAX or of the JAX package.  Phases:
    cuSPARSE ``torch.mv`` on the densified x, a whole ``apply_sparse`` and
    the bound 8*T + 16*B + 4*m bytes.  The atomics reorder each row's sum: a
    row that breaks 1e-5 * (|A| |x|)_i is printed with its term count k_i
-   and held to k_i * 2**-24 * (|A| |x|)_i instead.
+   and held to k_i * 2**-24 * (|A| |x|)_i instead;
+7. the remaining serving tiers, reordering, supervision and overload:
+   (a) ``merge/scan[chunk=2048|16384]`` at k = 1 on cant, ldoor and
+   webbase-1M and at k = 4 on cant, and ``csr/scalar`` on cant, pinned,
+   against the float64 oracle (scalar at 1e-5; merge at 1e-5 (|A| |x|)_i
+   + 8 * 2**-24 * max|P|, a row being a difference of global prefix sums),
+   each timed; (b) cant scrambled by ``random_order(seed=0)``: pinned
+   ``sell/cuda`` with and without ``reorder=rcm`` at 1e-5, bandwidth and
+   UCLD before and after RCM, their times and the SELL kernel's alone, and
+   ``build(include_reorder=True)``; (c) the tuned engine of phase 4 under
+   ``nan_guard`` and a fault plan (dispatch faults exhaust bucket 1's
+   retries, NaN poisons bucket 64): 256 requests at 1e-5, the events run
+   batch_failed -> demote -> promote per faulted bucket, the tuned plans
+   and kernels serve again after promotion; (d) ``max_queue`` under each
+   policy with ``shed_after_s``, a ``BrownoutController`` and an
+   ``engine.overload`` delay: every future resolves (served at 1e-5, or a
+   typed ``OverloadError``), the widest bucket serves through
+   ``bcsr/cuda``; (e) the serve CLI with ``--max-queue 64
+   --overload-policy shed-oldest --brownout``.  The engines of phases 4,
+   6b and 7d, into which no failure is injected, must record no failed
+   batch and no demotion.
 
 Any failed check exits non-zero.  The last lines are the card's name and
 power limit, one JSON object with the kernel table, and the JSON status
@@ -82,6 +102,7 @@ REPS = 25
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores
 K_BUCKETS = (1, 4, 16, 64)
+MERGE_ULPS = 8  # the merge tier's limit: 1e-5 (|A| |x|)_i + 8 * 2**-24 * max|P|
 
 
 def fail(msg: str) -> None:
@@ -128,13 +149,26 @@ def main() -> None:
         validate_sparse_rhs,
         work_bucket,
     )
+    from repro_torch.core.metrics import matrix_bandwidth, ucld
+    from repro_torch.core.reorder import random_order
     from repro_torch.launch import serve as serve_cli
     from repro_torch.runtime.engine import SparseEngine
+    from repro_torch.runtime.faults import FaultPlan
+    from repro_torch.runtime.overload import (
+        BROWNOUT,
+        SHED,
+        BrownoutController,
+        OverloadError,
+    )
+    from repro_torch.runtime.supervisor import Supervisor
+    from repro_torch.tune.operator import evict_prepared, prep_memo_stats
     from repro_torch.tune import (
         BCSR_BLOCKS,
+        InaccurateTier,
         NoSpMMTier,
         PlanCache,
         SparseOperator,
+        fingerprint,
         make,
     )
 
@@ -221,6 +255,17 @@ def main() -> None:
         A = A64[name]
         x64 = x_host.astype(np.float64)
         return A @ x64, abs(A) @ np.abs(x64)
+
+    def assert_unfaulted(label: str, eng_) -> None:
+        """An engine no fault was injected into: no batch failed, nothing
+        demoted.  A kernel that fails on the card must fail the run, not
+        hide behind the supervisor's fallback."""
+        bad = [(e.kind, e.info) for e in eng_.supervisor.events
+               if e.kind in ("batch_failed", "demote", "batch_abandoned")]
+        st = eng_.stats
+        if bad or st.demotions or st.failed_requests or st.retries:
+            fail(f"{label}: supervisor events {bad}, demotions {st.demotions}, "
+                 f"failed requests {st.failed_requests}, retries {st.retries}")
 
     # -- phase 2: each kernel against its plain version -------------------
     t0 = time.perf_counter()
@@ -377,7 +422,10 @@ def main() -> None:
             print(f"    {key}: {v * 1e3:.4f} ms")
         for key, e in op.search_failures.items():
             print(f"    FAILED {key}: {e!r}")
-            if not isinstance(e, NoSpMMTier):
+            # the two failures a search on the card passes over: a k = 1
+            # tier asked for k > 1, and a plain tier that failed the
+            # accuracy check (a kernel that fails it raises in build)
+            if not isinstance(e, (NoSpMMTier, InaccurateTier)):
                 fail(f"{label}: candidate {key} failed in the search: {e!r}")
 
     op1 = SparseOperator.build(cant, cache=cache, device=dev)
@@ -466,8 +514,12 @@ def main() -> None:
     by_bucket = eng_async.stats.summary()["by_bucket"]
     if sorted(by_bucket) != list(K_BUCKETS):
         fail(f"pinned engine did not serve every bucket: {by_bucket}")
-    for eng_ in (eng, eng_async, eng_sync):
+    for label, eng_ in (("tuned engine", eng), ("pinned engine async", eng_async),
+                        ("pinned engine sync", eng_sync)):
         eng_.close()
+        assert_unfaulted(label, eng_)
+    print("  ok phase 4 engines: zero supervisor events, zero demotions")
+    tuned_ops = eng.ops  # phase 7c serves this table again
     # The serve CLI, on the plan table the tuned engine left in the cache.
     os.environ["REPRO_TORCH_TUNE_CACHE"] = str(Path(tmp.name) / "plans.json")
     serve_stats = Path(tmp.name) / "serve.json"
@@ -476,6 +528,9 @@ def main() -> None:
     record["serve_cli"] = json.loads(serve_stats.read_text())
     if record["serve_cli"]["served"] != 64:
         fail(f"serve CLI served {record['serve_cli']['served']}/64 requests")
+    cli_sup = record["serve_cli"]["supervisor"]
+    if cli_sup["demotions"] or set(cli_sup["events"]) & {"batch_failed", "demote"}:
+        fail(f"serve CLI: supervisor {cli_sup}")
     torch.cuda.synchronize()
     launches = dict(_build.LAUNCHES)
     print(f"  launches over phases 3-4: {launches}")
@@ -483,7 +538,6 @@ def main() -> None:
         if launches.get(key, 0) <= 0:
             fail(f"kernel {key} was never launched on the main path")
     record["launches"] = launches
-    tmp.cleanup()
     phase_done("serving", t0)
 
     # -- phase 5: times ----------------------------------------------------
@@ -819,6 +873,7 @@ def main() -> None:
             fail(f"pinned engine's sparse lane ran {lanes}")
         check_answers(f"pinned engine async_depth={depth}", ys_by_depth[depth])
         eng_.close()
+        assert_unfaulted(f"pinned sparse engine async_depth={depth}", eng_)
     kspmspv.expand_products = expand_eager
     print(f"  pinned engines: {expansions[0]} eager expansions over "
           f"{2 * len(sp_reqs)} requests")
@@ -861,6 +916,8 @@ def main() -> None:
     del pin
     lap("one pinned request profiled")
     eng_sp.close()
+    assert_unfaulted("tuned sparse engine", eng_sp)
+    print("  ok phase 6b engines: zero supervisor events, zero demotions")
     torch.cuda.synchronize()
     sp_launches = dict(_build.LAUNCHES)
     print(f"  launches over phase 6b: {sp_launches}")
@@ -966,6 +1023,279 @@ def main() -> None:
         del A_lib
     del sp_preps
     phase_done("spmspv_times", t0)
+
+    # -- phase 7: the remaining tiers, reordering, supervision, overload ---
+    # 7a: the plain merge and csr/scalar tiers at full size
+    t0 = time.perf_counter()
+    print("phase 7a: merge and csr/scalar tiers against the float64 oracle", flush=True)
+    graphs.clear()
+    G_pat.clear()
+    G_abs.clear()
+    A64["webbase-1M"] = G64.pop("webbase-1M")
+    mats["webbase-1M"] = web
+    tier_rows = record["tiers"] = []
+
+    def prefix_max(name: str, X64: torch.Tensor) -> torch.Tensor:
+        """max |P| per column: the float64 prefix sums of A.data * x[cols]
+        in CSR order, as the merge tier accumulates them."""
+        a_ = mats[name]
+        data = torch.as_tensor(a_.data, device=dev).double()
+        cols = torch.as_tensor(a_.indices, device=dev).long()
+        out = torch.empty(X64.shape[1], dtype=torch.float64, device=dev)
+        for j in range(X64.shape[1]):
+            out[j] = (data * X64[cols, j]).cumsum(0).abs().max()
+        return out
+
+    def check_tier(what: str, name: str, y, x_host, merge: bool) -> dict:
+        """1e-5 (|A| |x|)_i, plus 8 * 2**-24 * max|P| for the merge tier."""
+        x64 = x_host.astype(np.float64)
+        y64 = torch.as_tensor(A64[name] @ x64, device=dev)
+        sc = torch.as_tensor(abs(A64[name]) @ np.abs(x64), device=dev)
+        err = (y.double() - y64).abs()
+        if not bool(torch.isfinite(y).all()) or err.shape != y64.shape:
+            fail(f"{what}: shape {tuple(y.shape)} or non-finite output")
+        base = TOL * sc
+        over = int((err > base).sum())
+        info = {"max_abs_err": float(err.max()), "rows_over_1e-5": over,
+                "rows": int(err.shape[0])}
+        lim = base
+        if merge:
+            X64 = torch.as_tensor(x64.reshape(x64.shape[0], -1), device=dev)
+            pmax = prefix_max(name, X64).reshape(y64.shape[1:])
+            lim = base + MERGE_ULPS * 2.0**-24 * pmax
+            info["max_P"] = float(pmax.max())
+            info["worst_ulps_of_max_P"] = float((err / (2.0**-24 * pmax)).max())
+        if bool((err > lim).any()):
+            i = int(torch.argmax((err - lim).flatten()))
+            fail(f"{what}: {int((err > lim).sum())} entries over the limit, worst "
+                 f"err {float(err.flatten()[i]):.3e} > {float(lim.flatten()[i]):.3e}")
+        print(f"  ok {what}: " + ", ".join(
+            f"{k_} {v_:.3e}" if isinstance(v_, float) else f"{k_} {v_}"
+            for k_, v_ in info.items()))
+        return info
+
+    xs_host["webbase-1M"] = np.random.default_rng(0).standard_normal(
+        web.shape[1]).astype(np.float32)
+    X4 = np.random.default_rng(0).standard_normal((cant.shape[1], 4)).astype(np.float32)
+    tier_cases = [(make("merge", "scan", chunk=c), name, 1)
+                  for c in (2048, 16384) for name in ("cant", "ldoor", "webbase-1M")]
+    tier_cases += [(make("merge", "scan", chunk=c), "cant", 4) for c in (2048, 16384)]
+    tier_cases.append((make("csr", "scalar"), "cant", 1))
+    for cand, name, k in tier_cases:
+        x_host = xs_host[name] if k == 1 else X4
+        xt = torch.as_tensor(x_host, device=dev)
+        op = SparseOperator.from_candidate(mats[name], cand, k=None if k == 1 else k,
+                                           device=dev)
+        info = check_tier(f"{cand.key()} {name} k={k}", name, op @ xt, x_host,
+                          cand.fmt == "merge")
+        row = {"tier": cand.key(), "matrix": name, "k": k,
+               "ms": time_ms(lambda: op @ xt), **info}
+        tier_rows.append(row)
+        del op
+    torch.cuda.empty_cache()
+    phase_done("tiers", t0)
+
+    # 7b: RCM reordering (the paper's §4.4) on a scrambled cant
+    t0 = time.perf_counter()
+    print("phase 7b: RCM on a scrambled cant", flush=True)
+    scr = cant.permuted(random_order(cant, seed=0))
+    A64["cant-scrambled"] = sp.csr_matrix(
+        (scr.data.astype(np.float64), scr.indices, scr.indptr), shape=scr.shape)
+    mats["cant-scrambled"] = scr
+    x_c, xt_c = xs_host["cant"], xs["cant"]
+    sell_c = make("sell", "cuda", C=8, sigma=64, chunk_tile=8)
+    rcm_c = make("sell", "cuda", C=8, sigma=64, chunk_tile=8, reorder="rcm")
+    t_ = time.perf_counter()
+    op_rcm = SparseOperator.from_candidate(scr, rcm_c, device=dev)
+    t_rcm_s = time.perf_counter() - t_
+    op_plain = SparseOperator.from_candidate(scr, sell_c, device=dev)
+    reordered = op_rcm._prep["matrix"]
+    x_perm = xt_c[op_rcm._prep["perm"]]
+    inner = op_rcm._prep["inner"]
+    reorder_rec = record["reorder"] = {"host_rcm_and_prepare_s": round(t_rcm_s, 3)}
+    for label, a_ in (("cant", cant), ("scrambled", scr), ("scrambled + RCM", reordered)):
+        reorder_rec[label] = {"bandwidth": matrix_bandwidth(a_), "ucld": ucld(a_)}
+        print(f"  {label}: bandwidth {reorder_rec[label]['bandwidth']}, "
+              f"UCLD {reorder_rec[label]['ucld']:.4f}")
+    for label, op_ in (("sell/cuda", op_plain), ("sell/cuda + rcm", op_rcm)):
+        info = check_tier(f"{label} on scrambled cant", "cant-scrambled", op_ @ xt_c,
+                          x_c, False)
+        tier_rows.append({"tier": op_.plan.candidate.key(), "matrix": "cant-scrambled",
+                          "k": 1, "ms": time_ms(lambda: op_ @ xt_c), **info})
+    reorder_rec["sell_kernel_ms"] = {
+        "scrambled": time_ms(lambda: kops.sell_spmv(op_plain._prep, xt_c)),
+        "scrambled + RCM": time_ms(lambda: kops.sell_spmv(inner, x_perm)),
+    }
+    print(f"  host RCM + prepare {t_rcm_s:.2f}s; SELL kernel alone "
+          f"{reorder_rec['sell_kernel_ms']}")
+    t_ = time.perf_counter()
+    op_b = SparseOperator.build(scr, include_reorder=True, cache=PlanCache(), device=dev)
+    reorder_rec["build_s"] = round(time.perf_counter() - t_, 3)
+    report_search("scrambled cant spmv, include_reorder=True", op_b)
+    reorder_rec["build_plan"] = op_b.plan.candidate.key()
+    check("tuned (include_reorder) scrambled cant spmv vs float64 oracle",
+          op_b @ xt_c, *oracle("cant-scrambled", x_c))
+    del op_rcm, op_plain, op_b, inner, x_perm
+    torch.cuda.empty_cache()
+    print("  tiers (median of 25, L2 flushed; a plain tier is not a kernel row):")
+    for r_ in tier_rows:
+        print(f"    {r_['tier']:<48} {r_['matrix']:<15} k={r_['k']:<2} "
+              f"{r_['ms']:.4f} ms  rows over 1e-5: {r_['rows_over_1e-5']}"
+              + (f", worst {r_['worst_ulps_of_max_P']:.2f} x 2^-24 max|P|"
+                 if "max_P" in r_ else ""))
+    phase_done("reorder", t0)
+
+    # 7c: supervised serving on cant: injected faults, demote, repair, promote
+    t0 = time.perf_counter()
+    print("phase 7c: supervised serving on cant", flush=True)
+    faults7 = FaultPlan({"engine.dispatch": {"n": 3, "bucket": "1"},
+                         "engine.nan": {"n": 3, "bucket": "64"}})
+    sup7 = Supervisor(max_retries=2, repair_interval_s=0.02)
+    eng7 = SparseEngine(cant, ks=K_BUCKETS, ops=tuned_ops, device=dev, name="cant-7c",
+                        nan_guard=True, faults=faults7, supervisor=sup7)
+    kernel_of = {"sell": "sell_spmv", "sell_blocked": "sell_spmv_blocked",
+                 "bcsr": "bcsr_spmm"}
+    faulted = (1, 64)
+    ys7, hosts7 = list(serve(eng7, req_dev[:64])), req_host[:64]
+    deadline = time.perf_counter() + 10.0
+    while sup7.promotions < len(faulted) and time.perf_counter() < deadline:
+        time.sleep(0.01)
+    _build.reset_launches()
+    for r_ in range(3):  # 192 more after the repair
+        ys7 += serve(eng7, req_dev[64 * (r_ % 2):64 * (r_ % 2) + 64])
+        hosts7 += req_host[64 * (r_ % 2):64 * (r_ % 2) + 64]
+    torch.cuda.synchronize()
+    launches7 = dict(_build.LAUNCHES)
+    eng7.close()
+    check_served(f"supervised engine, {len(ys7)} requests vs float64 oracle", ys7, hosts7)
+    events7 = [(e.kind, e.info.get("bucket"), e.info.get("tier")) for e in sup7.events]
+    print(f"  events: {events7}")
+    print(f"  stats: {eng7.stats.summary()}; fault log: "
+          f"{[(e.site, e.ctx.get('bucket'), e.ctx.get('probe', False))
+              for e in faults7.log]}")
+    print(f"  launches after promotion: {launches7}")
+    record["supervised"] = {"events": [list(map(str, e)) for e in events7],
+                            "stats": eng7.stats.summary(), "launches": launches7}
+    for b in faulted:
+        kinds = [k_ for k_, bb, _ in events7 if bb == b]
+        first = [kinds.index(k_) if k_ in kinds else -1
+                 for k_ in ("batch_failed", "demote", "promote")]
+        if -1 in first or first != sorted(first):
+            fail(f"bucket {b}: events {kinds} do not run batch_failed -> demote -> promote")
+        kernel = kernel_of.get(tuned_ops[b].plan.fmt)
+        if tuned_ops[b].plan.impl == "cuda" and launches7.get(kernel, 0) <= 0:
+            fail(f"bucket {b}: {kernel} did not launch after promotion")
+    if {b for _, b, _ in events7} != set(faulted):
+        fail(f"unfaulted buckets recorded events: {events7}")
+    now_plans = {k: op.plan.candidate.key() for k, op in eng7.ops.items()}
+    if now_plans != plans:
+        fail(f"after promotion the plans are {now_plans}, tuned {plans}")
+    for key in ("sell_spmv", "bcsr_spmm"):
+        if launches7.get(key, 0) <= 0:
+            fail(f"{key} did not launch again after promotion")
+    st7 = eng7.stats
+    if st7.failed_requests or st7.demotions != 2 or st7.promotions != 2:
+        fail(f"supervised engine stats {eng7.stats.summary()}")
+    phase_done("supervised", t0)
+
+    # 7d: overload on cant: each policy under a slowed dispatch
+    t0 = time.perf_counter()
+    print("phase 7d: overload on cant (each dispatch slowed by 2 ms; 40 requests "
+          "offered per dispatch to a queue of 32, every fourth dispatch after a "
+          "6 ms stall)", flush=True)
+    _build.reset_launches()
+    record["overload"] = {}
+    # The brownout's prep term is the prep memo's fill against its budget.
+    # An LRU memo sits near its budget once it has been filled, and this
+    # process has prepared five matrices: that term alone would hold the
+    # controller in SHED (ROADMAP C.5).  Release the earlier matrices'
+    # dicts first, and print the term before and after.
+    memo = prep_memo_stats()
+    released = sum(evict_prepared(fingerprint(m_)) for m_ in mats.values())
+    memo_after = prep_memo_stats()
+    record["overload"]["prep_memo"] = {"before": memo, "after": memo_after,
+                                       "released_bytes": released}
+    print(f"  prep memo: {memo['resident_bytes'] / 1e6:.1f} of "
+          f"{memo['budget_bytes'] / 1e6:.1f} MB resident (prep pressure "
+          f"{memo['resident_bytes'] / memo['budget_bytes']:.3f}); released "
+          f"{released / 1e6:.1f} MB -> {memo_after['resident_bytes'] / 1e6:.1f} MB")
+    for policy in ("reject", "shed-oldest", "block"):
+        ctrl = BrownoutController(min_dwell_s=0.01)
+        eng_o = SparseEngine(cant, ks=K_BUCKETS, ops=pinned, device=dev,
+                             name=f"cant-{policy}", max_queue=32,
+                             overload_policy=policy, block_timeout_s=1.0,
+                             shed_after_s=0.004, brownout=ctrl,
+                             faults=FaultPlan({"engine.overload": {"delay_s": 0.002}}))
+        futs, refused = [], 0
+        for i in range(320):
+            try:
+                futs.append((i, eng_o.submit(req_dev[i % 128])))
+            except OverloadError:
+                refused += 1
+            if i % 40 == 39:
+                if (i // 40) % 4 == 3:
+                    time.sleep(0.006)  # a stall: the queued requests lapse
+                eng_o.step()
+        eng_o.drain()
+        eng_o.close()
+        served, typed = [], {"OverloadError": 0, "DeadlineExceededError": 0}
+        for i, f in futs:
+            if not f.done:
+                fail(f"{policy}: request {i} never resolved")
+            if f.failed:
+                if not isinstance(f._exc, OverloadError):
+                    fail(f"{policy}: request {i} failed with {f._exc!r}")
+                typed[type(f._exc).__name__] += 1
+            else:
+                served.append((i, f))
+        if served:
+            check_served(f"{policy}: {len(served)} served requests vs float64 oracle",
+                         [f.result() for _, f in served],
+                         [req_host[i % 128] for i, _ in served])
+        assert_unfaulted(f"overload engine {policy}", eng_o)
+        s_ = eng_o.stats.summary()
+        rec = {"submitted": 320, "admitted": len(futs), "refused_at_submit": refused,
+               "served": len(served), "failed_typed": typed, "stats": s_,
+               "brownout": ctrl.summary()}
+        record["overload"][policy] = rec
+        print(f"  {policy}: admitted {len(futs)}, refused {refused}, served "
+              f"{len(served)}, failed {typed}; rejected {s_['rejected']} shed_oldest "
+              f"{s_['shed_oldest']} shed_deadline {s_['shed_deadline']} by_bucket "
+              f"{s_['by_bucket']}; brownout {ctrl.summary()}")
+        if ctrl.entries(BROWNOUT) + ctrl.entries(SHED) == 0:
+            fail(f"{policy}: the brownout controller never left HEALTHY")
+        if s_["by_bucket"].get(K_BUCKETS[-1], 0) <= 0:
+            fail(f"{policy}: the widest bucket never served under brownout")
+    widest = pinned[K_BUCKETS[-1]].plan.candidate.key()
+    launches_o = dict(_build.LAUNCHES)
+    print(f"  widest bucket plan {widest}; launches over 7d: {launches_o}")
+    if not widest.startswith("bcsr/cuda") or launches_o.get("bcsr_spmm", 0) <= 0:
+        fail(f"the widest bucket did not serve through bcsr/cuda: {widest}, {launches_o}")
+    phase_done("overload", t0)
+
+    # 7e: the serve CLI with the overload flags, on the phase 4 plan cache
+    t0 = time.perf_counter()
+    print("phase 7e: serve CLI with --max-queue 64 --overload-policy shed-oldest "
+          "--brownout", flush=True)
+    serve_stats = Path(tmp.name) / "serve_overload.json"
+    serve_cli.main(["--sparse", "cant", "--scale", "1.0", "--requests", "256",
+                    "--max-queue", "64", "--overload-policy", "shed-oldest",
+                    "--brownout", "--stats-json", str(serve_stats)])
+    cli = record["serve_cli_overload"] = json.loads(serve_stats.read_text())
+    eng_s = cli["engine"]
+    print(f"  counters: {{'served': {cli['served']}, 'refused': {cli['refused']}, "
+          f"'shed_oldest': {eng_s['shed_oldest']}, 'shed_deadline': "
+          f"{eng_s['shed_deadline']}, 'rejected': {eng_s['rejected']}, 'demotions': "
+          f"{eng_s['demotions']}}}; supervisor {cli['supervisor']}; brownout "
+          f"{cli['brownout']}")
+    if (cli["served"] + cli["refused"] + eng_s["shed_oldest"]
+            + eng_s["shed_deadline"]) != 256:
+        fail(f"serve CLI: requests unaccounted for: {cli}")
+    print(f"  prep memo after the CLI: {prep_memo_stats()}")
+    if cli["served"] <= 0 or eng_s["demotions"] or eng_s["failed_requests"]:
+        fail(f"serve CLI: {eng_s}")
+    tmp.cleanup()
+    phase_done("serve_cli_overload", t0)
 
     record["kernels"] = kernels
     record["card"] = smi

@@ -12,6 +12,12 @@
 * ``spmm_bcsr_dense`` — one dense (bm, bk) x (bk, k) product per stored
   block, summed per block row.  On the card the product runs in cuBLAS;
   float32 stays float32 unless the caller enabled TF32 globally.
+* ``spmv_csr_scalar`` — the paper's "-O1" tier: every row adds its terms
+  one at a time, in stored order, from 0.  The reference runs one loop
+  step per nonzero; here one step per *slot*: step j adds term j of every
+  row longer than j, so the step count is the longest row, not nnz.
+* ``symmetrize``/``spd_shift`` — host constructors of the solver
+  workloads: (A + A^T)/2, and a diagonally dominant SPD shift of it.
 
 The hand-written CUDA kernels live in :mod:`repro_torch.kernels`; these
 tiers share no code with them.
@@ -20,13 +26,18 @@ from __future__ import annotations
 
 from typing import Any, Callable
 
+import numpy as np
 import torch
 
 __all__ = [
     "csr_prepare",
+    "csr_scalar_prepare",
     "csr_bind",
     "spmv_csr",
     "spmm_csr",
+    "spmv_csr_scalar",
+    "symmetrize",
+    "spd_shift",
     "spmv_sell",
     "spmm_sell",
     "spmm_bcsr_dense",
@@ -67,6 +78,41 @@ def csr_bind(dev: dict[str, Any], *, n_rows: int, k: int = 1) -> Callable:
     (x is ``(n,)``), ``k>1`` SpMM (x is ``(n, k)``)."""
     fn = spmv_csr if k == 1 else spmm_csr
     return lambda x: fn(dev, x, n_rows=n_rows)
+
+
+# ---------------------------------------------------------------------------
+# CSR scalar — one term per row per step ("-O1" tier)
+# ---------------------------------------------------------------------------
+def csr_scalar_prepare(a, device) -> dict[str, Any]:
+    """:func:`csr_prepare` plus the slot schedule of :func:`spmv_csr_scalar`:
+    rows sorted by descending length (stable), their first nonzero, and per
+    slot j the number of rows longer than j (a host list)."""
+    dev = csr_prepare(a, device)
+    indptr = np.asarray(a.indptr, dtype=np.int64)
+    lengths = np.diff(indptr)
+    order = np.argsort(-lengths, kind="stable")
+    neg_sorted = -lengths[order]  # ascending
+    max_len = int(-neg_sorted[0]) if lengths.size else 0
+    active = np.searchsorted(neg_sorted, -np.arange(max_len), side="left")
+    dev["order"] = torch.as_tensor(order, device=device)
+    dev["start_sorted"] = torch.as_tensor(indptr[:-1][order], device=device)
+    dev["active"] = [int(c) for c in active]
+    return dev
+
+
+def spmv_csr_scalar(csr: dict[str, Any], x: torch.Tensor, *, n_rows: int) -> torch.Tensor:
+    """y = A @ x one term at a time per row, from 0, in stored order — the
+    same additions, in the same order, as the reference's loop over
+    nonzeros.  ``csr`` comes from :func:`csr_scalar_prepare`."""
+    order, start = csr["order"], csr["start_sorted"]
+    indices, data = csr["indices"], csr["data"]
+    acc = torch.zeros(n_rows, dtype=x.dtype, device=x.device)  # sorted rows
+    for j, c in enumerate(csr["active"]):
+        t = start[:c] + j
+        acc[:c] += data[t] * x[indices[t]]
+    y = torch.empty_like(acc)
+    y[order] = acc
+    return y
 
 
 # ---------------------------------------------------------------------------
@@ -119,3 +165,38 @@ def spmm_bcsr_dense(
     gathered = x_blocked[bcsr["block_cols"].long()]  # (n_blocks, bk, k)
     prods = torch.bmm(bcsr["blocks"].to(gathered.dtype), gathered)
     return _row_sum(prods, bcsr["indptr"].to(torch.int64))
+
+
+# ---------------------------------------------------------------------------
+# Solver workloads (host construction)
+# ---------------------------------------------------------------------------
+def symmetrize(a):
+    """(A + A^T) / 2 as a new CSRMatrix (host construction, duplicate-summed)."""
+    from .formats import csr_from_coo
+
+    rows = np.repeat(np.arange(a.shape[0]), np.diff(a.indptr))
+    r = np.concatenate([rows, a.indices])
+    c = np.concatenate([a.indices, rows])
+    v = np.concatenate([a.data, a.data]) * 0.5
+    return csr_from_coo(a.shape, r, c, v)
+
+
+def spd_shift(a, margin: float = 1.0):
+    """A symmetric positive-definite operator with ``a``'s pattern:
+    symmetrize, then add ``(max off-diagonal |row sum| + margin) * I`` —
+    strictly diagonally dominant with a positive diagonal, hence SPD
+    (Gershgorin)."""
+    from .formats import csr_from_coo
+
+    s = symmetrize(a)
+    rows = np.repeat(np.arange(s.shape[0]), np.diff(s.indptr))
+    off = rows != s.indices
+    row_abs = np.zeros(s.shape[0], s.data.dtype)
+    np.add.at(row_abs, rows[off], np.abs(s.data[off]))
+    shift = np.float32(row_abs.max(initial=0.0) + margin)
+    r = np.concatenate([rows, np.arange(s.shape[0])])
+    c = np.concatenate([s.indices, np.arange(s.shape[0])])
+    v = np.concatenate(
+        [np.where(off, s.data, np.abs(s.data)), np.full(s.shape[0], shift, s.data.dtype)]
+    )
+    return csr_from_coo(s.shape, r, c, v)

@@ -12,9 +12,10 @@ the tuner before a search on the card (so a build error raises instead of
 quietly disqualifying the ``cuda`` candidates) and lazily by every wrapper.
 
 :func:`expect` and :func:`stream` are the wrappers' operand checks and launch
-stream.  ``LAUNCHES`` counts kernel launches by name; each wrapper adds one where it
-launches its kernel and nowhere else, so a run can show which kernels the
-main path really went through.
+stream.  ``LAUNCHES`` counts kernel launches by name; each wrapper adds one
+(:func:`count`) where it launches its kernel and nowhere else, so a run can
+show which kernels the main path really went through.  The count takes a
+lock: an engine's repair thread launches beside its serving thread.
 """
 from __future__ import annotations
 
@@ -35,6 +36,7 @@ __all__ = [
     "LAUNCHES",
     "BUILD_LOG",
     "reset_launches",
+    "count",
     "ensure_built",
     "function",
     "check",
@@ -63,10 +65,18 @@ BUILD_LOG: dict[str, str] = {}
 _libs: dict[str, ctypes.CDLL] = {}
 _fns: dict[tuple[str, str], ctypes._CFuncPtr] = {}
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 
 
 def reset_launches() -> None:
-    LAUNCHES.clear()
+    with _count_lock:
+        LAUNCHES.clear()
+
+
+def count(name: str) -> None:
+    """Add one launch of kernel ``name`` to ``LAUNCHES``."""
+    with _count_lock:
+        LAUNCHES[name] += 1
 
 
 def _nvcc() -> str:

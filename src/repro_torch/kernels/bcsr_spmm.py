@@ -73,5 +73,5 @@ def bcsr_spmm(
                   x_blocked.data_ptr(), y.data_ptr(), gm, bm, bk, k,
                   _build.stream(dev))
     _build.check("bcsr_spmm", code, "bcsr_spmm launch")
-    _build.LAUNCHES["bcsr_spmm"] += 1
+    _build.count("bcsr_spmm")
     return y

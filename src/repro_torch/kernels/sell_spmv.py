@@ -99,7 +99,7 @@ def sell_spmv(
                   x.data_ptr(), row_perm.data_ptr(), y.data_ptr(), n_chunks, W,
                   int(chunk_tile), _build.stream(dev))
     _build.check("sell_spmv", code, "sell_spmv launch")
-    _build.LAUNCHES["sell_spmv"] += 1
+    _build.count("sell_spmv")
     return y
 
 
@@ -188,5 +188,5 @@ def sell_spmv_blocked(
                   x.data_ptr(), row_perm.data_ptr(), y.data_ptr(),
                   n_slabs, n_chunks, W, int(slab_n), _build.stream(dev))
     _build.check("sell_spmv_blocked", code, "sell_spmv_blocked launch")
-    _build.LAUNCHES["sell_spmv_blocked"] += 1
+    _build.count("sell_spmv_blocked")
     return y

@@ -304,7 +304,7 @@ def spmspv_scatter(
                   offs.data_ptr(), first.data_ptr(), y.data_ptr(), int(total),
                   int(tile), n_blocks, _build.stream(dev))
     _build.check("spmspv_scatter", code, "spmspv_scatter launch")
-    _build.LAUNCHES["spmspv_scatter"] += 1
+    _build.count("spmspv_scatter")
     return y
 
 

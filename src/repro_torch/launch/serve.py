@@ -12,7 +12,18 @@ restarted engine reloads the whole k-indexed plan table:
       --scale 1.0 --requests 64 --k-buckets 1,4,16,64 [--max-wait-ms 5]
 
 ``--device`` is ``cuda`` (the default) or ``cpu``; ``--stats-json PATH``
-dumps ``EngineStats.summary()`` plus throughput as JSON.
+dumps ``EngineStats.summary()`` (with the failure and overload counters),
+the supervisor's summary and throughput as JSON.
+
+Overload protection: ``--max-queue N`` bounds the queue with
+``--overload-policy reject|shed-oldest|block``; ``--shed-after-ms`` fails
+requests still queued after that long; ``--brownout`` arms a
+``BrownoutController`` (widest-bucket dispatch under pressure, refusals
+when shedding):
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --sparse cant \
+      --scale 1.0 --requests 256 --max-queue 64 \
+      --overload-policy shed-oldest --brownout
 """
 from __future__ import annotations
 
@@ -25,9 +36,24 @@ import numpy as np
 import torch
 
 
+def _overload_kwargs(args) -> dict:
+    """The overload flags as SparseEngine keyword arguments."""
+    from repro_torch.runtime.overload import BrownoutController
+
+    kw: dict = {}
+    if args.max_queue > 0:
+        kw["max_queue"] = args.max_queue
+        kw["overload_policy"] = args.overload_policy
+    if args.shed_after_ms > 0:
+        kw["shed_after_s"] = args.shed_after_ms / 1e3
+    if args.brownout:
+        kw["brownout"] = BrownoutController()
+    return kw
+
+
 def serve_sparse(args) -> None:
     from repro_torch.data.suite import SUITE, generate
-    from repro_torch.runtime.engine import SparseEngine
+    from repro_torch.runtime.engine import OverloadError, SparseEngine
 
     names = [s.name for s in SUITE]
     if args.sparse not in names:
@@ -39,7 +65,8 @@ def serve_sparse(args) -> None:
     max_wait_s = args.max_wait_ms / 1e3 if args.max_wait_ms else None
     t0 = time.perf_counter()
     eng = SparseEngine(a, ks=ks, max_wait_s=max_wait_s,
-                       async_depth=args.async_depth, device=args.device)
+                       async_depth=args.async_depth, device=args.device,
+                       **_overload_kwargs(args))
     t_build = time.perf_counter() - t0
     rng = np.random.default_rng(0)
     xs = [
@@ -48,10 +75,22 @@ def serve_sparse(args) -> None:
         for _ in range(args.requests)
     ]
     eng.run(xs[: min(len(xs), max(ks))])  # first calls outside the timed window
+    if eng.brownout is not None:
+        # The warm-up arrives as one burst; let the controller leave SHED
+        # (one dwell time per step down) before the measured load arrives.
+        cool = time.perf_counter() + 2.0
+        while eng.brownout.state == "shed" and time.perf_counter() < cool:
+            eng.step()
+            time.sleep(0.01)
     eng.stats = type(eng.stats)()  # measure the steady state only
 
     t0 = time.perf_counter()
-    reqs = [eng.submit(x) for x in xs]  # offered load: all pending at once
+    reqs, refused = [], 0
+    for x in xs:  # offered load: all pending at once
+        try:
+            reqs.append(eng.submit(x))
+        except OverloadError:
+            refused += 1  # a typed refusal: an open-loop caller backs off
     if max_wait_s is None:
         eng.drain()
     else:
@@ -62,6 +101,7 @@ def serve_sparse(args) -> None:
         eng.flush()
     dt = time.perf_counter() - t0
     served = [r for r in reqs if not r.failed]
+    shed = len(reqs) - len(served)
     flops = 2 * a.nnz * len(served)
     s = eng.stats.summary()
     plans = {k: op.plan.candidate.key() for k, op in eng.ops.items()}
@@ -69,19 +109,25 @@ def serve_sparse(args) -> None:
            else f"searched in {t_build:.1f}s")
     lat = sorted(r.latency_s for r in served) or [0.0]
     raced = sum(op.plan.n_raced for op in eng.ops.values())
+    overload = f" [overload: refused={refused} shed={shed}]" if refused or shed else ""
     print(
         f"served {len(served)}/{len(xs)} spmv requests on "
         f"{args.sparse}@{args.scale:g} "
         f"({a.shape[0]}x{a.shape[1]}, nnz={a.nnz}) in {dt:.3f}s "
         f"({len(served) / dt:.1f} req/s, {flops / dt / 1e9:.2f} GF/s, "
-        f"async_depth={eng.async_depth}, device={eng.device})\n"
+        f"async_depth={eng.async_depth}, device={eng.device}){overload}\n"
         f"  dispatches={s['dispatches']} by_bucket={s['by_bucket']} "
         f"occupancy={s['occupancy']:.2f} "
         f"(padding {s['padded_occupancy']:.2f} — not served work) "
         f"latency mean/p50/p99 = {s['latency_mean_ms']:.2f}/"
         f"{lat[len(lat) // 2] * 1e3:.2f}/{s['latency_p99_ms']:.2f} ms\n"
         f"  plans={plans}\n"
-        f"  ({src}; {raced} candidates pruned by racing)"
+        f"  ({src}; {raced} candidates pruned by racing)\n"
+        f"  counters: rejected={s['rejected']} shed_oldest={s['shed_oldest']} "
+        f"shed_deadline={s['shed_deadline']} failed={s['failed_requests']} "
+        f"retries={s['retries']} demotions={s['demotions']} "
+        f"promotions={s['promotions']}"
+        + (f" brownout={eng.brownout.summary()}" if eng.brownout else "")
     )
     if args.stats_json:
         p = Path(args.stats_json)
@@ -95,11 +141,14 @@ def serve_sparse(args) -> None:
                 "device": str(eng.device),
                 "requests": len(xs),
                 "served": len(served),
+                "refused": refused,
                 "elapsed_s": round(dt, 6),
                 "req_per_s": round(len(served) / dt, 3),
                 "gflops": round(flops / dt / 1e9, 4),
                 "plans": plans,
                 "engine": s,
+                "supervisor": eng.supervisor.summary(),
+                "brownout": eng.brownout.summary() if eng.brownout else None,
             },
             indent=1, sort_keys=True,
         ) + "\n")
@@ -126,6 +175,22 @@ def main(argv=None):
     ap.add_argument("--async-depth", type=int, default=2,
                     help="in-flight dispatch window (0 = fully synchronous; "
                          "2 = batch t+1 is enqueued while batch t computes)")
+    ap.add_argument("--max-queue", type=int, default=0,
+                    help="bounded admission: cap the pending queue at this "
+                         "many requests (0 = unbounded)")
+    ap.add_argument("--overload-policy", default="reject",
+                    choices=("reject", "shed-oldest", "block"),
+                    help="what submit() does at a full queue: reject fast "
+                         "with a typed OverloadError, evict the oldest "
+                         "queued request, or block (bounded) for space")
+    ap.add_argument("--shed-after-ms", type=float, default=0.0,
+                    help="deadline shedding: fail queued requests "
+                         "(DeadlineExceededError) once they have waited this "
+                         "long at a dispatch boundary (0 = never shed)")
+    ap.add_argument("--brownout", action="store_true",
+                    help="arm a BrownoutController (default watermarks): "
+                         "under pressure dispatch pins to the widest bucket "
+                         "and repair pauses; when shedding, submit refuses")
     ap.add_argument("--requests", type=int, default=8)
     serve_sparse(ap.parse_args(argv))
 

@@ -20,6 +20,8 @@ stamped, stats recorded) once its event has completed, strictly in FIFO
 order.  ``submit()`` returns a future — ``req.result(timeout=)`` blocks for
 exactly that request.  Async and synchronous (``async_depth=0``) engines
 run the same closures and kernels, so their dense results are bitwise equal.
+``legacy_dispatch=True`` keeps the older synchronous path (a fresh stack
+per batch, one synchronise per batch) as a baseline.
 
 ``max_wait_s`` adds admission control: a partial bucket is held back until
 its oldest request has waited that long, so a lone request under SLO never
@@ -34,15 +36,43 @@ and a synchronous engine agree within float32 rounding there, not bit for
 bit; a request thicker than the largest bucket is densified onto the dense
 k = 1 lane.
 
+**Supervision** (``runtime.supervisor``).  A batch that fails — its launch
+raises, its device work faults, or (``nan_guard=True``) the on-device
+finite flag is false — is retried up to ``supervisor.max_retries`` times
+with capped backoff, then its bucket is *demoted* down the fallback chain
+(tuned plan -> ``csr/vector`` -> ``sell/ref``); when the chain is spent the
+batch's futures fail.  Every demotion is recorded (``stats.demotions``,
+``supervisor.events_of("demote")``).  A background thread probes the
+demoted bucket's saved tuned closure every ``repair_interval_s``, on the
+engine's CUDA stream, and stages that bucket back once a probe is clean
+(the plan-swap machinery of ``hot_swap``); the serving thread adopts it at
+its next dispatch.  ``faults=``
+arms a :class:`~repro_torch.runtime.faults.FaultPlan` (default: the
+``$REPRO_TORCH_FAULTS`` plan).  A sticky CUDA error poisons every tier, so
+its batches end with failed futures, not a loop.
+
+**Overload** (``runtime.overload``).  ``max_queue`` bounds the queue and
+``overload_policy`` picks what a full queue does to ``submit()``:
+``"reject"`` raises :class:`OverloadError`, ``"shed-oldest"`` fails the
+oldest queued future to admit the new request, ``"block"`` waits up to
+``block_timeout_s`` (driving the loop itself when no other thread does),
+then rejects.  ``shed_after_s`` fails a request still queued after that
+long (:class:`DeadlineExceededError`) at dispatch time.  ``brownout=`` takes
+a :class:`BrownoutController` fed, each ``step()``, the queue fill, the
+oldest request's age and the prep memo's byte pressure: BROWNOUT pins
+dispatch to the widest bucket and pauses repair probes; SHED also refuses
+new submissions.
+
     eng = SparseEngine(a)            # tunes (or cache-loads) all buckets, on cuda
     reqs = [eng.submit(x) for x in xs]
     eng.drain()                      # dispatches k-bucketed batches
     reqs[0].y, reqs[0].latency_s     # per-request result + latency
-    eng.stats.summary()              # occupancy / padding / bucket counts
+    eng.stats.summary()              # occupancy / padding / failure counters
     eng.submit_sparse(idx, val)      # y = A @ x for a sparse x
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import threading
 import time
@@ -56,28 +86,44 @@ import torch
 from repro_torch.core.device import resolve
 from repro_torch.core.formats import CSRMatrix
 from repro_torch.kernels.spmspv import pad_sparse_rhs, validate_sparse_rhs
-from repro_torch.runtime.executable import fused_batch_executable
+from repro_torch.runtime.executable import finite_guard, fused_batch_executable
+from repro_torch.runtime.faults import FaultPlan, InjectedFault, active_plan
+from repro_torch.runtime.overload import (
+    HEALTHY,
+    SHED,
+    BrownoutController,
+    DeadlineExceededError,
+    EngineClosedError,
+    OverloadError,
+)
+from repro_torch.runtime.supervisor import (
+    FALLBACK_TIERS,
+    NonFiniteOutput,
+    Supervisor,
+    fallback_op,
+)
 from repro_torch.tune import PlanCache, SparseOperator
+from repro_torch.tune.operator import prep_memo_stats
 
 __all__ = [
     "SparseEngine",
     "EngineRequest",
     "EngineStats",
-    "EngineClosedError",
     "K_BUCKETS",
+    "OVERLOAD_POLICIES",
+    "OverloadError",
+    "DeadlineExceededError",
+    "EngineClosedError",
 ]
 
 K_BUCKETS = (1, 4, 16, 64)
+
+OVERLOAD_POLICIES = ("reject", "shed-oldest", "block")
 
 # Condition-wait granularity for blocked callers: bounded so a deadline is
 # honored even when nothing notifies, but callers wake early on every
 # retirement.
 _WAIT_QUANTUM_S = 0.005
-
-
-class EngineClosedError(RuntimeError):
-    """Raised by ``submit`` after ``close()``, and carried by futures that
-    ``close(drain=False)`` abandoned."""
 
 
 @dataclasses.dataclass(slots=True)
@@ -146,11 +192,23 @@ class EngineStats:
     occupied_cols: int = 0  # real request columns dispatched (served work)
     padded_cols: int = 0  # zero columns added by bucket round-up (NOT work)
     latencies_s: list = dataclasses.field(default_factory=list)
-    failed_requests: int = 0  # resolved with an exception, not served
-    failed_batches: int = 0
     # Sparse dispatches per x-nnz bucket ("spmspv<B>" keys).  They stay out
     # of the k-bucket occupancy figures: each serves exactly one request.
     sparse_dispatched: dict = dataclasses.field(default_factory=dict)
+    # Supervision: a retried batch counts one retry per re-launch; a batch
+    # the fallback chain could not serve counts its requests as failed
+    # (resolved, not served: they enter no latency or occupancy figure).
+    failed_requests: int = 0
+    failed_batches: int = 0
+    retries: int = 0
+    demotions: int = 0
+    promotions: int = 0
+    # Overload: rejected never entered the queue (the exception surfaced at
+    # submit); shed_oldest were queued and evicted for newer work;
+    # shed_deadline lapsed past shed_after_s before dispatch.
+    rejected: int = 0
+    shed_oldest: int = 0
+    shed_deadline: int = 0
 
     def record(self, bucket, n_real: int, lats: Iterable[float]) -> None:
         self.n_dispatches += 1
@@ -191,6 +249,12 @@ class EngineStats:
             "latency_p99_ms": round(float(np.quantile(lats, 0.99)) * 1e3, 3),
             "failed_requests": self.failed_requests,
             "failed_batches": self.failed_batches,
+            "retries": self.retries,
+            "demotions": self.demotions,
+            "promotions": self.promotions,
+            "rejected": self.rejected,
+            "shed_oldest": self.shed_oldest,
+            "shed_deadline": self.shed_deadline,
         }
 
 
@@ -204,16 +268,20 @@ class SparseEngine:
     the caller passes ``"cpu"``).  ``max_wait_s`` caps how long a request
     may wait for its bucket to fill.  ``async_depth`` (0..2) is the
     in-flight window.  ``x_nnz_buckets`` are the sparse lane's nnz(x)
-    buckets.  Remaining keyword arguments pass through to
-    :meth:`SparseOperator.build`.
+    buckets.  ``name`` labels the engine in fault contexts and messages;
+    ``supervisor``, ``faults`` and ``nan_guard`` set the failure policy,
+    ``max_queue``, ``overload_policy``, ``block_timeout_s``,
+    ``shed_after_s``, ``brownout`` and ``brownout_update`` the overload
+    policy (see the module docstring).  Remaining keyword arguments pass
+    through to :meth:`SparseOperator.build`.
 
     **Dtype policy.** The engine serves float32.  A non-f32 ``submit()``
     input (or ``submit_sparse()`` values) is cast — warning once per
     engine — or, under ``strict_dtype=True``, refused with ``TypeError``.
 
-    A batch whose launch or device execution fails resolves every future
-    in it with that exception (``result()`` raises it); older batches
-    retire first, so FIFO order holds.
+    A submitted request always resolves, with a result or an exception;
+    recovery runs after older in-flight batches retire, so FIFO order and
+    the results of unaffected batches hold.
     """
 
     def __init__(
@@ -223,21 +291,50 @@ class SparseEngine:
         ks: Sequence[int] = K_BUCKETS,
         cache: PlanCache | None = None,
         max_wait_s: float | None = None,
+        max_queue: int | None = None,
+        overload_policy: str = "reject",
+        block_timeout_s: float = 1.0,
+        shed_after_s: float | None = None,
+        brownout: BrownoutController | None = None,
+        brownout_update: bool = True,
         async_depth: int = 2,
+        legacy_dispatch: bool = False,
         strict_dtype: bool = False,
         ops: dict[int, SparseOperator] | None = None,
         device: str | torch.device = "cuda",
         x_nnz_buckets: Sequence[int] | None = None,
+        name: str | None = None,
+        supervisor: Supervisor | None = None,
+        faults: FaultPlan | None = None,
+        nan_guard: bool = False,
         **build_kwargs: Any,
     ):
         if not ks:
             raise ValueError("need at least one k-bucket")
+        if overload_policy not in OVERLOAD_POLICIES:
+            raise ValueError(
+                f"overload_policy {overload_policy!r} is not one of "
+                f"{OVERLOAD_POLICIES}"
+            )
+        if max_queue is not None and int(max_queue) < 1:
+            raise ValueError("max_queue must be >= 1 (None = unbounded)")
         self.device = resolve(device)
         self.a = a
         self.shape = a.shape
+        self.name = name
+        self.supervisor = supervisor if supervisor is not None else Supervisor()
+        self.faults = faults if faults is not None else active_plan()
+        self.nan_guard = bool(nan_guard)
         self.ks = tuple(sorted({int(k) for k in ks}))
         self.max_wait_s = max_wait_s
+        self.max_queue = None if max_queue is None else int(max_queue)
+        self.overload_policy = overload_policy
+        self.block_timeout_s = float(block_timeout_s)
+        self.shed_after_s = None if shed_after_s is None else float(shed_after_s)
+        self._brownout = brownout
+        self._brownout_update = bool(brownout_update)
         self.async_depth = max(0, min(int(async_depth), 2))
+        self.legacy_dispatch = bool(legacy_dispatch)
         self.strict_dtype = bool(strict_dtype)
         self._dtype_warned = False
         if ops is not None:
@@ -260,17 +357,47 @@ class SparseEngine:
             x_nnz_buckets = (n // 256, n // 64, n // 16, n // 4)
         self.x_nnz_buckets = tuple(sorted({max(1, int(b)) for b in x_nnz_buckets}))
         self._sparse_ops: dict[int, SparseOperator] = {}
+        self._sparse_execs: dict[int, Any] = {}
         self._queue: deque[EngineRequest] = deque()
-        self._inflight: deque[tuple] = deque()  # (ys, event, reqs, bucket, take)
+        # (ys, ok, event, reqs, bucket, take): ok is the on-device finite
+        # flag (None without nan_guard), event marks the launch (None on CPU).
+        self._inflight: deque[tuple] = deque()
         self._rid = 0
         self._cond = threading.Condition()
         self._serve_lock = threading.Lock()
+        if self._brownout is not None and self._brownout_update:
+            sup, nm = self.supervisor, name
+            self._brownout.add_listener(
+                lambda tr: sup.record(
+                    "brownout", engine=nm, frm=tr.frm, to=tr.to,
+                    pressure=round(tr.pressure, 4),
+                )
+            )
         self._execs: dict[int, Any] = {}
+        self._batch_fns: dict[int, Any] = {}  # legacy path: bucket -> closure
+        # Plan swaps: staged under the lock (by the repair thread or a
+        # caller), adopted by the serving thread at its next dispatch.
+        self._swap_lock = threading.Lock()
+        self._pending_swap: tuple[dict, dict] | None = None
+        self.swaps_applied = 0
         # Shared zero column: burst tails pad their batch with it.
         self._zero = torch.zeros((self.shape[1],), dtype=torch.float32,
                                  device=self.device)
-        self._closed = False
+        self._nan_col: torch.Tensor | None = None  # the engine.nan site's column
+        # The stream every batch is enqueued on; the repair thread probes
+        # on it too (the slab-reuse rule of runtime.executable).
+        self._stream = (torch.cuda.current_stream(self.device)
+                        if self.device.type == "cuda" else None)
         self.stats = EngineStats()
+        self._closed = False
+        self.consecutive_failures = 0  # fully failed batches since a success
+        # Degraded mode: bucket -> fallback level (1-based), and the saved
+        # tuned (op, closure) the repair thread probes and re-promotes.
+        self._demoted: dict[Any, int] = {}
+        self._demote_saved: dict[Any, tuple] = {}
+        self._repair_lock = threading.Lock()
+        self._repair_thread: threading.Thread | None = None
+        self._repair_stop = threading.Event()
 
     # -- queueing -----------------------------------------------------------
     @property
@@ -283,11 +410,18 @@ class SparseEngine:
         return len(self._queue)
 
     @property
+    def brownout(self) -> BrownoutController | None:
+        """The engine's brownout controller (None when not armed)."""
+        return self._brownout
+
+    @property
     def in_flight(self) -> int:
         return len(self._inflight)
 
     def submit(self, x) -> EngineRequest:
-        """Enqueue y = A @ x; returns a future filled in by a later step()."""
+        """Enqueue y = A @ x; returns a future filled in by a later step().
+        A full queue or a shedding brownout answers by ``overload_policy``
+        (see the module docstring)."""
         self._check_open()
         if not isinstance(x, torch.Tensor):
             x = np.asarray(x)
@@ -301,12 +435,75 @@ class SparseEngine:
             x = torch.tensor(x, dtype=torch.float32, device=self.device)
         else:
             x = x.to(device=self.device, dtype=torch.float32)
+        self._admit_one()
         req = EngineRequest(rid=self._rid, x=x, t_submit=time.perf_counter(),
                             _engine=self)
         self._rid += 1
         self._queue.append(req)
         self.stats.n_requests += 1
         return req
+
+    def _refuse_if_shedding(self) -> None:
+        b = self._brownout
+        if b is not None and b.state == SHED:
+            self.stats.rejected += 1
+            raise OverloadError(
+                f"engine {self.name or 'unnamed'} is shedding load "
+                f"(brownout state={b.state}, pressure="
+                f"{b.pressure_last:.2f}); resubmit after recovery"
+            )
+
+    def _admit_one(self) -> None:
+        """Gate one submission against the brownout state and the queue
+        bound: SHED rejects outright; a full queue applies
+        ``overload_policy`` (``reject`` raises, ``shed-oldest`` fails the
+        head request — the one closest to lapsing — so FIFO among the
+        survivors holds, ``block`` waits up to ``block_timeout_s`` for
+        space, driving the loop when no other thread does, then rejects)."""
+        self._refuse_if_shedding()
+        if self.max_queue is None or len(self._queue) < self.max_queue:
+            return
+        if self.overload_policy == "reject":
+            self.stats.rejected += 1
+            raise OverloadError(
+                f"engine {self.name or 'unnamed'} queue is full "
+                f"({len(self._queue)}/{self.max_queue} pending, "
+                f"policy=reject); back off and resubmit"
+            )
+        if self.overload_policy == "shed-oldest":
+            victim = self._queue.popleft()
+            victim.set_exception(
+                OverloadError(
+                    f"request {victim.rid} shed: engine "
+                    f"{self.name or 'unnamed'} queue hit max_queue="
+                    f"{self.max_queue} (policy=shed-oldest) and a newer "
+                    "request displaced it"
+                )
+            )
+            self.stats.shed_oldest += 1
+            return
+        deadline = time.perf_counter() + self.block_timeout_s
+        while len(self._queue) >= self.max_queue:
+            now = time.perf_counter()
+            if now >= deadline:
+                self.stats.rejected += 1
+                raise OverloadError(
+                    f"engine {self.name or 'unnamed'} queue still full "
+                    f"({len(self._queue)}/{self.max_queue}) after blocking "
+                    f"{self.block_timeout_s:.3f}s (policy=block)"
+                )
+            if self._serve_lock.acquire(blocking=False):
+                try:
+                    if self.step() > 0:
+                        continue
+                    self._retire_ready()
+                    if len(self._queue) < self.max_queue:
+                        return
+                finally:
+                    self._serve_lock.release()
+            with self._cond:
+                if len(self._queue) >= self.max_queue:
+                    self._cond.wait(timeout=min(_WAIT_QUANTUM_S, deadline - now))
 
     def submit_sparse(self, indices, values) -> EngineRequest:
         """Serve y = A @ x for a sparse x given as sorted (indices, values).
@@ -316,9 +513,11 @@ class SparseEngine:
         plan; it shares the in-flight window and retires like a dense
         batch.  Bad coordinates raise ``ValueError``; values follow the
         engine's float32 policy.  A request thicker than the largest bucket
-        is densified onto the dense k = 1 lane.
+        is densified onto the dense k = 1 lane.  A shedding brownout
+        refuses it like a dense one.
         """
         self._check_open()
+        self._refuse_if_shedding()
         n = self.shape[1]
         idx, val = validate_sparse_rhs(indices, values, n)
         if val.dtype != np.float32:
@@ -363,23 +562,123 @@ class SparseEngine:
             )
         return op
 
+    def _sparse_exec(self, bucket: int):
+        fn = self._sparse_execs.get(bucket)
+        if fn is None:
+            fn = self._sparse_op(bucket)._run
+            if self.nan_guard:
+                fn = finite_guard(fn)
+            self._sparse_execs[bucket] = fn
+        return fn
+
+    # -- plan swaps ---------------------------------------------------------
+    def hot_swap(self, ops: dict[int, SparseOperator],
+                 execs: dict[int, Any] | None = None) -> None:
+        """Stage a replacement plan table; applied at a dispatch boundary.
+
+        Thread-safe.  Batches already in flight keep their old plan's
+        results; every batch dispatched after the swap runs the new table.
+        ``execs`` may carry prebuilt per-bucket closures (the others are
+        bound on first use)."""
+        missing = [k for k in self.ks if int(k) not in ops]
+        if missing:
+            raise ValueError(f"hot_swap ops is missing buckets {missing}")
+        staged_ops = {int(k): ops[int(k)] for k in self.ks}
+        self._stage(staged_ops, {int(k): v for k, v in (execs or {}).items()
+                                 if int(k) in staged_ops})
+
+    def _stage(self, ops: dict, execs: dict) -> None:
+        """Merge per-bucket replacements into the pending swap: two
+        promotions staged before one adoption both land."""
+        with self._swap_lock:
+            if self._pending_swap is None:
+                self._pending_swap = ({}, {})
+            p_ops, p_execs = self._pending_swap
+            for k, op in ops.items():
+                p_ops[k] = op
+                p_execs.pop(k, None)
+            p_execs.update(execs)
+
+    def _apply_pending_swap(self) -> None:
+        """Adopt the staged buckets (serving thread only, between
+        dispatches); a bucket staged without a closure is bound on first
+        use."""
+        with self._swap_lock:
+            staged = self._pending_swap
+            self._pending_swap = None
+        if staged is None:
+            return
+        ops, execs = staged
+        for k, op in ops.items():
+            self.ops[k] = op
+            if k in execs:
+                self._execs[k] = execs[k]
+            else:
+                self._execs.pop(k, None)
+        self._batch_fns.clear()
+        self.swaps_applied += 1
+
     # -- dispatch -----------------------------------------------------------
     def _bucket_for(self, n_pending: int) -> tuple[int, int]:
         take = min(n_pending, self.ks[-1])
+        if self._brownout is not None and self._brownout.state != HEALTHY:
+            # Browned out: the widest bucket amortizes the matrix over the
+            # most requests, the highest-goodput way through a backlog.
+            return self.ks[-1], take
         return next(k for k in self.ks if k >= take), take
+
+    def _overload_pressure(self) -> float:
+        """The brownout controller's input: the max of queue fill (against
+        ``max_queue``), the oldest request's age (against ``shed_after_s``,
+        or 4x ``max_wait_s``) and the prep memo's resident bytes against
+        its budget."""
+        q = (len(self._queue) / self.max_queue) if self.max_queue else None
+        ref = self.shed_after_s
+        if ref is None and self.max_wait_s:
+            ref = 4.0 * self.max_wait_s
+        age = None
+        if ref and self._queue:
+            age = (time.perf_counter() - self._queue[0].t_submit) / ref
+        st = prep_memo_stats()
+        prep = (st["resident_bytes"] / st["budget_bytes"]
+                if st["budget_bytes"] > 0 else None)
+        return BrownoutController.pressure(queue=q, age=age, prep=prep)
+
+    def _shed_lapsed(self) -> None:
+        """Fail queued requests that have waited past ``shed_after_s``
+        (FIFO: the head is the oldest, so the scan stops at a survivor)."""
+        if self.shed_after_s is None or not self._queue:
+            return
+        now = time.perf_counter()
+        while self._queue and now - self._queue[0].t_submit > self.shed_after_s:
+            req = self._queue.popleft()
+            req.set_exception(
+                DeadlineExceededError(
+                    f"request {req.rid} lapsed: waited {now - req.t_submit:.4f}s "
+                    f"> shed_after_s={self.shed_after_s:.4f}s before dispatch "
+                    f"on engine {self.name or 'unnamed'}"
+                )
+            )
+            self.stats.shed_deadline += 1
 
     def step(self, *, force: bool = False) -> int:
         """Dispatch one aggregated batch; returns #requests dispatched.
 
-        Takes up to max(ks) pending requests, rounds the count up to the
-        smallest k-bucket and launches the bucket's closure without waiting
-        for the device; the batch joins the in-flight window and retires
-        when the window is full, on ``flush()``/``drain()``, or through a
+        Adopts a staged plan swap, updates the brownout controller and sheds
+        lapsed requests first.  Then takes up to max(ks) pending requests,
+        rounds the count up to the smallest k-bucket (the widest under
+        brownout) and launches the bucket's closure without waiting for
+        the device; the batch joins the in-flight window and retires when
+        the window is full, on ``flush()``/``drain()``, or through a
         request's ``result()``.  With ``async_depth=0`` it retires before
         step() returns.  With ``max_wait_s`` set, a partial bucket is held
         (step() returns 0) until the oldest request has waited that long;
         ``force=True`` bypasses the wait.
         """
+        self._apply_pending_swap()
+        if self._brownout is not None and self._brownout_update:
+            self._brownout.update(self._overload_pressure())
+        self._shed_lapsed()
         if not self._queue:
             self._retire_ready()
             return 0
@@ -392,60 +691,95 @@ class SparseEngine:
             self._retire_ready()  # use the hold to resolve finished batches
             return 0
         bucket, take = self._bucket_for(len(self._queue))
-        self._dispatch(bucket, [self._queue.popleft() for _ in range(take)])
+        reqs = [self._queue.popleft() for _ in range(take)]
+        self._notify()  # queue space freed: wake blocked submitters
+        if self.legacy_dispatch:
+            return self._step_legacy(reqs, bucket, take)
+        self._dispatch(bucket, reqs)
         return take
 
     def _dispatch(self, bucket, reqs: list) -> None:
         """Launch one batch once the in-flight window has room; a launch
-        that raises fails its futures after older batches retire."""
+        that raises is recovered after older batches retire (FIFO)."""
         window = max(1, self.async_depth)
         while len(self._inflight) >= window:
             self._retire_one()
         try:
-            ys, event = self._launch(bucket, reqs)
+            ys, ok, event = self._launch(bucket, reqs)
         except Exception as exc:
-            self.flush()  # older batches retire first: FIFO holds
-            self._fail(reqs, exc)
+            self.flush()
+            self._recover(reqs, bucket, len(reqs), exc)
             return
-        self._inflight.append((ys, event, reqs, bucket, len(reqs)))
+        self._inflight.append((ys, ok, event, reqs, bucket, len(reqs)))
         if self.async_depth == 0:
             self._retire_one()
 
-    def _launch(self, bucket, reqs: list) -> tuple:
-        if isinstance(bucket, tuple):  # ("spmspv", B): one sparse request
+    def _nan_column(self) -> torch.Tensor:
+        if self._nan_col is None:
+            self._nan_col = torch.full((self.shape[1],), float("nan"),
+                                       dtype=torch.float32, device=self.device)
+        return self._nan_col
+
+    def _assemble(self, reqs: list, bucket) -> tuple:
+        """A batch's operands, rebuilt from its requests (a retry never
+        reuses an operand a fault may have poisoned)."""
+        if isinstance(bucket, tuple):  # one sparse request, host (xi, xv)
             idx, val = reqs[0].x
-            # Host (xi, xv): the runner reads them on the host (offsets, plan).
-            ys = self._sparse_op(bucket[1])._run(
-                pad_sparse_rhs(idx, val, bucket[1], self.shape[1]))
+            return (pad_sparse_rhs(idx, val, bucket[1], self.shape[1]),)
+        xs = [r.x for r in reqs]
+        xs.extend([self._zero] * (bucket - len(xs)))  # burst tail padding
+        return tuple(xs)
+
+    def _launch(self, bucket, reqs: list) -> tuple:
+        """Assemble and enqueue one batch, firing any armed fault sites on
+        the way; returns ``(ys, ok, event)``."""
+        faults = self.faults
+        if faults is not None:
+            stall = faults.delay("engine.overload", engine=self.name, bucket=bucket)
+            if stall > 0.0:
+                time.sleep(stall)  # a slow dispatch with a known cost
+            faults.fire("engine.dispatch", engine=self.name, bucket=bucket)
+        xs = self._assemble(reqs, bucket)
+        if (
+            faults is not None
+            and not isinstance(bucket, tuple)
+            and faults.should_fire("engine.nan", engine=self.name, bucket=bucket)
+        ):
+            xs = (self._nan_column(),) + xs[1:]  # poison one column
+        if isinstance(bucket, tuple):
+            out = self._sparse_exec(bucket[1])(*xs)
         else:
-            xs = [r.x for r in reqs]
-            xs.extend([self._zero] * (bucket - len(xs)))  # burst tail padding
-            ys = self._exec(bucket)(*xs)
+            out = self._exec(bucket)(*xs)
+        ys, ok = out if isinstance(out, tuple) else (out, None)
         event = None
         if self.device.type == "cuda":
             event = torch.cuda.Event()
             event.record(torch.cuda.current_stream(self.device))
-        return ys, event
+        return ys, ok, event
 
     def _exec(self, bucket: int):
         fn = self._execs.get(bucket)
         if fn is None:
-            fn = self._execs[bucket] = fused_batch_executable(
-                self.ops[bucket]._run, bucket=bucket, n=self.shape[1],
-                device=self.device,
-            )
+            fn = self._execs[bucket] = self._make_exec(bucket, self.ops[bucket])
         return fn
 
+    def _make_exec(self, bucket: int, op: SparseOperator):
+        return fused_batch_executable(op._run, bucket=bucket, n=self.shape[1],
+                                      device=self.device, guard=self.nan_guard)
+
     # -- retirement ---------------------------------------------------------
-    def _retire_one(self) -> int:
-        """Wait for the oldest in-flight batch; fill its futures + stats."""
-        ys, event, reqs, bucket, take = self._inflight.popleft()
-        try:
-            if event is not None:
-                event.synchronize()
-        except Exception as exc:  # a device fault surfaces here
-            self._fail(reqs, exc)
-            return take
+    def _settle(self, bucket, event, ok) -> None:
+        """Wait for a launched batch and check its finite flag; raises what
+        the device or the guard reports."""
+        if event is not None:
+            event.synchronize()
+        if ok is not None and not bool(ok):
+            raise NonFiniteOutput(
+                f"bucket {bucket} batch produced non-finite outputs (engine "
+                f"{self.name or 'unnamed'}; nan_guard flagged it on the device)"
+            )
+
+    def _resolve(self, reqs: list, bucket, take: int, ys) -> int:
         t_done = time.perf_counter()
         lats = []
         for i, req in enumerate(reqs):
@@ -455,17 +789,169 @@ class SparseEngine:
             req.bucket = bucket
             lats.append(t_done - req.t_submit)
         self.stats.record(bucket, take, lats)
+        self.consecutive_failures = 0
         self._notify()
         return take
 
-    def _fail(self, reqs: list, exc: BaseException) -> None:
+    def _retire_one(self) -> int:
+        """Wait for the oldest in-flight batch and fill its futures; a batch
+        that failed on the device goes through :meth:`_recover`."""
+        ys, ok, event, reqs, bucket, take = self._inflight.popleft()
+        try:
+            self._settle(bucket, event, ok)
+        except Exception as exc:
+            return self._recover(reqs, bucket, take, exc)
+        return self._resolve(reqs, bucket, take, ys)
+
+    # -- supervision: retry -> demote -> fail the futures -------------------
+    def _recover(self, reqs: list, bucket, take: int, exc: Exception) -> int:
+        """Serve a failed batch through the supervision policy: retry the
+        current tier up to ``max_retries`` times with backoff (operands
+        re-assembled each time), then demote the bucket and retry there;
+        when the chain is spent, fail every future of the batch.  Runs on
+        the serving thread after older batches retired."""
+        sup = self.supervisor
+        sup.record("batch_failed", engine=self.name, bucket=bucket, error=repr(exc))
+        last: Exception = exc
+        attempt = 0
+        budget = sup.max_retries  # retries left on the current tier
+        while True:
+            if budget <= 0:
+                if not self._demote(bucket, last):
+                    break  # chain exhausted
+                budget = 1 + sup.max_retries
+            budget -= 1
+            sup.sleep(sup.backoff(attempt))
+            attempt += 1
+            self.stats.retries += 1
+            sup.retries += 1
+            try:
+                ys, ok, event = self._launch(bucket, reqs)
+                self._settle(bucket, event, ok)
+            except Exception as e:
+                last = e
+                continue
+            return self._resolve(reqs, bucket, take, ys)
         for req in reqs:
-            req.set_exception(exc)
+            req.bucket = bucket
+            req.set_exception(last)
         self.stats.failed_batches += 1
-        self.stats.failed_requests += len(reqs)
+        self.stats.failed_requests += take
+        self.consecutive_failures += 1
+        sup.failures += 1
+        sup.record("batch_abandoned", engine=self.name, bucket=bucket,
+                   n_requests=take, error=repr(last))
+        return take
+
+    def _demote(self, bucket, exc: Exception) -> bool:
+        """Install the next fallback tier for one bucket; False when the
+        chain is exhausted.  The tuned (op, closure) is saved the first time
+        so the repair thread can probe and re-promote it."""
+        if self.legacy_dispatch:
+            return False  # the baseline path has no closure table to swap
+        level = self._demoted.get(bucket, 0)
+        while level < len(FALLBACK_TIERS):
+            level += 1
+            try:
+                tier, op = fallback_op(self.a, bucket, level, device=self.device)
+            except Exception:
+                continue  # this tier cannot build here; try the next one
+            sparse = isinstance(bucket, tuple)
+            if bucket not in self._demote_saved:
+                self._demote_saved[bucket] = (
+                    (self._sparse_ops.get(bucket[1]), self._sparse_execs.get(bucket[1]))
+                    if sparse else (self.ops.get(bucket), self._execs.get(bucket))
+                )
+            if sparse:
+                fn = finite_guard(op._run) if self.nan_guard else op._run
+                self._sparse_ops[bucket[1]] = op
+                self._sparse_execs[bucket[1]] = fn
+            else:
+                self.ops[bucket] = op
+                self._execs[bucket] = self._make_exec(bucket, op)
+            self._demoted[bucket] = level
+            self.stats.demotions += 1
+            self.supervisor.demotions += 1
+            self.supervisor.record("demote", engine=self.name, bucket=bucket,
+                                   tier=tier, level=level, error=repr(exc))
+            self._start_repair()
+            return True
+        return False
+
+    # -- background repair: probe the tuned closure, re-promote -------------
+    def _start_repair(self) -> None:
+        with self._repair_lock:
+            t = self._repair_thread
+            if t is not None and t.is_alive():
+                return
+            self._repair_stop.clear()
+            t = threading.Thread(target=self._repair_worker, name="engine-repair",
+                                 daemon=True)
+            self._repair_thread = t
+            t.start()
+
+    def _probe(self, bucket: int, fn) -> None:
+        """One zero batch through a saved closure, on the engine's stream,
+        waited for on an event of its own; raises if it fails."""
+        faults = self.faults
+        if faults is not None:
+            faults.fire("engine.dispatch", engine=self.name, bucket=bucket, probe=True)
+            if faults.should_fire("engine.nan", engine=self.name, bucket=bucket,
+                                  probe=True):
+                raise InjectedFault("injected nan at repair probe")
+        with contextlib.ExitStack() as on_stream:
+            if self._stream is not None:
+                on_stream.enter_context(torch.cuda.device(self.device))
+                on_stream.enter_context(torch.cuda.stream(self._stream))
+            out = fn(*([self._zero] * bucket))
+            ys = out[0] if isinstance(out, tuple) else out
+            finite = torch.isfinite(ys).all()
+            if self._stream is not None:
+                done = torch.cuda.Event()
+                done.record(self._stream)
+                done.synchronize()
+        if not bool(finite):
+            raise NonFiniteOutput(f"repair probe of bucket {bucket} was not finite")
+
+    def _repair_worker(self) -> None:
+        """Probe each demoted k-bucket's saved tuned closure off the hot
+        path; on a clean probe, stage that bucket back.  Exits
+        when no demotion remains (a later one starts a fresh thread).
+        Sparse buckets stay on their fallback."""
+        interval = self.supervisor.repair_interval_s
+        while not self._repair_stop.wait(interval):
+            if not self._demoted:
+                return
+            if self._brownout is not None and self._brownout.state != HEALTHY:
+                continue  # probes are device work taken from serving
+            for bucket in [b for b in list(self._demoted) if not isinstance(b, tuple)]:
+                saved = self._demote_saved.get(bucket)
+                if saved is None or saved[0] is None:
+                    continue
+                op, fn = saved
+                try:
+                    if fn is None:
+                        fn = self._make_exec(bucket, op)
+                        self._demote_saved[bucket] = (op, fn)
+                    self._probe(bucket, fn)
+                except Exception:
+                    continue  # still sick; probe again next interval
+                self._promote(bucket, op, fn)
+
+    def _promote(self, bucket: int, op: SparseOperator, fn) -> None:
+        """Stage the healed tuned plan and closure of one bucket; the
+        serving thread adopts it at its next dispatch.  Only this bucket
+        is staged, so another bucket's demotion or promotion in between is
+        kept."""
+        self._stage({bucket: op}, {bucket: fn})
+        self._demoted.pop(bucket, None)
+        self._demote_saved.pop(bucket, None)
+        self.stats.promotions += 1
+        self.supervisor.promotions += 1
+        self.supervisor.record("promote", engine=self.name, bucket=bucket)
 
     def _head_ready(self) -> bool:
-        event = self._inflight[0][1]
+        event = self._inflight[0][2]
         return event is None or event.query()
 
     def _retire_ready(self) -> None:
@@ -491,8 +977,20 @@ class SparseEngine:
         return self.stats.occupied_cols - before
 
     def run(self, xs: Iterable) -> list[torch.Tensor]:
-        """Submit all, drain, return results in submit order."""
-        reqs = [self.submit(x) for x in xs]
+        """Submit all, drain, return results in submit order.  A refused
+        admission (bounded queue, shedding brownout) is absorbed here: run()
+        owns the loop, so it serves a batch (or waits out the shedding) and
+        resubmits."""
+        reqs = []
+        for x in xs:
+            while True:
+                try:
+                    reqs.append(self.submit(x))
+                    break
+                except OverloadError:
+                    if self.step(force=True) == 0:
+                        self.flush()
+                        time.sleep(1e-3)
         self.drain()
         return [r.y for r in reqs]
 
@@ -513,8 +1011,9 @@ class SparseEngine:
             now = time.perf_counter()
             if deadline is not None and now >= deadline:
                 raise TimeoutError(
-                    f"request {req.rid} unresolved at timeout: {self.pending} "
-                    f"queued, {self.in_flight} in flight"
+                    f"request {req.rid} (bucket={req.bucket}, engine="
+                    f"{self.name or 'unnamed'}) unresolved at timeout: "
+                    f"{self.pending} queued, {self.in_flight} in flight"
                 )
             if not self._serve_lock.acquire(blocking=False):
                 with self._cond:
@@ -543,18 +1042,43 @@ class SparseEngine:
             finally:
                 self._serve_lock.release()
 
+    # -- the legacy synchronous path ----------------------------------------
+    def _step_legacy(self, reqs: list, bucket: int, take: int) -> int:
+        """One batch the old way: a fresh stack, the plan, a synchronise;
+        no supervision (a failure raises out of step())."""
+        if bucket == 1:
+            ys = self.ops[1]._run(reqs[0].x)
+        else:
+            cols = [r.x for r in reqs] + [self._zero] * (bucket - take)
+            ys = self._batched_fn(bucket)(cols)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return self._resolve(reqs, bucket, take, ys)
+
+    def _batched_fn(self, bucket: int):
+        fn = self._batch_fns.get(bucket)
+        if fn is None:
+            run = self.ops[bucket]._run
+
+            def fn(cols):
+                return run(torch.stack(cols, dim=1))
+
+            self._batch_fns[bucket] = fn
+        return fn
+
     # -- lifecycle ----------------------------------------------------------
     def _check_open(self) -> None:
         if self._closed:
             raise EngineClosedError(
-                "SparseEngine is closed: build a new engine (plans are "
-                "cached, so it is cheap)"
+                f"SparseEngine {self.name or 'unnamed'} is closed: build a new "
+                "engine (plans are cached, so it is cheap)"
             )
 
     def close(self, drain: bool = True) -> None:
-        """Refuse new submissions.  ``drain=True`` serves everything
-        outstanding first; ``drain=False`` fails every queued or in-flight
-        future with :class:`EngineClosedError`.  Idempotent."""
+        """Refuse new submissions and stop the repair thread.  ``drain=True``
+        serves everything outstanding first; ``drain=False`` fails every
+        queued or in-flight future with :class:`EngineClosedError` (an
+        ``engine_aborted`` event).  Idempotent."""
         if self._closed:
             return
         if drain:
@@ -562,17 +1086,24 @@ class SparseEngine:
         self._closed = True
         if not drain:
             exc = EngineClosedError(
-                "SparseEngine closed with drain=False: this request was "
-                "abandoned, not served"
+                f"SparseEngine {self.name or 'unnamed'} closed with "
+                "drain=False: this request was abandoned, not served"
             )
             abandoned = list(self._queue)
             self._queue.clear()
             while self._inflight:
-                abandoned.extend(self._inflight.popleft()[2])
+                abandoned.extend(self._inflight.popleft()[3])
             for req in abandoned:
                 req.set_exception(exc)
             self.stats.failed_requests += len(abandoned)
+            if abandoned:
+                self.supervisor.record("engine_aborted", engine=self.name,
+                                       n_requests=len(abandoned))
+        self._repair_stop.set()
         self._notify()
+        t = self._repair_thread
+        if t is not None and t.is_alive():
+            t.join(timeout=5.0)
 
     def __repr__(self) -> str:  # pragma: no cover - cosmetic
         plans = {k: op.plan.candidate.key() for k, op in self.ops.items()}

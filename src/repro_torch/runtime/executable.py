@@ -9,7 +9,14 @@ its bucket.  (A CUDA graph per bucket is a later step.)
 Reusing the slab across batches is safe because every batch of an engine
 is enqueued on one CUDA stream: the stack for batch t+1 runs after the
 kernel of batch t has read the slab.  The plan's runner must not return a
-view of its operand; none of the tuner's runners does.
+view of its operand; none of the tuner's runners does.  The engine's
+repair worker probes a demoted bucket's saved closure from its own thread,
+on the engine's stream, while no serving batch uses that closure's slab.
+
+``guard=True`` (and :func:`finite_guard`) make a call return ``(ys,
+all_finite)``: the flag is a 0-d boolean tensor left on the device, which
+the engine reads at retirement, after the batch's event — reading it at
+launch would synchronise and close the in-flight window.
 """
 from __future__ import annotations
 
@@ -17,7 +24,17 @@ from typing import Callable
 
 import torch
 
-__all__ = ["fused_batch_executable"]
+__all__ = ["fused_batch_executable", "finite_guard"]
+
+
+def finite_guard(fn: Callable) -> Callable:
+    """Wrap ``fn`` so every call returns ``(ys, torch.isfinite(ys).all())``."""
+
+    def guarded(*xs):
+        ys = fn(*xs)
+        return ys, torch.isfinite(ys).all()
+
+    return guarded
 
 
 def fused_batch_executable(
@@ -26,15 +43,17 @@ def fused_batch_executable(
     bucket: int,
     n: int,
     device: torch.device,
+    guard: bool = False,
 ) -> Callable[..., torch.Tensor]:
     """``(x_0..x_{bucket-1}) -> ys`` for one bucket: (m,) for bucket 1,
-    else (m, bucket)."""
+    else (m, bucket); with ``guard`` a pair ``(ys, all_finite)``."""
     if bucket == 1:
-        return run
-    slab = torch.empty((n, bucket), dtype=torch.float32, device=device)
+        fn = run
+    else:
+        slab = torch.empty((n, bucket), dtype=torch.float32, device=device)
 
-    def fn(*xs: torch.Tensor) -> torch.Tensor:
-        torch.stack(xs, dim=1, out=slab)
-        return run(slab)
+        def fn(*xs: torch.Tensor) -> torch.Tensor:
+            torch.stack(xs, dim=1, out=slab)
+            return run(slab)
 
-    return fn
+    return finite_guard(fn) if guard else fn

@@ -17,6 +17,7 @@ from .candidates import (
 )
 from .features import MatrixFeatures, extract
 from .operator import (
+    InaccurateTier,
     NoSpMMTier,
     PrepCache,
     SparseOperator,
@@ -32,6 +33,7 @@ __all__ = [
     "BCSR_BLOCKS",
     "Candidate",
     "DEFAULT_PRUNE_FACTOR",
+    "InaccurateTier",
     "MatrixFeatures",
     "NoSpMMTier",
     "PLAN_VERSION",

@@ -1,24 +1,28 @@
 """Candidate enumeration and the byte-model cost estimate that prunes it.
 
 A *candidate* is one (format, impl, params) point of the cross-product the
-paper sweeps by hand: CSR gather + row sum (Fig 4's vectorized tier),
+paper sweeps by hand: CSR scalar/vector (Fig 4's -O1/-O3 tiers),
 SELL-C-sigma with sigma in {1, 64, 256} and resident vs column-slabbed x
-(Fig 5 / cache blocking), BCSR with the Table 2 block shapes, and for a
-sparse x the bucket SpMSpV tier.  The impl ``cuda`` names the hand-written
-kernels; ``ref`` and ``vector`` the plain torch tiers.  Keys match the JAX package's with ``pallas`` renamed,
-e.g. ``sell/cuda[C=8,chunk_tile=8,sigma=64]``.
+(Fig 5 / cache blocking), BCSR with the Table 2 block shapes, the
+nnz-balanced merge tier (``kernels/merge_spmv``), for a sparse x the
+bucket SpMSpV tier, and on request RCM-reordered variants of each (paper
+§4.4).  The impl ``cuda`` names the hand-written kernels; ``ref``,
+``vector``, ``scalar`` and ``scan`` the plain torch tiers.  Keys match the
+JAX package's with ``pallas`` renamed, e.g.
+``sell/cuda[C=8,chunk_tile=8,sigma=64]``.
 
 Pruning happens *before* any format is materialized or timed, from the
 paper's §4.2 application-bytes model per format, scaled by an impl penalty:
-a ``cuda`` candidate on a CPU device runs its kernel's plain version,
-which the model prices out so the measured search skips it.  Candidates
+the scalar tier has no vector work (Fig 4: about an order of magnitude),
+and a ``cuda`` candidate on a CPU device runs its kernel's plain version;
+the model prices both out so the measured search skips them.  Candidates
 costlier than ``prune_factor`` x the cheapest estimate are dropped untimed.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any
+from typing import Any, Iterable
 
 import numpy as np
 
@@ -31,6 +35,7 @@ from .features import MatrixFeatures
 __all__ = [
     "Candidate",
     "make",
+    "split_reorder",
     "enumerate_candidates",
     "estimate_cost",
     "prune",
@@ -40,12 +45,19 @@ __all__ = [
     "SELL_SIGMAS",
     "BCSR_BLOCKS",
     "CHUNK_TILES",
+    "MERGE_CHUNKS",
+    "REORDER_METHODS",
 ]
 
 SELL_SIGMAS = (1, 64, 256)
 BCSR_BLOCKS = ((8, 8), (8, 16), (8, 128))  # Table 2's shapes, as the JAX package
 CHUNK_TILES = (8, 16)  # launch shapes of the SELL kernel
+MERGE_CHUNKS = (2048, 16384)  # equal-nnz grains for the merge tier
 DEFAULT_PRUNE_FACTOR = 3.0
+REORDER_METHODS = ("rcm",)  # paper §4.4; opt-in via enumerate(reorders=...)
+
+# The unvectorized -O1 tier (paper Fig 4); same value as the JAX package's.
+SCALAR_SLOWDOWN = 32.0
 
 # A cuda candidate on a CPU device runs its kernel's plain torch version,
 # which is never the fastest way there; the penalty keeps it out of the
@@ -71,8 +83,8 @@ class Candidate:
     """One point of the search space; params is a sorted tuple of pairs so
     the dataclass stays hashable."""
 
-    fmt: str  # csr | sell | sell_blocked | bcsr | spmspv
-    impl: str  # vector | ref | cuda
+    fmt: str  # csr | merge | sell | sell_blocked | bcsr | spmspv
+    impl: str  # scalar | vector | scan | ref | cuda
     params: tuple = ()
 
     @property
@@ -93,32 +105,54 @@ def make(fmt: str, impl: str, **params: Any) -> Candidate:
     return Candidate(fmt, impl, norm)
 
 
+def split_reorder(cand: Candidate) -> tuple[str | None, Candidate]:
+    """(reorder method, candidate without the reorder param).
+
+    Reordering is orthogonal to the format/impl choice, so it rides along
+    as a ``reorder=<method>`` param; prepare and the runner strip it here
+    and wrap the base candidate in the permutation."""
+    p = cand.param_dict
+    method = p.pop("reorder", None)
+    if method is None:
+        return None, cand
+    return str(method), make(cand.fmt, cand.impl, **p)
+
+
 def enumerate_candidates(
     feats: MatrixFeatures,
     kind: str = "spmv",
     *,
     k: int = 1,
+    merge_chunks: Iterable[int] = MERGE_CHUNKS,
+    include_scalar: bool = True,
+    reorders: Iterable[str] = (),
 ) -> list[Candidate]:
     """The format x impl x params cross-product for one matrix.
 
-    The SELL kernel exists for SpMV (kind="spmv") only.  Column-slabbed SELL
-    is enumerated, as in the JAX package, only for kind="spmm" when x
-    exceeds the on-chip budget, although both of its runners serve k = 1
-    only — there they fail every SpMM search (recorded in
-    ``SparseOperator.search_failures``).
+    The SELL kernel and the scalar tier exist for SpMV (kind="spmv") only;
+    the merge tier for every kind.  Column-slabbed SELL is enumerated, as
+    in the JAX package, only for kind="spmm" when x exceeds the on-chip
+    budget, although both of its runners serve k = 1 only — there they
+    fail every SpMM search (recorded in ``SparseOperator.search_failures``).
 
-    ``kind="spmspv"`` (a sparse x) is the SpMV space, every tier timed
-    through a densify wrapper, plus the bucket SpMSpV tier, so the
-    dense-versus-sparse crossover is measured on one operand.
+    ``kind="spmspv"`` (a sparse x) is the SpMV space without the scalar
+    tier and without reorders, every tier timed through a densify wrapper,
+    plus the bucket SpMSpV tier, so the dense-versus-sparse crossover is
+    measured on one operand.
+
+    ``reorders`` (e.g. ``("rcm",)``) adds a permuted variant of every
+    candidate but the scalar tier, for square matrices only.
     """
     del k  # the SpMM space does not depend on the width
     if kind == "spmspv":
-        return enumerate_candidates(feats, "spmv") + [
-            make("spmspv", "ref"),
-            make("spmspv", "cuda", slab=4096),
-        ]
+        return enumerate_candidates(
+            feats, "spmv", merge_chunks=merge_chunks, include_scalar=False,
+        ) + [make("spmspv", "ref"), make("spmspv", "cuda", slab=4096)]
     cands: list[Candidate] = [make("csr", "vector")]
+    cands.extend(make("merge", "scan", chunk=int(c)) for c in merge_chunks)
     if kind == "spmv":
+        if include_scalar:
+            cands.append(make("csr", "scalar"))
         for sigma in SELL_SIGMAS:
             cands.append(make("sell", "ref", C=8, sigma=sigma))
             for ct in CHUNK_TILES:
@@ -143,6 +177,12 @@ def enumerate_candidates(
     for block in BCSR_BLOCKS:
         cands.append(make("bcsr", "ref", block=block))
         cands.append(make("bcsr", "cuda", block=block))
+    if reorders and feats.m == feats.n:
+        base = [c for c in cands if c.impl != "scalar"]
+        for method in reorders:
+            cands.extend(
+                make(c.fmt, c.impl, reorder=method, **c.param_dict) for c in base
+            )
     return cands
 
 
@@ -198,6 +238,15 @@ def estimate_cost(
     ``feats.x_density``), every dense tier for one extra densify pass.
     """
     m, n = a.shape
+    method, base = split_reorder(cand)
+    if method is not None:
+        # Estimated on the original structure, plus the x gather and y
+        # scatter of the permutation at the boundary.
+        perm_bytes = (m + n) * (k * val_bytes + idx_bytes)
+        return estimate_cost(
+            a, base, feats, k=k, val_bytes=val_bytes, idx_bytes=idx_bytes,
+            on_cpu=on_cpu, sparse_rhs=sparse_rhs,
+        ) + perm_bytes
     p = cand.param_dict
     if cand.fmt == "spmspv":
         # The CSC gather of the touched (row, value) pairs, the product
@@ -218,6 +267,18 @@ def estimate_cost(
         )
         cv = min(float(feats.nnz_row_cv), ROW_IMBALANCE_CV_CAP)
         bytes_ = bytes_ * (1.0 + ROW_IMBALANCE_WEIGHT * cv)
+    elif cand.fmt == "merge":
+        # Padded product stream in, the two-level scan (one more pass over
+        # the products), two prefix-table gathers per row; no term depends
+        # on the row distribution.
+        chunk = max(1, int(p["chunk"]))
+        nnz_pad = max(1, -(-a.nnz // chunk)) * chunk
+        bytes_ = (
+            nnz_pad * (val_bytes + idx_bytes)  # data + indices streams
+            + n * k * val_bytes  # x gather
+            + 2 * nnz_pad * k * val_bytes  # scan write + gather-back
+            + m * (2 * idx_bytes + k * val_bytes)  # start/end + y out
+        )
     elif cand.fmt in ("sell", "sell_blocked"):
         lengths = np.diff(a.indptr).astype(np.int64)
         slots = sell_padded_slots(lengths, int(p["C"]), int(p["sigma"]))
@@ -240,7 +301,11 @@ def estimate_cost(
         raise ValueError(f"unknown candidate format: {cand.fmt}")
     if sparse_rhs and cand.fmt != "spmspv":
         bytes_ = float(bytes_) + n * val_bytes  # densify x first
-    slowdown = CPU_KERNEL_SLOWDOWN if (cand.impl == "cuda" and on_cpu) else 1.0
+    slowdown = 1.0
+    if cand.impl == "scalar":
+        slowdown = SCALAR_SLOWDOWN
+    elif cand.impl == "cuda" and on_cpu:
+        slowdown = CPU_KERNEL_SLOWDOWN
     cost = (float(bytes_) + OVERHEAD_BYTES) * slowdown
     if not math.isfinite(cost):
         return math.inf  # NaN would lose every comparison silently

@@ -30,34 +30,44 @@ import torch
 
 from repro_torch.core.device import backend_name, resolve
 from repro_torch.core.formats import CSRMatrix, bcsr_from_csr, sell_from_csr
+from repro_torch.core import reorder as ro
 from repro_torch.core.spmv import (
     csr_bind,
     csr_prepare,
+    csr_scalar_prepare,
     spmm_bcsr_dense,
     spmm_csr,
     spmm_sell,
     spmv_csr,
+    spmv_csr_scalar,
     spmv_sell,
 )
 from repro_torch.kernels import _build
+from repro_torch.kernels import merge_spmv as kmerge
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import spmspv as kspmspv
+from repro_torch.runtime.faults import active_plan
 
 from .candidates import (
     DEFAULT_PRUNE_FACTOR,
+    REORDER_METHODS,
     Candidate,
     enumerate_candidates,
     estimate_cost,
     prune,
+    split_reorder,
 )
 from .features import MatrixFeatures, extract
 from .plan import Plan, PlanCache, default_cache, fingerprint
 from .timing import RACE_FACTOR, time_fn
 
 __all__ = [
+    "InaccurateTier",
     "NoSpMMTier",
     "SparseOperator",
     "PrepCache",
+    "evict_prepared",
+    "prep_memo_stats",
     "prep_nbytes",
     "prepare",
     "prepare_cached",
@@ -75,14 +85,67 @@ class NoSpMMTier(ValueError):
     """
 
 
+class InaccurateTier(ValueError):
+    """A candidate whose answer on the search's probe is farther from the
+    float64 product than any float32 sum of each row's own terms can be:
+    ``|y_i - y64_i| > max(1e-5, k_i 2**-24) (|A| |x|)_i`` with k_i the row's
+    nonzero terms.  On that matrix the tier does not compute the same
+    function to float32 rounding (the merge tier, whose rows are
+    differences of global prefix sums, on rows small beside max|P|).  The
+    search passes over a plain tier that fails the check; a ``cuda`` kernel
+    that fails it on a card ends the build (``kernel=True``)."""
+
+    def __init__(self, msg: str, *, kernel: bool):
+        super().__init__(msg)
+        self.kernel = kernel
+
+
 # ---------------------------------------------------------------------------
 # Prepare + dispatch per candidate
 # ---------------------------------------------------------------------------
+_ORDERINGS = {"rcm": ro.rcm, "degree": ro.degree_order}
+_REORDERED: collections.OrderedDict = collections.OrderedDict()
+_REORDERED_KEEP = 4  # (perm, permuted matrix) pairs kept across candidates
+_reorder_lock = threading.Lock()
+
+
+def _reordered(a: CSRMatrix, method: str) -> tuple[np.ndarray, CSRMatrix]:
+    """(perm, A permuted by it), memoized: every reordered candidate of one
+    search shares one ordering (RCM is a host BFS, about a second on
+    cant)."""
+    key = (fingerprint(a), _value_digest(a), method)
+    with _reorder_lock:
+        hit = _REORDERED.get(key)
+        if hit is not None:
+            _REORDERED.move_to_end(key)
+            return hit
+    perm = _ORDERINGS[method](a)
+    hit = (perm, a.permuted(perm))
+    with _reorder_lock:
+        _REORDERED[key] = hit
+        while len(_REORDERED) > _REORDERED_KEEP:
+            _REORDERED.popitem(last=False)
+    return hit
+
+
 def prepare(a: CSRMatrix, cand: Candidate, *, device) -> dict[str, Any]:
-    """Host-side format construction for one candidate, placed on ``device``."""
+    """Host-side format construction for one candidate, placed on ``device``.
+
+    A reordered candidate holds its permutation (new -> old) on the device,
+    the permuted matrix and the base candidate's prepared dict for it."""
+    method, base = split_reorder(cand)
+    if method is not None:
+        perm, ar = _reordered(a, method)
+        return {"perm": torch.as_tensor(perm, device=device), "matrix": ar,
+                "inner": prepare(ar, base, device=device)}
     p = cand.param_dict
     if cand.fmt == "csr":
+        if cand.impl == "scalar":
+            return {"dev": csr_scalar_prepare(a, device)}
         return {"dev": csr_prepare(a, device)}
+    if cand.fmt == "merge":
+        return kmerge.merge_prepare(a, int(p.get("chunk", kmerge.DEFAULT_CHUNK)),
+                                    device=device)
     if cand.fmt == "sell":
         return kops.sell_prepare(
             sell_from_csr(a, C=int(p["C"]), sigma=int(p["sigma"]), width_align=8),
@@ -108,7 +171,10 @@ def prepare(a: CSRMatrix, cand: Candidate, *, device) -> dict[str, Any]:
 
 
 def prep_nbytes(obj: Any) -> int:
-    """Bytes pinned by a prepared format dict (recursive over dicts/lists)."""
+    """Bytes pinned by a prepared format dict (recursive over dicts/lists,
+    and the permuted matrix a reordered candidate holds)."""
+    if isinstance(obj, CSRMatrix):
+        return prep_nbytes([obj.indptr, obj.indices, obj.data])
     if isinstance(obj, dict):
         return sum(prep_nbytes(v) for v in obj.values())
     if isinstance(obj, (list, tuple)):
@@ -166,8 +232,32 @@ class PrepCache:
                 self.evictions += 1
         return prep
 
+    def evict_fp(self, fp: str) -> int:
+        """Drop every entry of one fingerprint; returns the bytes released
+        (the arrays go once no operator holds them)."""
+        with self._lock:
+            keys = [k for k in self._entries if k[0] == fp]
+            for k in keys:
+                del self._entries[k]
+                self.evictions += 1
+            return sum(self._bytes.pop(k, 0) for k in keys)
+
 
 _PREP_MEMO = PrepCache()
+
+
+def evict_prepared(fp: str) -> int:
+    """Release every memoized prepared dict of one fingerprint; returns the
+    bytes released."""
+    return _PREP_MEMO.evict_fp(fp)
+
+
+def prep_memo_stats() -> dict[str, int]:
+    """Residency of the process-wide prep memo: the engine's brownout
+    reads resident against budget bytes as one of its pressures."""
+    return {"entries": len(_PREP_MEMO), "resident_bytes": _PREP_MEMO.resident_bytes,
+            "budget_bytes": _PREP_MEMO.budget_bytes,
+            "evictions": _PREP_MEMO.evictions}
 
 
 def _value_digest(a: CSRMatrix) -> str:
@@ -178,7 +268,13 @@ def prepare_cached(
     a: CSRMatrix, cand: Candidate, *, device, fp: str | None = None
 ) -> dict[str, Any]:
     """:func:`prepare`, memoized on (fingerprint, value digest, candidate,
-    device) in the process-wide byte-budgeted :class:`PrepCache`."""
+    device) in the process-wide byte-budgeted :class:`PrepCache`.
+
+    The ``prepare.oom`` fault site fires here, memo hit or not: format
+    preparation is where the large allocations happen."""
+    faults = active_plan()
+    if faults is not None:
+        faults.fire("prepare.oom", exc=MemoryError, candidate=cand.key())
     device = torch.device(device)
     key = (fp or fingerprint(a), _value_digest(a), cand.key(), str(device))
     return _PREP_MEMO.get_or_build(key, lambda: prepare(a, cand, device=device))
@@ -199,8 +295,32 @@ def runner(
             "spmspv candidates take a sparse operand — bind them through "
             "sparse_rhs_runner(a, cand, prep, x_nnz=...) instead of runner()"
         )
+    method, base = split_reorder(cand)
+    if method is not None:
+        # y = A x == P^T (P A P^T) (P x): gather x by the permutation, run
+        # the base candidate on the permuted matrix, scatter y back into a
+        # fresh tensor (never a view of the operand).
+        inner = runner(prep["matrix"], base, prep["inner"], k=k)
+        perm = prep["perm"]
+
+        def fn(x):
+            yp = inner(x[perm])
+            y = torch.empty_like(yp)
+            y[perm] = yp
+            return y
+
+        return fn
     if cand.fmt == "csr":
+        if cand.impl == "scalar":
+            if k > 1:
+                raise NoSpMMTier("csr/scalar has no SpMM tier (k > 1)")
+            return lambda x: spmv_csr_scalar(prep["dev"], x, n_rows=m)
         return csr_bind(prep["dev"], n_rows=m, k=k)
+
+    if cand.fmt == "merge":
+        if k == 1:
+            return lambda x: kmerge.merge_spmv(prep, x)
+        return lambda x: kmerge.merge_spmm(prep, x)
 
     if cand.fmt == "sell":
         if cand.impl == "cuda":
@@ -274,13 +394,74 @@ def sparse_rhs_runner(
     return fn
 
 
-def search_skips(exc: Exception, device: torch.device) -> bool:
+def search_skips(exc: Exception, device: torch.device, *,
+                 stage: str = "run") -> bool:
     """Whether the measured search records ``exc`` and passes over the
     candidate that raised it.  On the CPU any failure only disqualifies its
-    candidate.  On a card only :class:`NoSpMMTier` does: a kernel that fails
+    candidate.  On a card, while binding or running a candidate
+    (``stage="run"``), only :class:`NoSpMMTier` does: a kernel that fails
     to launch (or a sticky CUDA fault, which would poison every candidate
-    timed after it) must end the build, not hand the work to a plain tier."""
-    return device.type != "cuda" or isinstance(exc, NoSpMMTier)
+    timed after it) must end the build, not hand the work to a plain tier.
+    While *preparing* a candidate (``stage="prepare"``) running out of
+    memory does too: a host ``MemoryError`` (injected at ``prepare.oom`` or
+    real) or ``torch.cuda.OutOfMemoryError`` (a ``RuntimeError``: the caching
+    allocator refused one format's tensors and the context stays usable).
+    The other candidates' formats may still fit.  A plain tier that fails
+    the accuracy check (:class:`InaccurateTier`) loses; a kernel that
+    fails it on a card ends the build."""
+    if isinstance(exc, InaccurateTier):
+        return device.type != "cuda" or not exc.kernel
+    if device.type != "cuda" or isinstance(exc, NoSpMMTier):
+        return True
+    return stage == "prepare" and isinstance(
+        exc, (MemoryError, torch.cuda.OutOfMemoryError))
+
+
+ACCURACY_TOL = 1e-5  # the repo's row tolerance, relative to (|A| |x|)_i
+
+
+def probe_reference(a: CSRMatrix, x, *, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """(y64, limit) of the search's probe ``x`` (a dense (n,) or (n, k)
+    tensor, or the padded host ``(xi, xv)`` of a sparse one): the float64
+    product on ``device`` and the per-row limit ``max(1e-5, 1.01 k_i
+    2**-24) (|A| |x|)_i``.  k_i 2**-24 (|A| |x|)_i bounds the error of any
+    float32 sum of row i's k_i nonzero products, in any order; the 1 %
+    covers the second-order terms."""
+    n = a.shape[1]
+    if isinstance(x, tuple):  # sentinel slots (index n) land in a dropped entry
+        xi, xv = x
+        dense = torch.zeros(n + 1, dtype=torch.float64, device=device)
+        dense[torch.as_tensor(np.asarray(xi), device=device).long()] = torch.as_tensor(
+            np.asarray(xv, dtype=np.float64), device=device)
+        x = dense[:n]
+    X = x.double().reshape(n, -1)
+    offsets = torch.as_tensor(a.indptr, device=device).long()
+    prods = (torch.as_tensor(a.data, device=device).double()[:, None]
+             * X[torch.as_tensor(a.indices, device=device).long()])
+
+    def row_sum(v):
+        return torch.segment_reduce(v, "sum", offsets=offsets, axis=0, unsafe=True)
+
+    terms = row_sum((prods != 0).double())
+    lim = torch.clamp(1.01 * terms * 2.0**-24, min=ACCURACY_TOL) * row_sum(prods.abs())
+    shape = (a.shape[0],) + tuple(x.shape[1:])
+    return row_sum(prods).reshape(shape), lim.reshape(shape)
+
+
+def check_accuracy(cand: Candidate, y: torch.Tensor, ref: tuple) -> None:
+    """Raise :class:`InaccurateTier` when ``y`` breaks the limit of
+    :func:`probe_reference` anywhere (a non-finite entry breaks it)."""
+    y64, lim = ref
+    err = (y.double() - y64).abs()
+    bad = ~(err <= lim)
+    if bool(bad.any()):
+        i = int(torch.argmax(torch.where(bad, err - lim, -1.0).flatten()))
+        raise InaccurateTier(
+            f"{cand.key()}: {int(bad.sum())} of {bad.numel()} entries of the probe "
+            f"break max(1e-5, k_i 2^-24) (|A||x|)_i; worst entry {i}: err "
+            f"{float(err.flatten()[i]):.3e} > {float(lim.flatten()[i]):.3e}",
+            kernel=cand.impl == "cuda",
+        )
 
 
 def _plan_params(cand: Candidate) -> dict[str, Any]:
@@ -336,6 +517,7 @@ class SparseOperator:
         warmup: int = 1,
         timed: int = 3,
         force_search: bool = False,
+        include_reorder: bool = False,
         seed: int = 0,
         race: bool = True,
         device: str | torch.device = "cuda",
@@ -352,18 +534,25 @@ class SparseOperator:
         ``op.apply_sparse(indices, values)`` or ``op @ (indices, values)``.
         Mutually exclusive with ``k``.
         ``candidates`` overrides enumeration (pruning still applies);
-        ``force_search`` ignores a cached plan.  Plans taken on another
-        backend or at another (m, n, nnz) are misses.
+        ``force_search`` ignores a cached plan; ``include_reorder`` adds
+        RCM-permuted variants to the space (paper §4.4).  Plans taken on
+        another backend or at another (m, n, nnz) are misses.
 
         ``race`` (default on) times survivors cheapest-estimate-first and
         abandons one whose first steady-state rep exceeds ``RACE_FACTOR`` x
         the current best median (confirmed by one more rep).
 
+        A candidate about to become the best is first checked against a
+        float64 product of the probe (:func:`probe_reference`): a plain
+        tier farther from it than float32 rounding of the row's own terms
+        allows loses (:class:`InaccurateTier`).
+
         A candidate that fails to prepare or run is recorded in
         ``op.search_failures`` and loses; the others still compete.  On a
-        card only a k = 1 tier asked for k > 1 loses so (see
-        :func:`search_skips`): the kernels are built before the search, and
-        any other failure, a refused launch included, raises.
+        card only a k = 1 tier asked for k > 1, or a prepare that ran out
+        of memory, loses so (see :func:`search_skips`): the kernels are
+        built before the search, and any other failure, a refused launch
+        included, raises.
         """
         device = resolve(device)
         kind = "spmv" if k is None else "spmm"
@@ -393,7 +582,10 @@ class SparseOperator:
         cands = (
             list(candidates)
             if candidates is not None
-            else enumerate_candidates(feats, kind, k=width)
+            else enumerate_candidates(
+                feats, kind, k=width,
+                reorders=REORDER_METHODS if include_reorder else (),
+            )
         )
         on_cpu = device.type == "cpu"
         costs = {
@@ -421,13 +613,16 @@ class SparseOperator:
         measurements: dict[str, float] = {}
         failures: dict[str, Exception] = {}
         best: tuple[float, Candidate, dict] | None = None
+        ref = None  # the probe's float64 product, made when first needed
         n_raced = 0
         # The first candidate (no best yet) gets the same warmup as the
         # raced ones, so its lone first rep never eats lazy setup.
         warmup_eff = max(warmup, 1) if race else warmup
         for c in survivors:
+            stage = "prepare"
             try:
                 prep = prepare_cached(a, c, fp=fp, device=device)
+                stage = "run"
                 if sparse_kind:
                     fn = sparse_rhs_runner(a, c, prep, x_nnz=kk, device=device)
                 else:
@@ -435,8 +630,12 @@ class SparseOperator:
                 abort = RACE_FACTOR * best[0] if (race and best is not None) else None
                 t = time_fn(fn, x, warmup=warmup_eff, timed=timed, abort_above=abort,
                             device=device)
+                if not math.isinf(t) and (best is None or t < best[0]):
+                    if ref is None:
+                        ref = probe_reference(a, x, device=device)
+                    check_accuracy(c, fn(x), ref)
             except Exception as exc:
-                if not search_skips(exc, device):
+                if not search_skips(exc, device, stage=stage):
                     raise RuntimeError(
                         f"candidate {c.key()} failed in the measured search on "
                         f"{device}: {exc!r}"

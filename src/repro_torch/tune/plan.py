@@ -36,6 +36,7 @@ except ImportError:  # pragma: no cover - non-POSIX: merge-only
 import numpy as np
 
 from repro_torch.core.formats import CSRMatrix
+from repro_torch.runtime.faults import active_plan
 
 from .candidates import Candidate, make
 
@@ -103,12 +104,24 @@ class PlanCache:
     """In-memory plan store with optional JSON persistence.
 
     ``PlanCache()`` is memory-only; ``PlanCache(path)`` loads the JSON file
-    if present and rewrites it atomically on every put.
+    if present and rewrites it atomically on every put.  ``faults`` arms
+    the ``plan_cache.read`` site (a torn read) on this cache; by default
+    the process-wide plan (``$REPRO_TORCH_FAULTS``) does.
     """
 
-    def __init__(self, path: str | os.PathLike | None = None):
+    def __init__(self, path: str | os.PathLike | None = None, *, faults: Any = None):
         self.path = Path(path).expanduser() if path else None
+        self._faults = faults
         self._plans: dict[str, dict] = self._load_resident()
+
+    def _read_text(self) -> str:
+        """The cache file's text, through the ``plan_cache.read`` fault site
+        (torn at a seeded offset: a kill in the middle of a write)."""
+        text = self.path.read_text()
+        faults = self._faults if self._faults is not None else active_plan()
+        if faults is not None:
+            text = faults.corrupt_text("plan_cache.read", text, path=str(self.path))
+        return text
 
     def _load_resident(self) -> dict[str, dict]:
         """Load the on-disk table; a corrupt file is QUARANTINED — moved to
@@ -117,7 +130,7 @@ class PlanCache:
         if self.path is None or not self.path.exists():
             return {}
         try:
-            return self._current(json.loads(self.path.read_text()))
+            return self._current(json.loads(self._read_text()))
         except (json.JSONDecodeError, OSError) as exc:
             self._quarantine(exc)
             return {}
@@ -202,7 +215,7 @@ class PlanCache:
         # an atomic tmp-file + os.replace, so a reader never sees a torn file.
         with self._write_lock():
             try:
-                on_disk = self._current(json.loads(self.path.read_text()))
+                on_disk = self._current(json.loads(self._read_text()))
                 self._plans = {**on_disk, **self._plans}
             except FileNotFoundError:
                 pass  # first writer

@@ -417,3 +417,134 @@ def test_gpu_spmspv_refused_launch_raises(cuda_device, monkeypatch):
         SparseOperator.build(a, x_nnz=a.shape[1] // 256, cache=PlanCache(),
                              candidates=cands, prune_factor=1e9, warmup=0, timed=1,
                              device=cuda_device)
+
+
+# ---------------------------------------------------------------------------
+# The plain tiers, reordering and supervision on the card
+# ---------------------------------------------------------------------------
+def _oracle(a, x):
+    A = sp.csr_matrix((a.data.astype(np.float64), a.indices, a.indptr), shape=a.shape)
+    return A @ np.asarray(x, np.float64)
+
+
+def _prefix_max(a, x):
+    """Largest |float64 prefix sum| of the products, per column of x."""
+    x2 = np.asarray(x, np.float64).reshape(a.shape[1], -1)
+    prods = a.data.astype(np.float64)[:, None] * x2[a.indices]
+    return np.abs(np.cumsum(prods, axis=0)).max(axis=0).reshape(np.shape(x)[1:])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chunk,k", [(2048, 1), (16384, 1), (2048, 4)])
+def test_gpu_merge_tier_within_its_limit(cuda_device, chunk, k):
+    """|y - y64| <= 1e-5 (|A| |x|)_i + 8 * 2**-24 * max|P| (a row is a
+    difference of global prefix sums)."""
+    a = generate("cant", scale=1 / 4)
+    x = np.random.default_rng(0).standard_normal(
+        a.shape[1] if k == 1 else (a.shape[1], k)).astype(np.float32)
+    op = SparseOperator.from_candidate(a, make("merge", "scan", chunk=chunk),
+                                       k=None if k == 1 else k, device=cuda_device)
+    y = (op @ torch.as_tensor(x, device=cuda_device)).cpu().numpy().astype(np.float64)
+    abs_a = sp.csr_matrix((np.abs(a.data).astype(np.float64), a.indices, a.indptr),
+                          shape=a.shape)
+    lim = TOL * (abs_a @ np.abs(x.astype(np.float64))) + 8 * 2.0**-24 * _prefix_max(a, x)
+    assert np.all(np.abs(y - _oracle(a, x)) <= lim)
+
+
+@pytest.mark.gpu
+def test_gpu_scalar_tier_and_reordered_sell(cuda_device):
+    from repro_torch.core.reorder import random_order
+
+    a, x = _gpu_case()
+    op = SparseOperator.from_candidate(a, make("csr", "scalar"), device=cuda_device)
+    xt = torch.as_tensor(x, device=cuda_device)
+    assert_rowtol((op @ xt).cpu().numpy(), _oracle(a, x), a, x, "csr/scalar")
+    scr = a.permuted(random_order(a, 0))
+    base = make("sell", "cuda", C=8, sigma=64, chunk_tile=8)
+    _build.reset_launches()
+    for cand in (base, make("sell", "cuda", C=8, sigma=64, chunk_tile=8, reorder="rcm")):
+        op = SparseOperator.from_candidate(scr, cand, device=cuda_device)
+        y = op @ xt
+        assert y.data_ptr() != xt.data_ptr()
+        assert_rowtol(y.cpu().numpy(), _oracle(scr, x), scr, x, cand.key())
+    assert _build.LAUNCHES["sell_spmv"] == 2
+
+
+@pytest.mark.gpu
+def test_gpu_demote_repair_promote_on_the_engines_stream(cuda_device):
+    """Faults exhaust the retries of bucket 1 and poison bucket 4; both
+    buckets demote, the repair thread probes the saved closures on the
+    engine's stream, and the tuned kernels serve again after promotion."""
+    import time as _time
+
+    from repro_torch.runtime.engine import SparseEngine
+    from repro_torch.runtime.faults import FaultPlan
+    from repro_torch.runtime.supervisor import Supervisor
+
+    a, _ = _gpu_case()
+    ops = {1: SparseOperator.from_candidate(a, make("sell", "cuda", C=8, sigma=64,
+                                                     chunk_tile=8), device=cuda_device),
+           4: SparseOperator.from_candidate(a, make("bcsr", "cuda", block=(8, 8)), k=4,
+                                            device=cuda_device)}
+    plan = FaultPlan({"engine.dispatch": {"n": 2, "bucket": "1"},
+                      "engine.nan": {"n": 2, "bucket": "4"}})
+    sup = Supervisor(max_retries=1, backoff_base_s=0.0, repair_interval_s=0.01)
+    eng = SparseEngine(a, ks=(1, 4), ops=ops, device=cuda_device, faults=plan,
+                       nan_guard=True, supervisor=sup)
+    stream = torch.cuda.current_stream(cuda_device)
+    assert eng._stream == stream
+    rng = np.random.default_rng(3)
+    xs = [rng.standard_normal(a.shape[1]).astype(np.float32) for _ in range(5)]
+
+    def serve():
+        reqs = [eng.submit(torch.as_tensor(xs[0], device=cuda_device))]
+        eng.step()
+        reqs += [eng.submit(torch.as_tensor(x, device=cuda_device)) for x in xs[1:]]
+        eng.drain()
+        for r, x in zip(reqs, xs):
+            assert_rowtol(r.result(timeout=5).cpu().numpy(), _oracle(a, x), a, x)
+
+    serve()
+    assert sup.demotions == 2 and {e.info["bucket"] for e in sup.events_of("demote")} == {1, 4}
+    deadline = _time.perf_counter() + 10
+    while sup.promotions < 2 and _time.perf_counter() < deadline:
+        _time.sleep(0.01)
+    assert sup.promotions == 2
+    _build.reset_launches()
+    serve()
+    assert {k: op.plan.candidate.key() for k, op in eng.ops.items()} == {
+        k: op.plan.candidate.key() for k, op in ops.items()}
+    assert _build.LAUNCHES["sell_spmv"] >= 1 and _build.LAUNCHES["bcsr_spmm"] >= 1
+    eng.close()
+
+
+@pytest.mark.gpu
+def test_gpu_build_skips_a_prepare_that_runs_out_of_memory(cuda_device):
+    from repro_torch.runtime.faults import FaultPlan, set_active
+
+    a, x = _gpu_case()
+    prev = set_active(FaultPlan({"prepare.oom": {"n": 1}}))
+    try:
+        op = SparseOperator.build(a, cache=PlanCache(), warmup=0, timed=1,
+                                  force_search=True, device=cuda_device)
+    finally:
+        set_active(prev)
+    (exc,) = op.search_failures.values()
+    assert isinstance(exc, MemoryError)
+    y = op @ torch.as_tensor(x, device=cuda_device)
+    assert_rowtol(y.cpu().numpy(), _oracle(a, x), a, x, op.plan.candidate.key())
+
+
+@pytest.mark.gpu
+def test_gpu_unfaulted_engine_records_no_supervisor_event(cuda_device):
+    from repro_torch.runtime.engine import SparseEngine
+
+    a, x = _gpu_case()
+    eng = SparseEngine(a, ks=(1, 4, 16), cache=PlanCache(), device=cuda_device,
+                       nan_guard=True)
+    xt = torch.as_tensor(x, device=cuda_device)
+    ys = eng.run([xt] * 21)
+    eng.close()
+    for y in ys:
+        assert_rowtol(y.cpu().numpy(), _oracle(a, x), a, x)
+    assert eng.supervisor.events == [] and eng.stats.demotions == 0

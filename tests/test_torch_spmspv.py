@@ -36,7 +36,6 @@ from repro_torch.kernels import spmspv as tsp
 torch.set_num_threads(1)
 
 TOL = 1e-5
-NOT_PORTED_FMTS = {"merge"}  # see ROADMAP
 
 
 def rand_dense(seed, m=100, n=80, density=0.1):
@@ -59,13 +58,16 @@ def sparse_x(seed, n, nx):
     return idx, val, x
 
 
-def assert_rowtol(got, ref, d, x, what=""):
+def assert_rowtol(got, ref, d, x, what="", slack=0.0):
+    """|got - ref| <= 1e-5 (|A| |x|)_i + ``slack`` per row (``slack`` is the
+    merge tier's prefix-sum term, 0 for every other tier)."""
     got = np.asarray(got, np.float64)
     ref = np.asarray(ref, np.float64)
     scale = np.abs(d.astype(np.float64)) @ np.abs(np.asarray(x, np.float64))
     err = np.abs(got - ref)
     assert got.shape == ref.shape, what
-    assert np.all(err <= TOL * scale), (what, float((err - TOL * scale).max()))
+    assert np.all(err <= TOL * scale + slack), (
+        what, float((err - TOL * scale - slack).max()))
 
 
 def carried(jprep):
@@ -339,11 +341,7 @@ def test_scatter_and_bind_refuse_bad_operands():
 # The tuner: enumeration, byte model, operators, plan cache
 # ---------------------------------------------------------------------------
 def ported_keys(cands):
-    return [
-        c.key().replace("/pallas", "/cuda")
-        for c in cands
-        if c.fmt not in NOT_PORTED_FMTS and not (c.fmt == "csr" and c.impl == "scalar")
-    ]
+    return [c.key().replace("/pallas", "/cuda") for c in cands]
 
 
 @pytest.mark.parametrize("x_nnz", [1, 12, 80])
@@ -402,8 +400,13 @@ def test_every_spmspv_kind_candidate_matches_repro_and_f64_oracle():
         jc = jt.make(c.fmt, c.impl.replace("cuda", "pallas"), **c.param_dict)
         ref = np.asarray(jt.SparseOperator.from_candidate(ja, jc, x_nnz=nx)
                          .apply_sparse(idx, val))
+        slack = 0.0
+        if c.fmt == "merge":  # a row is a difference of global prefix sums
+            rows, cols = np.nonzero(d)
+            prefix = np.cumsum(d[rows, cols].astype(np.float64) * x[cols])
+            slack = 8 * 2.0**-24 * np.abs(prefix).max(initial=0.0)
         for what, other in (("repro", ref), ("f64", want)):
-            assert_rowtol(got, other, d, x, f"{c.key()} vs {what}")
+            assert_rowtol(got, other, d, x, f"{c.key()} vs {what}", slack)
 
 
 def test_operator_argument_rules_and_dense_fallback():
