@@ -71,7 +71,9 @@ scipy; imports nothing of JAX or of the JAX package.  Phases:
    ``nan_guard`` and a fault plan (dispatch faults exhaust bucket 1's
    retries, NaN poisons bucket 64): 256 requests at 1e-5, the events run
    batch_failed -> demote -> promote per faulted bucket, the tuned plans
-   and kernels serve again after promotion; (d) ``max_queue`` under each
+   and kernels serve again after promotion, and a real refused launch
+   (BCSR blocks off their 16-byte boundary) fails its batch's futures with
+   no retry and no demotion; (d) ``max_queue`` under each
    policy with ``shed_after_s``, a ``BrownoutController`` and an
    ``engine.overload`` delay: every future resolves (served at 1e-5, or a
    typed ``OverloadError``), the widest bucket serves through
@@ -161,16 +163,15 @@ def main() -> None:
         OverloadError,
     )
     from repro_torch.runtime.supervisor import Supervisor
-    from repro_torch.tune.operator import evict_prepared, prep_memo_stats
     from repro_torch.tune import (
         BCSR_BLOCKS,
         InaccurateTier,
         NoSpMMTier,
         PlanCache,
         SparseOperator,
-        fingerprint,
         make,
     )
+    from repro_torch.tune.operator import runner
 
     torch.backends.cuda.matmul.allow_tf32 = False  # plain versions stay float32
     torch.backends.cudnn.allow_tf32 = False
@@ -1196,6 +1197,35 @@ def main() -> None:
     st7 = eng7.stats
     if st7.failed_requests or st7.demotions != 2 or st7.promotions != 2:
         fail(f"supervised engine stats {eng7.stats.summary()}")
+    # A real failure is never demoted: bucket 64's BCSR blocks start off
+    # their 16-byte boundary, so the wrapper refuses the launch; its batch
+    # must fail (no retry, no demotion) while bucket 1 keeps serving.
+    good = pinned[64]
+    prep_bad = dict(good._prep)
+    shifted = torch.empty(prep_bad["blocks"].numel() + 1, device=dev)[1:]
+    prep_bad["blocks"] = shifted.view(good._prep["blocks"].shape)
+    prep_bad["blocks"].copy_(good._prep["blocks"])
+    bad = SparseOperator.from_candidate(cant, good.plan.candidate, k=64, device=dev)
+    bad._run = runner(cant, good.plan.candidate, prep_bad, k=64)
+    sup_r = Supervisor(max_retries=2, repair_interval_s=0.02)
+    eng_r = SparseEngine(cant, ks=(1, 64), ops={1: pinned[1], 64: bad}, device=dev,
+                         name="cant-refused", supervisor=sup_r)
+    reqs_r = [eng_r.submit(x) for x in req_dev[:64]]
+    eng_r.drain()
+    y_r = eng_r.submit(req_dev[0]).result(timeout=10)
+    eng_r.close()
+    kinds_r = [e.kind for e in sup_r.events]
+    errs_r = {type(r_._exc).__name__ for r_ in reqs_r}
+    print(f"  real refused launch on bucket 64: events {kinds_r}, futures failed "
+          f"{sum(r_.failed for r_ in reqs_r)}/64 with {errs_r}")
+    record["supervised"]["real_failure"] = {"events": kinds_r,
+                                            "stats": eng_r.stats.summary()}
+    if (kinds_r != ["batch_failed", "batch_abandoned"] or errs_r != {"ValueError"}
+            or sup_r.retries or eng_r.stats.demotions or eng_r.ops[64] is not bad):
+        fail(f"a real refused launch was retried or demoted: {kinds_r}, "
+             f"{eng_r.stats.summary()}")
+    check_served("bucket 1 beside the refused bucket vs float64 oracle", [y_r],
+                 [req_host[0]])
     phase_done("supervised", t0)
 
     # 7d: overload on cant: each policy under a slowed dispatch
@@ -1205,20 +1235,6 @@ def main() -> None:
           "6 ms stall)", flush=True)
     _build.reset_launches()
     record["overload"] = {}
-    # The brownout's prep term is the prep memo's fill against its budget.
-    # An LRU memo sits near its budget once it has been filled, and this
-    # process has prepared five matrices: that term alone would hold the
-    # controller in SHED (ROADMAP C.5).  Release the earlier matrices'
-    # dicts first, and print the term before and after.
-    memo = prep_memo_stats()
-    released = sum(evict_prepared(fingerprint(m_)) for m_ in mats.values())
-    memo_after = prep_memo_stats()
-    record["overload"]["prep_memo"] = {"before": memo, "after": memo_after,
-                                       "released_bytes": released}
-    print(f"  prep memo: {memo['resident_bytes'] / 1e6:.1f} of "
-          f"{memo['budget_bytes'] / 1e6:.1f} MB resident (prep pressure "
-          f"{memo['resident_bytes'] / memo['budget_bytes']:.3f}); released "
-          f"{released / 1e6:.1f} MB -> {memo_after['resident_bytes'] / 1e6:.1f} MB")
     for policy in ("reject", "shed-oldest", "block"):
         ctrl = BrownoutController(min_dwell_s=0.01)
         eng_o = SparseEngine(cant, ks=K_BUCKETS, ops=pinned, device=dev,
@@ -1291,7 +1307,6 @@ def main() -> None:
     if (cli["served"] + cli["refused"] + eng_s["shed_oldest"]
             + eng_s["shed_deadline"]) != 256:
         fail(f"serve CLI: requests unaccounted for: {cli}")
-    print(f"  prep memo after the CLI: {prep_memo_stats()}")
     if cli["served"] <= 0 or eng_s["demotions"] or eng_s["failed_requests"]:
         fail(f"serve CLI: {eng_s}")
     tmp.cleanup()

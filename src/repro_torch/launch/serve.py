@@ -64,25 +64,22 @@ def serve_sparse(args) -> None:
     a = generate(args.sparse, scale=args.scale)
     max_wait_s = args.max_wait_ms / 1e3 if args.max_wait_ms else None
     t0 = time.perf_counter()
-    eng = SparseEngine(a, ks=ks, max_wait_s=max_wait_s,
-                       async_depth=args.async_depth, device=args.device,
-                       **_overload_kwargs(args))
+    warm = SparseEngine(a, ks=ks, max_wait_s=max_wait_s,
+                        async_depth=args.async_depth, device=args.device)
     t_build = time.perf_counter() - t0
     rng = np.random.default_rng(0)
     xs = [
         torch.as_tensor(rng.standard_normal(a.shape[1]).astype(np.float32),
-                        device=eng.device)
+                        device=warm.device)
         for _ in range(args.requests)
     ]
-    eng.run(xs[: min(len(xs), max(ks))])  # first calls outside the timed window
-    if eng.brownout is not None:
-        # The warm-up arrives as one burst; let the controller leave SHED
-        # (one dwell time per step down) before the measured load arrives.
-        cool = time.perf_counter() + 2.0
-        while eng.brownout.state == "shed" and time.perf_counter() < cool:
-            eng.step()
-            time.sleep(0.01)
-    eng.stats = type(eng.stats)()  # measure the steady state only
+    # First calls outside the timed window, on an engine of the same plans
+    # without overload protection: the warm-up burst is not offered load.
+    warm.run(xs[: min(len(xs), max(ks))])
+    warm.close()
+    eng = SparseEngine(a, ks=ks, ops=warm.ops, max_wait_s=max_wait_s,
+                       async_depth=args.async_depth, device=args.device,
+                       **_overload_kwargs(args))
 
     t0 = time.perf_counter()
     reqs, refused = [], 0

@@ -20,8 +20,6 @@ stamped, stats recorded) once its event has completed, strictly in FIFO
 order.  ``submit()`` returns a future — ``req.result(timeout=)`` blocks for
 exactly that request.  Async and synchronous (``async_depth=0``) engines
 run the same closures and kernels, so their dense results are bitwise equal.
-``legacy_dispatch=True`` keeps the older synchronous path (a fresh stack
-per batch, one synchronise per batch) as a baseline.
 
 ``max_wait_s`` adds admission control: a partial bucket is held back until
 its oldest request has waited that long, so a lone request under SLO never
@@ -41,15 +39,18 @@ raises, its device work faults, or (``nan_guard=True``) the on-device
 finite flag is false — is retried up to ``supervisor.max_retries`` times
 with capped backoff, then its bucket is *demoted* down the fallback chain
 (tuned plan -> ``csr/vector`` -> ``sell/ref``); when the chain is spent the
-batch's futures fail.  Every demotion is recorded (``stats.demotions``,
-``supervisor.events_of("demote")``).  A background thread probes the
-demoted bucket's saved tuned closure every ``repair_interval_s``, on the
-engine's CUDA stream, and stages that bucket back once a probe is clean
-(the plan-swap machinery of ``hot_swap``); the serving thread adopts it at
-its next dispatch.  ``faults=``
-arms a :class:`~repro_torch.runtime.faults.FaultPlan` (default: the
-``$REPRO_TORCH_FAULTS`` plan).  A sticky CUDA error poisons every tier, so
-its batches end with failed futures, not a loop.
+batch's futures fail.  On a card the chain is walked only for failures a
+fault plan injected (``supervisor.injected``): a kernel that really fails
+there fails its batch's futures at once, as an unsupervised engine would,
+and its bucket keeps its tuned plan.  Every demotion is recorded
+(``stats.demotions``, ``supervisor.events_of("demote")``).  A background
+thread probes each demoted bucket's saved tuned closure (dense or sparse)
+every ``repair_interval_s``, on the engine's CUDA stream, and stages that
+bucket back once a probe is clean (the plan-swap machinery of
+``hot_swap``); the serving thread adopts it, and clears the demotion, at
+its next dispatch.  ``faults=`` arms a
+:class:`~repro_torch.runtime.faults.FaultPlan` (default: the
+``$REPRO_TORCH_FAULTS`` plan).
 
 **Overload** (``runtime.overload``).  ``max_queue`` bounds the queue and
 ``overload_policy`` picks what a full queue does to ``submit()``:
@@ -58,10 +59,9 @@ oldest queued future to admit the new request, ``"block"`` waits up to
 ``block_timeout_s`` (driving the loop itself when no other thread does),
 then rejects.  ``shed_after_s`` fails a request still queued after that
 long (:class:`DeadlineExceededError`) at dispatch time.  ``brownout=`` takes
-a :class:`BrownoutController` fed, each ``step()``, the queue fill, the
-oldest request's age and the prep memo's byte pressure: BROWNOUT pins
-dispatch to the widest bucket and pauses repair probes; SHED also refuses
-new submissions.
+a :class:`BrownoutController` fed, each ``step()``, the queue fill and the
+oldest request's age: BROWNOUT pins dispatch to the widest bucket and
+pauses repair probes; SHED also refuses new submissions.
 
     eng = SparseEngine(a)            # tunes (or cache-loads) all buckets, on cuda
     reqs = [eng.submit(x) for x in xs]
@@ -101,9 +101,9 @@ from repro_torch.runtime.supervisor import (
     NonFiniteOutput,
     Supervisor,
     fallback_op,
+    injected,
 )
 from repro_torch.tune import PlanCache, SparseOperator
-from repro_torch.tune.operator import prep_memo_stats
 
 __all__ = [
     "SparseEngine",
@@ -271,8 +271,8 @@ class SparseEngine:
     buckets.  ``name`` labels the engine in fault contexts and messages;
     ``supervisor``, ``faults`` and ``nan_guard`` set the failure policy,
     ``max_queue``, ``overload_policy``, ``block_timeout_s``,
-    ``shed_after_s``, ``brownout`` and ``brownout_update`` the overload
-    policy (see the module docstring).  Remaining keyword arguments pass
+    ``shed_after_s`` and ``brownout`` the overload policy (see the module
+    docstring).  Remaining keyword arguments pass
     through to :meth:`SparseOperator.build`.
 
     **Dtype policy.** The engine serves float32.  A non-f32 ``submit()``
@@ -296,9 +296,7 @@ class SparseEngine:
         block_timeout_s: float = 1.0,
         shed_after_s: float | None = None,
         brownout: BrownoutController | None = None,
-        brownout_update: bool = True,
         async_depth: int = 2,
-        legacy_dispatch: bool = False,
         strict_dtype: bool = False,
         ops: dict[int, SparseOperator] | None = None,
         device: str | torch.device = "cuda",
@@ -332,9 +330,7 @@ class SparseEngine:
         self.block_timeout_s = float(block_timeout_s)
         self.shed_after_s = None if shed_after_s is None else float(shed_after_s)
         self._brownout = brownout
-        self._brownout_update = bool(brownout_update)
         self.async_depth = max(0, min(int(async_depth), 2))
-        self.legacy_dispatch = bool(legacy_dispatch)
         self.strict_dtype = bool(strict_dtype)
         self._dtype_warned = False
         if ops is not None:
@@ -359,13 +355,14 @@ class SparseEngine:
         self._sparse_ops: dict[int, SparseOperator] = {}
         self._sparse_execs: dict[int, Any] = {}
         self._queue: deque[EngineRequest] = deque()
-        # (ys, ok, event, reqs, bucket, take): ok is the on-device finite
-        # flag (None without nan_guard), event marks the launch (None on CPU).
+        # (ys, ok, event, poisoned, reqs, bucket, take): ok is the on-device
+        # finite flag (None without nan_guard), event marks the launch (None
+        # on CPU), poisoned is True when the engine.nan site fired.
         self._inflight: deque[tuple] = deque()
         self._rid = 0
         self._cond = threading.Condition()
         self._serve_lock = threading.Lock()
-        if self._brownout is not None and self._brownout_update:
+        if self._brownout is not None:
             sup, nm = self.supervisor, name
             self._brownout.add_listener(
                 lambda tr: sup.record(
@@ -374,12 +371,12 @@ class SparseEngine:
                 )
             )
         self._execs: dict[int, Any] = {}
-        self._batch_fns: dict[int, Any] = {}  # legacy path: bucket -> closure
         # Plan swaps: staged under the lock (by the repair thread or a
-        # caller), adopted by the serving thread at its next dispatch.
+        # caller), adopted by the serving thread at its next dispatch.  The
+        # lock also guards the demotion state below, which only the serving
+        # thread changes.
         self._swap_lock = threading.Lock()
         self._pending_swap: tuple[dict, dict] | None = None
-        self.swaps_applied = 0
         # Shared zero column: burst tails pad their batch with it.
         self._zero = torch.zeros((self.shape[1],), dtype=torch.float32,
                                  device=self.device)
@@ -390,11 +387,12 @@ class SparseEngine:
                         if self.device.type == "cuda" else None)
         self.stats = EngineStats()
         self._closed = False
-        self.consecutive_failures = 0  # fully failed batches since a success
         # Degraded mode: bucket -> fallback level (1-based), and the saved
-        # tuned (op, closure) the repair thread probes and re-promotes.
+        # tuned (op, closure) the repair thread probes and re-promotes;
+        # _promoting holds the buckets staged back but not yet adopted.
         self._demoted: dict[Any, int] = {}
         self._demote_saved: dict[Any, tuple] = {}
+        self._promoting: set = set()
         self._repair_lock = threading.Lock()
         self._repair_thread: threading.Thread | None = None
         self._repair_stop = threading.Event()
@@ -532,6 +530,7 @@ class SparseEngine:
                             _engine=self)
         self._rid += 1
         self.stats.n_requests += 1
+        self._apply_pending_swap()
         self._dispatch(("spmspv", bucket), [req])
         return req
 
@@ -565,10 +564,8 @@ class SparseEngine:
     def _sparse_exec(self, bucket: int):
         fn = self._sparse_execs.get(bucket)
         if fn is None:
-            fn = self._sparse_op(bucket)._run
-            if self.nan_guard:
-                fn = finite_guard(fn)
-            self._sparse_execs[bucket] = fn
+            fn = self._sparse_execs[bucket] = self._sparse_exec_for(
+                self._sparse_op(bucket))
         return fn
 
     # -- plan swaps ---------------------------------------------------------
@@ -584,39 +581,49 @@ class SparseEngine:
         if missing:
             raise ValueError(f"hot_swap ops is missing buckets {missing}")
         staged_ops = {int(k): ops[int(k)] for k in self.ks}
-        self._stage(staged_ops, {int(k): v for k, v in (execs or {}).items()
-                                 if int(k) in staged_ops})
+        with self._swap_lock:
+            self._stage(staged_ops, {int(k): v for k, v in (execs or {}).items()
+                                     if int(k) in staged_ops})
 
     def _stage(self, ops: dict, execs: dict) -> None:
-        """Merge per-bucket replacements into the pending swap: two
-        promotions staged before one adoption both land."""
-        with self._swap_lock:
-            if self._pending_swap is None:
-                self._pending_swap = ({}, {})
-            p_ops, p_execs = self._pending_swap
-            for k, op in ops.items():
-                p_ops[k] = op
-                p_execs.pop(k, None)
-            p_execs.update(execs)
+        """Merge per-bucket replacements into the pending swap (caller
+        holds ``_swap_lock``): two promotions staged before one adoption
+        both land."""
+        if self._pending_swap is None:
+            self._pending_swap = ({}, {})
+        p_ops, p_execs = self._pending_swap
+        for k, op in ops.items():
+            p_ops[k] = op
+            p_execs.pop(k, None)
+        p_execs.update(execs)
 
     def _apply_pending_swap(self) -> None:
         """Adopt the staged buckets (serving thread only, between
         dispatches); a bucket staged without a closure is bound on first
-        use."""
+        use.  A promoted bucket leaves the demotion state here, so a
+        fallback batch that fails before adoption demotes it one tier
+        further, not afresh."""
         with self._swap_lock:
             staged = self._pending_swap
             self._pending_swap = None
-        if staged is None:
-            return
+            if staged is None:
+                return
+            for k in staged[0]:
+                if k in self._promoting:
+                    self._promoting.discard(k)
+                    self._demoted.pop(k, None)
+                    self._demote_saved.pop(k, None)
         ops, execs = staged
         for k, op in ops.items():
+            if isinstance(k, tuple):  # ("spmspv", B): the sparse lane
+                self._sparse_ops[k[1]] = op
+                self._sparse_execs[k[1]] = execs[k]
+                continue
             self.ops[k] = op
             if k in execs:
                 self._execs[k] = execs[k]
             else:
                 self._execs.pop(k, None)
-        self._batch_fns.clear()
-        self.swaps_applied += 1
 
     # -- dispatch -----------------------------------------------------------
     def _bucket_for(self, n_pending: int) -> tuple[int, int]:
@@ -629,9 +636,11 @@ class SparseEngine:
 
     def _overload_pressure(self) -> float:
         """The brownout controller's input: the max of queue fill (against
-        ``max_queue``), the oldest request's age (against ``shed_after_s``,
-        or 4x ``max_wait_s``) and the prep memo's resident bytes against
-        its budget."""
+        ``max_queue``) and the oldest request's age (against
+        ``shed_after_s``, or 4x ``max_wait_s``).  The prep memo's fill is
+        not an input: an LRU sits near its budget once filled, and its
+        entries can always be evicted, so it would hold an idle engine
+        browned out."""
         q = (len(self._queue) / self.max_queue) if self.max_queue else None
         ref = self.shed_after_s
         if ref is None and self.max_wait_s:
@@ -639,10 +648,7 @@ class SparseEngine:
         age = None
         if ref and self._queue:
             age = (time.perf_counter() - self._queue[0].t_submit) / ref
-        st = prep_memo_stats()
-        prep = (st["resident_bytes"] / st["budget_bytes"]
-                if st["budget_bytes"] > 0 else None)
-        return BrownoutController.pressure(queue=q, age=age, prep=prep)
+        return BrownoutController.pressure(queue=q, age=age)
 
     def _shed_lapsed(self) -> None:
         """Fail queued requests that have waited past ``shed_after_s``
@@ -676,7 +682,7 @@ class SparseEngine:
         ``force=True`` bypasses the wait.
         """
         self._apply_pending_swap()
-        if self._brownout is not None and self._brownout_update:
+        if self._brownout is not None:
             self._brownout.update(self._overload_pressure())
         self._shed_lapsed()
         if not self._queue:
@@ -693,8 +699,6 @@ class SparseEngine:
         bucket, take = self._bucket_for(len(self._queue))
         reqs = [self._queue.popleft() for _ in range(take)]
         self._notify()  # queue space freed: wake blocked submitters
-        if self.legacy_dispatch:
-            return self._step_legacy(reqs, bucket, take)
         self._dispatch(bucket, reqs)
         return take
 
@@ -705,12 +709,12 @@ class SparseEngine:
         while len(self._inflight) >= window:
             self._retire_one()
         try:
-            ys, ok, event = self._launch(bucket, reqs)
+            launched = self._launch(bucket, reqs)
         except Exception as exc:
             self.flush()
             self._recover(reqs, bucket, len(reqs), exc)
             return
-        self._inflight.append((ys, ok, event, reqs, bucket, len(reqs)))
+        self._inflight.append((*launched, reqs, bucket, len(reqs)))
         if self.async_depth == 0:
             self._retire_one()
 
@@ -732,7 +736,10 @@ class SparseEngine:
 
     def _launch(self, bucket, reqs: list) -> tuple:
         """Assemble and enqueue one batch, firing any armed fault sites on
-        the way; returns ``(ys, ok, event)``."""
+        the way; returns ``(ys, ok, event, poisoned)``.  The closure is
+        bound first, so a dispatch fault leaves a tuned plan to repair."""
+        sparse = isinstance(bucket, tuple)
+        fn = self._sparse_exec(bucket[1]) if sparse else self._exec(bucket)
         faults = self.faults
         if faults is not None:
             stall = faults.delay("engine.overload", engine=self.name, bucket=bucket)
@@ -740,22 +747,20 @@ class SparseEngine:
                 time.sleep(stall)  # a slow dispatch with a known cost
             faults.fire("engine.dispatch", engine=self.name, bucket=bucket)
         xs = self._assemble(reqs, bucket)
-        if (
+        poisoned = (
             faults is not None
-            and not isinstance(bucket, tuple)
+            and not sparse
             and faults.should_fire("engine.nan", engine=self.name, bucket=bucket)
-        ):
+        )
+        if poisoned:
             xs = (self._nan_column(),) + xs[1:]  # poison one column
-        if isinstance(bucket, tuple):
-            out = self._sparse_exec(bucket[1])(*xs)
-        else:
-            out = self._exec(bucket)(*xs)
+        out = fn(*xs)
         ys, ok = out if isinstance(out, tuple) else (out, None)
         event = None
         if self.device.type == "cuda":
             event = torch.cuda.Event()
             event.record(torch.cuda.current_stream(self.device))
-        return ys, ok, event
+        return ys, ok, event, poisoned
 
     def _exec(self, bucket: int):
         fn = self._execs.get(bucket)
@@ -768,7 +773,7 @@ class SparseEngine:
                                       device=self.device, guard=self.nan_guard)
 
     # -- retirement ---------------------------------------------------------
-    def _settle(self, bucket, event, ok) -> None:
+    def _settle(self, bucket, ys, ok, event, poisoned) -> None:
         """Wait for a launched batch and check its finite flag; raises what
         the device or the guard reports."""
         if event is not None:
@@ -776,7 +781,9 @@ class SparseEngine:
         if ok is not None and not bool(ok):
             raise NonFiniteOutput(
                 f"bucket {bucket} batch produced non-finite outputs (engine "
-                f"{self.name or 'unnamed'}; nan_guard flagged it on the device)"
+                f"{self.name or 'unnamed'}; nan_guard flagged it on the device"
+                + ("; the engine.nan fault site poisoned it)" if poisoned else ")"),
+                injected=poisoned,
             )
 
     def _resolve(self, reqs: list, bucket, take: int, ys) -> int:
@@ -789,33 +796,39 @@ class SparseEngine:
             req.bucket = bucket
             lats.append(t_done - req.t_submit)
         self.stats.record(bucket, take, lats)
-        self.consecutive_failures = 0
         self._notify()
         return take
 
     def _retire_one(self) -> int:
         """Wait for the oldest in-flight batch and fill its futures; a batch
         that failed on the device goes through :meth:`_recover`."""
-        ys, ok, event, reqs, bucket, take = self._inflight.popleft()
+        *launched, reqs, bucket, take = self._inflight.popleft()
+        ys = launched[0]
         try:
-            self._settle(bucket, event, ok)
+            self._settle(bucket, *launched)
         except Exception as exc:
             return self._recover(reqs, bucket, take, exc)
         return self._resolve(reqs, bucket, take, ys)
 
     # -- supervision: retry -> demote -> fail the futures -------------------
+    def _supervised(self, exc: BaseException) -> bool:
+        """Whether a failure may be retried and demoted: any failure on the
+        CPU (every tier there is plain), only an injected one on a card."""
+        return self.device.type != "cuda" or injected(exc)
+
     def _recover(self, reqs: list, bucket, take: int, exc: Exception) -> int:
         """Serve a failed batch through the supervision policy: retry the
         current tier up to ``max_retries`` times with backoff (operands
         re-assembled each time), then demote the bucket and retry there;
-        when the chain is spent, fail every future of the batch.  Runs on
-        the serving thread after older batches retired."""
+        when the chain is spent, or on a card when a failure was not
+        injected, fail every future of the batch.  Runs on the serving
+        thread after older batches retired."""
         sup = self.supervisor
         sup.record("batch_failed", engine=self.name, bucket=bucket, error=repr(exc))
         last: Exception = exc
         attempt = 0
         budget = sup.max_retries  # retries left on the current tier
-        while True:
+        while self._supervised(last):
             if budget <= 0:
                 if not self._demote(bucket, last):
                     break  # chain exhausted
@@ -826,18 +839,17 @@ class SparseEngine:
             self.stats.retries += 1
             sup.retries += 1
             try:
-                ys, ok, event = self._launch(bucket, reqs)
-                self._settle(bucket, event, ok)
+                launched = self._launch(bucket, reqs)
+                self._settle(bucket, *launched)
             except Exception as e:
                 last = e
                 continue
-            return self._resolve(reqs, bucket, take, ys)
+            return self._resolve(reqs, bucket, take, launched[0])
         for req in reqs:
             req.bucket = bucket
             req.set_exception(last)
         self.stats.failed_batches += 1
         self.stats.failed_requests += take
-        self.consecutive_failures += 1
         sup.failures += 1
         sup.record("batch_abandoned", engine=self.name, bucket=bucket,
                    n_requests=take, error=repr(last))
@@ -847,8 +859,6 @@ class SparseEngine:
         """Install the next fallback tier for one bucket; False when the
         chain is exhausted.  The tuned (op, closure) is saved the first time
         so the repair thread can probe and re-promote it."""
-        if self.legacy_dispatch:
-            return False  # the baseline path has no closure table to swap
         level = self._demoted.get(bucket, 0)
         while level < len(FALLBACK_TIERS):
             level += 1
@@ -857,19 +867,22 @@ class SparseEngine:
             except Exception:
                 continue  # this tier cannot build here; try the next one
             sparse = isinstance(bucket, tuple)
-            if bucket not in self._demote_saved:
-                self._demote_saved[bucket] = (
-                    (self._sparse_ops.get(bucket[1]), self._sparse_execs.get(bucket[1]))
-                    if sparse else (self.ops.get(bucket), self._execs.get(bucket))
-                )
+            fn = (self._sparse_exec_for(op) if sparse
+                  else self._make_exec(bucket, op))
+            with self._swap_lock:
+                if bucket not in self._demote_saved:
+                    self._demote_saved[bucket] = (
+                        (self._sparse_ops.get(bucket[1]),
+                         self._sparse_execs.get(bucket[1]))
+                        if sparse else (self.ops.get(bucket), self._execs.get(bucket))
+                    )
+                self._demoted[bucket] = level
             if sparse:
-                fn = finite_guard(op._run) if self.nan_guard else op._run
                 self._sparse_ops[bucket[1]] = op
                 self._sparse_execs[bucket[1]] = fn
             else:
                 self.ops[bucket] = op
-                self._execs[bucket] = self._make_exec(bucket, op)
-            self._demoted[bucket] = level
+                self._execs[bucket] = fn
             self.stats.demotions += 1
             self.supervisor.demotions += 1
             self.supervisor.record("demote", engine=self.name, bucket=bucket,
@@ -890,9 +903,10 @@ class SparseEngine:
             self._repair_thread = t
             t.start()
 
-    def _probe(self, bucket: int, fn) -> None:
-        """One zero batch through a saved closure, on the engine's stream,
-        waited for on an event of its own; raises if it fails."""
+    def _probe(self, bucket, fn) -> None:
+        """One zero batch (an empty sparse x for a sparse bucket) through a
+        saved closure, on the engine's stream, waited for on an event of
+        its own; raises if it fails."""
         faults = self.faults
         if faults is not None:
             faults.fire("engine.dispatch", engine=self.name, bucket=bucket, probe=True)
@@ -903,7 +917,11 @@ class SparseEngine:
             if self._stream is not None:
                 on_stream.enter_context(torch.cuda.device(self.device))
                 on_stream.enter_context(torch.cuda.stream(self._stream))
-            out = fn(*([self._zero] * bucket))
+            if isinstance(bucket, tuple):
+                empty = np.zeros(0, np.int64), np.zeros(0, np.float32)
+                out = fn(pad_sparse_rhs(*empty, bucket[1], self.shape[1]))
+            else:
+                out = fn(*([self._zero] * bucket))
             ys = out[0] if isinstance(out, tuple) else out
             finite = torch.isfinite(ys).all()
             if self._stream is not None:
@@ -914,38 +932,44 @@ class SparseEngine:
             raise NonFiniteOutput(f"repair probe of bucket {bucket} was not finite")
 
     def _repair_worker(self) -> None:
-        """Probe each demoted k-bucket's saved tuned closure off the hot
-        path; on a clean probe, stage that bucket back.  Exits
-        when no demotion remains (a later one starts a fresh thread).
-        Sparse buckets stay on their fallback."""
+        """Probe each demoted bucket's saved tuned closure off the hot
+        path; on a clean probe, stage that bucket back.  Exits when no
+        demotion remains (a later one starts a fresh thread)."""
         interval = self.supervisor.repair_interval_s
         while not self._repair_stop.wait(interval):
-            if not self._demoted:
-                return
+            with self._swap_lock:
+                if not self._demoted:
+                    return
+                todo = [(b, self._demote_saved.get(b)) for b in self._demoted
+                        if b not in self._promoting]
             if self._brownout is not None and self._brownout.state != HEALTHY:
                 continue  # probes are device work taken from serving
-            for bucket in [b for b in list(self._demoted) if not isinstance(b, tuple)]:
-                saved = self._demote_saved.get(bucket)
+            for bucket, saved in todo:
                 if saved is None or saved[0] is None:
                     continue
                 op, fn = saved
                 try:
-                    if fn is None:
-                        fn = self._make_exec(bucket, op)
-                        self._demote_saved[bucket] = (op, fn)
+                    if fn is None:  # the tuned closure was never bound
+                        fn = (self._sparse_exec_for(op) if isinstance(bucket, tuple)
+                              else self._make_exec(bucket, op))
                     self._probe(bucket, fn)
                 except Exception:
                     continue  # still sick; probe again next interval
                 self._promote(bucket, op, fn)
 
-    def _promote(self, bucket: int, op: SparseOperator, fn) -> None:
+    def _sparse_exec_for(self, op: SparseOperator):
+        return finite_guard(op._run) if self.nan_guard else op._run
+
+    def _promote(self, bucket, op: SparseOperator, fn) -> None:
         """Stage the healed tuned plan and closure of one bucket; the
-        serving thread adopts it at its next dispatch.  Only this bucket
-        is staged, so another bucket's demotion or promotion in between is
-        kept."""
-        self._stage({bucket: op}, {bucket: fn})
-        self._demoted.pop(bucket, None)
-        self._demote_saved.pop(bucket, None)
+        serving thread adopts it, and clears the demotion, at its next
+        dispatch.  Only this bucket is staged, so another bucket's demotion
+        or promotion in between is kept."""
+        with self._swap_lock:
+            if bucket not in self._demoted or bucket in self._promoting:
+                return
+            self._stage({bucket: op}, {bucket: fn})
+            self._promoting.add(bucket)
         self.stats.promotions += 1
         self.supervisor.promotions += 1
         self.supervisor.record("promote", engine=self.name, bucket=bucket)
@@ -980,17 +1004,27 @@ class SparseEngine:
         """Submit all, drain, return results in submit order.  A refused
         admission (bounded queue, shedding brownout) is absorbed here: run()
         owns the loop, so it serves a batch (or waits out the shedding) and
-        resubmits."""
+        resubmits.  A request still refused ``block_timeout_s`` after its
+        first refusal while nothing was left to serve re-raises the
+        refusal."""
         reqs = []
         for x in xs:
+            deadline = None
             while True:
                 try:
                     reqs.append(self.submit(x))
                     break
                 except OverloadError:
-                    if self.step(force=True) == 0:
-                        self.flush()
-                        time.sleep(1e-3)
+                    if self.step(force=True) > 0:
+                        deadline = None  # progress: the wait starts again
+                        continue
+                    self.flush()
+                    now = time.perf_counter()
+                    if deadline is None:
+                        deadline = now + self.block_timeout_s
+                    elif now >= deadline:
+                        raise
+                    time.sleep(1e-3)
         self.drain()
         return [r.y for r in reqs]
 
@@ -1042,30 +1076,6 @@ class SparseEngine:
             finally:
                 self._serve_lock.release()
 
-    # -- the legacy synchronous path ----------------------------------------
-    def _step_legacy(self, reqs: list, bucket: int, take: int) -> int:
-        """One batch the old way: a fresh stack, the plan, a synchronise;
-        no supervision (a failure raises out of step())."""
-        if bucket == 1:
-            ys = self.ops[1]._run(reqs[0].x)
-        else:
-            cols = [r.x for r in reqs] + [self._zero] * (bucket - take)
-            ys = self._batched_fn(bucket)(cols)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        return self._resolve(reqs, bucket, take, ys)
-
-    def _batched_fn(self, bucket: int):
-        fn = self._batch_fns.get(bucket)
-        if fn is None:
-            run = self.ops[bucket]._run
-
-            def fn(cols):
-                return run(torch.stack(cols, dim=1))
-
-            self._batch_fns[bucket] = fn
-        return fn
-
     # -- lifecycle ----------------------------------------------------------
     def _check_open(self) -> None:
         if self._closed:
@@ -1092,7 +1102,7 @@ class SparseEngine:
             abandoned = list(self._queue)
             self._queue.clear()
             while self._inflight:
-                abandoned.extend(self._inflight.popleft()[3])
+                abandoned.extend(self._inflight.popleft()[-3])
             for req in abandoned:
                 req.set_exception(exc)
             self.stats.failed_requests += len(abandoned)

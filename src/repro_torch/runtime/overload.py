@@ -15,8 +15,8 @@ classes, with the same state machines, as the JAX package's):
   :class:`EngineClosedError` (the engine was closed);
 * :class:`TokenBucket` — non-blocking rate admission;
 * :class:`BrownoutController` — a watermark state machine (HEALTHY ->
-  BROWNOUT -> SHED) over a scalar pressure in [0, 1+] (the max of queue
-  fill, oldest-request age and prepared-dict byte pressure), with
+  BROWNOUT -> SHED) over a scalar pressure in [0, 1+] (the engine feeds
+  the max of queue fill and oldest-request age), with
   hysteresis (separate enter/exit watermarks) and a minimum dwell time, so
   a boundary load cannot flap it; SHED steps down through BROWNOUT, never
   straight to HEALTHY.  Listeners (the engine's supervisor) get every
@@ -116,8 +116,8 @@ class BrownoutController:
     """Watermark state machine over a scalar overload-pressure signal.
 
     Pressure is a dimensionless fraction: the caller feeds
-    ``update(max(queue_depth/max_queue, oldest_age/shed_after_s,
-    prep_bytes/prep_budget))`` (see :meth:`pressure`), and the controller
+    ``update(max(queue_depth/max_queue, oldest_age/shed_after_s))`` (see
+    :meth:`pressure`), and the controller
     answers with one of three states:
 
     ========== ==============================================================
@@ -175,7 +175,7 @@ class BrownoutController:
     def pressure(**signals: float | None) -> float:
         """Fold named normalized signals into one scalar: the max of all
         non-None values, floored at 0 (callers pass e.g. ``queue=0.4,
-        age=None, prep=0.1`` without filtering)."""
+        age=None`` without filtering)."""
         vals = [float(v) for v in signals.values() if v is not None]
         return max(vals) if vals else 0.0
 

@@ -16,8 +16,12 @@ slower tier that computes the same y = A @ x.
   in the CSR path cannot take both down).  Each tier is a full
   :meth:`SparseOperator.from_candidate` operator on the engine's device.
   Demotion is visible: ``events_of("demote")`` and ``stats.demotions``.
-* :class:`CircuitOpenError` / :class:`NonFiniteOutput` — the exceptions of
-  a tripped breaker and of the opt-in on-device finite guard.
+* :class:`NonFiniteOutput` — the failure the opt-in on-device finite guard
+  reports.
+* :func:`injected` — whether a failure came from an armed fault plan.  On a
+  card only those are retried and demoted: a kernel that really fails (a
+  refused launch, a device fault, a non-finite result of real inputs)
+  fails its batch's futures and is never replaced by a plain tier.
 
 Re-promotion is the engine's job (``SparseEngine._repair_worker``).  The
 event log also carries ``brownout`` transitions and ``engine_aborted``
@@ -31,14 +35,15 @@ import threading
 import time
 from typing import Any
 
+from repro_torch.runtime.faults import InjectedFault
 from repro_torch.tune import SparseOperator
 from repro_torch.tune.candidates import make
 
 __all__ = [
     "Supervisor",
     "SupervisorEvent",
-    "CircuitOpenError",
     "NonFiniteOutput",
+    "injected",
     "FALLBACK_TIERS",
     "fallback_op",
 ]
@@ -46,12 +51,20 @@ __all__ = [
 
 class NonFiniteOutput(RuntimeError):
     """A batch produced NaN/Inf outputs (flagged by the opt-in on-device
-    guard, ``nan_guard=True``); treated exactly like a dispatch fault."""
+    guard, ``nan_guard=True``); treated exactly like a dispatch fault.
+    ``injected`` is True when the engine's ``engine.nan`` site poisoned the
+    batch."""
+
+    def __init__(self, msg: str, *, injected: bool = False):
+        super().__init__(msg)
+        self.injected = bool(injected)
 
 
-class CircuitOpenError(RuntimeError):
-    """A circuit breaker is open: the batches behind it kept failing, so
-    its requests fail fast.  Resubmit after the cooldown."""
+def injected(exc: BaseException) -> bool:
+    """True when ``exc`` is a failure an armed :class:`FaultPlan` caused:
+    an :class:`InjectedFault`, or the non-finite result of a batch the
+    ``engine.nan`` site poisoned."""
+    return isinstance(exc, InjectedFault) or getattr(exc, "injected", False) is True
 
 
 # The degraded-mode chain, most capable first.  sigma = 1 disables the

@@ -1,8 +1,8 @@
 """Fault injection and supervision in the port, on ``device="cpu"``: the
 fault plan (held against ``repro``'s on the same call sequences), the torn
 plan cache, failure-propagating futures, retry -> demote -> repair ->
-promote, plan swaps, the legacy path, and a search that passes over a
-candidate whose prepare raised.
+promote (dense and sparse buckets), plan swaps against the synchronous
+path, and a search that passes over a candidate whose prepare raised.
 
 Every fault is injected through ``repro_torch.runtime.faults``; the
 assertions are about policy: futures always resolve, degraded serving stays
@@ -23,7 +23,12 @@ from repro_torch.core.formats import csr_from_dense
 from repro_torch.runtime import faults as tfaults
 from repro_torch.runtime.engine import SparseEngine
 from repro_torch.runtime.faults import FaultPlan, InjectedFault, set_active
-from repro_torch.runtime.supervisor import FALLBACK_TIERS, NonFiniteOutput, Supervisor
+from repro_torch.runtime.supervisor import (
+    FALLBACK_TIERS,
+    NonFiniteOutput,
+    Supervisor,
+    injected,
+)
 from repro_torch.tune.operator import search_skips
 
 torch.set_num_threads(1)
@@ -229,12 +234,13 @@ def test_nan_guard_demotes_recovers_and_repromotes():
     assert eng.stats.demotions == 2
     assert isinstance(eng.supervisor.events_of("batch_failed")[0].info["error"], str)
     assert "NonFiniteOutput" in eng.supervisor.events_of("batch_failed")[0].info["error"]
+    assert "engine.nan fault site" in eng.supervisor.events_of("batch_failed")[0].info["error"]
     wait_for(lambda: eng.supervisor.promotions >= 1, "the repair to re-promote")
     reqs2 = [eng.submit(x) for x in xs]  # the swap is adopted at dispatch
     eng.drain()
     for r, x in zip(reqs2, xs):
         np.testing.assert_allclose(r.result().numpy(), d @ x, atol=2e-3)
-    assert eng.swaps_applied >= 1 and eng.stats.promotions >= 1
+    assert eng.stats.promotions >= 1 and not eng._demoted and not eng._promoting
     assert {k: op.plan.candidate.key() for k, op in eng.ops.items()} == tuned
     kinds = [e.kind for e in eng.supervisor.events]
     assert kinds.index("batch_failed") < kinds.index("demote") < kinds.index("promote")
@@ -259,6 +265,72 @@ def test_sparse_bucket_demotes_to_the_densified_fallback():
     eng.close()
 
 
+def test_sparse_bucket_repromotes_after_a_clean_probe():
+    d, a = small(seed=8)
+    plan = FaultPlan({"engine.dispatch": {"n": 1, "engine": "sp"}})
+    eng = engine(a, ks=(1,), faults=plan, name="sp", x_nnz_buckets=(8,),
+                 supervisor=Supervisor(max_retries=0, **SUP_KW))
+    idx = np.array([3, 17, 40, 99], np.int64)
+    val = np.array([1.0, -2.0, 0.5, 3.0], np.float32)
+    x = np.zeros(a.shape[1], np.float32)
+    x[idx] = val
+    np.testing.assert_allclose(eng.submit_sparse(idx, val).result(timeout=WAIT_S).numpy(),
+                               d @ x, atol=2e-3)
+    tuned = eng._demote_saved[("spmspv", 8)][0]
+    assert tuned is not None and eng._sparse_ops[8] is not tuned
+    wait_for(lambda: eng.stats.promotions >= 1, "the sparse bucket's promotion")
+    r = eng.submit_sparse(idx, val)  # adopts the staged bucket first
+    np.testing.assert_allclose(r.result(timeout=WAIT_S).numpy(), d @ x, atol=2e-3)
+    assert eng._sparse_ops[8] is tuned
+    assert not eng._demoted and not eng._demote_saved
+    (pro,) = eng.supervisor.events_of("promote")
+    assert pro.info["bucket"] == ("spmspv", 8)
+    eng.close()
+
+
+def test_a_fallback_batch_failing_before_adoption_keeps_the_saved_plan():
+    """A promotion is staged while a batch on the fallback tier is still in
+    flight; that batch then fails.  Its bucket demotes one tier further,
+    the saved tuned plan stays the one the adoption installs, and the
+    adoption clears the demotion."""
+    d, a = small(seed=13)
+    sup = Supervisor(max_retries=0, backoff_base_s=0.0, backoff_cap_s=0.0,
+                     repair_interval_s=60.0)  # the test stages the promotion
+    eng = engine(a, ks=(4,), nan_guard=True, supervisor=sup,
+                 faults=FaultPlan({"engine.dispatch": {"n": 1}}))
+    tuned = eng.ops[4]
+    xs = xs_for(a, 8)
+    eng.run(xs[:4])  # launch fails; demoted to csr/vector, served there
+    assert eng._demoted == {4: 1} and eng._demote_saved[4][0] is tuned
+    eng.faults = FaultPlan({"engine.nan": {"n": 1}})
+    reqs = [eng.submit(x) for x in xs[4:]]
+    eng.step()  # a poisoned csr/vector batch, still in flight
+    assert eng.in_flight == 1
+    op, fn = eng._demote_saved[4]
+    eng._promote(4, op, fn if fn is not None else eng._make_exec(4, op))
+    assert eng._promoting == {4}
+    eng.flush()  # the fallback batch fails, demotes to sell/ref, is served
+    assert [e.info["level"] for e in sup.events_of("demote")] == [1, 2]
+    assert eng._demote_saved[4][0] is tuned
+    for r, x in zip(reqs, xs[4:]):
+        np.testing.assert_allclose(r.result().numpy(), d @ x, atol=2e-3)
+    eng.run(xs[:4])  # adopts the staged tuned plan
+    assert eng.ops[4] is tuned
+    assert not eng._demoted and not eng._demote_saved and not eng._promoting
+    eng.close()
+
+
+def test_only_plan_faults_count_as_injected():
+    """On a card the engine retries and demotes only what ``injected``
+    accepts; every other failure fails its batch's futures."""
+    assert injected(InjectedFault("x"))
+    assert injected(NonFiniteOutput("poisoned", injected=True))
+    assert not injected(NonFiniteOutput("real"))
+    for exc in (ValueError("misaligned"), RuntimeError("CUDA error"), MemoryError()):
+        assert not injected(exc)
+    assert not injected(torch.cuda.OutOfMemoryError("oom"))
+
+
 def test_a_fault_on_every_launch_fails_the_batch_and_stops():
     d, a = small(seed=9)
     plan = FaultPlan({"engine.dispatch": {}})  # every launch, every tier
@@ -275,6 +347,8 @@ def test_a_fault_on_every_launch_fails_the_batch_and_stops():
 
 
 def test_hot_swap_applies_at_the_next_dispatch_and_legacy_path_agrees():
+    """The swapped table serves exactly as a synchronous engine
+    (``async_depth=0``, the baseline path) built on it."""
     d, a = small(seed=10)
     eng = engine(a, ks=(1, 4))
     xs = xs_for(a, 5)
@@ -283,10 +357,10 @@ def test_hot_swap_applies_at_the_next_dispatch_and_legacy_path_agrees():
         a, tt.make("sell", "ref", C=8, sigma=1), k=None if k == 1 else k, device="cpu")
         for k in (1, 4)}
     eng.hot_swap(table)
-    assert eng.swaps_applied == 0  # staged, not adopted
+    assert eng.ops[4] is not table[4]  # staged, not adopted
     after = eng.run(xs)
-    assert eng.swaps_applied == 1 and eng.ops[4] is table[4]
-    legacy = SparseEngine(a, ks=(1, 4), ops=table, device="cpu", legacy_dispatch=True)
+    assert eng.ops[4] is table[4] and eng.ops[1] is table[1]
+    legacy = SparseEngine(a, ks=(1, 4), ops=table, device="cpu", async_depth=0)
     via_legacy = legacy.run(xs)
     assert legacy.stats.summary()["by_bucket"] == {1: 1, 4: 1}
     for y0, y1, y2, x in zip(before, after, via_legacy, xs):

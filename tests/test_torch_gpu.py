@@ -519,6 +519,43 @@ def test_gpu_demote_repair_promote_on_the_engines_stream(cuda_device):
 
 
 @pytest.mark.gpu
+def test_gpu_real_refused_launch_fails_futures_and_never_demotes(cuda_device):
+    """A kernel that really refuses its launch on a card (a blocks operand
+    off its 16-byte boundary) fails its batch's futures: no retry, no
+    demotion, the bucket keeps its tuned plan, and the other buckets serve."""
+    from repro_torch.runtime.engine import SparseEngine
+    from repro_torch.runtime.supervisor import Supervisor
+    from repro_torch.tune.operator import runner
+
+    a, x = _gpu_case()
+    op4 = SparseOperator.from_candidate(a, make("bcsr", "cuda", block=(8, 8)), k=4,
+                                        device=cuda_device)
+    prep = dict(op4._prep)
+    buf = torch.empty(prep["blocks"].numel() + 1, device=cuda_device)
+    prep["blocks"] = buf[1:].view(prep["blocks"].shape)
+    prep["blocks"].copy_(op4._prep["blocks"])
+    op4._run = runner(a, op4.plan.candidate, prep, k=4)
+    ops = {1: SparseOperator.from_candidate(a, make("sell", "cuda", C=8, sigma=64,
+                                                     chunk_tile=8), device=cuda_device),
+           4: op4}
+    sup = Supervisor(max_retries=2, backoff_base_s=0.0, repair_interval_s=0.01)
+    eng = SparseEngine(a, ks=(1, 4), ops=ops, device=cuda_device, supervisor=sup)
+    xt = torch.as_tensor(x, device=cuda_device)
+    reqs = [eng.submit(xt) for _ in range(4)]
+    eng.drain()
+    for r in reqs:
+        assert r.failed
+        with pytest.raises(ValueError, match="16-byte"):
+            r.result()
+    y = eng.submit(xt).result(timeout=5)  # bucket 1 still serves
+    assert_rowtol(y.cpu().numpy(), _oracle(a, x), a, x)
+    eng.close()
+    assert [e.kind for e in sup.events] == ["batch_failed", "batch_abandoned"]
+    assert sup.demotions == 0 and sup.retries == 0 and eng.stats.demotions == 0
+    assert eng.stats.failed_requests == 4 and eng.ops[4] is op4
+
+
+@pytest.mark.gpu
 def test_gpu_build_skips_a_prepare_that_runs_out_of_memory(cuda_device):
     from repro_torch.runtime.faults import FaultPlan, set_active
 

@@ -299,11 +299,17 @@ def test_engine_brownout_degrades_and_recovers():
     eng.close()
 
 
+def _pinned(ctrl, pressure):
+    """Drive ``ctrl`` to the state of ``pressure`` on a clock far ahead, so
+    its dwell time holds that state through every real-time update."""
+    ctrl.update(pressure, now=time.perf_counter() + 1e6 * (1 + len(ctrl.transitions)))
+
+
 def test_brownout_pins_widest_bucket():
     d, a = small(seed=9)
-    ctrl = BrownoutController(min_dwell_s=0.0)
-    eng = engine(a, ks=(1, 4), brownout=ctrl, brownout_update=False)
-    ctrl.update(0.8)
+    ctrl = BrownoutController(min_dwell_s=1e5)
+    eng = engine(a, ks=(1, 4), brownout=ctrl)
+    _pinned(ctrl, 0.8)
     assert ctrl.state == BROWNOUT
     x = xs_for(a, 1)[0]
     r = eng.submit(x)
@@ -311,13 +317,13 @@ def test_brownout_pins_widest_bucket():
     eng.flush()
     assert eng.stats.dispatched.get(4, 0) == 1 and eng.stats.dispatched.get(1, 0) == 0
     np.testing.assert_allclose(r.result().numpy(), d @ x.numpy(), atol=1e-4)
-    ctrl.update(0.0)
+    _pinned(ctrl, 0.0)
     assert ctrl.state == HEALTHY
     eng.submit(x)
     eng.step(force=True)
     eng.flush()
     assert eng.stats.dispatched.get(1, 0) == 1
-    assert eng.supervisor.events_of("brownout") == []  # the caller drives it
+    assert len(eng.supervisor.events_of("brownout")) == len(ctrl.transitions) == 2
     eng.close()
 
 
@@ -368,15 +374,41 @@ def test_result_timeout_still_honored_with_condition_wait():
     eng.close()
 
 
-def test_prep_memo_fill_feeds_the_brownout_pressure(monkeypatch):
+def test_full_prep_memo_leaves_an_idle_engine_serving(monkeypatch):
+    """A prep memo filled past the shedding watermark is no overload: an
+    idle engine stays HEALTHY, admits work and serves it."""
     from repro_torch.tune import operator as top
 
     d, a = small(seed=12)
     monkeypatch.setattr(top, "_PREP_MEMO", top.PrepCache(budget_bytes=10**6))
-    eng = engine(a, ks=(1,), max_queue=100)
+    eng = engine(a, ks=(1, 4), max_queue=8, brownout=BrownoutController(min_dwell_s=0.0))
+    eng.run(xs_for(a, 4))  # fills the memo with this matrix's preps
     st = top.prep_memo_stats()
-    assert 0 < st["resident_bytes"] <= st["budget_bytes"] == 10**6
-    assert eng._overload_pressure() == pytest.approx(st["resident_bytes"] / 10**6)
-    assert top.evict_prepared(tt.fingerprint(a)) == st["resident_bytes"]
-    assert eng._overload_pressure() == 0.0
+    monkeypatch.setattr(top._PREP_MEMO, "budget_bytes",
+                        int(st["resident_bytes"] / 0.97))
+    assert top.prep_memo_stats()["resident_bytes"] > 0.95 * top.prep_memo_stats()["budget_bytes"]
+    for _ in range(3):
+        eng.step()
+    assert eng.brownout.state == HEALTHY and eng._overload_pressure() == 0.0
+    xs = xs_for(a, 6, seed=2)
+    ys = eng.run(xs)
+    for y, x in zip(ys, xs):
+        np.testing.assert_allclose(y.numpy(), d @ x.numpy(), atol=1e-4)
+    assert eng.stats.rejected == 0 and eng.brownout.state == HEALTHY
+    eng.close()
+
+
+def test_run_raises_when_refused_past_block_timeout():
+    """With nothing left to serve, run() waits ``block_timeout_s`` for the
+    refusal to lift, then re-raises it instead of spinning."""
+    d, a = small(seed=14)
+    ctrl = BrownoutController(min_dwell_s=1e5)
+    eng = engine(a, ks=(1, 4), brownout=ctrl, block_timeout_s=0.05)
+    _pinned(ctrl, 1.0)
+    assert ctrl.state == SHED
+    t0 = time.perf_counter()
+    with pytest.raises(OverloadError, match="shedding"):
+        eng.run(xs_for(a, 2))
+    assert 0.05 <= time.perf_counter() - t0 < WAIT_S
+    assert eng.pending == 0 and eng.stats.rejected >= 2
     eng.close()
