@@ -73,14 +73,40 @@ scipy; imports nothing of JAX or of the JAX package.  Phases:
    batch_failed -> demote -> promote per faulted bucket, the tuned plans
    and kernels serve again after promotion, and a real refused launch
    (BCSR blocks off their 16-byte boundary) fails its batch's futures with
-   no retry and no demotion; (d) ``max_queue`` under each
+   no retry and no demotion, and a faulted sparse bucket on webbase-1M
+   (pinned ``spmspv/cuda``) whose repair probe must launch the fused
+   kernel once before its promotion; (d) ``max_queue`` under each
    policy with ``shed_after_s``, a ``BrownoutController`` and an
    ``engine.overload`` delay: every future resolves (served at 1e-5, or a
    typed ``OverloadError``), the widest bucket serves through
    ``bcsr/cuda``; (e) the serve CLI with ``--max-queue 64
    --overload-policy shed-oldest --brownout``.  The engines of phases 4,
    6b and 7d, into which no failure is injected, must record no failed
-   batch and no demotion.
+   batch and no demotion;
+8. the iterative solvers (``runtime.solver``) on ``spd_shift(cant)`` and
+   ``spd_shift(ldoor)`` at scale 1.0: a tuned ``SparseSolver`` on cant
+   runs CG (tol 1e-5), Lanczos (64 steps) and block power (k = 8, tol
+   1e-4, 100 iterations), a second one pinned to ``bcsr/cuda`` runs block
+   power again, and one pinned to ``sell/cuda`` runs CG on ldoor.  Their
+   plans are built first, and each kernel they run is held against its
+   plain version on the solver's own prepared operand at its width
+   (phase 2's row tolerance); then the launch counts are set to 0 and the
+   solves run.  CG's float64 relative residual (scipy, on the host) must
+   be <= 1e-4; the largest Ritz value must lie within 1e-3 (relative) of
+   ``eigsh(which="LA")``; every block-power theta, index by index, within
+   1e-4 of lambda_1 of the same iteration run in float64 from the same
+   start, theta_1 within 1e-3 of eigsh's lambda_1, and the thetas under
+   the Ky Fan bound of eigsh's top 8; the
+   device-decided loop and the host loop (``cg_host_loop``,
+   ``block_power_host_loop``) on the same plan must give the same count and
+   flag, x within 1e-6 and theta within 1e-5, also for a CG whose tol is
+   met inside a block (iteration 5 of the block 4-7); SELL and BCSR must
+   both launch; the unfaulted solvers record no event.  Then ms per iteration
+   at a fixed budget (tol < 0, 128 iterations; best of 5, fused and host
+   loop in turns) with the synchronising calls torch counts, each CG's
+   wall time to tol 1e-5 against the host loop's, an injected ``solver.dispatch`` fault (retry ->
+   demote) and a plan that really refuses its launch (``cg()`` raises,
+   no retry).  Each kernel row gains ``solver_launches``.
 
 Any failed check exits non-zero.  The last lines are the card's name and
 power limit, one JSON object with the kernel table, and the JSON status
@@ -94,6 +120,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -128,8 +155,10 @@ def main() -> None:
     import numpy as np
     import scipy.sparse as sp
 
+    from scipy.sparse.linalg import eigsh
+
     from repro_torch.core.formats import CSRMatrix, bcsr_from_csr, sell_from_csr
-    from repro_torch.core.spmv import csr_prepare, spmm_csr, spmv_csr
+    from repro_torch.core.spmv import csr_prepare, spd_shift, spmm_csr, spmv_csr
     from repro_torch.data.suite import generate
     from repro_torch.kernels import _build
     from repro_torch.kernels import ops as kops
@@ -161,6 +190,11 @@ def main() -> None:
         SHED,
         BrownoutController,
         OverloadError,
+    )
+    from repro_torch.runtime.solver import (
+        SparseSolver,
+        block_power_host_loop,
+        cg_host_loop,
     )
     from repro_torch.runtime.supervisor import Supervisor
     from repro_torch.tune import (
@@ -1226,6 +1260,51 @@ def main() -> None:
              f"{eng_r.stats.summary()}")
     check_served("bucket 1 beside the refused bucket vs float64 oracle", [y_r],
                  [req_host[0]])
+    # A faulted sparse bucket on webbase-1M, pinned to spmspv/cuda: it
+    # demotes to the densified csr/vector fallback, and the repair probe
+    # that promotes it back runs a product, so the fused kernel launches
+    # exactly once between the demotion and the next request.
+    B7 = buckets[0]
+    cache7 = PlanCache()  # the pinned plan, searched here so the engine loads it
+    SparseOperator.build(web, x_nnz=B7, cache=cache7, candidates=[pinned_sp],
+                         device=dev)
+    sup_s = Supervisor(max_retries=0, repair_interval_s=0.02)
+    eng_s7 = SparseEngine(
+        web, ks=(1,), device=dev, name="web-7c", x_nnz_buckets=(B7,),
+        ops={1: SparseOperator.from_candidate(web, make("csr", "vector"), device=dev)},
+        cache=cache7, candidates=[pinned_sp], supervisor=sup_s,
+        faults=FaultPlan({"engine.dispatch": {"n": 1, "bucket": f"('spmspv', {B7})"}}))
+    idx7, val7 = sparse_x(n_w, B7, seed=7)
+    W64 = A64["webbase-1M"]
+    x7, mask7 = np.zeros(n_w), np.zeros(n_w)
+    x7[idx7], mask7[idx7] = val7, 1.0
+    W_pat = W64.copy()
+    W_pat.data[:] = 1.0
+    o7 = (W64 @ x7, abs(W64) @ np.abs(x7), W_pat @ mask7)
+    del W_pat
+    _build.reset_launches()
+    y7 = eng_s7.submit_sparse(idx7, val7).result(timeout=10)
+    deadline = time.perf_counter() + 10.0
+    while sup_s.promotions < 1 and time.perf_counter() < deadline:
+        time.sleep(0.01)
+    torch.cuda.synchronize()
+    probe_launches = _build.LAUNCHES["spmspv_scatter"]
+    y7b = eng_s7.submit_sparse(idx7, val7).result(timeout=10)
+    torch.cuda.synchronize()
+    after_launches = _build.LAUNCHES["spmspv_scatter"]
+    eng_s7.close()
+    kinds_s = [e.kind for e in sup_s.events]
+    print(f"  sparse bucket {B7}: events {kinds_s}; spmspv_scatter launches by the "
+          f"repair probe {probe_launches}, after the next request {after_launches}")
+    record["supervised"]["sparse_probe"] = {"events": kinds_s,
+                                            "probe_launches": probe_launches,
+                                            "after_next_request": after_launches}
+    if kinds_s != ["batch_failed", "demote", "promote"] or probe_launches != 1 \
+            or after_launches != 2:
+        fail(f"the sparse bucket's repair probe ran no product: events {kinds_s}, "
+             f"launches {probe_launches} then {after_launches}")
+    for label, y_ in (("on the fallback", y7), ("after promotion", y7b)):
+        check_sparse(f"sparse bucket {B7} {label} vs float64 oracle", y_, *o7)
     phase_done("supervised", t0)
 
     # 7d: overload on cant: each policy under a slowed dispatch
@@ -1311,6 +1390,312 @@ def main() -> None:
         fail(f"serve CLI: {eng_s}")
     tmp.cleanup()
     phase_done("serve_cli_overload", t0)
+
+    # -- phase 8: the iterative solvers, launches counted -----------------
+    t0 = time.perf_counter()
+    print("phase 8: CG, Lanczos and block power on spd_shift(cant) and "
+          "spd_shift(ldoor)", flush=True)
+    spd = {name: spd_shift(mats[name]) for name in ("cant", "ldoor")}
+    S64 = {name: sp.csr_matrix((a.data.astype(np.float64), a.indices, a.indptr),
+                               shape=a.shape) for name, a in spd.items()}
+    for name, a in spd.items():
+        print(f"  spd_shift({name}): {a.shape[0]} rows, {a.nnz} nonzeros")
+        mats[f"spd_{name}"] = a  # row_scale() of the kernel checks below
+        d = csr_prepare(a, dev)
+        d["data"] = d["data"].abs()
+        abs_csr[f"spd_{name}"] = d
+    lam8 = np.sort(eigsh(S64["cant"], k=8, which="LA", tol=1e-8,
+                         return_eigenvectors=False))[::-1]
+    lam_max = float(lam8[0])
+    b_host = {name: np.random.default_rng(0).standard_normal(a.shape[0]).astype(
+        np.float32) for name, a in spd.items()}
+    sol_tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_solver_")
+    sol_cache = PlanCache(Path(sol_tmp.name) / "plans.json")
+    bcsr88 = make("bcsr", "cuda", block=(8, 8))
+    lap_t[0] = time.perf_counter()
+    solvers = {
+        "cant tuned": SparseSolver(spd["cant"], cache=sol_cache, device=dev),
+        "cant bcsr/cuda": SparseSolver(spd["cant"], cache=PlanCache(), device=dev,
+                                       candidates=[bcsr88]),
+        "ldoor sell/cuda": SparseSolver(
+            spd["ldoor"], cache=PlanCache(), device=dev,
+            candidates=[make("sell", "cuda", C=8, sigma=64, chunk_tile=8)]),
+    }
+    sc, sb, sl = solvers.values()
+    # every plan the solves below run, searched (or pinned) and prepared
+    step_ops = {"spd_cant k=1, tuned": (sc.op(1), 1),
+                "spd_cant k=8, tuned": (sc.op(8), 8),
+                "spd_cant k=8, bcsr/cuda": (sb.op(8), 8),
+                "spd_ldoor k=1, sell/cuda": (sl.op(1), 1)}
+    lap("solver plans: searches and preparation")
+    report_search("spd_cant solver_step k=1", sc.op(1))
+    report_search("spd_cant solver_step k=8", sc.op(8))
+    for label, want in (("spd_cant k=8, bcsr/cuda", "bcsr/cuda"),
+                        ("spd_ldoor k=1, sell/cuda", "sell/cuda")):
+        if not step_ops[label][0].plan.candidate.key().startswith(want):
+            fail(f"{label}: the pinned plan is {step_ops[label][0].plan.candidate.key()}")
+    sol = record["solvers"] = {}
+
+    # Each kernel the solvers run, on the solvers' own prepared operands and
+    # at their widths, against its plain version (phase 2's row tolerance);
+    # these launches are not counted.
+    for label, (op, k) in step_ops.items():
+        name = label.split()[0]
+        cand, p = op.plan.candidate, op._prep
+        X = rand_x(op.shape[1], k)
+        if (cand.fmt, cand.impl) == ("bcsr", "cuda"):
+            bm, bk = p["block_shape"]
+            bcsr_case(f"{label} ({bm}x{bk})", p, X, row_scale(name, X))
+        elif (cand.fmt, cand.impl) == ("sell", "cuda"):
+            x = X[:, 0]
+            y = kops.sell_spmv(p, x)
+            yp = sell_spmv_plain(p["cols"], p["vals"], x, p["row_perm"], op.shape[0])
+            torch.cuda.synchronize()
+            errs[f"sell_spmv/{label}"] = check(f"sell_spmv {label}", y, yp,
+                                              row_scale(name, x))
+            repeatable(f"sell_spmv {label}", lambda: kops.sell_spmv(p, x))
+        else:
+            print(f"  {label}: plan {cand.key()} runs no kernel of the port")
+    lap("solver kernels against their plain versions")
+
+    def cg_check(label: str, name: str, res) -> None:
+        """The float64 relative residual of the returned x, by scipy."""
+        x64 = res.x.double().cpu().numpy()
+        b64 = b_host[name].astype(np.float64)
+        true = float(np.linalg.norm(b64 - S64[name] @ x64) / np.linalg.norm(b64))
+        rec = float(res.residual / np.linalg.norm(b64))
+        sol[label] = {"plan": res.plan, "iterations": res.iterations,
+                      "converged": res.converged, "syncs": res.syncs,
+                      "true_rel_residual": true, "recursive_rel_residual": rec}
+        print(f"  {label}: plan {res.plan}, {res.iterations} iterations, converged "
+              f"{res.converged}, float64 relative residual {true:.3e} (float32 "
+              f"recursive {rec:.3e}), {res.syncs} host reads")
+        if not res.converged or not true <= 1e-4:
+            fail(f"{label}: converged {res.converged}, relative residual {true:.3e}")
+
+    def same_run(label: str, fused, host, atol: float) -> None:
+        """Fused and host loop on one plan: one count, one flag, one answer."""
+        got = fused.x if fused.x is not None else torch.as_tensor(fused.eigenvalues)
+        want = host.x if host.x is not None else torch.as_tensor(host.eigenvalues)
+        gap = float((got.cpu() - want.cpu()).abs().max())
+        print(f"  {label}: fused {fused.iterations} iterations ({fused.syncs} host "
+              f"reads), host loop {host.iterations} ({host.syncs}), flags "
+              f"{fused.converged}/{host.converged}, max gap {gap:.3e}")
+        sol[f"{label} vs host loop"] = {"iterations": [fused.iterations,
+                                                       host.iterations],
+                                        "syncs": [fused.syncs, host.syncs],
+                                        "max_gap": gap}
+        if (fused.iterations, fused.converged) != (host.iterations, host.converged) \
+                or not gap <= atol:
+            fail(f"{label}: fused and host loop differ")
+
+    def block_power64(name: str, v0, iters: int) -> np.ndarray:
+        """The same block power iteration in float64 on the card (a library
+        product, no plan, no kernel of the port, so no launch counted): the
+        Rayleigh quotients after ``iters`` steps from the same start."""
+        a = S64[name]
+        A = torch.sparse_csr_tensor(
+            torch.as_tensor(a.indptr.astype(np.int64)),
+            torch.as_tensor(a.indices.astype(np.int64)),
+            torch.as_tensor(a.data), size=a.shape, device=dev)
+        V = torch.linalg.qr(v0.double()).Q
+        theta = torch.zeros(v0.shape[1], dtype=torch.float64, device=dev)
+        for _ in range(iters):
+            W = A @ V
+            theta = (V * W).sum(0)
+            V = torch.linalg.qr(W).Q
+        return theta.cpu().numpy()
+
+    # the solves, launches counted from here
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    b_c = torch.as_tensor(b_host["cant"], device=dev)
+    r_cg = sc.cg(b_c, tol=1e-5, maxiter=500)
+    cg_check("cant CG, tuned", "cant", r_cg)
+    same_run("cant CG", r_cg, cg_host_loop(sc.op(1)._run, b_c, tol=1e-5, maxiter=500,
+                                           device=dev), 1e-6)
+    # A tol the host loop first meets at iteration 5, inside the block of
+    # iterations 4-7: the fused loop masks iterations 6 and 7 on the card.
+    res45 = [cg_host_loop(sc.op(1)._run, b_c, tol=-1.0, maxiter=i,
+                          device=dev).residual for i in (4, 5)]
+    tol_mid = float(np.sqrt(res45[0] * res45[1]) / np.linalg.norm(b_host["cant"]))
+    r_mid = sc.cg(b_c, tol=tol_mid, maxiter=500)
+    same_run(f"cant CG to tol {tol_mid:.3e}, converged inside a block", r_mid,
+             cg_host_loop(sc.op(1)._run, b_c, tol=tol_mid, maxiter=500, device=dev),
+             1e-6)
+    if (r_mid.iterations, r_mid.converged, r_mid.syncs) != (5, True, 3 + 1):
+        fail(f"CG to tol {tol_mid:.3e}: {r_mid.iterations} iterations, converged "
+             f"{r_mid.converged}, {r_mid.syncs} host reads; want 5, True, 4")
+    lap("cant: CG")
+    r_lz = sc.lanczos(num_steps=64)
+    ritz = float(r_lz.eigenvalues[-1])
+    sol["cant Lanczos"] = {"ritz_max": ritz, "eigsh_max": lam_max,
+                           "rel_gap": abs(ritz - lam_max) / abs(lam_max),
+                           "syncs": r_lz.syncs}
+    print(f"  cant Lanczos, 64 steps: largest Ritz value {ritz:.6f}, eigsh {lam_max:.6f}"
+          f" (relative gap {sol['cant Lanczos']['rel_gap']:.2e}), {r_lz.syncs} host read")
+    if not abs(ritz - lam_max) <= 1e-3 * abs(lam_max):
+        fail(f"Lanczos: largest Ritz value {ritz} against eigsh {lam_max}")
+    v0 = torch.as_tensor(np.random.default_rng(1).standard_normal(
+        (spd["cant"].shape[0], 8)).astype(np.float32), device=dev)
+    bp_runs = {}
+    for label, s_ in (("cant block power k=8, tuned", sc),
+                      ("cant block power k=8, bcsr/cuda", sb)):
+        r_bp = bp_runs[label] = s_.block_power(8, tol=1e-4, maxiter=100, v0=v0)
+        same_run(label, r_bp, block_power_host_loop(
+            s_.op(8)._run, v0, tol=1e-4, maxiter=100, device=dev), 1e-5)
+    lap("cant: Lanczos and block power")
+    for label, r_bp in bp_runs.items():
+        # Every theta, index by index, against the float64 run of the same
+        # iteration from the same start (within 1e-4 of lambda_1): a wrong
+        # column of the product shows here.  Against eigsh's top 8: theta_1
+        # within 1e-3, and the Ky Fan bound every orthonormal V obeys (the
+        # j largest thetas sum to at most lambda_1 + ... + lambda_j).  The
+        # trailing columns need not have converged, so they are printed
+        # against eigsh, not held to it.
+        theta = np.asarray(r_bp.eigenvalues, np.float64)
+        srt = np.sort(theta)[::-1]
+        gap_eigsh = np.abs(srt - lam8) / abs(lam_max)
+        gap_64 = np.abs(theta - block_power64("cant", v0, r_bp.iterations)) / abs(lam_max)
+        ky_fan = np.cumsum(srt) - np.cumsum(lam8) - 1e-5 * abs(lam_max) * np.arange(1, 9)
+        sol[label] = {"plan": r_bp.plan, "iterations": r_bp.iterations,
+                      "converged": r_bp.converged, "theta": theta.tolist(),
+                      "eigsh_top8": lam8.tolist(),
+                      "rel_gap_eigsh": gap_eigsh.tolist(),
+                      "rel_gap_float64_run": gap_64.tolist(), "syncs": r_bp.syncs}
+        print(f"  {label}: plan {r_bp.plan}, {r_bp.iterations} iterations, converged "
+              f"{r_bp.converged}, {r_bp.syncs} host reads; theta (sorted) "
+              f"{np.round(srt, 4).tolist()}, eigsh top 8 {np.round(lam8, 4).tolist()}; "
+              f"gaps to eigsh {np.array2string(gap_eigsh, precision=2)}, largest gap "
+              f"to the float64 run {gap_64.max():.2e} (relative to lambda_1)")
+        if not (gap_eigsh[0] <= 1e-3 and gap_64.max() <= 1e-4 and (ky_fan <= 0).all()):
+            fail(f"{label}: theta {theta.tolist()} against eigsh {lam8.tolist()} "
+                 f"(gaps {gap_eigsh.tolist()}) or the float64 run (gaps "
+                 f"{gap_64.tolist()})")
+    lap("cant: block power against eigsh and the float64 run")
+    b_l = torch.as_tensor(b_host["ldoor"], device=dev)
+    r_l = sl.cg(b_l, tol=1e-5, maxiter=500)
+    lap("ldoor: CG on sell/cuda")
+    cg_check("ldoor CG, sell/cuda", "ldoor", r_l)
+    same_run("ldoor CG", r_l, cg_host_loop(sl.op(1)._run, b_l, tol=1e-5, maxiter=500,
+                                           device=dev), 1e-6)
+    torch.cuda.synchronize()
+    launches8 = dict(_build.LAUNCHES)
+    print(f"  launches over the phase 8 solves: {launches8}")
+    record["solver_launches"] = launches8
+    for key in ("sell_spmv", "bcsr_spmm"):
+        if launches8.get(key, 0) <= 0:
+            fail(f"kernel {key} was never launched by the solvers")
+    for label, s_ in solvers.items():
+        ev = [(e.kind, e.info) for e in s_.supervisor.events]
+        if ev or s_.supervisor.demotions:
+            fail(f"unfaulted solver {label}: supervisor events {ev}")
+    print("  ok phase 8 solvers: zero supervisor events, zero demotions")
+
+    # Rate: ms per iteration at a fixed budget (tol < 0, 128 iterations),
+    # fused against host loop on one plan, best of 5 taken in turns; host
+    # reads counted by torch's sync debug mode.
+    def per_iter_ms(fn) -> float:
+        torch.cuda.synchronize()
+        t_ = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t_) * 1e3 / 128
+
+    def sync_count(fn) -> int:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                fn()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        return sum("synchroniz" in str(w.message) for w in caught)
+
+    rates = record["solver_rates"] = {}
+    cases = (
+        ("cant CG", lambda: sc.cg(b_c, tol=-1.0, maxiter=128),
+         lambda: cg_host_loop(sc.op(1)._run, b_c, tol=-1.0, maxiter=128, device=dev)),
+        ("ldoor CG", lambda: sl.cg(b_l, tol=-1.0, maxiter=128),
+         lambda: cg_host_loop(sl.op(1)._run, b_l, tol=-1.0, maxiter=128, device=dev)),
+        ("cant block power k=8, bcsr/cuda",
+         lambda: sb.block_power(8, tol=-1.0, maxiter=128, v0=v0),
+         lambda: block_power_host_loop(sb.op(8)._run, v0, tol=-1.0, maxiter=128,
+                                       device=dev)),
+    )
+    for label, fused_fn, host_fn in cases:
+        fused_fn(), host_fn()  # warm
+        f_ms, h_ms = [], []
+        for _ in range(5):
+            f_ms.append(per_iter_ms(fused_fn))
+            h_ms.append(per_iter_ms(host_fn))
+        rates[label] = {"fused_ms_per_iter": min(f_ms), "host_ms_per_iter": min(h_ms),
+                        "fused_syncs_counted": sync_count(fused_fn),
+                        "host_syncs_counted": sync_count(host_fn)}
+        print(f"  {label}, 128 iterations at tol < 0: fused {min(f_ms):.4f} ms per "
+              f"iteration, host loop {min(h_ms):.4f} (best of 5 in turns); "
+              f"synchronising calls counted {rates[label]['fused_syncs_counted']} / "
+              f"{rates[label]['host_syncs_counted']}", flush=True)
+    def wall(fn) -> float:
+        torch.cuda.synchronize()
+        t_ = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t_) * 1e3
+
+    for label, s_, b_ in (("cant CG", sc, b_c), ("ldoor CG", sl, b_l)):
+        walls = {"fused": [], "host": []}
+        for _ in range(5):  # in turns, plans already built
+            walls["fused"].append(wall(lambda: s_.cg(b_, tol=1e-5, maxiter=500)))
+            walls["host"].append(wall(lambda: cg_host_loop(
+                s_.op(1)._run, b_, tol=1e-5, maxiter=500, device=dev)))
+        res_ = s_.cg(b_, tol=1e-5, maxiter=500)
+        rates[label].update(solve_wall_ms=min(walls["fused"]),
+                            host_solve_wall_ms=min(walls["host"]),
+                            solve_iterations=res_.iterations, solve_syncs=res_.syncs)
+        print(f"  {label} to tol 1e-5 ({res_.iterations} iterations, {res_.syncs} host "
+              f"reads): fused {min(walls['fused']):.3f} ms wall, host loop "
+              f"{min(walls['host']):.3f} (best of 5 in turns)")
+    lap("rates")
+
+    # Supervision: an injected solver.dispatch fault retries, then demotes;
+    # a plan that fails for real raises from cg() with no retry.
+    sup8 = Supervisor(max_retries=2)
+    s_f = SparseSolver(spd["cant"], cache=sol_cache, device=dev, name="cant-8",
+                       faults=FaultPlan("solver.dispatch:n=3"), supervisor=sup8)
+    r_f = s_f.cg(b_c, tol=1e-5, maxiter=500)
+    kinds8 = [e.kind for e in sup8.events]
+    print(f"  injected solver.dispatch x3: events {kinds8}, plan {r_f.plan}")
+    if kinds8 != ["solver_attempt_failed"] * 3 + ["demote", "solver_recovered"] \
+            or r_f.plan != "csr/vector":
+        fail(f"the faulted solver did not retry then demote: {kinds8}, {r_f.plan}")
+    cg_check("cant CG after demotion", "cant", r_f)
+    good = SparseOperator.from_candidate(spd["cant"], bcsr88, device=dev)
+    prep_bad = dict(good._prep)
+    shifted = torch.empty(prep_bad["blocks"].numel() + 1, device=dev)[1:]
+    prep_bad["blocks"] = shifted.view(good._prep["blocks"].shape)
+    prep_bad["blocks"].copy_(good._prep["blocks"])
+    good._run = runner(spd["cant"], bcsr88, prep_bad, k=1)
+    sup_bad = Supervisor(max_retries=2)
+    s_bad = SparseSolver(spd["cant"], device=dev, supervisor=sup_bad)
+    s_bad._ops[1] = good
+    try:
+        s_bad.cg(b_c, tol=1e-5, maxiter=500)
+        fail("a CG whose plan refuses its launch returned")
+    except ValueError as e:
+        print(f"  a plan that fails for real: cg() raised {type(e).__name__}; events "
+              f"{[ev.kind for ev in sup_bad.events]}")
+    if [e.kind for e in sup_bad.events] != ["solver_attempt_failed", "solver_failed"] \
+            or sup_bad.retries or sup_bad.demotions:
+        fail(f"a real failure was retried or demoted: {sup_bad.summary()}")
+    sol["supervision"] = {"injected": kinds8,
+                          "real": [e.kind for e in sup_bad.events]}
+    sol_tmp.cleanup()
+    del solvers, step_ops, bp_runs, sc, sb, sl, s_f, s_bad, good, prep_bad, shifted
+    torch.cuda.empty_cache()
+    phase_done("solvers", t0)
+    for row in kernels:
+        row["solver_launches"] = int(launches8.get(row["name"], 0))
 
     record["kernels"] = kernels
     record["card"] = smi

@@ -904,9 +904,11 @@ class SparseEngine:
             t.start()
 
     def _probe(self, bucket, fn) -> None:
-        """One zero batch (an empty sparse x for a sparse bucket) through a
-        saved closure, on the engine's stream, waited for on an event of
-        its own; raises if it fails."""
+        """One zero batch through a saved closure, on the engine's stream,
+        waited for on an event of its own; raises if it fails.  A sparse
+        bucket gets a one-entry x at a column that holds entries, so the
+        probe runs a product (an empty x returns its zero fill without a
+        launch)."""
         faults = self.faults
         if faults is not None:
             faults.fire("engine.dispatch", engine=self.name, bucket=bucket, probe=True)
@@ -918,8 +920,9 @@ class SparseEngine:
                 on_stream.enter_context(torch.cuda.device(self.device))
                 on_stream.enter_context(torch.cuda.stream(self._stream))
             if isinstance(bucket, tuple):
-                empty = np.zeros(0, np.int64), np.zeros(0, np.float32)
-                out = fn(pad_sparse_rhs(*empty, bucket[1], self.shape[1]))
+                col = int(self.a.indices[0]) if self.a.nnz else 0
+                one = np.array([col], np.int64), np.ones(1, np.float32)
+                out = fn(pad_sparse_rhs(*one, bucket[1], self.shape[1]))
             else:
                 out = fn(*([self._zero] * bucket))
             ys = out[0] if isinstance(out, tuple) else out

@@ -20,6 +20,7 @@ site                  what fires there
 ``plan_cache.read``   the plan-cache JSON comes back torn (truncated at a
                       seeded offset), as after a kill mid-write
 ``prepare.oom``       format preparation raises ``MemoryError``
+``solver.dispatch``   a fused solve (``runtime.solver``) raises at launch
 ====================  =====================================================
 
 Activation is explicit: pass ``faults=FaultPlan(...)`` to a component, or
@@ -30,6 +31,7 @@ package (``$REPRO_FAULTS``) does not arm the port.  The syntax is
 
     REPRO_TORCH_FAULTS="engine.dispatch:p=0.05;plan_cache.read:n=1;seed=7"
     REPRO_TORCH_FAULTS="engine.dispatch:n=3:engine=bad"
+    REPRO_TORCH_FAULTS="solver.dispatch:n=1"
 
 Per site: ``p`` is the fire probability (default 1.0), ``n`` caps how many
 times the site fires (default unlimited), ``delay_s`` makes the site a

@@ -9,6 +9,8 @@ from .candidates import (
     BCSR_BLOCKS,
     DEFAULT_PRUNE_FACTOR,
     SELL_SIGMAS,
+    SOLVER_STEP_AMORTIZE,
+    SOLVER_VEC_PASSES,
     Candidate,
     enumerate_candidates,
     estimate_cost,
@@ -24,6 +26,7 @@ from .operator import (
     prepare,
     prepare_cached,
     runner,
+    solver_step_probe,
     sparse_rhs_runner,
 )
 from .plan import PLAN_VERSION, Plan, PlanCache, default_cache, fingerprint
@@ -41,6 +44,8 @@ __all__ = [
     "PlanCache",
     "PrepCache",
     "SELL_SIGMAS",
+    "SOLVER_STEP_AMORTIZE",
+    "SOLVER_VEC_PASSES",
     "SparseOperator",
     "default_cache",
     "enumerate_candidates",
@@ -52,6 +57,7 @@ __all__ = [
     "prepare_cached",
     "prune",
     "runner",
+    "solver_step_probe",
     "sparse_rhs_runner",
     "time_fn",
 ]

@@ -47,6 +47,8 @@ __all__ = [
     "CHUNK_TILES",
     "MERGE_CHUNKS",
     "REORDER_METHODS",
+    "SOLVER_STEP_AMORTIZE",
+    "SOLVER_VEC_PASSES",
 ]
 
 SELL_SIGMAS = (1, 64, 256)
@@ -76,6 +78,15 @@ OVERHEAD_BYTES = 4 * 1024 * 1024
 # pathological row cannot price out a whole tier before measurement).
 ROW_IMBALANCE_WEIGHT = 0.5
 ROW_IMBALANCE_CV_CAP = 4.0
+
+# The solver-step byte model (kind="solver_step", runtime/solver.py): inside
+# an iterative solver x is produced and consumed on the device between
+# iterations, so the dispatch constant is shared by many steps (the port
+# enqueues a block of iterations per host sync; the value is the JAX
+# package's, for parity), and each step adds about SOLVER_VEC_PASSES passes
+# over an m-vector per column for its axpys and dot reductions.
+SOLVER_STEP_AMORTIZE = 64.0
+SOLVER_VEC_PASSES = 6
 
 
 @dataclasses.dataclass(frozen=True)
@@ -135,6 +146,12 @@ def enumerate_candidates(
     budget, although both of its runners serve k = 1 only — there they
     fail every SpMM search (recorded in ``SparseOperator.search_failures``).
 
+    ``kind="solver_step"`` (the iterative solvers' plans) is the SpMV
+    space without the scalar tier at ``k == 1`` and the SpMM space at
+    ``k > 1``: the same kernels, but priced by ``estimate_cost(fused=True)``
+    and (on the CPU) timed on the solver-step probe, so their plans are a
+    cache kind of their own.
+
     ``kind="spmspv"`` (a sparse x) is the SpMV space without the scalar
     tier and without reorders, every tier timed through a densify wrapper,
     plus the bucket SpMSpV tier, so the dense-versus-sparse crossover is
@@ -143,7 +160,9 @@ def enumerate_candidates(
     ``reorders`` (e.g. ``("rcm",)``) adds a permuted variant of every
     candidate but the scalar tier, for square matrices only.
     """
-    del k  # the SpMM space does not depend on the width
+    if kind == "solver_step":
+        kind = "spmv" if int(k) == 1 else "spmm"
+        include_scalar = False
     if kind == "spmspv":
         return enumerate_candidates(
             feats, "spmv", merge_chunks=merge_chunks, include_scalar=False,
@@ -172,7 +191,8 @@ def enumerate_candidates(
                 )
     else:
         raise ValueError(
-            f"unknown kind {kind!r}: this port tunes spmv, spmm and spmspv"
+            f"unknown kind {kind!r}: this port tunes spmv, spmm, spmspv and "
+            "solver_step"
         )
     for block in BCSR_BLOCKS:
         cands.append(make("bcsr", "ref", block=block))
@@ -227,15 +247,20 @@ def estimate_cost(
     val_bytes: int = 4,
     idx_bytes: int = 4,
     on_cpu: bool = False,
+    fused: bool = False,
     sparse_rhs: bool = False,
 ) -> float:
     """Abstract cost (bytes x impl slowdown) of running this candidate.
 
     Only relative magnitudes matter: prune() compares candidates against
     the cheapest estimate for the same matrix.  ``on_cpu`` says the
-    candidates run on a CPU device.  ``sparse_rhs`` prices serving a sparse
-    x: the spmspv tier pays for the touched columns only (scaled by
-    ``feats.x_density``), every dense tier for one extra densify pass.
+    candidates run on a CPU device.  ``fused`` prices one solver step
+    (kind="solver_step"): the dispatch constant divided by
+    :data:`SOLVER_STEP_AMORTIZE`, plus :data:`SOLVER_VEC_PASSES` m-vector
+    passes per column for the step's axpys and dots.  ``sparse_rhs``
+    prices serving a sparse x: the spmspv tier pays for the touched
+    columns only (scaled by ``feats.x_density``), every dense tier for one
+    extra densify pass.
     """
     m, n = a.shape
     method, base = split_reorder(cand)
@@ -245,7 +270,7 @@ def estimate_cost(
         perm_bytes = (m + n) * (k * val_bytes + idx_bytes)
         return estimate_cost(
             a, base, feats, k=k, val_bytes=val_bytes, idx_bytes=idx_bytes,
-            on_cpu=on_cpu, sparse_rhs=sparse_rhs,
+            on_cpu=on_cpu, fused=fused, sparse_rhs=sparse_rhs,
         ) + perm_bytes
     p = cand.param_dict
     if cand.fmt == "spmspv":
@@ -306,7 +331,11 @@ def estimate_cost(
         slowdown = SCALAR_SLOWDOWN
     elif cand.impl == "cuda" and on_cpu:
         slowdown = CPU_KERNEL_SLOWDOWN
-    cost = (float(bytes_) + OVERHEAD_BYTES) * slowdown
+    overhead = OVERHEAD_BYTES
+    if fused:
+        overhead = OVERHEAD_BYTES / SOLVER_STEP_AMORTIZE
+        bytes_ = float(bytes_) + SOLVER_VEC_PASSES * m * k * val_bytes
+    cost = (float(bytes_) + overhead) * slowdown
     if not math.isfinite(cost):
         return math.inf  # NaN would lose every comparison silently
     return cost

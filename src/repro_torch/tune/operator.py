@@ -73,6 +73,7 @@ __all__ = [
     "prepare_cached",
     "runner",
     "search_skips",
+    "solver_step_probe",
     "sparse_rhs_runner",
 ]
 
@@ -394,6 +395,37 @@ def sparse_rhs_runner(
     return fn
 
 
+def solver_step_probe(run: Callable, k: int) -> Callable:
+    """Wrap a bound runner into the composite one solver step runs:
+    kind="solver_step" plans are timed on it instead of the bare product
+    (on the CPU; a card times the bare product, see ``SparseOperator.build``).
+
+    At k == 1 it is CG-shaped (one y = A x, two dot reductions, two axpys
+    over m-vectors); at k > 1 block-power-shaped (A V, the per-column
+    Rayleigh quotients diag(V^T A V) and a column-normalised update).  The
+    QR a block step adds costs the same under every candidate and is left
+    out.  The arithmetic is the JAX package's ``solver_step_probe``.
+    """
+    if k == 1:
+
+        def step(x):
+            y = run(x)
+            curve = torch.dot(x, y)
+            alpha = torch.dot(x, x) / torch.where(curve == 0, 1.0, curve)
+            r = x - alpha * y
+            return r + alpha * x
+
+    else:
+
+        def step(v):
+            w = run(v)
+            theta = (v * w).sum(0)
+            scale = torch.linalg.vector_norm(w, dim=0)
+            return w / torch.where(scale == 0, 1.0, scale) + 0.0 * theta
+
+    return step
+
+
 def search_skips(exc: Exception, device: torch.device, *,
                  stage: str = "run") -> bool:
     """Whether the measured search records ``exc`` and passes over the
@@ -521,6 +553,7 @@ class SparseOperator:
         seed: int = 0,
         race: bool = True,
         device: str | torch.device = "cuda",
+        solver_step: bool = False,
         x_nnz: int | None = None,
     ) -> "SparseOperator":
         """Autotune (or fetch the cached plan for) this matrix.
@@ -532,7 +565,15 @@ class SparseOperator:
         nonzeros.  ``plan.k`` stores the bucket, so the cache keys sparse
         plans per bucket as it keys SpMM plans per k.  Serve with
         ``op.apply_sparse(indices, values)`` or ``op @ (indices, values)``.
-        Mutually exclusive with ``k``.
+        Mutually exclusive with ``k`` and ``solver_step``.
+        ``solver_step=True`` tunes the plan one step of an iterative
+        solver runs (kind="solver_step", ``runtime.solver``): the same
+        kernels, priced by ``estimate_cost(fused=True)`` and timed on
+        :func:`solver_step_probe` (the product with the step's axpys and
+        dots around it), cached as a kind of their own.  On a card the
+        search times the bare product instead: until a step is captured as
+        one graph, the probe's time there is host launch overhead.  The
+        accuracy check runs on the bare product.
         ``candidates`` overrides enumeration (pruning still applies);
         ``force_search`` ignores a cached plan; ``include_reorder`` adds
         RCM-permuted variants to the space (paper §4.4).  Plans taken on
@@ -556,10 +597,15 @@ class SparseOperator:
         """
         device = resolve(device)
         kind = "spmv" if k is None else "spmm"
+        if solver_step:
+            kind = "solver_step"
         kk = 1 if k is None else int(k)
         if x_nnz is not None:
-            if k is not None:
-                raise ValueError("x_nnz= (sparse RHS) is mutually exclusive with k=")
+            if k is not None or solver_step:
+                raise ValueError(
+                    "x_nnz= (sparse RHS) is mutually exclusive with "
+                    "k=/solver_step="
+                )
             kind = "spmspv"
             kk = max(int(x_nnz), 1)  # plan.k carries the x-nnz bucket
         sparse_kind = kind == "spmspv"
@@ -590,7 +636,7 @@ class SparseOperator:
         on_cpu = device.type == "cpu"
         costs = {
             c: estimate_cost(a, c, feats, k=width, on_cpu=on_cpu,
-                             sparse_rhs=sparse_kind)
+                             fused=solver_step, sparse_rhs=sparse_kind)
             for c in cands
         }
         survivors = sorted(prune(costs, factor=prune_factor), key=costs.get)
@@ -627,9 +673,14 @@ class SparseOperator:
                     fn = sparse_rhs_runner(a, c, prep, x_nnz=kk, device=device)
                 else:
                     fn = runner(a, c, prep, k=kk)
+                # On a card the probe's few-microsecond axpys and dots are
+                # host-launch bound, so its time ranks launch overhead, not
+                # kernels: there the search times the bare product.
+                probed = solver_step and device.type != "cuda"
+                timed_fn = solver_step_probe(fn, kk) if probed else fn
                 abort = RACE_FACTOR * best[0] if (race and best is not None) else None
-                t = time_fn(fn, x, warmup=warmup_eff, timed=timed, abort_above=abort,
-                            device=device)
+                t = time_fn(timed_fn, x, warmup=warmup_eff, timed=timed,
+                            abort_above=abort, device=device)
                 if not math.isinf(t) and (best is None or t < best[0]):
                     if ref is None:
                         ref = probe_reference(a, x, device=device)

@@ -65,7 +65,7 @@ def fingerprint(a: CSRMatrix) -> str:
 @dataclasses.dataclass
 class Plan:
     fingerprint: str
-    kind: str  # "spmv" | "spmm" | "spmspv"
+    kind: str  # "spmv" | "spmm" | "spmspv" | "solver_step"
     fmt: str
     impl: str
     params: dict[str, Any]

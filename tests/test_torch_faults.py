@@ -9,6 +9,7 @@ assertions are about policy: futures always resolve, degraded serving stays
 correct, and repair re-promotes.  Every wait is bounded."""
 import glob
 import json
+import threading
 import time
 import warnings
 
@@ -285,6 +286,47 @@ def test_sparse_bucket_repromotes_after_a_clean_probe():
     assert not eng._demoted and not eng._demote_saved
     (pro,) = eng.supervisor.events_of("promote")
     assert pro.info["bucket"] == ("spmspv", 8)
+    eng.close()
+
+
+def test_a_sick_sparse_closure_stays_demoted_and_heals_only_through_a_product():
+    """The repair probe of a sparse bucket runs a product: a tuned closure
+    that fails whenever it computes one (as a kernel that faults on launch
+    would; an empty x computes nothing) stays demoted through many repair
+    passes, and once healed it is promoted after a probe whose x carried a
+    real entry."""
+    d, a = small(seed=8)
+    eng = engine(a, ks=(1,), name="sp", x_nnz_buckets=(8,),
+                 supervisor=Supervisor(max_retries=0, **SUP_KW))
+    idx = np.array([3, 17, 40, 99], np.int64)
+    val = np.array([1.0, -2.0, 0.5, 3.0], np.float32)
+    x = np.zeros(a.shape[1], np.float32)
+    x[idx] = val
+    eng.submit_sparse(idx, val).result(timeout=WAIT_S)  # binds the tuned closure
+    tuned = eng._sparse_execs[8]
+    healed = threading.Event()
+    probes = []  # (real entries of x, healed) per call after the demotion
+
+    def sick(sx):
+        real = int((np.asarray(sx[0]) < a.shape[1]).sum())
+        probes.append((real, healed.is_set()))
+        if real and not healed.is_set():
+            raise RuntimeError("the tuned sparse kernel faults when it computes")
+        return tuned(sx)
+
+    eng._sparse_execs[8] = sick
+    r = eng.submit_sparse(idx, val)  # fails on sick, served by the fallback
+    np.testing.assert_allclose(r.result(timeout=WAIT_S).numpy(), d @ x, atol=2e-3)
+    assert eng._demoted == {("spmspv", 8): 1}
+    wait_for(lambda: len(probes) >= 6, "five repair probes of the sick closure")
+    assert eng.stats.promotions == 0 and ("spmspv", 8) in eng._demoted
+    assert all(real == 1 for real, _ in probes[1:])  # one real entry per probe
+    healed.set()
+    wait_for(lambda: eng.stats.promotions >= 1, "the healed bucket's promotion")
+    assert probes[-1] == (1, True)
+    r = eng.submit_sparse(idx, val)  # adopts the staged bucket
+    np.testing.assert_allclose(r.result(timeout=WAIT_S).numpy(), d @ x, atol=2e-3)
+    assert not eng._demoted and eng._sparse_execs[8] is sick
     eng.close()
 
 

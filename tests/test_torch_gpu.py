@@ -585,3 +585,116 @@ def test_gpu_unfaulted_engine_records_no_supervisor_event(cuda_device):
     for y in ys:
         assert_rowtol(y.cpu().numpy(), _oracle(a, x), a, x)
     assert eng.supervisor.events == [] and eng.stats.demotions == 0
+
+
+@pytest.mark.gpu
+def test_gpu_sparse_repair_probe_launches_the_fused_kernel(cuda_device):
+    """A faulted sparse bucket pinned to spmspv/cuda demotes to the dense
+    fallback; the repair probe that promotes it back runs a product, so it
+    launches the fused kernel (the only launch between demotion and
+    promotion: the fallback serves through csr/vector)."""
+    import time as _time
+
+    from repro_torch.runtime.engine import SparseEngine
+    from repro_torch.runtime.faults import FaultPlan
+    from repro_torch.runtime.supervisor import Supervisor
+
+    a, x = _gpu_case()
+    n = a.shape[1]
+    B = n // 64
+    sup = Supervisor(max_retries=0, backoff_base_s=0.0, repair_interval_s=0.01)
+    pinned = make("spmspv", "cuda", slab=4096)
+    cache = PlanCache()  # searched here, so the engine loads the plan
+    SparseOperator.build(a, x_nnz=B, cache=cache, candidates=[pinned],
+                         device=cuda_device)
+    dense = SparseOperator.from_candidate(a, make("csr", "vector"), device=cuda_device)
+    eng = SparseEngine(a, ks=(1,), ops={1: dense}, cache=cache, device=cuda_device,
+                       x_nnz_buckets=(B,), candidates=[pinned],
+                       faults=FaultPlan({"engine.dispatch": {"n": 1, "bucket": f"('spmspv', {B})"}}),
+                       supervisor=sup)
+    rng = np.random.default_rng(5)
+    idx = np.sort(rng.choice(n, size=B, replace=False)).astype(np.int64)
+    val = rng.standard_normal(B).astype(np.float32)
+    xd = np.zeros(n, np.float32)
+    xd[idx] = val
+    _build.reset_launches()
+    y = eng.submit_sparse(idx, val).result(timeout=10)  # demoted, served by csr/vector
+    assert [e.kind for e in sup.events][:2] == ["batch_failed", "demote"]
+    deadline = _time.perf_counter() + 10
+    while sup.promotions < 1 and _time.perf_counter() < deadline:
+        _time.sleep(0.01)
+    assert sup.promotions == 1
+    assert [e.kind for e in sup.events] == ["batch_failed", "demote", "promote"]
+    assert _build.LAUNCHES["spmspv_scatter"] == 1  # the probe's product
+    y2 = eng.submit_sparse(idx, val).result(timeout=10)
+    assert _build.LAUNCHES["spmspv_scatter"] == 2
+    eng.close()
+    for got in (y, y2):
+        assert_rowtol(got.cpu().numpy(), _oracle(a, xd), a, xd,
+                      terms=np.bincount(
+                          np.repeat(np.arange(a.shape[0]), np.diff(a.indptr))[
+                              np.isin(a.indices, idx)], minlength=a.shape[0]))
+
+
+@pytest.mark.gpu
+def test_gpu_device_loop_equals_host_loop_on_the_sell_kernel(cuda_device):
+    """CG on a pinned sell/cuda plan: the device-decided loop and the host
+    loop give the same count, flag and x (the same step functions on the
+    same kernel), the loop reads the card once per block, and a tol met
+    inside a block (masked steps after it) changes nothing."""
+    from repro_torch.core.spmv import spd_shift
+    from repro_torch.runtime.solver import SparseSolver, cg_host_loop
+
+    a = spd_shift(generate("cant", scale=1 / 16))
+    b = np.random.default_rng(4).standard_normal(a.shape[0]).astype(np.float32)
+    s = SparseSolver(a, cache=PlanCache(), device=cuda_device,
+                     candidates=[make("sell", "cuda", C=8, sigma=64, chunk_tile=8)])
+    _build.reset_launches()
+    fused = s.cg(b, tol=1e-5, maxiter=500)
+    assert fused.plan.startswith("sell/cuda") and _build.LAUNCHES["sell_spmv"] > 0
+    host = cg_host_loop(s.op(1)._run, b, tol=1e-5, maxiter=500, device=cuda_device)
+    assert fused.converged and host.converged
+    assert fused.iterations == host.iterations
+    np.testing.assert_allclose(fused.x.cpu().numpy(), host.x.cpu().numpy(), rtol=0,
+                               atol=1e-6)
+    # a flag read after each block (1, 2, 4, ... up to 16 iterations) until
+    # one finds the loop done, then the final state; the host loop reads
+    # every iteration
+    done, reads, size = 0, 0, 1
+    while True:
+        done, reads, size = done + size, reads + 1, min(2 * size, s.block)
+        if done >= fused.iterations:
+            break
+    assert fused.syncs == reads + 1
+    assert host.syncs == host.iterations + 3
+    x64 = fused.x.cpu().numpy().astype(np.float64)
+    r = b - _oracle(a, x64)
+    assert np.linalg.norm(r) <= 1e-4 * np.linalg.norm(b)
+    # a tol the host loop first meets at iteration 5, inside the block of
+    # iterations 4-7: iterations 6 and 7 run masked
+    res45 = [cg_host_loop(s.op(1)._run, b, tol=-1.0, maxiter=i,
+                          device=cuda_device).residual for i in (4, 5)]
+    tol = float(np.sqrt(res45[0] * res45[1]) / np.linalg.norm(b))
+    fused = s.cg(b, tol=tol, maxiter=500)
+    host = cg_host_loop(s.op(1)._run, b, tol=tol, maxiter=500, device=cuda_device)
+    assert (fused.iterations, fused.converged, fused.syncs) == (5, True, 4)
+    assert (host.iterations, host.converged) == (5, True)
+    np.testing.assert_allclose(fused.x.cpu().numpy(), host.x.cpu().numpy(), rtol=0,
+                               atol=1e-6)
+
+
+@pytest.mark.gpu
+def test_gpu_solver_step_search_times_the_bare_product(cuda_device, monkeypatch):
+    """On a card the solver_step search times each candidate's bare product
+    (the probe's time there is host launch overhead), and the plan is still
+    cached as kind solver_step."""
+    from repro_torch.core.spmv import spd_shift
+    from repro_torch.tune import operator as top
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the probe was timed on the card")
+
+    monkeypatch.setattr(top, "solver_step_probe", refuse)
+    a = spd_shift(generate("cant", scale=1 / 16))
+    op = SparseOperator.build(a, solver_step=True, cache=PlanCache(), device=cuda_device)
+    assert op.plan.kind == "solver_step" and op.measurements
