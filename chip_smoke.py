@@ -106,7 +106,32 @@ scipy; imports nothing of JAX or of the JAX package.  Phases:
    loop in turns) with the synchronising calls torch counts, each CG's
    wall time to tol 1e-5 against the host loop's, an injected ``solver.dispatch`` fault (retry ->
    demote) and a plan that really refuses its launch (``cg()`` raises,
-   no retry).  Each kernel row gains ``solver_launches``.
+   no retry).  Each kernel row gains ``solver_launches``;
+9. the fleet (``runtime.fleet.SparseFleet``) at scale 1.0 over cant, hood,
+   pwtk (banded FEM), scircuit and webbase-1M (power-law), on a copy of
+   phase 4's plan cache, launches counted from 9a to 9f (the quiet
+   comparison builds left out): (a) admission on predicted plans under a
+   900 MiB budget that evicts: per tenant and bucket where the plan came
+   from, the prediction's distance, the plan, the accuracy check's time
+   and the candidates passed over; no predicted plan was measured, none
+   on webbase-1M is merge; one cold ``build_multi`` of webbase-1M beside
+   its admission; (b) 64 requests to each tenant but scircuit (1 alone, 63
+   interleaved), max_wait 1 ms, each within 1e-5 of scipy float64,
+   ``sell_spmv`` and ``bcsr_spmm`` both launched, zero supervisor events;
+   (c) webbase-1M retuned on the worker's own stream while 4 requests of
+   it a round are served: latency p50/p99 during and after,
+   ``swaps_applied >= 1``, every batch dispatched before the swap equal
+   bit for bit to the old table's closure on the same operands, the
+   retuned plans and medians beside a quiet build; (d) with the budget
+   full, the zero-traffic scircuit is evicted first and the allocator
+   frees >= 90 % of its prepared bytes (slab bytes the budget does not
+   count printed per tenant); webbase-1M, evicted, reactivates from the
+   cache in every bucket with no search; (e) a second fleet: an injected
+   ``engine.dispatch`` storm on cant opens its breaker after 3 batches
+   (``CircuitOpenError`` after), webbase-1M beside it resolves within 1e-5 with
+   no event, scircuit at rate 5/s burst 2 is refused typed and counted;
+   (f) ``serve --fleet cant,webbase-1M --scale 1.0 --requests 64`` serves
+   all 128.  Each kernel row gains ``fleet_launches``.
 
 Any failed check exits non-zero.  The last lines are the card's name and
 power limit, one JSON object with the kernel table, and the JSON status
@@ -144,6 +169,416 @@ def smi_line() -> str:
         capture_output=True, text=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0] if out.stdout.strip() else "unknown"
+
+
+FLEET_TENANTS = ("cant", "hood", "pwtk", "scircuit", "webbase-1M")
+# Retuned in 9c: the power-law tenant.  A banded one (hood) beside it
+# roughly doubles phase 9's time on the card (PERF.md §4), so it is left out.
+FLEET_RETUNED = ("webbase-1M",)
+FLEET_ZERO_TRAFFIC = "scircuit"  # admitted, never served until 9e: 9d's victim
+FLEET_ADMIT_BUDGET = 900 * 2**20  # about three of the five tenants' prepared bytes
+FLEET_SERVE_BUDGET = 4 * 2**30  # 9b-9d: every tenant resident at once
+
+
+def fleet_phase(dev, scale: float, plans_text: str, record: dict,
+                admit_budget: int = FLEET_ADMIT_BUDGET) -> dict:
+    """Phase 9: ``SparseFleet`` over five suite matrices at ``scale``.
+
+    Returns the kernel launches of the fleet's path (the quiet comparison
+    builds excluded).  Runs on the CPU too (``dev`` cpu, small ``scale``
+    and ``admit_budget``), where the launch and allocator checks are
+    skipped: that is its rehearsal."""
+    import gc
+
+    import numpy as np
+    import scipy.sparse as sp
+    import torch
+
+    from repro_torch.data.suite import generate
+    from repro_torch.kernels import _build
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.runtime.engine import SparseEngine
+    from repro_torch.runtime.faults import FaultPlan
+    from repro_torch.runtime.fleet import CircuitOpenError, SparseFleet
+    from repro_torch.runtime.overload import OverloadError
+    from repro_torch.tune import PlanCache, SparseOperator
+    from repro_torch.tune import plan as tplan
+
+    on_card = dev.type == "cuda"
+    rec = record["fleet"] = {}
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_fleet_")
+    cache_path = Path(tmp.name) / "plans.json"
+    cache_path.write_text(plans_text)  # phase 4's plan cache: cant is an exact hit
+    cache = PlanCache(cache_path)
+    t_gen = time.perf_counter()
+    mats = {n: generate(n, scale=scale) for n in FLEET_TENANTS}
+    A64 = {n: sp.csr_matrix((a.data.astype(np.float64), a.indices, a.indptr),
+                            shape=a.shape) for n, a in mats.items()}
+    absA = {n: abs(A) for n, A in A64.items()}
+    print(f"  generated {', '.join(f'{n} {a.shape[0]}x{a.shape[1]} nnz={a.nnz}' for n, a in mats.items())} "
+          f"in {time.perf_counter() - t_gen:.1f}s", flush=True)
+
+    def sync() -> None:
+        if on_card:
+            torch.cuda.synchronize()
+
+    def check_cols(label: str, name: str, ys, xs_host) -> float:
+        """Every column within 1e-5 (|A| |x|)_i of scipy float64."""
+        X = np.stack(xs_host, axis=1).astype(np.float64)
+        Y = np.stack([y.cpu().numpy() for y in ys], axis=1).astype(np.float64)
+        ref, lim = A64[name] @ X, TOL * (absA[name] @ np.abs(X))
+        err = np.abs(Y - ref)
+        bad = ~(err <= lim)
+        if Y.shape != ref.shape or bad.any():
+            fail(f"{label}: {int(bad.sum())} entries off 1e-5 (|A||x|)_i, worst "
+                 f"{float(np.max(err - lim)):.3e} over the limit")
+        m = float(err.max())
+        print(f"  ok {label}: {len(ys)} results, max_abs_err {m:.3e}")
+        return m
+
+    def unfaulted(label: str, eng) -> None:
+        ev = [(e.kind, e.info) for e in eng.supervisor.events]
+        if ev or eng.stats.demotions or eng.stats.failed_requests:
+            fail(f"{label}: supervisor events {ev}, demotions {eng.stats.demotions}, "
+                 f"failed {eng.stats.failed_requests}")
+
+    def serve(fl, reqs) -> None:
+        while not all(r.done for r in reqs):
+            if fl.step() == 0:
+                fl.flush()
+
+    excluded: dict = {}  # launches of the quiet comparison builds
+
+    def quiet_build(name: str) -> dict:
+        """A cold measured search of every bucket on an idle card (fresh
+        cache), its launches kept out of the fleet's count."""
+        before = dict(_build.LAUNCHES)
+        sync()
+        t0 = time.perf_counter()
+        ops = SparseOperator.build_multi(mats[name], ks=K_BUCKETS, cache=PlanCache(),
+                                         device=dev)
+        sync()
+        wall = time.perf_counter() - t0
+        for key, v in _build.LAUNCHES.items():
+            excluded[key] = excluded.get(key, 0) + v - before.get(key, 0)
+        return {"wall_s": wall, "buckets": {
+            k: {"plan": op.plan.candidate.key(), "measured_ms": op.plan.measured_s * 1e3,
+                "medians_ms": {c: v * 1e3 for c, v in op.measurements.items()}}
+            for k, op in ops.items()}}
+
+    # -- 9a: admission on predicted plans --------------------------------
+    t0 = time.perf_counter()
+    print("phase 9a: fleet admission (plan cache, transfer, byte model), "
+          f"budget {admit_budget / 2**20:.1f} MiB", flush=True)
+    _build.reset_launches()
+    fleet = SparseFleet(cache=cache, budget_bytes=admit_budget, max_wait_s=1e-3,
+                        retune=False, device=dev)
+    adm = rec["admission"] = {}
+    for name in FLEET_TENANTS:
+        t1 = time.perf_counter()
+        t = fleet.add_tenant(name, mats[name], retune=False)
+        sync()
+        row = adm[name] = {"admit_s": time.perf_counter() - t1, "nbytes": t.nbytes,
+                           "buckets": {}}
+        for k, op in t.engine.ops.items():
+            pred = op.predicted
+            b = row["buckets"][k] = {
+                "from": t.admitted_from[k], "plan": op.plan.candidate.key(),
+                "distance": None if pred is None else pred.distance,
+                "check_ms": op.check_s * 1e3,
+                "passed_over": {c: repr(e) for c, e in op.search_failures.items()},
+            }
+            if not op.from_cache and op.plan.n_measured != 0:
+                fail(f"{name} k={k}: a predicted plan was measured ({op.plan})")
+            if name == "webbase-1M" and op.plan.fmt == "merge":
+                fail(f"webbase-1M k={k} serves merge: {op.plan.candidate.key()}")
+            dist = "-" if b["distance"] is None else f"{b['distance']:.3f}"
+            print(f"  {name} k={k}: from {b['from']} (distance {dist}) plan {b['plan']}, "
+                  f"accuracy check {b['check_ms']:.1f} ms")
+            for c, e in op.search_failures.items():
+                print(f"    passed over {c}: {e!r}"[:300])
+        print(f"  {name}: admitted in {row['admit_s']:.2f}s, {t.nbytes / 1e6:.1f} MB "
+              f"prepared; resident {[n for n, t_ in fleet.tenants.items() if t_.resident]}",
+              flush=True)
+    s_ = fleet.stats().summary()
+    rec["admission_stats"] = {k: s_[k] for k in (
+        "admissions", "cache_admissions", "predicted_admissions", "transferred_buckets",
+        "byte_model_buckets", "evictions", "bytes_evicted")}
+    print(f"  admission: {rec['admission_stats']}")
+    if s_["evictions"] < 1:
+        fail("admission under the budget evicted nothing")
+    # one cold measured search beside the admission, on an idle card: it is
+    # also 9c's quiet build
+    quiet = {n: quiet_build(n) for n in FLEET_RETUNED}
+    rec["cold_build"] = quiet
+    for n, qb in quiet.items():
+        print(f"  cold build_multi of {n}: {qb['wall_s']:.2f}s against "
+              f"{adm[n]['admit_s']:.2f}s admission; plans "
+              f"{ {k: b['plan'] for k, b in qb['buckets'].items()} }", flush=True)
+    record["phases_s"]["fleet_admission"] = round(time.perf_counter() - t0, 3)
+
+    # -- 9b: serving ------------------------------------------------------
+    t0 = time.perf_counter()
+    fleet.budget_bytes = FLEET_SERVE_BUDGET
+    served_names = [n for n in FLEET_TENANTS if n != FLEET_ZERO_TRAFFIC]
+    print(f"phase 9b: 64 requests to each of {served_names} (1 alone, then 63 "
+          f"interleaved), max_wait 1 ms; budget {FLEET_SERVE_BUDGET / 2**30:.0f} GiB",
+          flush=True)
+    rng = np.random.default_rng(9)
+    xs_host = {n: [rng.standard_normal(mats[n].shape[1]).astype(np.float32)
+                   for _ in range(64)] for n in served_names}
+    xs_dev = {n: [torch.as_tensor(x, device=dev) for x in v] for n, v in xs_host.items()}
+    before = dict(_build.LAUNCHES)
+    reqs = {n: [fleet.submit(n, xs_dev[n][0])] for n in served_names}
+    serve(fleet, [r for v in reqs.values() for r in v])
+    for i in range(1, 64):
+        for n in served_names:
+            reqs[n].append(fleet.submit(n, xs_dev[n][i]))
+    serve(fleet, [r for v in reqs.values() for r in v])
+    fleet.flush()
+    sync()
+    l9b = {k: v - before.get(k, 0) for k, v in _build.LAUNCHES.items()}
+    for n in served_names:
+        check_cols(f"9b {n}", n, [r.result() for r in reqs[n]], xs_host[n])
+        unfaulted(f"9b {n}", fleet.tenants[n].engine)
+        print(f"  {n}: plans { {k: op.plan.candidate.key() for k, op in fleet.tenants[n].engine.ops.items()} } "
+              f"by_bucket {fleet.tenants[n].engine.stats.summary()['by_bucket']}")
+    print(f"  launches over 9b: {l9b}; reactivations {fleet.stats_fleet.reactivations}")
+    if on_card and (l9b.get("sell_spmv", 0) <= 0 or l9b.get("bcsr_spmm", 0) <= 0):
+        fail(f"9b: sell_spmv and bcsr_spmm must both launch: {l9b}")
+    rec["serving"] = {"launches": l9b, "reactivations": fleet.stats_fleet.reactivations}
+    del reqs
+    record["phases_s"]["fleet_serving"] = round(time.perf_counter() - t0, 3)
+
+    # -- 9c: background retune under load --------------------------------
+    t0 = time.perf_counter()
+    print(f"phase 9c: retune {list(FLEET_RETUNED)} on the worker's stream while "
+          "serving 4 requests a tenant a round", flush=True)
+    engs = {n: fleet.tenants[n].engine for n in FLEET_RETUNED}
+    old = {n: dict(e.ops) for n, e in engs.items()}
+    for n in FLEET_RETUNED:
+        fleet.retune(n)
+    lat = {"during": [], "after": []}
+    pre = {n: [] for n in FLEET_RETUNED}  # dispatched before the swap, kept
+    last = {}
+    rounds = {"during": 0, "after": 0}
+
+    def serve_round(i: int, phase: str) -> None:
+        live = []
+        for n in FLEET_RETUNED:
+            for j in range(4):
+                idx = (4 * i + j) % 64
+                live.append((n, idx, fleet.submit(n, xs_dev[n][idx]), [None]))
+        while not all(r.done for _, _, r, _ in live):
+            if fleet.step() == 0:
+                fleet.flush()
+            for n, _, r, tag in live:  # the table a request was dispatched on
+                if tag[0] is None and not any(q is r for q in engs[n]._queue):
+                    tag[0] = engs[n].swaps_applied
+        for n, idx, r, tag in live:
+            lat[phase].append(r.latency_s)
+            if tag[0] == 0 and len(pre[n]) < 64:
+                pre[n].append(r)
+            last[n] = [(idx, r) for n_, idx, r, _ in live if n_ == n]
+        rounds[phase] += 1
+
+    t_rt = time.perf_counter()
+    i = 0
+    while fleet._retune_q.unfinished_tasks:
+        serve_round(i, "during")
+        i += 1
+        time.sleep(0.002)
+    retune_wall = time.perf_counter() - t_rt
+    for _ in range(32):
+        serve_round(i, "after")
+        i += 1
+    sync()
+    st = fleet.stats_fleet
+    if st.retunes_done != len(FLEET_RETUNED) or st.retunes_failed:
+        fail(f"9c: retunes done {st.retunes_done}, failed {st.retunes_failed}: "
+             f"{st.last_retune_error}")
+    for n, e in engs.items():
+        if e.swaps_applied < 1 or fleet.tenants[n].engine is not e:
+            fail(f"9c {n}: swaps_applied {e.swaps_applied}")
+        # the batches dispatched before the swap, replayed through the old
+        # table's own closures with the same operands: bit for bit
+        pinned = SparseEngine(mats[n], ks=K_BUCKETS, ops=old[n], device=dev)
+        batches: dict = {}
+        for r in pre[n]:
+            batches.setdefault(id(r._ys), []).append(r)
+        if not batches:
+            fail(f"9c {n}: no batch was dispatched before the swap")
+        zero = torch.zeros(mats[n].shape[1], dtype=torch.float32, device=dev)
+        for group in batches.values():
+            group.sort(key=lambda r: r._col)
+            bucket = group[0].bucket
+            xs_ = [r.x for r in group] + [zero] * (bucket - len(group))
+            ys = pinned._make_exec(bucket, old[n][bucket])(*xs_)
+            if not torch.equal(ys, group[0]._ys):
+                fail(f"9c {n}: a batch dispatched before the swap differs from the "
+                     f"pinned old plan (bucket {bucket})")
+        print(f"  ok {n}: {len(pre[n])} requests in {len(batches)} batches dispatched "
+              "before the swap equal the pinned old plan bit for bit")
+        check_cols(f"9c {n} after the swap", n, [r.result() for _, r in last[n]],
+                   [xs_host[n][idx] for idx, _ in last[n]])
+        unfaulted(f"9c {n}", e)
+    q = {ph: (float(np.percentile(v, 50)) * 1e3, float(np.percentile(v, 99)) * 1e3)
+         for ph, v in lat.items()}
+    print(f"  retune wall {retune_wall:.2f}s over {rounds['during']} serving rounds; "
+          f"latency p50/p99 during {q['during'][0]:.3f}/{q['during'][1]:.3f} ms, after "
+          f"{q['after'][0]:.3f}/{q['after'][1]:.3f} ms ({rounds['after']} rounds)", flush=True)
+    retune_rows = {}
+    for n in FLEET_RETUNED:
+        for k, op in engs[n].ops.items():
+            qb = quiet[n]["buckets"][k]
+            common = {c: (v * 1e3, qb["medians_ms"][c]) for c, v in op.measurements.items()
+                      if c in qb["medians_ms"] and np.isfinite(v)
+                      and np.isfinite(qb["medians_ms"][c])}
+            ratio = [a_ / b_ for a_, b_ in common.values() if b_ > 0]
+            retune_rows[f"{n} k={k}"] = {
+                "retuned": op.plan.candidate.key(), "retuned_ms": op.plan.measured_s * 1e3,
+                "quiet": qb["plan"], "quiet_ms": qb["measured_ms"],
+                "median_ratio_under_load": float(np.median(ratio)) if ratio else None}
+            r_ = retune_rows[f"{n} k={k}"]
+            print(f"  {n} k={k}: retuned {r_['retuned']} {r_['retuned_ms']:.4f} ms; quiet "
+                  f"{r_['quiet']} {r_['quiet_ms']:.4f} ms; median ratio of common "
+                  f"candidates under load / quiet {r_['median_ratio_under_load']}")
+    rec["retune"] = {"wall_s": retune_wall, "rounds": rounds,
+                     "latency_ms_p50_p99": q, "buckets": retune_rows,
+                     "quiet_wall_s": {n: v["wall_s"] for n, v in quiet.items()}}
+    del pre, last, old, pinned, batches, group, ys, xs_
+    record["phases_s"]["fleet_retune"] = round(time.perf_counter() - t0, 3)
+
+    # -- 9d: residency ----------------------------------------------------
+    t0 = time.perf_counter()
+    print("phase 9d: residency (budget full: the zero-traffic tenant goes first)",
+          flush=True)
+    fleet.budget_bytes = fleet.resident_bytes
+    slabs = {n: sum(fn.slab.nbytes for fn in t.engine._execs.values()
+                    if hasattr(fn, "slab"))
+             for n, t in fleet.tenants.items() if t.resident}
+    gc.collect()
+    sync()
+    mem0 = torch.cuda.memory_allocated(dev) if on_card else 0
+    res0 = fleet.resident_bytes
+    victim = fleet.tenants[FLEET_ZERO_TRAFFIC]
+    nb = victim.nbytes
+    resident_before = [n for n, t in fleet.tenants.items() if t.resident]
+    fleet._make_room(1)
+    gc.collect()
+    sync()
+    mem1 = torch.cuda.memory_allocated(dev) if on_card else 0
+    evicted = [n for n in resident_before if not fleet.tenants[n].resident]
+    if evicted != [FLEET_ZERO_TRAFFIC]:
+        fail(f"9d: evicted {evicted}, expected only {FLEET_ZERO_TRAFFIC}")
+    print(f"  evicted {evicted} ({nb / 1e6:.1f} MB prepared); allocator "
+          f"{mem0 / 1e6:.1f} -> {mem1 / 1e6:.1f} MB (freed {(mem0 - mem1) / 1e6:.1f}); "
+          f"resident_bytes {res0 / 1e6:.1f} -> {fleet.resident_bytes / 1e6:.1f} MB")
+    print(f"  slab bytes the budget does not count: "
+          f"{ {n: round(v / 1e6, 1) for n, v in slabs.items()} } MB")
+    if on_card and mem0 - mem1 < 0.9 * nb:
+        fail(f"9d: the allocator freed {mem0 - mem1} B of {nb} B prepared")
+    again = FLEET_RETUNED[0]  # evicted and reactivated: the retune's plans
+    t_h = fleet.tenants[again]
+    fleet._evict(t_h)
+    n_plans = len(cache)
+    t1 = time.perf_counter()
+    r_h = fleet.submit(again, xs_dev[again][0])
+    react_s = time.perf_counter() - t1
+    serve(fleet, [r_h])
+    if set(t_h.admitted_from.values()) != {"cache"} or len(cache) != n_plans or \
+            not all(op.from_cache for op in t_h.engine.ops.values()):
+        fail(f"9d: reactivating {again} was not an exact cache hit: {t_h.admitted_from}")
+    check_cols(f"9d {again} reactivated", again, [r_h.result()], [xs_host[again][0]])
+    print(f"  {again} reactivated in {react_s:.2f}s: every bucket an exact cache hit, "
+          f"no search")
+    rec["residency"] = {"evicted": evicted, "victim_nbytes": nb,
+                        "allocated_before": mem0, "allocated_after": mem1,
+                        "resident_bytes_before": res0,
+                        "resident_bytes_after": fleet.resident_bytes,
+                        "slab_bytes": slabs, "reactivate_s": react_s}
+    rec["summary"] = fleet.stats().summary()
+    fleet.close()
+    del fleet, engs, r_h, t_h, victim, xs_dev
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    record["phases_s"]["fleet_residency"] = round(time.perf_counter() - t0, 3)
+
+    # -- 9e: breaker and fair share ----------------------------------------
+    t0 = time.perf_counter()
+    print("phase 9e: an engine.dispatch storm on cant (every batch), webbase-1M "
+          "healthy, scircuit rate-limited (5/s, burst 2)", flush=True)
+    storm = FaultPlan({"engine.dispatch": {"engine": "cant"}})
+    healthy = "webbase-1M"
+    fe = SparseFleet(cache=cache, retune=False, device=dev, faults=storm,
+                     budget_bytes=FLEET_SERVE_BUDGET,
+                     breaker_threshold=3, breaker_reset_s=600.0,
+                     supervisor_kwargs=dict(max_retries=0, backoff_base_s=0.0,
+                                            backoff_cap_s=0.0, repair_interval_s=0.05))
+    for n in ("cant", healthy):
+        fe.add_tenant(n, mats[n])
+    fe.add_tenant("scircuit", mats["scircuit"], rate=5.0, burst=2.0)
+    rng = np.random.default_rng(10)
+    xe = {n: [rng.standard_normal(mats[n].shape[1]).astype(np.float32)
+              for _ in range(12)] for n in ("cant", healthy, "scircuit")}
+    bad, good = [], []
+    for b in range(fe.breaker_threshold):
+        bad += [fe.submit("cant", torch.as_tensor(x, device=dev)) for x in xe["cant"][4 * b:4 * b + 4]]
+        good += [fe.submit(healthy, torch.as_tensor(x, device=dev))
+                 for x in xe[healthy][4 * b:4 * b + 4]]
+        serve(fe, bad + good)
+    cant_t = fe.tenants["cant"]
+    if not cant_t.quarantined or fe.stats_fleet.quarantines != 1:
+        fail(f"9e: the breaker did not open after {fe.breaker_threshold} failed batches")
+    if not all(r.failed for r in bad):
+        fail("9e: a request of the faulted tenant was served")
+    try:
+        fe.submit("cant", torch.as_tensor(xe["cant"][0], device=dev))
+        fail("9e: a quarantined tenant accepted a request")
+    except CircuitOpenError as e:
+        print(f"  ok cant quarantined after {fe.breaker_threshold} batches: {e}"[:200])
+    kinds = [e.kind for e in cant_t.engine.supervisor.events]
+    check_cols(f"9e {healthy} beside the storm", healthy, [r.result() for r in good],
+               xe[healthy])
+    refused, admitted = 0, []
+    for x in xe["scircuit"][:10]:
+        try:
+            admitted.append((x, fe.submit("scircuit", torch.as_tensor(x, device=dev))))
+        except OverloadError:
+            refused += 1
+    serve(fe, [r for _, r in admitted])
+    if refused <= 0 or fe.stats_fleet.rate_limited != refused:
+        fail(f"9e: rate_limited {fe.stats_fleet.rate_limited} != refusals {refused}")
+    check_cols("9e scircuit (rate-limited, admitted ones)", "scircuit",
+               [r.result() for _, r in admitted], [x for x, _ in admitted])
+    for n in (healthy, "scircuit"):
+        unfaulted(f"9e {n}", fe.tenants[n].engine)
+    print(f"  cant events {sorted(set(kinds))}; rate-limited {refused} of 10 scircuit "
+          f"requests; {healthy} and scircuit: zero events")
+    rec["breaker"] = {"cant_events": kinds, "rate_limited": refused,
+                      "quarantines": fe.stats_fleet.quarantines}
+    fe.close()
+    del fe, bad, good, admitted
+    record["phases_s"]["fleet_breaker"] = round(time.perf_counter() - t0, 3)
+
+    # -- 9f: the CLI -------------------------------------------------------
+    t0 = time.perf_counter()
+    print("phase 9f: serve --fleet cant,webbase-1M on the phase 9 plan cache", flush=True)
+    os.environ["REPRO_TORCH_TUNE_CACHE"] = str(cache_path)
+    os.environ["REPRO_TORCH_FLEET_BUDGET_BYTES"] = str(FLEET_SERVE_BUDGET)
+    tplan._default = None  # re-read $REPRO_TORCH_TUNE_CACHE
+    stats_path = Path(tmp.name) / "fleet_cli.json"
+    serve_cli.main(["--fleet", "cant,webbase-1M", "--scale", repr(scale), "--requests",
+                    "64", "--max-wait-ms", "1", "--retune-wait-s", "30",
+                    "--device", dev.type, "--stats-json", str(stats_path)])
+    cli = rec["cli"] = json.loads(stats_path.read_text())
+    if cli["served"] != 128 or cli["refused"] or cli["requests"] != 128:
+        fail(f"9f: the fleet CLI served {cli['served']}/128 ({cli['refused']} refused)")
+    record["phases_s"]["fleet_cli"] = round(time.perf_counter() - t0, 3)
+    tmp.cleanup()
+    sync()
+    return {k: v - excluded.get(k, 0) for k, v in _build.LAUNCHES.items()}
 
 
 def main() -> None:
@@ -563,6 +998,7 @@ def main() -> None:
     record["serve_cli"] = json.loads(serve_stats.read_text())
     if record["serve_cli"]["served"] != 64:
         fail(f"serve CLI served {record['serve_cli']['served']}/64 requests")
+    plans4 = (Path(tmp.name) / "plans.json").read_text()  # phase 9's plan cache
     cli_sup = record["serve_cli"]["supervisor"]
     if cli_sup["demotions"] or set(cli_sup["events"]) & {"batch_failed", "demote"}:
         fail(f"serve CLI: supervisor {cli_sup}")
@@ -1696,6 +2132,18 @@ def main() -> None:
     phase_done("solvers", t0)
     for row in kernels:
         row["solver_launches"] = int(launches8.get(row["name"], 0))
+
+    # -- phase 9: the fleet, launches counted -----------------------------
+    t0 = time.perf_counter()
+    launches9 = fleet_phase(dev, 1.0, plans4, record)
+    print(f"  launches over phase 9 (the quiet comparison builds excluded): {launches9}")
+    record["fleet_launches"] = launches9
+    for key in ("sell_spmv", "bcsr_spmm"):
+        if launches9.get(key, 0) <= 0:
+            fail(f"kernel {key} was never launched by the fleet")
+    for row in kernels:
+        row["fleet_launches"] = int(launches9.get(row["name"], 0))
+    phase_done("fleet", t0)
 
     record["kernels"] = kernels
     record["card"] = smi

@@ -24,6 +24,17 @@ when shedding):
   PYTHONPATH=src python -m repro_torch.launch.serve --sparse cant \
       --scale 1.0 --requests 256 --max-queue 64 \
       --overload-policy shed-oldest --brownout
+
+Several matrices at once: ``--fleet M1,M2,...`` serves each as a
+``repro_torch.runtime.fleet.SparseFleet`` tenant, admitted on predicted
+plans (plan cache, nearest cached neighbour, byte model) with no measured
+search, interleaving their requests; the background retune runs the
+search and hot-swaps the measured plans, and the report waits up to
+``--retune-wait-s`` for it.  Exactly one of ``--sparse`` and ``--fleet``
+is required:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --fleet cant,webbase-1M \\
+      --scale 1.0 --requests 64 --stats-json fleet.json
 """
 from __future__ import annotations
 
@@ -127,10 +138,8 @@ def serve_sparse(args) -> None:
         + (f" brownout={eng.brownout.summary()}" if eng.brownout else "")
     )
     if args.stats_json:
-        p = Path(args.stats_json)
-        if p.parent != Path("."):
-            p.parent.mkdir(parents=True, exist_ok=True)
-        p.write_text(json.dumps(
+        _dump_stats(
+            args.stats_json,
             {
                 "mode": "sparse",
                 "matrix": args.sparse,
@@ -147,15 +156,113 @@ def serve_sparse(args) -> None:
                 "supervisor": eng.supervisor.summary(),
                 "brownout": eng.brownout.summary() if eng.brownout else None,
             },
-            indent=1, sort_keys=True,
-        ) + "\n")
-        print(f"  stats written to {p}")
+        )
+
+
+def _dump_stats(path: str, payload: dict) -> None:
+    p = Path(path)
+    if p.parent != Path("."):
+        p.parent.mkdir(parents=True, exist_ok=True)
+    p.write_text(json.dumps(payload, indent=1, sort_keys=True) + "\n")
+    print(f"  stats written to {p}")
+
+
+def serve_fleet(args) -> None:
+    from repro_torch.data.suite import SUITE, generate
+    from repro_torch.runtime.fleet import SparseFleet
+    from repro_torch.runtime.overload import OverloadError
+
+    names = [s.name for s in SUITE]
+    tenants = [t for t in args.fleet.split(",") if t]
+    for t in tenants:
+        if t not in names:
+            raise SystemExit(
+                f"unknown suite matrix {t!r}; choose from: {', '.join(names)}"
+            )
+    ks = tuple(int(k) for k in args.k_buckets.split(","))
+    max_wait_s = args.max_wait_ms / 1e3 if args.max_wait_ms else None
+    fleet = SparseFleet(ks=ks, max_wait_s=max_wait_s, async_depth=args.async_depth,
+                        device=args.device, **_overload_kwargs(args))
+    rng = np.random.default_rng(0)
+    mats = {}
+    t0 = time.perf_counter()
+    for t in tenants:
+        mats[t] = generate(t, scale=args.scale)
+        fleet.add_tenant(t, mats[t])
+    t_admit = time.perf_counter() - t0
+    xs = {
+        t: [torch.as_tensor(rng.standard_normal(mats[t].shape[1]).astype(np.float32),
+                            device=fleet.device)
+            for _ in range(args.requests)]
+        for t in tenants
+    }
+    t0 = time.perf_counter()
+    reqs, refused = [], 0
+    for i in range(args.requests):  # interleaved tenants: a shared device
+        for t in tenants:
+            try:
+                reqs.append(fleet.submit(t, xs[t][i]))
+            except OverloadError:
+                refused += 1  # a typed refusal: the caller backs off
+                fleet.step()  # ...and a batch drains before the next offer
+    # ``done`` (a result or an exception): a shed future never gets a result.
+    while not all(r.done for r in reqs):
+        if fleet.step() == 0:
+            fleet.flush()
+            if max_wait_s:
+                time.sleep(min(max_wait_s / 4, 1e-3))
+    fleet.flush()
+    dt = time.perf_counter() - t0
+    fleet.wait_retunes(timeout=args.retune_wait_s)
+    fleet.close()
+    summary = fleet.stats().summary()
+    served = sum(1 for r in reqs if not r.failed)
+    total = len(reqs)
+    overload = (f" [overload: refused={refused} shed={total - served}]"
+                if refused or served < total else "")
+    card = (torch.cuda.get_device_name(fleet.device)
+            if fleet.device.type == "cuda" else None)
+    print(
+        f"fleet served {served}/{total + refused} requests over {len(tenants)} "
+        f"tenants ({', '.join(tenants)}) in {dt:.3f}s ({served / dt:.1f} req/s, "
+        f"device={fleet.device}{f' {card}' if card else ''}){overload}; admitted in "
+        f"{t_admit:.3f}s (cache={summary['cache_admissions']} "
+        f"predicted={summary['predicted_admissions']}; "
+        f"transferred_buckets={summary['transferred_buckets']} "
+        f"byte_model_buckets={summary['byte_model_buckets']})\n"
+        f"  retunes done={summary['retunes_done']} failed={summary['retunes_failed']} "
+        f"swaps_applied={summary['swaps_applied']}; resident "
+        f"{summary['resident_bytes']}/{summary['budget_bytes']} B, "
+        f"evictions={summary['evictions']}"
+    )
+    if args.stats_json:
+        _dump_stats(args.stats_json, {
+            "mode": "fleet",
+            "tenants": tenants,
+            "scale": args.scale,
+            "device": str(fleet.device),
+            "card": card,
+            "requests": total,
+            "served": served,
+            "refused": refused,
+            "elapsed_s": round(dt, 6),
+            "req_per_s": round(served / dt, 3),
+            "admit_s": round(t_admit, 6),
+            "fleet": summary,
+        })
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--sparse", required=True, metavar="MATRIX",
-                    help="serve autotuned SpMV over this suite matrix")
+    mode = ap.add_mutually_exclusive_group(required=True)
+    mode.add_argument("--sparse", default=None, metavar="MATRIX",
+                      help="serve autotuned SpMV over this suite matrix")
+    mode.add_argument("--fleet", default=None, metavar="M1,M2,...",
+                      help="serve several suite matrices as SparseFleet tenants "
+                           "(transfer-tuned admission + background retune)")
+    ap.add_argument("--retune-wait-s", type=float, default=60.0,
+                    help="--fleet: how long to wait for background retunes "
+                         "before reporting (0 = don't wait)")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="where the engine serves (the CPU runs the kernels' "
                          "plain torch versions)")
@@ -189,7 +296,11 @@ def main(argv=None):
                          "under pressure dispatch pins to the widest bucket "
                          "and repair pauses; when shedding, submit refuses")
     ap.add_argument("--requests", type=int, default=8)
-    serve_sparse(ap.parse_args(argv))
+    args = ap.parse_args(argv)
+    if args.fleet is not None:
+        serve_fleet(args)
+    else:
+        serve_sparse(args)
 
 
 if __name__ == "__main__":

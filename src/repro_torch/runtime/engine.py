@@ -61,7 +61,10 @@ then rejects.  ``shed_after_s`` fails a request still queued after that
 long (:class:`DeadlineExceededError`) at dispatch time.  ``brownout=`` takes
 a :class:`BrownoutController` fed, each ``step()``, the queue fill and the
 oldest request's age: BROWNOUT pins dispatch to the widest bucket and
-pauses repair probes; SHED also refuses new submissions.
+pauses repair probes; SHED also refuses new submissions.  With
+``brownout_update=False`` the engine only reads the controller: the fleet
+(``runtime.fleet``) drives one controller from the pressure of all its
+tenants.
 
     eng = SparseEngine(a)            # tunes (or cache-loads) all buckets, on cuda
     reqs = [eng.submit(x) for x in xs]
@@ -271,8 +274,8 @@ class SparseEngine:
     buckets.  ``name`` labels the engine in fault contexts and messages;
     ``supervisor``, ``faults`` and ``nan_guard`` set the failure policy,
     ``max_queue``, ``overload_policy``, ``block_timeout_s``,
-    ``shed_after_s`` and ``brownout`` the overload policy (see the module
-    docstring).  Remaining keyword arguments pass
+    ``shed_after_s``, ``brownout`` and ``brownout_update`` the overload
+    policy (see the module docstring).  Remaining keyword arguments pass
     through to :meth:`SparseOperator.build`.
 
     **Dtype policy.** The engine serves float32.  A non-f32 ``submit()``
@@ -296,6 +299,7 @@ class SparseEngine:
         block_timeout_s: float = 1.0,
         shed_after_s: float | None = None,
         brownout: BrownoutController | None = None,
+        brownout_update: bool = True,
         async_depth: int = 2,
         strict_dtype: bool = False,
         ops: dict[int, SparseOperator] | None = None,
@@ -330,6 +334,7 @@ class SparseEngine:
         self.block_timeout_s = float(block_timeout_s)
         self.shed_after_s = None if shed_after_s is None else float(shed_after_s)
         self._brownout = brownout
+        self._brownout_update = bool(brownout_update)
         self.async_depth = max(0, min(int(async_depth), 2))
         self.strict_dtype = bool(strict_dtype)
         self._dtype_warned = False
@@ -386,6 +391,8 @@ class SparseEngine:
         self._stream = (torch.cuda.current_stream(self.device)
                         if self.device.type == "cuda" else None)
         self.stats = EngineStats()
+        self.swaps_applied = 0  # staged tables adopted (repair promotions aside)
+        self.consecutive_failures = 0  # abandoned batches since one resolved
         self._closed = False
         # Degraded mode: bucket -> fallback level (1-based), and the saved
         # tuned (op, closure) the repair thread probes and re-promotes;
@@ -608,11 +615,13 @@ class SparseEngine:
             self._pending_swap = None
             if staged is None:
                 return
-            for k in staged[0]:
-                if k in self._promoting:
-                    self._promoting.discard(k)
-                    self._demoted.pop(k, None)
-                    self._demote_saved.pop(k, None)
+            promoted = [k for k in staged[0] if k in self._promoting]
+            for k in promoted:
+                self._promoting.discard(k)
+                self._demoted.pop(k, None)
+                self._demote_saved.pop(k, None)
+        if len(promoted) < len(staged[0]):
+            self.swaps_applied += 1
         ops, execs = staged
         for k, op in ops.items():
             if isinstance(k, tuple):  # ("spmspv", B): the sparse lane
@@ -670,7 +679,8 @@ class SparseEngine:
     def step(self, *, force: bool = False) -> int:
         """Dispatch one aggregated batch; returns #requests dispatched.
 
-        Adopts a staged plan swap, updates the brownout controller and sheds
+        Adopts a staged plan swap, updates the brownout controller (unless
+        ``brownout_update=False``) and sheds
         lapsed requests first.  Then takes up to max(ks) pending requests,
         rounds the count up to the smallest k-bucket (the widest under
         brownout) and launches the bucket's closure without waiting for
@@ -682,7 +692,7 @@ class SparseEngine:
         ``force=True`` bypasses the wait.
         """
         self._apply_pending_swap()
-        if self._brownout is not None:
+        if self._brownout is not None and self._brownout_update:
             self._brownout.update(self._overload_pressure())
         self._shed_lapsed()
         if not self._queue:
@@ -796,6 +806,7 @@ class SparseEngine:
             req.bucket = bucket
             lats.append(t_done - req.t_submit)
         self.stats.record(bucket, take, lats)
+        self.consecutive_failures = 0
         self._notify()
         return take
 
@@ -850,6 +861,7 @@ class SparseEngine:
             req.set_exception(last)
         self.stats.failed_batches += 1
         self.stats.failed_requests += take
+        self.consecutive_failures += 1
         sup.failures += 1
         sup.record("batch_abandoned", engine=self.name, bucket=bucket,
                    n_requests=take, error=repr(last))

@@ -12,6 +12,13 @@ kernel of batch t has read the slab.  The plan's runner must not return a
 view of its operand; none of the tuner's runners does.  The engine's
 repair worker probes a demoted bucket's saved closure from its own thread,
 on the engine's stream, while no serving batch uses that closure's slab.
+The fleet's retune worker (``runtime.fleet``) builds and prewarms new
+closures on a stream of its own: each new closure owns a new slab that no
+serving batch has touched, the worker waits for that stream before it
+stages the closures, and it marks the slab (``fn.slab``) and the prepared
+tensors as used by the serving stream, so the allocator does not hand
+their memory to the worker's stream while a serving batch may still read
+it.
 
 ``guard=True`` (and :func:`finite_guard`) make a call return ``(ys,
 all_finite)``: the flag is a 0-d boolean tensor left on the device, which
@@ -46,14 +53,16 @@ def fused_batch_executable(
     guard: bool = False,
 ) -> Callable[..., torch.Tensor]:
     """``(x_0..x_{bucket-1}) -> ys`` for one bucket: (m,) for bucket 1,
-    else (m, bucket); with ``guard`` a pair ``(ys, all_finite)``."""
+    else (m, bucket); with ``guard`` a pair ``(ys, all_finite)``.  A
+    bucket wider than 1 exposes its slab as ``fn.slab``."""
     if bucket == 1:
-        fn = run
-    else:
-        slab = torch.empty((n, bucket), dtype=torch.float32, device=device)
+        return finite_guard(run) if guard else run
+    slab = torch.empty((n, bucket), dtype=torch.float32, device=device)
 
-        def fn(*xs: torch.Tensor) -> torch.Tensor:
-            torch.stack(xs, dim=1, out=slab)
-            return run(slab)
+    def fn(*xs: torch.Tensor) -> torch.Tensor:
+        torch.stack(xs, dim=1, out=slab)
+        return run(slab)
 
-    return finite_guard(fn) if guard else fn
+    out = finite_guard(fn) if guard else fn
+    out.slab = slab
+    return out

@@ -21,6 +21,8 @@ site                  what fires there
                       seeded offset), as after a kill mid-write
 ``prepare.oom``       format preparation raises ``MemoryError``
 ``solver.dispatch``   a fused solve (``runtime.solver``) raises at launch
+``fleet.retune``      the fleet's background retune (``runtime.fleet``)
+                      raises before its measured search
 ====================  =====================================================
 
 Activation is explicit: pass ``faults=FaultPlan(...)`` to a component, or

@@ -18,6 +18,8 @@ slower tier that computes the same y = A @ x.
   Demotion is visible: ``events_of("demote")`` and ``stats.demotions``.
 * :class:`NonFiniteOutput` — the failure the opt-in on-device finite guard
   reports.
+* :class:`CircuitOpenError` — the fleet's per-tenant circuit breaker is
+  open (``runtime.fleet``).
 * :func:`injected` — whether a failure came from an armed fault plan.  On a
   card only those are retried and demoted: a kernel that really fails (a
   refused launch, a device fault, a non-finite result of real inputs)
@@ -43,6 +45,7 @@ __all__ = [
     "Supervisor",
     "SupervisorEvent",
     "NonFiniteOutput",
+    "CircuitOpenError",
     "injected",
     "FALLBACK_TIERS",
     "fallback_op",
@@ -58,6 +61,12 @@ class NonFiniteOutput(RuntimeError):
     def __init__(self, msg: str, *, injected: bool = False):
         super().__init__(msg)
         self.injected = bool(injected)
+
+
+class CircuitOpenError(RuntimeError):
+    """The fleet's per-tenant circuit breaker is open: the tenant's batches
+    kept failing, so its requests fail fast instead of stalling the
+    cross-tenant scheduler.  Resubmit after the cooldown."""
 
 
 def injected(exc: BaseException) -> bool:

@@ -6,11 +6,18 @@ x-vector footprint against the on-chip budget decides whether SELL needs
 column-slab cache blocking.  All are O(nnz) numpy on the host CSR, and the
 names (``x_fits_vmem`` included) match the JAX package's, so feature
 vectors from both packages stay comparable.
+
+Plans persist these features beside the winning candidate
+(``Plan.features``), so the plan cache doubles as a labelled dataset of
+(structure -> winning plan): :mod:`repro_torch.tune.predict` takes the
+nearest neighbour over :func:`feature_vector` to transfer a plan to a new
+fingerprint without a measured search.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+import math
+from typing import Any, Mapping
 
 import numpy as np
 
@@ -18,7 +25,7 @@ from repro_torch.core.formats import CSRMatrix
 from repro_torch.core.metrics import matrix_bandwidth, ucld, utd
 from repro_torch.kernels.ops import ONCHIP_BUDGET_BYTES
 
-__all__ = ["MatrixFeatures", "extract"]
+__all__ = ["MatrixFeatures", "extract", "FEATURE_NAMES", "feature_vector"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,6 +54,50 @@ class MatrixFeatures:
             else:
                 out[f.name] = float(v)
         return out
+
+
+# The embedding the transfer predictor measures distance in.  Sizes enter
+# log-scaled (a 2x larger matrix of one family is a near neighbour); the
+# O(1) density and dispersion predictors (cv, ucld, utd) enter raw.
+FEATURE_NAMES = (
+    "log_m",
+    "log_n",
+    "log_nnz",
+    "log_nnz_row_mean",
+    "nnz_row_cv",
+    "ucld",
+    "utd",
+    "log_bandwidth",
+    "x_fits_vmem",
+    "x_density",
+)
+
+
+def feature_vector(feats: "MatrixFeatures | Mapping[str, Any]") -> np.ndarray | None:
+    """Embed features (live, or a plan's persisted ``features``) in
+    :data:`FEATURE_NAMES` order; None when a required key is missing, so a
+    cache entry of another feature schema is skipped, never a crash.  A
+    missing ``x_density`` means 1.0: every entry without it was measured
+    for a dense x."""
+    d = feats.to_dict() if isinstance(feats, MatrixFeatures) else feats
+    try:
+        return np.array(
+            [
+                math.log10(max(float(d["m"]), 1.0)),
+                math.log10(max(float(d["n"]), 1.0)),
+                math.log10(max(float(d["nnz"]), 1.0)),
+                math.log10(float(d["nnz_row_mean"]) + 1.0),
+                float(d["nnz_row_cv"]),
+                float(d["ucld"]),
+                float(d["utd"]),
+                math.log10(float(d["bandwidth"]) + 1.0),
+                1.0 if d["x_fits_vmem"] else 0.0,
+                float(d.get("x_density", 1.0)),
+            ],
+            dtype=np.float64,
+        )
+    except (KeyError, TypeError, ValueError):
+        return None
 
 
 def extract(

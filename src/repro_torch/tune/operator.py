@@ -19,10 +19,12 @@ Every entry point runs on ``device="cuda"`` unless the caller passes
 from __future__ import annotations
 
 import collections
+import dataclasses
 import hashlib
 import math
 import os
 import threading
+import time
 from typing import Any, Callable, Iterable
 
 import numpy as np
@@ -59,6 +61,7 @@ from .candidates import (
 )
 from .features import MatrixFeatures, extract
 from .plan import Plan, PlanCache, default_cache, fingerprint
+from .predict import PREDICT_RADIUS, Prediction, byte_model_order, predict_candidate
 from .timing import RACE_FACTOR, time_fn
 
 __all__ = [
@@ -204,6 +207,8 @@ class PrepCache:
         self._entries: collections.OrderedDict = collections.OrderedDict()
         self._bytes: dict = {}
         self._lock = threading.Lock()
+        self.hits = 0
+        self.misses = 0
         self.evictions = 0
 
     def __len__(self) -> int:
@@ -217,8 +222,10 @@ class PrepCache:
         with self._lock:
             prep = self._entries.get(key)
             if prep is not None:
+                self.hits += 1
                 self._entries.move_to_end(key)
                 return prep
+            self.misses += 1
         # Build outside the lock: preparation is O(nnz) host work.  A racing
         # duplicate build is wasted work, not corruption.
         prep = build()
@@ -243,6 +250,17 @@ class PrepCache:
                 self.evictions += 1
             return sum(self._bytes.pop(k, 0) for k in keys)
 
+    def clear(self) -> None:
+        with self._lock:
+            self._entries.clear()
+            self._bytes.clear()
+
+    def stats(self) -> dict[str, int]:
+        with self._lock:
+            return {"entries": len(self._entries), "resident_bytes": self.resident_bytes,
+                    "budget_bytes": self.budget_bytes, "hits": self.hits,
+                    "misses": self.misses, "evictions": self.evictions}
+
 
 _PREP_MEMO = PrepCache()
 
@@ -254,11 +272,10 @@ def evict_prepared(fp: str) -> int:
 
 
 def prep_memo_stats() -> dict[str, int]:
-    """Residency of the process-wide prep memo: the engine's brownout
-    reads resident against budget bytes as one of its pressures."""
-    return {"entries": len(_PREP_MEMO), "resident_bytes": _PREP_MEMO.resident_bytes,
-            "budget_bytes": _PREP_MEMO.budget_bytes,
-            "evictions": _PREP_MEMO.evictions}
+    """Hit, miss and eviction counters and the residency of the
+    process-wide prep memo (``FleetStats.summary()`` reports them).  The
+    brownout does not read them: a filled LRU is not pressure."""
+    return _PREP_MEMO.stats()
 
 
 def _value_digest(a: CSRMatrix) -> str:
@@ -496,6 +513,13 @@ def check_accuracy(cand: Candidate, y: torch.Tensor, ref: tuple) -> None:
         )
 
 
+def _dense_probe(a: CSRMatrix, kk: int, seed: int, device) -> torch.Tensor:
+    """The search's seeded dense probe: (n,) at k = 1, else (n, k)."""
+    shape = (a.shape[1],) if kk == 1 else (a.shape[1], kk)
+    rng = np.random.default_rng(seed)
+    return torch.as_tensor(rng.standard_normal(shape).astype(np.float32), device=device)
+
+
 def _plan_params(cand: Candidate) -> dict[str, Any]:
     return {kp: list(v) if isinstance(v, tuple) else v for kp, v in cand.params}
 
@@ -527,6 +551,10 @@ class SparseOperator:
         self.measurements = dict(measurements or {})  # candidate key -> seconds
         # Candidate key -> the exception that disqualified it in the search.
         self.search_failures = dict(search_failures or {})
+        # Set by build_predicted: the Prediction behind the served candidate,
+        # and the seconds its accuracy checks took, preparation included.
+        self.predicted: Prediction | None = None
+        self.check_s = 0.0
         self._prep = prep
         if plan.kind == "spmspv":
             # plan.k carries the x-nnz bucket; the runner takes (xi, xv).
@@ -651,10 +679,7 @@ class SparseOperator:
             val = rng.standard_normal(nx).astype(np.float32)
             x = kspmspv.pad_sparse_rhs(idx, val, kk, n)
         else:
-            shape = (a.shape[1],) if kk == 1 else (a.shape[1], kk)
-            x = torch.as_tensor(
-                rng.standard_normal(shape).astype(np.float32), device=device
-            )
+            x = _dense_probe(a, kk, seed, device)
 
         measurements: dict[str, float] = {}
         failures: dict[str, Exception] = {}
@@ -792,6 +817,120 @@ class SparseOperator:
             table[k] = cls.build(a, k=None if k == 1 else k, cache=cache,
                                  **build_kwargs)
         return table
+
+    @classmethod
+    def build_predicted(
+        cls,
+        a: CSRMatrix,
+        *,
+        k: int | None = None,
+        cache: PlanCache | None = None,
+        radius: float | None = None,
+        exclude: Iterable[str] = (),
+        device: str | torch.device = "cuda",
+    ) -> "SparseOperator":
+        """A serve-now operator: no measured search.
+
+        Resolution order: an exact plan-cache hit for this fingerprint,
+        backend and scale; else :func:`~repro_torch.tune.predict.
+        predict_candidate` (the nearest cached neighbour within ``radius``,
+        else the byte model's argmin).  A predicted plan has
+        ``measured_s == 0`` and ``predicted_from`` set (the neighbour's
+        fingerprint or ``"byte_model"``), and is never persisted.
+        ``exclude`` drops training fingerprints.  Single-device only: the
+        port's plans carry no mesh shape yet.
+
+        One deviation from the JAX package: a predicted candidate was never
+        measured, so before it is returned it runs once on the search's
+        seeded probe and is held to :func:`check_accuracy` against the
+        float64 product (:func:`probe_reference`).  A plain tier that fails
+        is recorded in ``op.search_failures`` and passed over for the next
+        candidate in byte-model order (a confident transfer that fails
+        falls to that order too, and the plan then says ``byte_model``); a
+        kernel that fails on a card ends the build, as in :meth:`build`
+        (:func:`search_skips`).  ``op.check_s`` is the seconds the checks
+        took, each candidate's preparation included; ``op.predicted`` the
+        :class:`Prediction` served.
+        """
+        device = resolve(device)
+        kind = "spmv" if k is None else "spmm"
+        kk = 1 if k is None else int(k)
+        fp = fingerprint(a)
+        backend = backend_name(device)
+        scale = [int(a.shape[0]), int(a.shape[1]), int(a.nnz)]
+        cache = default_cache() if cache is None else cache
+        plan = cache.get(fp, kind, kk, backend=backend, scale=scale)
+        if plan is not None:
+            return cls(a, plan, prepare_cached(a, plan.candidate, fp=fp, device=device),
+                       device=device, from_cache=True)
+        if device.type == "cuda":
+            _build.ensure_built()
+        feats = extract(a, k=kk)
+        pred = predict_candidate(
+            a, kind, kk, cache, feats=feats, backend=backend,
+            exclude=set(exclude) | {fp},
+            radius=PREDICT_RADIUS if radius is None else radius, device=device,
+        )
+
+        def order():  # the byte-model order is ranked only if needed
+            yield pred.candidate
+            for c in byte_model_order(a, feats, kind, kk, device=device):
+                if c != pred.candidate:
+                    yield c
+
+        t0 = time.perf_counter()
+        x = _dense_probe(a, kk, 0, device)
+        ref = None
+        failures: dict[str, Exception] = {}
+        for cand in order():
+            stage = "prepare"
+            try:
+                prep = prepare_cached(a, cand, fp=fp, device=device)
+                stage = "run"
+                fn = runner(a, cand, prep, k=kk)
+                if ref is None:
+                    ref = probe_reference(a, x, device=device)
+                check_accuracy(cand, fn(x), ref)
+            except Exception as exc:
+                if not search_skips(exc, device, stage=stage):
+                    raise RuntimeError(
+                        f"predicted candidate {cand.key()} failed on {device}: {exc!r}"
+                    ) from exc
+                failures[cand.key()] = exc
+                continue
+            break
+        else:
+            raise RuntimeError(
+                f"no candidate for kind={kind!r} k={kk} passed the accuracy check "
+                f"({ {key: repr(e) for key, e in failures.items()} })"
+            )
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        check_s = time.perf_counter() - t0
+        if cand != pred.candidate:
+            pred = dataclasses.replace(pred, candidate=cand, source="byte_model",
+                                       confident=False)
+        plan = Plan(
+            fingerprint=fp,
+            kind=kind,
+            fmt=cand.fmt,
+            impl=cand.impl,
+            params=_plan_params(cand),
+            est_cost=estimate_cost(a, cand, feats, k=kk, on_cpu=device.type == "cpu"),
+            measured_s=0.0,
+            n_candidates=pred.n_neighbors,
+            n_measured=0,
+            k=kk,
+            backend=backend,
+            scale=scale,
+            features=feats.to_dict(),
+            predicted_from=pred.source,
+        )
+        op = cls(a, plan, prep, device=device, from_cache=False, features=feats,
+                 search_failures=failures)
+        op.predicted = pred
+        op.check_s = check_s
+        return op
 
     # -- application --------------------------------------------------------
     def apply_sparse(self, indices, values) -> torch.Tensor:

@@ -78,6 +78,11 @@ class Plan:
     scale: list = dataclasses.field(default_factory=list)  # [m, n, nnz]
     n_raced: int = 0  # survivors abandoned by racing after one rep
     features: dict | None = None  # MatrixFeatures.to_dict() at search time
+    # "" for a measured plan.  A predicted one (SparseOperator.
+    # build_predicted) names its source: the neighbour fingerprint it was
+    # transferred from, or "byte_model".  Predicted plans are never put in
+    # the cache; the default keeps older cache files loading.
+    predicted_from: str = ""
     version: int = PLAN_VERSION
 
     def matches(self, backend: str | None, scale: Iterable[int] | None) -> bool:
@@ -189,6 +194,18 @@ class PlanCache:
         except TypeError:  # entry shape drifted: a miss, never a crash
             return None
         return plan if plan.matches(backend, scale) else None
+
+    def plans(self) -> list[Plan]:
+        """Every well-formed resident plan: the transfer predictor's
+        training set.  Malformed entries are skipped, as ``get`` treats
+        them as misses."""
+        out = []
+        for d in self._plans.values():
+            try:
+                out.append(Plan.from_json(d))
+            except TypeError:
+                continue
+        return out
 
     @contextlib.contextmanager
     def _write_lock(self):

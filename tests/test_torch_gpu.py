@@ -698,3 +698,121 @@ def test_gpu_solver_step_search_times_the_bare_product(cuda_device, monkeypatch)
     a = spd_shift(generate("cant", scale=1 / 16))
     op = SparseOperator.build(a, solver_step=True, cache=PlanCache(), device=cuda_device)
     assert op.plan.kind == "solver_step" and op.measurements
+
+
+# ---------------------------------------------------------------------------
+# The fleet (runtime/fleet.py) on the card
+def _drop_one_entry(a):
+    """A near-identical neighbour: ``a`` without the last entry of its
+    longest row (another fingerprint, near-identical features)."""
+    r = int(np.argmax(np.diff(a.indptr)))
+    keep = np.ones(a.nnz, bool)
+    keep[a.indptr[r + 1] - 1] = False
+    indptr = a.indptr.copy()
+    indptr[r + 1:] -= 1
+    return tf.CSRMatrix(shape=a.shape, indptr=indptr, indices=a.indices[keep],
+                        data=a.data[keep])
+
+
+@pytest.mark.gpu
+def test_gpu_fleet_serves_two_tenants_through_both_kernels(cuda_device):
+    """cant (measured k = 1 sell/cuda and k = 64 bcsr/cuda plans in the
+    cache) and webbase-1M (every bucket predicted) at full scale: no served
+    plan is merge, webbase-1M's k = 64 byte-model pick is the kernel, both
+    kernels launch, every result holds 1e-5 of float64, no event."""
+    from repro_torch.runtime.fleet import SparseFleet
+
+    cant, web = generate("cant", scale=1.0), generate("webbase-1M", scale=1.0)
+    cache = PlanCache()
+    SparseOperator.build(cant, cache=cache, device=cuda_device,
+                         candidates=[make("sell", "cuda", C=8, sigma=64, chunk_tile=8)])
+    SparseOperator.build(cant, k=64, cache=cache, device=cuda_device,
+                         candidates=[make("bcsr", "cuda", block=(8, 8))])
+    # a budget that holds both: webbase-1M's BCSR alone is about 770 MB
+    fl = SparseFleet(cache=cache, retune=False, budget_bytes=4 << 30, device=cuda_device)
+    t_cant = fl.add_tenant("cant", cant)
+    t_web = fl.add_tenant("web", web)
+    assert t_cant.admitted_from[1] == "cache" and t_cant.admitted_from[64] == "cache"
+    for k, op in t_web.engine.ops.items():
+        assert op.plan.fmt != "merge" and op.plan.n_measured == 0, (k, op.plan)
+    assert t_web.engine.ops[64].plan.candidate.key() == "bcsr/cuda[block=(8, 8)]"
+    rng = np.random.default_rng(5)
+    _build.reset_launches()
+    for name, a in (("cant", cant), ("web", web)):
+        xs = [rng.standard_normal(a.shape[1]).astype(np.float32) for _ in range(65)]
+        reqs = [fl.submit(name, torch.as_tensor(xs[0], device=cuda_device))]
+        fl.step()
+        reqs += [fl.submit(name, torch.as_tensor(x, device=cuda_device)) for x in xs[1:]]
+        fl.drain()
+        for r, x in zip(reqs, xs):
+            assert_rowtol(r.result().cpu().numpy(), _oracle(a, x), a, x, name)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["sell_spmv"] > 0 and _build.LAUNCHES["bcsr_spmm"] > 0
+    for t in fl.tenants.values():
+        assert not t.engine.supervisor.events and not t.engine.stats.demotions
+    fl.close()
+
+
+@pytest.mark.gpu
+def test_gpu_retune_on_its_stream_hot_swaps_with_in_flight_futures_bitwise(cuda_device):
+    """Two batches in flight on the old (predicted) table while the retune
+    runs on the worker's own stream: they resolve bit for bit as a pinned
+    engine of the old table answers, and later batches serve the measured
+    table within 1e-5 of float64."""
+    from repro_torch.runtime.engine import SparseEngine
+    from repro_torch.runtime.fleet import SparseFleet
+
+    a = generate("cant", scale=1 / 4)
+    fl = SparseFleet(ks=(1, 4), cache=PlanCache(), retune=False, device=cuda_device)
+    t = fl.add_tenant("t", a)
+    old = dict(t.engine.ops)
+    rng = np.random.default_rng(6)
+    xs = [torch.as_tensor(rng.standard_normal(a.shape[1]).astype(np.float32),
+                          device=cuda_device) for _ in range(16)]
+    pinned = SparseEngine(a, ks=(1, 4), ops=old, device=cuda_device)
+    ref = [y.clone() for y in pinned.run(xs[:8])]
+    reqs = [fl.submit("t", x) for x in xs[:8]]
+    assert t.engine.step(force=True) == 4 and t.engine.step(force=True) == 4
+    assert t.engine.in_flight == 2
+    fl.retune("t")
+    assert fl.wait_retunes(timeout=600)
+    assert fl.stats_fleet.retunes_done == 1 and t.retuned
+    side = fl._side_stream
+    assert side is not None and side != torch.cuda.current_stream(cuda_device)
+    late = [fl.submit("t", x) for x in xs[8:]]
+    fl.drain()
+    assert t.engine.swaps_applied == 1
+    for r, y in zip(reqs, ref):
+        assert torch.equal(r.result(), y)
+    for r, x in zip(late, xs[8:]):
+        xh = x.cpu().numpy()
+        assert_rowtol(r.result().cpu().numpy(), _oracle(a, xh), a, xh)
+    assert not t.engine.supervisor.events
+    fl.close()
+
+
+@pytest.mark.gpu
+def test_gpu_predicted_merge_is_passed_over_on_webbase(cuda_device):
+    """A confident transfer of merge/scan (from a near-identical neighbour)
+    to webbase-1M breaks the accuracy check on the card: build_predicted
+    records it and serves the next byte-model candidate within 1e-5."""
+    from repro_torch.core.device import backend_name
+    from repro_torch.tune import InaccurateTier, Plan, extract, fingerprint
+
+    web = generate("webbase-1M", scale=1.0)
+    nb = _drop_one_entry(web)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cache = PlanCache()
+    cache.put(Plan(fingerprint=fingerprint(nb), kind="spmv", fmt="merge", impl="scan",
+                   params={"chunk": 2048}, est_cost=1.0, measured_s=1e-4,
+                   n_candidates=1, n_measured=1, k=1, backend=backend_name(dev),
+                   scale=[nb.shape[0], nb.shape[1], nb.nnz],
+                   features=extract(nb).to_dict()))
+    op = SparseOperator.build_predicted(web, cache=cache, device=cuda_device)
+    merge = "merge/scan[chunk=2048]"
+    assert isinstance(op.search_failures.get(merge), InaccurateTier), op.search_failures
+    assert op.plan.fmt != "merge" and op.plan.predicted_from == "byte_model"
+    x = np.random.default_rng(7).standard_normal(web.shape[1]).astype(np.float32)
+    y = (op @ torch.as_tensor(x, device=cuda_device)).cpu().numpy()
+    assert_rowtol(y, _oracle(web, x), web, x)
+    assert len(cache) == 1
