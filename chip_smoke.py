@@ -131,7 +131,32 @@ scipy; imports nothing of JAX or of the JAX package.  Phases:
    (``CircuitOpenError`` after), webbase-1M beside it resolves within 1e-5 with
    no event, scircuit at rate 5/s burst 2 is refused typed and counted;
    (f) ``serve --fleet cant,webbase-1M --scale 1.0 --requests 64`` serves
-   all 128.  Each kernel row gains ``fleet_launches``.
+   all 128.  Each kernel row gains ``fleet_launches``;
+10. row-partitioned and mesh serving (``core.distributed``) on cant at scale
+   1.0 with P = 4 shards (``make_spmm_mesh(4)``: on one card all four share
+   it): (a) both schedules' operands (host partition time, stored entries,
+   bytes on the card), a product of each schedule and of ``stacked_spmm``
+   at k in {1, 4, 16, 64} against scipy float64 at 1e-5 and bit for bit on
+   a second run, the psum dot against float64; (b) launches counted from
+   here to (e): a mesh ``SparseEngine`` on a fresh plan cache (both
+   schedules timed per bucket) answers 64 requests, async equal to
+   ``async_depth=0`` bit for bit on a second engine that is a full cache
+   hit; a single-device engine on that cache does not see the mesh plans;
+   an ``n_shards=4`` engine answers 64 more; no supervisor event; (c) an
+   injected dispatch fault demotes bucket 16 to ``csr/vector`` on the
+   first device, results hold 1e-5, the repair re-promotes the schedule,
+   ``submit_sparse`` raises; (d) CG over the mesh on spd_shift(cant) to
+   tol 1e-5: float64 residual <= 1e-4 and the single-device solve's
+   iteration count; (e) ``serve --mesh-shards 4`` and ``--shards 4``, 64
+   requests each; (f) times (median of 25, L2 flushed) per product of
+   allgather, ring and stacked at k = 1 and 64 beside the tuned
+   single-device plan and ``csr/vector``, and the ring with every cell's
+   padding gathered and multiplied (as the JAX package's ``local_spmm``
+   streams it), with the device operations per product that
+   ``torch.profiler`` lists in a fresh process (``--mesh-device-ops``);
+   then, while the phase is under 45 s, one ldoor
+   product per schedule.  Each kernel row gains ``mesh_launches`` (no
+   kernel is on this path: the shards run the plain row sum).
 
 Any failed check exits non-zero.  The last lines are the card's name and
 power limit, one JSON object with the kernel table, and the JSON status
@@ -579,6 +604,482 @@ def fleet_phase(dev, scale: float, plans_text: str, record: dict,
     tmp.cleanup()
     sync()
     return {k: v - excluded.get(k, 0) for k, v in _build.LAUNCHES.items()}
+
+
+MESH_SHARDS = 4  # P of phase 10: on one card every shard shares it
+MESH_KS = (1, 4, 16, 64)
+MESH_LDOOR_IF_UNDER_S = 45.0  # the optional ldoor products run only below this
+
+
+def mesh_runs(a, mesh) -> tuple[dict, dict]:
+    """The products of phase 10 over ``mesh``: {name: fn(x)} for both
+    schedules and ``stacked_spmm``, and per schedule (operand, placed
+    operand, host partition seconds, placement seconds)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import distributed as dist
+    from repro_torch.core.partition import rows_balanced, stack_csr_shards
+
+    P = mesh.shape[mesh.axis_names[0]]
+    first = mesh.devices[0]
+    runs, built = {}, {}
+    for schedule in dist.SCHEDULES:
+        t1 = time.perf_counter()
+        op = dist.build_mesh_operand(a, P, schedule)
+        host_s = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        placed = dist.place_mesh_operand(op, mesh, mesh.axis_names[0])
+        if first.type == "cuda":
+            torch.cuda.synchronize()
+        built[schedule] = (op, placed, host_s, time.perf_counter() - t1)
+        runs[schedule] = dist.mesh_spmm_runner(mesh, mesh.axis_names[0], placed)
+    part = rows_balanced(a, P)
+    stacked = dist.place_stacked(stack_csr_shards(part.shards), first)
+    shard_rows = np.diff(part.bounds)
+
+    def stacked_run(x):
+        x2 = x[:, None] if x.dim() == 1 else x
+        y = dist.assemble_rows(dist.stacked_spmm(stacked, x2), shard_rows)
+        return y[:, 0] if x.dim() == 1 else y
+
+    runs["stacked"] = stacked_run
+    return runs, built
+
+
+def mesh_cases(a, runs: dict, tuned: dict, X) -> list:
+    """10f's products, (k, name, fn()) at k = 1 and 64 on the columns of
+    X (n, 64): the mesh ``runs``, the ring with every cell's padding
+    gathered and multiplied as the JAX package's ``local_spmm`` streams it
+    (ROADMAP C.16; the row sum over the stored entries), the ``tuned``
+    single-device plans {k: SparseOperator} and ``csr/vector``."""
+    from unittest import mock
+
+    import torch
+
+    from repro_torch.core import distributed as dist
+    from repro_torch.core.spmv import csr_prepare, spmm_csr, spmv_csr
+
+    m = a.shape[0]
+    csr = csr_prepare(a, X.device)
+
+    def padded_local(cell, x):
+        prod = cell["data"][:, None] * x[cell["indices"], :]
+        return torch.segment_reduce(prod[:cell["nnz"]], "sum",
+                                    offsets=cell["offsets"], axis=0, unsafe=True)
+
+    def padded_stream(x):
+        with mock.patch.object(dist, "local_spmm", padded_local):
+            return runs["ring"](x)
+
+    cases = []
+    for k in (1, 64):
+        x = X[:, 0].contiguous() if k == 1 else X[:, :k].contiguous()
+        cases += [(k, name, (lambda fn=fn, x=x: fn(x))) for name, fn in runs.items()]
+        cases.append((k, "ring, padded stream", (lambda x=x: padded_stream(x))))
+        cases.append((k, f"tuned single-device ({tuned[k].plan.candidate.key()})",
+                      (lambda op=tuned[k], x=x: op @ x)))
+        cases.append((k, "csr/vector", (lambda x=x: spmv_csr(csr, x, n_rows=m)) if k == 1
+                      else (lambda x=x: spmm_csr(csr, x, n_rows=m))))
+    return cases
+
+
+def mesh_device_ops(plans_json: str) -> None:
+    """``python3 chip_smoke.py --mesh-device-ops PLANS``: the device
+    operations of each of 10f's products by ``torch.profiler``, in a fresh
+    process (sessions opened after phase 6's in one process lost device
+    events on the card), for the tuned plans PLANS ({k: [fmt, impl,
+    params]}); prints one JSON object {"k<k>/<name>": {"device_ops",
+    "kernels"}}."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.data.suite import generate
+    from repro_torch.launch.mesh import make_spmm_mesh
+    from repro_torch.tune import SparseOperator, make
+
+    cant = generate("cant", scale=1.0)
+    mesh = make_spmm_mesh(MESH_SHARDS)
+    first = mesh.devices[0]
+    runs, _ = mesh_runs(cant, mesh)
+    tuned = {int(k): SparseOperator.from_candidate(
+                 cant, make(fmt, impl, **params), k=None if int(k) == 1 else int(k),
+                 device=first)
+             for k, (fmt, impl, params) in json.loads(plans_json).items()}
+    X = torch.as_tensor(np.random.default_rng(0).standard_normal(
+        (cant.shape[1], 64)).astype(np.float32), device=first)
+    out = {}
+    for k, name, fn in mesh_cases(cant, runs, tuned, X):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        work = [e.name for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        kern = [w for w in work if "memcpy" not in w.lower() and "memset" not in w.lower()]
+        out[f"k{k}/{name}"] = {"device_ops": len(work), "kernels": len(kern)}
+    print(json.dumps(out))
+
+
+def mesh_phase(dev, scale: float, record: dict, *, tuned: dict | None = None,
+               spd=None, ldoor=None) -> dict:
+    """Phase 10: row-partitioned and mesh serving on cant at ``scale``, with
+    P = 4 shards (on one card all four share it).
+
+    ``tuned`` is a single-device plan table {k: SparseOperator} of the same
+    matrix (10f times it beside the schedules), ``spd`` spd_shift(cant)
+    (10d), ``ldoor`` the optional extra matrix.  Returns the kernel
+    launches of 10b-10e (the mesh path runs the plain ``csr/vector`` row
+    sum on every shard, so they are expected to be 0).  Runs on the CPU too
+    (small ``scale``), without 10f's times: that is its rehearsal."""
+    import numpy as np
+    import scipy.sparse as sp
+    import torch
+
+    from repro_torch.core import distributed as dist
+    from repro_torch.core.device import backend_name
+    from repro_torch.core.spmv import spd_shift
+    from repro_torch.data.suite import generate
+    from repro_torch.kernels import _build
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.launch.mesh import make_spmm_mesh
+    from repro_torch.runtime.engine import SparseEngine
+    from repro_torch.runtime.faults import FaultPlan
+    from repro_torch.runtime.solver import SparseSolver
+    from repro_torch.runtime.supervisor import Supervisor
+    from repro_torch.tune import PlanCache, SparseOperator, fingerprint, make
+    from repro_torch.tune import plan as tplan
+
+    on_card = dev.type == "cuda"
+    P = MESH_SHARDS
+    rec = record["mesh"] = {}
+    t_phase = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_")
+    cant = generate("cant", scale=scale)
+    m, n = cant.shape
+    A64 = sp.csr_matrix((cant.data.astype(np.float64), cant.indices, cant.indptr),
+                        shape=cant.shape)
+    absA = abs(A64)
+    mesh = make_spmm_mesh(P, device=dev.type)
+    first = mesh.devices[0]
+    print(f"phase 10: cant {m}x{n} nnz={cant.nnz}, P = {P} shards on "
+          f"{mesh.n_devices} distinct device(s): {[str(d) for d in mesh.devices]}",
+          flush=True)
+    rec["mesh"] = {"shards": P, "n_devices": mesh.n_devices,
+                   "devices": [str(d) for d in mesh.devices]}
+
+    def sync() -> None:
+        if on_card:
+            torch.cuda.synchronize()
+
+    def check(label: str, Y, X) -> float:
+        """Every entry within 1e-5 (|A| |x|)_i of scipy float64."""
+        X = np.asarray(X, np.float64).reshape(n, -1)
+        Y = Y.detach().cpu().numpy().astype(np.float64).reshape(m, -1)
+        ref, lim = A64 @ X, TOL * (absA @ np.abs(X))
+        err = np.abs(Y - ref)
+        bad = ~(err <= lim)
+        if Y.shape != ref.shape or bad.any():
+            fail(f"{label}: {int(bad.sum())} entries off 1e-5 (|A||x|)_i, worst "
+                 f"{float(np.max(err - lim)):.3e} over the limit")
+        e = float(err.max())
+        print(f"  ok {label}: max_abs_err {e:.3e}")
+        return e
+
+    def unfaulted(label: str, eng) -> None:
+        ev = [(e.kind, e.info) for e in eng.supervisor.events]
+        st = eng.stats
+        if ev or st.demotions or st.failed_requests or st.retries:
+            fail(f"{label}: supervisor events {ev}, demotions {st.demotions}, "
+                 f"failed {st.failed_requests}, retries {st.retries}")
+
+    rng = np.random.default_rng(0)
+    X64h = rng.standard_normal((n, max(MESH_KS))).astype(np.float32)
+    Xd = torch.as_tensor(X64h, device=first)
+
+    def xk(k: int) -> torch.Tensor:
+        return Xd[:, 0].contiguous() if k == 1 else Xd[:, :k].contiguous()
+
+    # -- 10a: the operands, both schedules, stacked, psum ----------------
+    t0 = time.perf_counter()
+    ops_rec = rec["operands"] = {}
+    runs, built = mesh_runs(cant, mesh)
+    for schedule, (op, placed, host_s, place_s) in built.items():
+        stored = int(op["arrays"]["indices"].size)
+        cells = op["arrays"]["indptr"][..., -1]
+        ops_rec[schedule] = {
+            "host_partition_s": host_s, "place_s": place_s, "stored_entries": stored,
+            "stored_over_nnz": stored / cant.nnz,
+            "bytes_on_card": dist.mesh_operand_nbytes(placed),
+            "entries_per_shard_or_cell": np.asarray(cells).tolist(),
+        }
+        print(f"  10a {schedule}: host partition {host_s:.3f}s, placement "
+              f"{place_s:.3f}s, {stored} stored entries ({stored / cant.nnz:.2f}x nnz), "
+              f"{ops_rec[schedule]['bytes_on_card'] / 1e6:.1f} MB on the device(s); "
+              f"entries per {'cell' if schedule == 'ring' else 'shard'} "
+              f"{np.asarray(cells).tolist()}", flush=True)
+    ratio = ops_rec["ring"]["stored_entries"] / ops_rec["allgather"]["stored_entries"]
+    rec["ring_over_allgather_entries"] = ratio
+    print(f"  ring stores {ratio:.2f}x the allgather operand's entries "
+          "(every cell padded to the largest)")
+    del built
+    errs = rec["max_abs_err"] = {}
+    for k in MESH_KS:
+        x = xk(k)
+        for name, fn in runs.items():
+            y = fn(x)
+            errs[f"{name}/k{k}"] = check(f"10a {name} k={k} vs float64", y, X64h[:, :k])
+            if not torch.equal(y, fn(x)):
+                fail(f"10a {name} k={k}: two runs differ")
+    print("  ok 10a: two runs of each schedule and of stacked_spmm agree bit for bit")
+    dot = dist.psum_dot_runner(mesh, "shard", n)
+    for k in (1, 8):
+        u, v = xk(k), Xd[:, 8:8 + k].contiguous()
+        if k == 1:
+            v = v[:, 0].contiguous()
+        got = dot(u, v).detach().cpu().numpy().astype(np.float64)
+        u64 = u.cpu().numpy().astype(np.float64).reshape(n, -1)
+        v64 = v.cpu().numpy().astype(np.float64).reshape(n, -1)
+        want = (u64 * v64).sum(0)
+        lim = TOL * (np.abs(u64) * np.abs(v64)).sum(0)
+        if not np.all(np.abs(got.reshape(-1) - want) <= lim):
+            fail(f"10a psum dot k={k}: {got} vs float64 {want}")
+        print(f"  ok 10a psum dot k={k}: max_abs_err {float(np.abs(got.reshape(-1) - want).max()):.3e}")
+    sync()
+    record["phases_s"]["mesh_operands"] = round(time.perf_counter() - t0, 3)
+
+    # -- 10b: the mesh engine and the shard engine, launches counted ------
+    t0 = time.perf_counter()
+    _build.reset_launches()
+    cache_path = Path(tmp.name) / "plans.json"
+    req_host = [X64h[:, j].copy() for j in range(64)]
+    req_dev = [torch.as_tensor(v, device=first) for v in req_host]
+    groups = (1, 3, 4, 12, 44)  # -> buckets 1, 4, 4, 16, 64
+
+    def serve(eng, xs_):
+        reqs, i = [], 0
+        for g in groups:
+            reqs += [eng.submit(x) for x in xs_[i:i + g]]
+            i += g
+            eng.step()
+        eng.drain()
+        return torch.stack([r.result() for r in reqs], dim=1)
+
+    t1 = time.perf_counter()
+    eng = SparseEngine(cant, ks=MESH_KS, mesh=mesh, cache=PlanCache(cache_path),
+                       race=False)
+    sync()
+    rec["engine_build_s"] = time.perf_counter() - t1
+    searches = rec["searches"] = {}
+    for k, op in eng.ops.items():
+        if op.plan.fmt != "dist" or op.plan.mesh_shape != [P]:
+            fail(f"10b mesh engine k={k}: plan {op.plan}")
+        timed = {c: v * 1e3 for c, v in op.measurements.items()}
+        searches[k] = {"plan": op.plan.candidate.key(), "measured_ms": timed,
+                       "backend": op.plan.backend}
+        print(f"  10b bucket {k}: {op.plan.impl} won ({op.plan.measured_s * 1e3:.4f} ms); "
+              + ", ".join(f"{c} {v:.4f} ms" for c, v in sorted(timed.items())))
+        if len(timed) != len(dist.SCHEDULES) or not all(np.isfinite(list(timed.values()))):
+            fail(f"10b bucket {k}: both schedules must be timed, got {timed}")
+    print(f"  mesh engine: {eng!r}; built (searched) in {rec['engine_build_s']:.2f}s")
+    Y_async = serve(eng, req_dev)
+    errs["engine"] = check("10b mesh engine, 64 requests vs float64", Y_async,
+                           np.stack(req_host, axis=1))
+    eng_sync = SparseEngine(cant, ks=MESH_KS, mesh=mesh, cache=PlanCache(cache_path),
+                            async_depth=0)
+    if not eng_sync.from_cache:
+        fail("10b: a second mesh engine on the same cache searched again")
+    Y_sync = serve(eng_sync, req_dev)
+    if not torch.equal(Y_async, Y_sync):
+        fail("10b mesh engine: async results differ from async_depth=0 results")
+    print("  ok 10b: a second engine on the cache is a full hit; async == "
+          "async_depth=0 bit for bit")
+    single = SparseEngine(cant, ks=(1, 64), cache=PlanCache(cache_path), device=first,
+                          candidates=[make("csr", "vector")])
+    if single.from_cache or any(op.plan.fmt == "dist" for op in single.ops.values()):
+        fail("10b: a single-device engine on the mesh engine's cache saw its plans")
+    fp, scale_ = fingerprint(cant), [m, n, cant.nnz]
+    hit = PlanCache(cache_path).get(fp, "spmv", 1, backend=backend_name(first),
+                                    scale=scale_)
+    if hit is not None and hit.fmt == "dist":
+        fail("10b: a single-device lookup returned a mesh plan")
+    print("  ok 10b: a single-device engine on that cache does not see the mesh plans")
+    single.close()
+    eng_sh = SparseEngine(cant, ks=MESH_KS, n_shards=P, device=first)
+    Y_sh = serve(eng_sh, req_dev)
+    errs["shard_engine"] = check(f"10b n_shards={P} engine, 64 requests vs float64",
+                                 Y_sh, np.stack(req_host, axis=1))
+    for label, e in (("mesh engine", eng), ("mesh engine sync", eng_sync),
+                     ("shard engine", eng_sh)):
+        e.close()
+        unfaulted(label, e)
+    print("  ok 10b engines: zero supervisor events")
+    record["phases_s"]["mesh_engines"] = round(time.perf_counter() - t0, 3)
+
+    # -- 10c: a fault in one mesh bucket ---------------------------------
+    t0 = time.perf_counter()
+    fault = FaultPlan({"engine.dispatch": {"n": 2, "bucket": 16}})
+    eng_f = SparseEngine(cant, ks=MESH_KS, mesh=mesh, cache=PlanCache(cache_path),
+                         faults=fault,
+                         supervisor=Supervisor(max_retries=1, backoff_base_s=0.0,
+                                               backoff_cap_s=0.0, repair_interval_s=0.01))
+    Y_f = serve(eng_f, req_dev)
+    errs["demoted"] = check("10c faulted mesh engine (bucket 16 demoted) vs float64",
+                            Y_f, np.stack(req_host, axis=1))
+    dem = eng_f.supervisor.events_of("demote")
+    if [e.info["bucket"] for e in dem] != [16] or eng_f.ops[16].mesh is not None:
+        fail(f"10c: demotions {[(e.info) for e in dem]}, bucket 16 on "
+             f"{eng_f.ops[16]!r}")
+    print(f"  ok 10c: bucket 16 demoted to {dem[0].info['tier']} on {first}")
+    deadline = time.perf_counter() + 30.0
+    while eng_f.supervisor.promotions < 1:
+        if time.perf_counter() > deadline:
+            fail("10c: the repair never re-promoted bucket 16")
+        time.sleep(0.01)
+    Y_f2 = serve(eng_f, req_dev)
+    check("10c after the repair vs float64", Y_f2, np.stack(req_host, axis=1))
+    if eng_f.ops[16].plan.fmt != "dist" or eng_f._demoted:
+        fail(f"10c: bucket 16 serves {eng_f.ops[16].plan.candidate.key()} after repair")
+    kinds = [e.kind for e in eng_f.supervisor.events]
+    if not kinds.index("batch_failed") < kinds.index("demote") < kinds.index("promote"):
+        fail(f"10c: events out of order {kinds}")
+    print(f"  ok 10c: re-promoted to {eng_f.ops[16].plan.candidate.key()}; events {kinds}")
+    try:
+        eng_f.submit_sparse(np.array([0], np.int64), np.ones(1, np.float32))
+    except NotImplementedError:
+        print("  ok 10c: submit_sparse on a mesh engine raises NotImplementedError")
+    else:
+        fail("10c: submit_sparse on a mesh engine did not raise")
+    eng_f.close()
+    record["phases_s"]["mesh_faults"] = round(time.perf_counter() - t0, 3)
+
+    # -- 10d: CG over the mesh -------------------------------------------
+    t0 = time.perf_counter()
+    spd = spd_shift(cant) if spd is None else spd
+    S64 = sp.csr_matrix((spd.data.astype(np.float64), spd.indices, spd.indptr),
+                        shape=spd.shape)
+    b = np.random.default_rng(0).standard_normal(m).astype(np.float32)
+    ms = SparseSolver(spd, mesh=mesh, cache=PlanCache(cache_path))
+    res = ms.cg(b, tol=1e-5)
+    one = SparseSolver(spd, cache=PlanCache(), device=first,
+                       candidates=[make("csr", "vector")])
+    res1 = one.cg(b, tol=1e-5)
+    x64 = res.x.cpu().numpy().astype(np.float64)
+    rel = float(np.linalg.norm(S64 @ x64 - b) / np.linalg.norm(b))
+    rec["cg"] = {"plan": res.plan, "iterations": res.iterations,
+                 "single_device_iterations": res1.iterations,
+                 "float64_rel_residual": rel, "syncs": res.syncs}
+    print(f"  10d mesh CG ({res.plan}): {res.iterations} iterations, float64 residual "
+          f"{rel:.3e}; single-device CG {res1.iterations} iterations")
+    if not res.converged or rel > 1e-4:
+        fail(f"10d mesh CG: converged={res.converged}, residual {rel:.3e} > 1e-4")
+    if res.iterations != res1.iterations:
+        fail(f"10d mesh CG took {res.iterations} iterations, the single-device "
+             f"solve {res1.iterations}")
+    if ms.supervisor.events:
+        fail(f"10d mesh solver events {ms.supervisor.events}")
+    record["phases_s"]["mesh_cg"] = round(time.perf_counter() - t0, 3)
+
+    # -- 10e: the CLI ------------------------------------------------------
+    t0 = time.perf_counter()
+    os.environ["REPRO_TORCH_TUNE_CACHE"] = str(cache_path)
+    tplan._default = None  # re-read $REPRO_TORCH_TUNE_CACHE
+    cli = rec["cli"] = {}
+    for flag in ("--mesh-shards", "--shards"):
+        out = Path(tmp.name) / f"cli{flag}.json"
+        print(f"phase 10e: serve --sparse cant {flag} {P}", flush=True)
+        serve_cli.main(["--sparse", "cant", "--scale", repr(scale), "--requests", "64",
+                        flag, str(P), "--device", dev.type, "--stats-json", str(out)])
+        st = cli[flag] = json.loads(out.read_text())
+        if st["served"] != 64 or st["shards"] != P or st["supervisor"]["demotions"]:
+            fail(f"10e {flag}: {st}")
+    sync()
+    launches = dict(_build.LAUNCHES)
+    print(f"  launches over 10b-10e: {launches}")
+    record["phases_s"]["mesh_cli"] = round(time.perf_counter() - t0, 3)
+
+    # -- 10f: times --------------------------------------------------------
+    t0 = time.perf_counter()
+    if not on_card:
+        print("  10f skipped: times are taken on the card only")
+    else:
+        smi = smi_line()
+        flush = torch.empty(64 * 1024 * 1024, dtype=torch.int32, device=first)
+
+        def time_ms(fn) -> float:
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+            ts = []
+            for _ in range(REPS):
+                flush.zero_()
+                s = torch.cuda.Event(enable_timing=True)
+                e = torch.cuda.Event(enable_timing=True)
+                s.record()
+                fn()
+                e.record()
+                e.synchronize()
+                ts.append(s.elapsed_time(e))
+            return float(np.median(ts))
+
+        tuned = tuned if tuned is not None else SparseOperator.build_multi(
+            cant, ks=(1, 64), cache=PlanCache(), device=first)
+        plans = {k: [tuned[k].plan.fmt, tuned[k].plan.impl, tuned[k].plan.params]
+                 for k in (1, 64)}
+        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                               "--mesh-device-ops", json.dumps(plans)],
+                              capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            fail(f"10f: counting device operations failed: {proc.stderr[-2000:]}")
+        ops = json.loads(proc.stdout.strip().splitlines()[-1])
+        times = rec["times"] = {"card": smi}
+        for k, name, fn in mesh_cases(cant, runs, tuned, Xd):
+            row = times.setdefault(f"k{k}", {})[name] = {"ms": time_ms(fn),
+                                                         **ops[f"k{k}/{name}"]}
+            print(f"  10f k={k} {name}: {row['ms']:.4f} ms, {row['kernels']} kernels "
+                  f"+ {row['device_ops'] - row['kernels']} copies/fills per product "
+                  f"[{smi}]", flush=True)
+        del flush
+        torch.cuda.empty_cache()
+    record["phases_s"]["mesh_times"] = round(time.perf_counter() - t0, 3)
+
+    # -- the optional ldoor products --------------------------------------
+    elapsed = time.perf_counter() - t_phase
+    if ldoor is not None and elapsed < MESH_LDOOR_IF_UNDER_S:
+        L64 = sp.csr_matrix((ldoor.data.astype(np.float64), ldoor.indices, ldoor.indptr),
+                            shape=ldoor.shape)
+        xl = np.random.default_rng(0).standard_normal(ldoor.shape[1]).astype(np.float32)
+        ref, lim = L64 @ xl.astype(np.float64), TOL * (abs(L64) @ np.abs(xl.astype(np.float64)))
+        lrec = rec["ldoor"] = {}
+        for schedule in dist.SCHEDULES:
+            t1 = time.perf_counter()
+            op = dist.build_mesh_operand(ldoor, P, schedule)
+            host_s = time.perf_counter() - t1
+            placed = dist.place_mesh_operand(op, mesh, "shard")
+            y = dist.mesh_spmm_runner(mesh, "shard", placed)(torch.as_tensor(xl, device=first))
+            err = np.abs(y.cpu().numpy().astype(np.float64) - ref)
+            if not np.all(err <= lim):
+                fail(f"ldoor {schedule}: {int((err > lim).sum())} rows off 1e-5")
+            lrec[schedule] = {"host_partition_s": host_s,
+                              "stored_entries": int(op["arrays"]["indices"].size),
+                              "bytes_on_card": dist.mesh_operand_nbytes(placed),
+                              "max_abs_err": float(err.max())}
+            print(f"  ldoor {schedule}: host partition {host_s:.3f}s, "
+                  f"{lrec[schedule]['stored_entries']} stored entries "
+                  f"({lrec[schedule]['stored_entries'] / ldoor.nnz:.2f}x nnz), "
+                  f"{lrec[schedule]['bytes_on_card'] / 1e6:.1f} MB, max_abs_err "
+                  f"{lrec[schedule]['max_abs_err']:.3e}", flush=True)
+            del placed, op
+        if on_card:
+            torch.cuda.empty_cache()
+    else:
+        print(f"  ldoor products skipped ({'no matrix' if ldoor is None else f'{elapsed:.1f}s elapsed'})")
+    rec["wall_s"] = time.perf_counter() - t_phase
+    print(f"  phase 10 wall time {rec['wall_s']:.1f}s", flush=True)
+    tmp.cleanup()
+    return launches
 
 
 def main() -> None:
@@ -2145,6 +2646,15 @@ def main() -> None:
         row["fleet_launches"] = int(launches9.get(row["name"], 0))
     phase_done("fleet", t0)
 
+    # -- phase 10: row-partitioned and mesh serving, launches counted -----
+    t0 = time.perf_counter()
+    launches10 = mesh_phase(dev, 1.0, record, tuned=tuned_ops, spd=spd["cant"],
+                            ldoor=mats["ldoor"])
+    record["mesh_launches"] = launches10
+    for row in kernels:  # the shards run plain torch: no kernel is on the path
+        row["mesh_launches"] = int(launches10.get(row["name"], 0))
+    phase_done("mesh", t0)
+
     record["kernels"] = kernels
     record["card"] = smi
     record["total_s"] = round(time.perf_counter() - t_start, 3)
@@ -2165,4 +2675,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--mesh-device-ops"]:
+        mesh_device_ops(sys.argv[2])
+    else:
+        main()

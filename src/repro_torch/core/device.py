@@ -7,7 +7,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["resolve", "backend_name"]
+__all__ = ["resolve", "resolve_on", "backend_name"]
 
 
 def resolve(device: str | torch.device = "cuda") -> torch.device:
@@ -25,6 +25,18 @@ def resolve(device: str | torch.device = "cuda") -> torch.device:
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def resolve_on(device: str | torch.device | None, mesh=None) -> torch.device:
+    """The device an entry point serves on: ``device`` (``"cuda"`` when
+    None), or with a ``mesh`` its first device, where results land.  A
+    ``device`` that names another device than the mesh's first raises."""
+    if mesh is None:
+        return resolve("cuda" if device is None else device)
+    first = resolve(mesh.devices[0])
+    if device is not None and resolve(device) != first:
+        raise ValueError(f"device {device!r} is not the mesh's first device {first}")
+    return first
 
 
 def backend_name(device: torch.device) -> str:

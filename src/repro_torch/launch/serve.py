@@ -25,6 +25,16 @@ when shedding):
       --scale 1.0 --requests 256 --max-queue 64 \
       --overload-policy shed-oldest --brownout
 
+Row-partitioned serving: ``--shards P`` splits A into P nnz-balanced row
+shards served in one stacked pass on the device; ``--mesh-shards P``
+serves over a mesh of P shards (``launch.mesh.make_spmm_mesh``: round-robin
+over the visible cards, so on one card all P share it) with a collective
+schedule (allgather or ring) tuned per bucket.  The two are one of two;
+the report names the path and the distinct devices the shards span:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --sparse cant \
+      --scale 1.0 --requests 64 --mesh-shards 4 [--device cpu]
+
 Several matrices at once: ``--fleet M1,M2,...`` serves each as a
 ``repro_torch.runtime.fleet.SparseFleet`` tenant, admitted on predicted
 plans (plan cache, nearest cached neighbour, byte model) with no measured
@@ -64,6 +74,7 @@ def _overload_kwargs(args) -> dict:
 
 def serve_sparse(args) -> None:
     from repro_torch.data.suite import SUITE, generate
+    from repro_torch.launch.mesh import make_spmm_mesh
     from repro_torch.runtime.engine import OverloadError, SparseEngine
 
     names = [s.name for s in SUITE]
@@ -71,12 +82,22 @@ def serve_sparse(args) -> None:
         raise SystemExit(
             f"unknown suite matrix {args.sparse!r}; choose from: {', '.join(names)}"
         )
+    if args.shards > 1 and args.mesh_shards > 1:
+        raise SystemExit("--shards and --mesh-shards are mutually exclusive "
+                         "(stacked shards on one device vs a device mesh)")
     ks = tuple(int(k) for k in args.k_buckets.split(","))
     a = generate(args.sparse, scale=args.scale)
     max_wait_s = args.max_wait_ms / 1e3 if args.max_wait_ms else None
+    if args.mesh_shards > 1:
+        mesh = make_spmm_mesh(args.mesh_shards, device=args.device)
+        # both engines below share the placed operands and the plan cache
+        topo: dict = {"mesh": mesh, "prep_cache": {}}
+    else:
+        mesh = None
+        topo = {"n_shards": args.shards, "device": args.device}
     t0 = time.perf_counter()
     warm = SparseEngine(a, ks=ks, max_wait_s=max_wait_s,
-                        async_depth=args.async_depth, device=args.device)
+                        async_depth=args.async_depth, **topo)
     t_build = time.perf_counter() - t0
     rng = np.random.default_rng(0)
     xs = [
@@ -88,8 +109,11 @@ def serve_sparse(args) -> None:
     # without overload protection: the warm-up burst is not offered load.
     warm.run(xs[: min(len(xs), max(ks))])
     warm.close()
-    eng = SparseEngine(a, ks=ks, ops=warm.ops, max_wait_s=max_wait_s,
-                       async_depth=args.async_depth, device=args.device,
+    # Mesh and shard engines take no ops= table: a mesh engine reloads its
+    # plans from the cache (no search) onto the shared operands.
+    eng = SparseEngine(a, ks=ks, max_wait_s=max_wait_s, async_depth=args.async_depth,
+                       **(topo if mesh is not None or args.shards > 1
+                          else {"ops": warm.ops, "device": args.device}),
                        **_overload_kwargs(args))
 
     t0 = time.perf_counter()
@@ -113,8 +137,19 @@ def serve_sparse(args) -> None:
     flops = 2 * a.nnz * len(served)
     s = eng.stats.summary()
     plans = {k: op.plan.candidate.key() for k, op in eng.ops.items()}
-    src = ("k-indexed plan table from cache" if eng.from_cache
-           else f"searched in {t_build:.1f}s")
+    n_devices = mesh.n_devices if mesh is not None else 1
+    if mesh is not None:
+        hit = ("plan table from cache" if warm.from_cache
+               else f"schedules searched in {t_build:.1f}s")
+        src = (f"mesh-sharded over {args.mesh_shards} shards on {n_devices} "
+               f"distinct device(s) (collective schedules per bucket; {hit})")
+    elif args.shards > 1:
+        src = (f"row-partitioned stacked dispatch over {args.shards} shards on "
+               f"1 device")
+    elif warm.from_cache:
+        src = "k-indexed plan table from cache"
+    else:
+        src = f"searched in {t_build:.1f}s"
     lat = sorted(r.latency_s for r in served) or [0.0]
     raced = sum(op.plan.n_raced for op in eng.ops.values())
     overload = f" [overload: refused={refused} shed={shed}]" if refused or shed else ""
@@ -145,6 +180,9 @@ def serve_sparse(args) -> None:
                 "matrix": args.sparse,
                 "scale": args.scale,
                 "device": str(eng.device),
+                "shards": eng.n_shards,
+                "mesh": mesh is not None,
+                "n_devices": n_devices,
                 "requests": len(xs),
                 "served": len(served),
                 "refused": refused,
@@ -272,6 +310,14 @@ def main(argv=None):
                     help="suite matrix scale (1.0 = the paper's Table 1 size)")
     ap.add_argument("--k-buckets", default="1,4,16,64",
                     help="tuned batch widths for the sparse engine")
+    ap.add_argument("--shards", type=int, default=1,
+                    help="--sparse: row-partition the matrix into this many "
+                         "shards, served in one stacked pass on the device")
+    ap.add_argument("--mesh-shards", type=int, default=1,
+                    help="--sparse: serve over a mesh of this many shards "
+                         "(round-robin over the visible cards) with a "
+                         "collective schedule (allgather/ring) tuned per "
+                         "bucket; excludes --shards")
     ap.add_argument("--max-wait-ms", type=float, default=0.0,
                     help="admission control: dispatch a partial bucket once "
                          "its oldest request has waited this long "

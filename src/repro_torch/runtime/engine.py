@@ -66,6 +66,16 @@ pauses repair probes; SHED also refuses new submissions.  With
 (``runtime.fleet``) drives one controller from the pressure of all its
 tenants.
 
+**Shards** (``core.distributed``).  ``n_shards=P`` row-partitions A
+(nnz-balanced) on the engine's device and serves every bucket through
+``stacked_spmm`` (one pass over all shards, no search); ``mesh=``
+(``launch.mesh.make_spmm_mesh``) tunes a collective schedule (allgather
+or ring) per bucket over the mesh, whose first device holds the batches
+and results: the engine waits for a batch there, after the cross-device
+copies.  Neither takes ``ops=`` or serves ``submit_sparse``.  A mesh
+bucket demotes to a single-device fallback on that first device, and the
+repair thread re-promotes it to its schedule.
+
     eng = SparseEngine(a)            # tunes (or cache-loads) all buckets, on cuda
     reqs = [eng.submit(x) for x in xs]
     eng.drain()                      # dispatches k-bucketed batches
@@ -86,8 +96,10 @@ from typing import Any, Iterable, Sequence
 import numpy as np
 import torch
 
-from repro_torch.core.device import resolve
+from repro_torch.core.device import resolve_on
+from repro_torch.core.distributed import assemble_rows, place_stacked, stacked_spmm
 from repro_torch.core.formats import CSRMatrix
+from repro_torch.core.partition import rows_balanced, stack_csr_shards
 from repro_torch.kernels.spmspv import pad_sparse_rhs, validate_sparse_rhs
 from repro_torch.runtime.executable import finite_guard, fused_batch_executable
 from repro_torch.runtime.faults import FaultPlan, InjectedFault, active_plan
@@ -268,7 +280,10 @@ class SparseEngine:
     (defaults to the on-disk one, so restarts skip the measured search);
     ``ops=`` injects a prebuilt ``{k: SparseOperator}`` table instead of
     tuning one.  ``device`` is where the engine serves (``"cuda"`` unless
-    the caller passes ``"cpu"``).  ``max_wait_s`` caps how long a request
+    the caller passes ``"cpu"``; with ``mesh=`` the mesh's first device).
+    ``n_shards`` and ``mesh``/``axis`` serve A row-partitioned (see the
+    module docstring); they exclude each other and ``ops=``.
+    ``max_wait_s`` caps how long a request
     may wait for its bucket to fill.  ``async_depth`` (0..2) is the
     in-flight window.  ``x_nnz_buckets`` are the sparse lane's nnz(x)
     buckets.  ``name`` labels the engine in fault contexts and messages;
@@ -293,6 +308,9 @@ class SparseEngine:
         *,
         ks: Sequence[int] = K_BUCKETS,
         cache: PlanCache | None = None,
+        n_shards: int = 1,
+        mesh: Any = None,
+        axis: str | None = None,
         max_wait_s: float | None = None,
         max_queue: int | None = None,
         overload_policy: str = "reject",
@@ -303,7 +321,7 @@ class SparseEngine:
         async_depth: int = 2,
         strict_dtype: bool = False,
         ops: dict[int, SparseOperator] | None = None,
-        device: str | torch.device = "cuda",
+        device: str | torch.device | None = None,
         x_nnz_buckets: Sequence[int] | None = None,
         name: str | None = None,
         supervisor: Supervisor | None = None,
@@ -320,7 +338,18 @@ class SparseEngine:
             )
         if max_queue is not None and int(max_queue) < 1:
             raise ValueError("max_queue must be >= 1 (None = unbounded)")
-        self.device = resolve(device)
+        if ops is not None and (mesh is not None or int(n_shards) > 1):
+            raise ValueError(
+                "ops= injects a prebuilt single-device plan table; it cannot "
+                "be combined with mesh= or n_shards>1"
+            )
+        if mesh is not None and int(n_shards) > 1:
+            raise ValueError("mesh= and n_shards= are mutually exclusive")
+        self.device = resolve_on(device, mesh)
+        self.mesh = mesh
+        self.axis = axis if axis is not None else (
+            mesh.axis_names[0] if mesh is not None else None)
+        self.n_shards = int(mesh.shape[self.axis]) if mesh is not None else int(n_shards)
         self.a = a
         self.shape = a.shape
         self.name = name
@@ -338,7 +367,19 @@ class SparseEngine:
         self.async_depth = max(0, min(int(async_depth), 2))
         self.strict_dtype = bool(strict_dtype)
         self._dtype_warned = False
-        if ops is not None:
+        self._stacked: dict | None = None
+        if mesh is not None:
+            self.ops = SparseOperator.build_multi(
+                a, ks=self.ks, cache=cache, device=self.device, mesh=mesh,
+                axis=self.axis, **build_kwargs)
+        elif self.n_shards > 1:
+            # Every bucket dispatches through stacked_spmm: there is no plan
+            # to search.
+            self.ops = {}
+            part = rows_balanced(a, self.n_shards)
+            self._stacked = place_stacked(stack_csr_shards(part.shards), self.device)
+            self._shard_rows = np.diff(part.bounds)
+        elif ops is not None:
             missing = [k for k in self.ks if int(k) not in ops]
             if missing:
                 raise ValueError(f"ops= is missing buckets {missing}")
@@ -519,10 +560,16 @@ class SparseEngine:
         batch.  Bad coordinates raise ``ValueError``; values follow the
         engine's float32 policy.  A request thicker than the largest bucket
         is densified onto the dense k = 1 lane.  A shedding brownout
-        refuses it like a dense one.
+        refuses it like a dense one.  Mesh and shard engines raise
+        ``NotImplementedError``, as in the JAX package.
         """
         self._check_open()
         self._refuse_if_shedding()
+        if self.mesh is not None or self.n_shards > 1:
+            raise NotImplementedError(
+                "submit_sparse is single-device: distributed SpMSpV under the "
+                "mesh schedules is a feature of neither package yet"
+            )
         n = self.shape[1]
         idx, val = validate_sparse_rhs(indices, values, n)
         if val.dtype != np.float32:
@@ -775,7 +822,19 @@ class SparseEngine:
     def _exec(self, bucket: int):
         fn = self._execs.get(bucket)
         if fn is None:
-            fn = self._execs[bucket] = self._make_exec(bucket, self.ops[bucket])
+            if self._stacked is not None:
+                stacked, counts = self._stacked, self._shard_rows
+
+                def run(x):
+                    x2 = x[:, None] if x.dim() == 1 else x
+                    y = assemble_rows(stacked_spmm(stacked, x2), counts)
+                    return y[:, 0] if x.dim() == 1 else y
+
+                fn = fused_batch_executable(run, bucket=bucket, n=self.shape[1],
+                                            device=self.device, guard=self.nan_guard)
+            else:
+                fn = self._make_exec(bucket, self.ops[bucket])
+            self._execs[bucket] = fn
         return fn
 
     def _make_exec(self, bucket: int, op: SparseOperator):
@@ -1132,8 +1191,9 @@ class SparseEngine:
 
     def __repr__(self) -> str:  # pragma: no cover - cosmetic
         plans = {k: op.plan.candidate.key() for k, op in self.ops.items()}
+        devices = self.mesh.n_devices if self.mesh is not None else 1
         return (
             f"SparseEngine({self.shape[0]}x{self.shape[1]}, nnz={self.a.nnz}, "
-            f"buckets={plans}, device={self.device}, "
-            f"async_depth={self.async_depth})"
+            f"buckets={plans}, shards={self.n_shards} on {devices} device(s), "
+            f"device={self.device}, async_depth={self.async_depth})"
         )

@@ -33,6 +33,12 @@ the device:
   the fallback chain (``runtime.supervisor``), then the failure is raised.
   On a card only injected faults are retried and demoted; a kernel that
   really fails raises from the solve.
+* ``mesh=`` shards the product over a device mesh with the tuned collective
+  schedule (``core.distributed``), and every dot reduces over the same
+  shards (``psum_dot_runner``); the vectors live on the mesh's first
+  device and the loop runs unchanged.  A mesh solve never demotes: the
+  fallback tiers are single-device, and unsharding a solve laid out over a
+  mesh would change where its memory lives, so the failure is raised.
 
 ``cg_host_loop`` / ``block_power_host_loop`` keep the loop on the host (one
 read per iteration) as the measured baseline.  Both loops run the same step
@@ -57,7 +63,8 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from repro_torch.core.device import resolve
+from repro_torch.core.device import resolve, resolve_on
+from repro_torch.core.distributed import psum_dot_runner
 from repro_torch.core.formats import CSRMatrix
 from repro_torch.runtime.faults import FaultPlan, active_plan
 from repro_torch.runtime.supervisor import (
@@ -130,53 +137,53 @@ def _f32(v, device: torch.device) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # Step bodies: shared by the device-decided loops and the host loops.
 # ---------------------------------------------------------------------------
-def _cg_setup(b, x0, tol: float, run):
+def _cg_setup(b, x0, tol: float, run, dot=_dot):
     # tol < 0 is the fixed-budget mode: thresh2 = -inf keeps the loop
     # running for exactly maxiter iterations (rs >= 0 always exceeds it,
     # even when the float32 residual underflows to zero) and reports
     # converged=False.
-    bb = torch.clamp(_dot(b, b), min=_TINY)
+    bb = torch.clamp(dot(b, b), min=_TINY)
     tol2 = float(np.float32(tol) * np.float32(tol))  # tol * tol in float32
     thresh2 = torch.full_like(bb, -torch.inf) if tol < 0 else tol2 * bb
     r0 = b - run(x0)
-    return thresh2, r0, _dot(r0, r0)
+    return thresh2, r0, dot(r0, r0)
 
 
-def _cg_body(run):
+def _cg_body(run, dot=_dot):
     def body(state):
         x, r, p, rs = state
         Ap = run(p)
-        pAp = _dot(p, Ap)
+        pAp = dot(p, Ap)
         alpha = rs / torch.where(pAp == 0, 1.0, pAp)
         x = x + alpha * p
         r = r - alpha * Ap
-        rs_new = _dot(r, r)
+        rs_new = dot(r, r)
         beta = rs_new / torch.where(rs == 0, 1.0, rs)
         return (x, r, r + beta * p, rs_new)
 
     return body
 
 
-def _lanczos_step(run):
+def _lanczos_step(run, dot=_dot):
     def step(carry):
         v_prev, v, beta = carry
         w = run(v) - beta * v_prev
-        alpha = _dot(w, v)
+        alpha = dot(w, v)
         w = w - alpha * v
-        beta_new = torch.sqrt(torch.clamp(_dot(w, w), min=0.0))
+        beta_new = torch.sqrt(torch.clamp(dot(w, w), min=0.0))
         v_next = w / torch.where(beta_new == 0, 1.0, beta_new)
         return (v, v_next, beta_new), (alpha, beta_new)
 
     return step
 
 
-def _block_power_body(run):
+def _block_power_body(run, dot=_dot):
     def body(state):
         V, theta, _ = state
         W = run(V)
         # Rayleigh quotients diag(V^T A V), taken before the QR: V's columns
         # are orthonormal, so these are the eigenvalue estimates.
-        theta_new = _dot(V, W)
+        theta_new = dot(V, W)
         V_new = torch.linalg.qr(W).Q
         denom = torch.clamp(theta_new.abs().max(), min=_TINY)
         diff = (theta_new - theta).abs().max() / denom
@@ -212,21 +219,22 @@ def _run_blocks(body, state: tuple, active_of: Callable, maxiter: int,
     return state, it, reads
 
 
-def _cg_blocks(run, b, x0, tol: float, maxiter: int, block: int):
-    thresh2, r0, rs0 = _cg_setup(b, x0, tol, run)
+def _cg_blocks(run, b, x0, tol: float, maxiter: int, block: int, dot=_dot):
+    thresh2, r0, rs0 = _cg_setup(b, x0, tol, run, dot)
     (x, _, _, rs), it, reads = _run_blocks(
-        _cg_body(run), (x0, r0, r0, rs0), lambda s: s[3] > thresh2, maxiter, block)
+        _cg_body(run, dot), (x0, r0, r0, rs0), lambda s: s[3] > thresh2, maxiter,
+        block)
     it_h, res_h, conv_h = torch.stack(
         [it.double(), torch.sqrt(rs).double(), (rs <= thresh2).double()]).tolist()
     return x, res_h, int(it_h), bool(conv_h), reads + 1
 
 
-def _lanczos_steps(run, v0, num_steps: int):
-    v = v0 / torch.sqrt(torch.clamp(_dot(v0, v0), min=_TINY))
+def _lanczos_steps(run, v0, num_steps: int, dot=_dot):
+    v = v0 / torch.sqrt(torch.clamp(dot(v0, v0), min=_TINY))
     coef = torch.empty((2, num_steps), dtype=torch.float32, device=v0.device)
     carry = (torch.zeros_like(v), v, torch.zeros((), dtype=torch.float32,
                                                   device=v0.device))
-    step = _lanczos_step(run)
+    step = _lanczos_step(run, dot)
     for i in range(num_steps):
         carry, (alpha, beta) = step(carry)
         coef[0, i] = alpha
@@ -235,13 +243,13 @@ def _lanczos_steps(run, v0, num_steps: int):
     return alphas, betas, 1
 
 
-def _block_power_blocks(run, v0, tol: float, maxiter: int, block: int):
+def _block_power_blocks(run, v0, tol: float, maxiter: int, block: int, dot=_dot):
     k = v0.shape[1]
     dev = v0.device
     state = (torch.linalg.qr(v0).Q, torch.zeros(k, dtype=torch.float32, device=dev),
              torch.full((), torch.inf, dtype=torch.float32, device=dev))
     (V, theta, diff), it, reads = _run_blocks(
-        _block_power_body(run), state, lambda s: s[2] > tol, maxiter, block)
+        _block_power_body(run, dot), state, lambda s: s[2] > tol, maxiter, block)
     head = torch.cat([torch.stack([it.double(), diff.double(),
                                    (diff <= tol).double()]), theta.double()])
     it_h, diff_h, conv_h, *theta_h = head.tolist()
@@ -266,10 +274,12 @@ class SparseSolver:
 
     Holds a lazy table of solver-step plans, one per block width (as the
     engine holds k-buckets).  ``block`` caps the iterations enqueued per
-    read of the convergence flag.  Remaining keyword arguments
-    pass through to :meth:`SparseOperator.build` (warmup, timed,
-    candidates, force_search, ...).  ``mesh=`` / ``axis=`` (sharded
-    solves) are not ported yet.
+    read of the convergence flag.  ``mesh=`` / ``axis=`` shard the
+    product with the tuned collective schedule and reduce every dot over
+    the same shards (``psum_dot_runner``); the solver then runs on the
+    mesh's first device.  Remaining keyword arguments pass through to
+    :meth:`SparseOperator.build` (warmup, timed, candidates, force_search,
+    ...).
     """
 
     def __init__(
@@ -284,20 +294,19 @@ class SparseSolver:
         faults: FaultPlan | None = None,
         nan_guard: bool = False,
         block: int = BLOCK,
-        device: str | torch.device = "cuda",
+        device: str | torch.device | None = None,
         **build_kwargs: Any,
     ):
-        if mesh is not None or axis is not None:
-            raise NotImplementedError(
-                "mesh solves (mesh=/axis=) are not ported yet: they wait for "
-                "the mesh port, ROADMAP A.4"
-            )
         m, n = a.shape
         if m != n:
             raise ValueError(f"iterative solvers need a square operator, got {a.shape}")
         if int(block) < 1:
             raise ValueError(f"block must be >= 1, got {block}")
-        self.device = resolve(device)
+        self.device = resolve_on(device, mesh)
+        self.mesh = mesh
+        self.axis = axis if axis is not None else (
+            mesh.axis_names[0] if mesh is not None else None)
+        self._dot = psum_dot_runner(mesh, self.axis, n) if mesh is not None else _dot
         self.a = a
         self.shape = a.shape
         self.cache = cache
@@ -318,7 +327,8 @@ class SparseSolver:
         if op is None:
             op = self._ops[k] = SparseOperator.build(
                 self.a, k=None if k == 1 else k, solver_step=True,
-                cache=self.cache, device=self.device, **self._build_kwargs,
+                cache=self.cache, device=self.device, mesh=self.mesh,
+                axis=self.axis, **self._build_kwargs,
             )
         return op
 
@@ -370,7 +380,10 @@ class SparseSolver:
 
     def _demote(self, solver: str, k: int, exc: BaseException) -> bool:
         """Walk width k's plan one tier down the fallback chain; a tier
-        whose own build fails is skipped.  False when the chain is spent."""
+        whose own build fails is skipped.  False when the chain is spent,
+        and always on a mesh (see the module docstring)."""
+        if self.mesh is not None:
+            return False
         level = self._demoted.get(k, 0) + 1
         while level <= len(FALLBACK_TIERS):
             try:
@@ -405,7 +418,8 @@ class SparseSolver:
                                  f"{tuple(x0.shape)}")
         x, res, it, conv, syncs = self._call(
             "cg", 1,
-            lambda run: _cg_blocks(run, b, x0, float(tol), int(maxiter), self.block))
+            lambda run: _cg_blocks(run, b, x0, float(tol), int(maxiter), self.block,
+                                   self._dot))
         return SolverResult(solver="cg", iterations=it, residual=res, converged=conv,
                             plan=self.op(1).plan.candidate.key(), x=x, syncs=syncs)
 
@@ -420,7 +434,7 @@ class SparseSolver:
             v0 = np.random.default_rng(seed).standard_normal(n).astype(np.float32)
         v0 = _f32(v0, self.device)
         alphas, betas, syncs = self._call(
-            "lanczos", 1, lambda run: _lanczos_steps(run, v0, int(num_steps)))
+            "lanczos", 1, lambda run: _lanczos_steps(run, v0, int(num_steps), self._dot))
         ritz = tridiag_eigvalsh(alphas, betas[:-1]) if num_steps > 1 else alphas
         return SolverResult(solver="lanczos", iterations=int(num_steps),
                             residual=float(betas[-1]), converged=True,
@@ -447,15 +461,16 @@ class SparseSolver:
         V, theta, diff, it, conv, syncs = self._call(
             "block_power", k,
             lambda run: _block_power_blocks(run, v0, float(tol), int(maxiter),
-                                            self.block))
+                                            self.block, self._dot))
         return SolverResult(solver="block_power", iterations=it, residual=diff,
                             converged=conv, plan=self.op(k).plan.candidate.key(),
                             eigenvalues=theta, eigenvectors=V, syncs=syncs)
 
     def __repr__(self) -> str:  # pragma: no cover - cosmetic
         plans = {k: op.plan.candidate.key() for k, op in self._ops.items()}
+        where = f"device={self.device}" if self.mesh is None else repr(self.mesh)
         return (f"SparseSolver({self.shape[0]}x{self.shape[1]}, nnz={self.a.nnz}, "
-                f"plans={plans}, device={self.device})")
+                f"plans={plans}, {where})")
 
 
 # ---------------------------------------------------------------------------

@@ -6,10 +6,11 @@ SELL-C-sigma with sigma in {1, 64, 256} and resident vs column-slabbed x
 (Fig 5 / cache blocking), BCSR with the Table 2 block shapes, the
 nnz-balanced merge tier (``kernels/merge_spmv``), for a sparse x the
 bucket SpMSpV tier, and on request RCM-reordered variants of each (paper
-§4.4).  The impl ``cuda`` names the hand-written kernels; ``ref``,
-``vector``, ``scalar`` and ``scan`` the plain torch tiers.  Keys match the
-JAX package's with ``pallas`` renamed, e.g.
-``sell/cuda[C=8,chunk_tile=8,sigma=64]``.
+§4.4).  On a device mesh the space is the collective schedules instead
+(``fmt="dist"``, impl ``allgather`` or ``ring``).  The impl ``cuda`` names
+the hand-written kernels; ``ref``, ``vector``, ``scalar`` and ``scan`` the
+plain torch tiers.  Keys match the JAX package's with ``pallas`` renamed,
+e.g. ``sell/cuda[C=8,chunk_tile=8,sigma=64]``.
 
 Pruning happens *before* any format is materialized or timed, from the
 paper's §4.2 application-bytes model per format, scaled by an impl penalty:
@@ -26,6 +27,7 @@ from typing import Any, Iterable
 
 import numpy as np
 
+from repro_torch.core.distributed import SCHEDULES
 from repro_torch.core.formats import CSRMatrix
 from repro_torch.core.metrics import sorted_unique, spmm_app_bytes, spmv_app_bytes
 from repro_torch.kernels.ops import ONCHIP_BUDGET_BYTES
@@ -37,6 +39,7 @@ __all__ = [
     "make",
     "split_reorder",
     "enumerate_candidates",
+    "enumerate_mesh_candidates",
     "estimate_cost",
     "prune",
     "sell_padded_slots",
@@ -47,6 +50,8 @@ __all__ = [
     "CHUNK_TILES",
     "MERGE_CHUNKS",
     "REORDER_METHODS",
+    "RING_STEP_OVERHEAD_BYTES",
+    "SCHEDULES",
     "SOLVER_STEP_AMORTIZE",
     "SOLVER_VEC_PASSES",
 ]
@@ -73,6 +78,12 @@ CPU_KERNEL_SLOWDOWN = 256.0
 # the measured search decides.
 OVERHEAD_BYTES = 4 * 1024 * 1024
 
+# Per-rotation cost of the ring schedule in equivalent bytes: each of its P
+# steps is a slab move and one slab product, where allgather pays one
+# gather; in return the ring overlaps a step's move with the product (the
+# model's view; shards that share one card run one after another).
+RING_STEP_OVERHEAD_BYTES = 512 * 1024
+
 # Row-imbalance penalty for the row-parallel CSR tier: its effective
 # throughput degrades with the nnz/row dispersion (capped, so one
 # pathological row cannot price out a whole tier before measurement).
@@ -94,8 +105,8 @@ class Candidate:
     """One point of the search space; params is a sorted tuple of pairs so
     the dataclass stays hashable."""
 
-    fmt: str  # csr | merge | sell | sell_blocked | bcsr | spmspv
-    impl: str  # scalar | vector | scan | ref | cuda
+    fmt: str  # csr | merge | sell | sell_blocked | bcsr | spmspv | dist
+    impl: str  # scalar | vector | scan | ref | cuda; for dist allgather | ring
     params: tuple = ()
 
     @property
@@ -204,6 +215,20 @@ def enumerate_candidates(
                 make(c.fmt, c.impl, reorder=method, **c.param_dict) for c in base
             )
     return cands
+
+
+def enumerate_mesh_candidates(
+    feats: MatrixFeatures,
+    n_shards: int,
+    *,
+    schedules: Iterable[str] = SCHEDULES,
+) -> list[Candidate]:
+    """The search space on a device mesh: one candidate per collective
+    schedule (``fmt="dist"``, impl names the schedule).  Every shard runs
+    the local CSR product; the open question is how x reaches each shard
+    (the paper's "input vector distribution" note)."""
+    del feats  # the same space for every matrix, as in the JAX package
+    return [make("dist", s, n_shards=int(n_shards)) for s in schedules]
 
 
 # ---------------------------------------------------------------------------
@@ -322,6 +347,24 @@ def estimate_cost(
             n_blocks * (bm * bk * val_bytes + 2 * idx_bytes)  # fill-in stored
             + (m + n) * k * val_bytes
         )
+    elif cand.fmt == "dist":
+        # Per-shard stream bytes plus the traffic that makes x visible to
+        # every shard: (P-1)/P |x| per shard under both schedules; allgather
+        # pays it before the product, the ring overlaps it with the slab
+        # products at the price of P steps.
+        P = max(1, int(p["n_shards"]))
+        local = (
+            spmv_app_bytes(m, n, a.nnz, val_bytes, idx_bytes)
+            if k == 1
+            else spmm_app_bytes(m, n, a.nnz, k, val_bytes, idx_bytes)
+        ) / P
+        collective = (P - 1) / P * n * k * val_bytes
+        if cand.impl == "allgather":
+            bytes_ = local + collective
+        elif cand.impl == "ring":
+            bytes_ = max(local, collective) + P * RING_STEP_OVERHEAD_BYTES
+        else:
+            raise ValueError(f"unknown schedule impl: {cand.impl}")
     else:
         raise ValueError(f"unknown candidate format: {cand.fmt}")
     if sparse_rhs and cand.fmt != "spmspv":

@@ -15,6 +15,10 @@ the prepared device tensors of the winning candidate.
 
 Every entry point runs on ``device="cuda"`` unless the caller passes
 ``device="cpu"``; with no card visible a CUDA request raises.
+
+On a device mesh (``build(mesh=...)``, :mod:`repro_torch.core.distributed`)
+the search is over the collective schedules, each shard running the plain
+CSR product; x and y live on the mesh's first device.
 """
 from __future__ import annotations
 
@@ -30,7 +34,8 @@ from typing import Any, Callable, Iterable
 import numpy as np
 import torch
 
-from repro_torch.core.device import backend_name, resolve
+from repro_torch.core import distributed as dist
+from repro_torch.core.device import backend_name, resolve, resolve_on
 from repro_torch.core.formats import CSRMatrix, bcsr_from_csr, sell_from_csr
 from repro_torch.core import reorder as ro
 from repro_torch.core.spmv import (
@@ -55,12 +60,13 @@ from .candidates import (
     REORDER_METHODS,
     Candidate,
     enumerate_candidates,
+    enumerate_mesh_candidates,
     estimate_cost,
     prune,
     split_reorder,
 )
 from .features import MatrixFeatures, extract
-from .plan import Plan, PlanCache, default_cache, fingerprint
+from .plan import Plan, PlanCache, default_cache, fingerprint, mesh_backend
 from .predict import PREDICT_RADIUS, Prediction, byte_model_order, predict_candidate
 from .timing import RACE_FACTOR, time_fn
 
@@ -132,11 +138,28 @@ def _reordered(a: CSRMatrix, method: str) -> tuple[np.ndarray, CSRMatrix]:
     return hit
 
 
-def prepare(a: CSRMatrix, cand: Candidate, *, device) -> dict[str, Any]:
+def prepare(a: CSRMatrix, cand: Candidate, *, device, mesh=None,
+            axis: str | None = None, prep_cache: dict | None = None) -> dict[str, Any]:
     """Host-side format construction for one candidate, placed on ``device``.
 
     A reordered candidate holds its permutation (new -> old) on the device,
-    the permuted matrix and the base candidate's prepared dict for it."""
+    the permuted matrix and the base candidate's prepared dict for it.
+    A ``dist`` candidate (a collective schedule) is partitioned and placed
+    on ``mesh`` over ``axis``; ``prep_cache``, keyed by (schedule, shards),
+    shares that operand across the engine's buckets, which differ only in
+    the width of x."""
+    if cand.fmt == "dist":
+        if mesh is None or axis is None:
+            raise ValueError("dist candidates need mesh= and axis=")
+        n_shards = int(cand.param_dict["n_shards"])
+        key = (cand.impl, n_shards)
+        if prep_cache is not None and key in prep_cache:
+            return prep_cache[key]
+        prep = dist.place_mesh_operand(
+            dist.build_mesh_operand(a, n_shards, cand.impl), mesh, axis)
+        if prep_cache is not None:
+            prep_cache[key] = prep
+        return prep
     method, base = split_reorder(cand)
     if method is not None:
         perm, ar = _reordered(a, method)
@@ -180,6 +203,8 @@ def prep_nbytes(obj: Any) -> int:
     if isinstance(obj, CSRMatrix):
         return prep_nbytes([obj.indptr, obj.indices, obj.data])
     if isinstance(obj, dict):
+        if "placed" in obj:  # a mesh operand: what it holds on its devices
+            return dist.mesh_operand_nbytes(obj)
         return sum(prep_nbytes(v) for v in obj.values())
     if isinstance(obj, (list, tuple)):
         return sum(prep_nbytes(v) for v in obj)
@@ -283,29 +308,37 @@ def _value_digest(a: CSRMatrix) -> str:
 
 
 def prepare_cached(
-    a: CSRMatrix, cand: Candidate, *, device, fp: str | None = None
+    a: CSRMatrix, cand: Candidate, *, device, fp: str | None = None, mesh=None,
+    axis: str | None = None, prep_cache: dict | None = None,
 ) -> dict[str, Any]:
     """:func:`prepare`, memoized on (fingerprint, value digest, candidate,
-    device) in the process-wide byte-budgeted :class:`PrepCache`.
+    device) in the process-wide byte-budgeted :class:`PrepCache`.  A
+    ``dist`` candidate bypasses the memo: its placement is bound to its
+    mesh and shared through the caller's ``prep_cache``.
 
     The ``prepare.oom`` fault site fires here, memo hit or not: format
     preparation is where the large allocations happen."""
     faults = active_plan()
     if faults is not None:
         faults.fire("prepare.oom", exc=MemoryError, candidate=cand.key())
+    if cand.fmt == "dist":
+        return prepare(a, cand, device=device, mesh=mesh, axis=axis,
+                       prep_cache=prep_cache)
     device = torch.device(device)
     key = (fp or fingerprint(a), _value_digest(a), cand.key(), str(device))
     return _PREP_MEMO.get_or_build(key, lambda: prepare(a, cand, device=device))
 
 
 def runner(
-    a: CSRMatrix, cand: Candidate, prep: dict[str, Any], *, k: int = 1
+    a: CSRMatrix, cand: Candidate, prep: dict[str, Any], *, k: int = 1,
+    mesh=None, axis: str | None = None,
 ) -> Callable[[torch.Tensor], torch.Tensor]:
     """Bind a candidate + prepared tensors into ``fn(x) -> y``.
 
     k == 1 binds SpMV (x is (n,)); k > 1 binds SpMM (x is (n, k)).  The
     SELL kernel and both column-slab tiers serve k = 1 only and raise
-    :class:`NoSpMMTier` at bind time for k > 1.
+    :class:`NoSpMMTier` at bind time for k > 1.  A ``dist`` candidate runs
+    its collective schedule over ``mesh`` and takes either shape.
     """
     m, n = a.shape
     if cand.fmt == "spmspv":
@@ -313,6 +346,10 @@ def runner(
             "spmspv candidates take a sparse operand — bind them through "
             "sparse_rhs_runner(a, cand, prep, x_nnz=...) instead of runner()"
         )
+    if cand.fmt == "dist":
+        if mesh is None or axis is None:
+            raise ValueError("dist candidates need mesh= and axis=")
+        return dist.mesh_spmm_runner(mesh, axis, prep)
     method, base = split_reorder(cand)
     if method is not None:
         # y = A x == P^T (P A P^T) (P x): gather x by the permutation, run
@@ -528,7 +565,8 @@ def _plan_params(cand: Candidate) -> dict[str, Any]:
 # The facade
 # ---------------------------------------------------------------------------
 class SparseOperator:
-    """An autotuned sparse linear operator on one device: ``y = op @ x``."""
+    """An autotuned sparse linear operator: ``y = op @ x``, on one device or,
+    built with ``mesh=``, over a mesh whose first device holds x and y."""
 
     def __init__(
         self,
@@ -541,8 +579,12 @@ class SparseOperator:
         features: MatrixFeatures | None = None,
         measurements: dict[str, float] | None = None,
         search_failures: dict[str, Exception] | None = None,
+        mesh=None,
+        axis: str | None = None,
     ):
         self.a = a
+        self.mesh = mesh
+        self.axis = axis
         self.plan = plan
         self.shape = a.shape
         self.device = device
@@ -561,7 +603,7 @@ class SparseOperator:
             self._run = sparse_rhs_runner(a, plan.candidate, prep, x_nnz=plan.k,
                                           device=device)
         else:
-            self._run = runner(a, plan.candidate, prep, k=plan.k)
+            self._run = runner(a, plan.candidate, prep, k=plan.k, mesh=mesh, axis=axis)
         self._csr_dev: dict | None = prep.get("dev")  # fallback path, lazy
 
     # -- construction -------------------------------------------------------
@@ -580,9 +622,12 @@ class SparseOperator:
         include_reorder: bool = False,
         seed: int = 0,
         race: bool = True,
-        device: str | torch.device = "cuda",
+        device: str | torch.device | None = None,
         solver_step: bool = False,
         x_nnz: int | None = None,
+        mesh=None,
+        axis: str | None = None,
+        prep_cache: dict | None = None,
     ) -> "SparseOperator":
         """Autotune (or fetch the cached plan for) this matrix.
 
@@ -611,6 +656,18 @@ class SparseOperator:
         abandons one whose first steady-state rep exceeds ``RACE_FACTOR`` x
         the current best median (confirmed by one more rep).
 
+        ``device`` defaults to ``"cuda"``.  ``mesh=`` / ``axis=`` (default
+        the mesh's first axis) switch the space to the collective schedules
+        (:func:`~repro_torch.tune.candidates.enumerate_mesh_candidates`)
+        over that mesh; x and y live on its first device (``device`` must
+        be that one, or None).  The plan records ``mesh_shape`` and its
+        backend the distinct devices the mesh spans
+        (:func:`~repro_torch.tune.plan.mesh_backend`), so another shard
+        count, or the same shards on more or fewer cards, re-searches.
+        ``prep_cache`` (a dict) shares each schedule's placed operand
+        across builds; a sparse x over a mesh raises
+        ``NotImplementedError``, as in the JAX package.
+
         A candidate about to become the best is first checked against a
         float64 product of the probe (:func:`probe_reference`): a plain
         tier farther from it than float32 rounding of the row's own terms
@@ -623,7 +680,6 @@ class SparseOperator:
         built before the search, and any other failure, a refused launch
         included, raises.
         """
-        device = resolve(device)
         kind = "spmv" if k is None else "spmm"
         if solver_step:
             kind = "solver_step"
@@ -634,33 +690,48 @@ class SparseOperator:
                     "x_nnz= (sparse RHS) is mutually exclusive with "
                     "k=/solver_step="
                 )
+            if mesh is not None:
+                raise NotImplementedError(
+                    "a sparse x over a device mesh is not implemented: "
+                    "distributed SpMSpV is a feature of neither package yet"
+                )
             kind = "spmspv"
             kk = max(int(x_nnz), 1)  # plan.k carries the x-nnz bucket
+        device = resolve_on(device, mesh)
         sparse_kind = kind == "spmspv"
         fp = fingerprint(a)
         backend = backend_name(device)
+        mesh_shape: list[int] = []
+        if mesh is not None:
+            axis = axis or mesh.axis_names[0]
+            mesh_shape = [int(mesh.shape[axis])]
+            backend = mesh_backend(backend, mesh.n_devices)
+        on_mesh = dict(mesh=mesh, axis=axis, prep_cache=prep_cache)
         scale = [int(a.shape[0]), int(a.shape[1]), int(a.nnz)]
         cache = default_cache() if cache is None else cache
         if not force_search:
-            plan = cache.get(fp, kind, kk, backend=backend, scale=scale)
+            plan = cache.get(fp, kind, kk, backend=backend, scale=scale,
+                             mesh_shape=mesh_shape)
             if plan is not None:
                 return cls(
-                    a, plan, prepare_cached(a, plan.candidate, fp=fp, device=device),
-                    device=device, from_cache=True,
+                    a, plan,
+                    prepare_cached(a, plan.candidate, fp=fp, device=device, **on_mesh),
+                    device=device, from_cache=True, mesh=mesh, axis=axis,
                 )
         if device.type == "cuda":
             _build.ensure_built()
 
         width = 1 if sparse_kind else kk  # the dense operand's width
         feats = extract(a, k=width, x_nnz=kk if sparse_kind else None)
-        cands = (
-            list(candidates)
-            if candidates is not None
-            else enumerate_candidates(
+        if candidates is not None:
+            cands = list(candidates)
+        elif mesh is not None:
+            cands = enumerate_mesh_candidates(feats, mesh_shape[0])
+        else:
+            cands = enumerate_candidates(
                 feats, kind, k=width,
                 reorders=REORDER_METHODS if include_reorder else (),
             )
-        )
         on_cpu = device.type == "cpu"
         costs = {
             c: estimate_cost(a, c, feats, k=width, on_cpu=on_cpu,
@@ -692,12 +763,12 @@ class SparseOperator:
         for c in survivors:
             stage = "prepare"
             try:
-                prep = prepare_cached(a, c, fp=fp, device=device)
+                prep = prepare_cached(a, c, fp=fp, device=device, **on_mesh)
                 stage = "run"
                 if sparse_kind:
                     fn = sparse_rhs_runner(a, c, prep, x_nnz=kk, device=device)
                 else:
-                    fn = runner(a, c, prep, k=kk)
+                    fn = runner(a, c, prep, k=kk, mesh=mesh, axis=axis)
                 # On a card the probe's few-microsecond axpys and dots are
                 # host-launch bound, so its time ranks launch overhead, not
                 # kernels: there the search times the bare product.
@@ -747,11 +818,12 @@ class SparseOperator:
             scale=scale,
             n_raced=n_raced,
             features=feats.to_dict(),
+            mesh_shape=mesh_shape,
         )
         cache.put(plan)
         return cls(
             a, plan, prep_best, device=device, from_cache=False, features=feats,
-            measurements=measurements, search_failures=failures,
+            measurements=measurements, search_failures=failures, mesh=mesh, axis=axis,
         )
 
     @classmethod
@@ -808,8 +880,11 @@ class SparseOperator:
     ) -> dict[int, "SparseOperator"]:
         """Tune one plan per k-bucket; returns ``{k: SparseOperator}`` — the
         serving engine's plan table (k=1 tunes SpMV, k>1 SpMM), all buckets
-        in one plan cache."""
+        in one plan cache.  Over a mesh the buckets share one placed
+        operand per schedule (they differ only in the width of x)."""
         cache = default_cache() if cache is None else cache
+        if build_kwargs.get("mesh") is not None:
+            build_kwargs.setdefault("prep_cache", {})
         table: dict[int, SparseOperator] = {}
         for k in sorted({int(k) for k in ks}):
             if k < 1:
@@ -837,8 +912,9 @@ class SparseOperator:
         else the byte model's argmin).  A predicted plan has
         ``measured_s == 0`` and ``predicted_from`` set (the neighbour's
         fingerprint or ``"byte_model"``), and is never persisted.
-        ``exclude`` drops training fingerprints.  Single-device only: the
-        port's plans carry no mesh shape yet.
+        ``exclude`` drops training fingerprints.  Single-device only, as in
+        the JAX package: a mesh plan is a point measurement of its topology
+        and is not predicted.
 
         One deviation from the JAX package: a predicted candidate was never
         measured, so before it is returned it runs once on the search's
@@ -979,7 +1055,8 @@ class SparseOperator:
 
     def __repr__(self) -> str:  # pragma: no cover - cosmetic
         src = "cache" if self.from_cache else "search"
+        where = f"device={self.device}" if self.mesh is None else repr(self.mesh)
         return (
             f"SparseOperator({self.shape[0]}x{self.shape[1]}, nnz={self.a.nnz}, "
-            f"plan={self.plan.candidate.key()}, device={self.device}, from {src})"
+            f"plan={self.plan.candidate.key()}, {where}, from {src})"
         )

@@ -10,7 +10,10 @@ only on the pattern.
 Plans record where they were measured: the backend (torch device type plus
 the card's name) and the problem scale (m, n, nnz).  A plan is a point
 measurement, so a backend or scale mismatch is a miss and the caller
-re-searches.  The port keeps its own cache file
+re-searches.  A plan measured on a device mesh also records the mesh's
+shape (``mesh_shape``, part of its cache key) and, in its backend, how
+many distinct devices the shards spanned (:func:`mesh_backend`): P shards
+sharing one card and P shards on P cards are different measurements.  The port keeps its own cache file
 (``~/.cache/repro_torch_tune/plans.json``, or ``$REPRO_TORCH_TUNE_CACHE``),
 so a plan of the JAX package never loads here.
 """
@@ -40,7 +43,8 @@ from repro_torch.runtime.faults import active_plan
 
 from .candidates import Candidate, make
 
-__all__ = ["PLAN_VERSION", "Plan", "PlanCache", "fingerprint", "default_cache"]
+__all__ = ["PLAN_VERSION", "Plan", "PlanCache", "fingerprint", "default_cache",
+           "mesh_backend"]
 
 PLAN_VERSION = 1
 
@@ -51,6 +55,13 @@ _DEFAULT_CACHE = "~/.cache/repro_torch_tune/plans.json"
 # condition is sticky on disk (the file was moved aside).
 _QUARANTINE_WARNED: set[str] = set()
 _QUARANTINE_LOCK = threading.Lock()
+
+
+def mesh_backend(backend: str, n_devices: int) -> str:
+    """The backend a mesh plan records: the first device's backend and the
+    distinct devices the mesh spans (a single-device plan's backend has no
+    suffix, so cache files written before the mesh keep loading)."""
+    return f"{backend}/{int(n_devices)}dev"
 
 
 def fingerprint(a: CSRMatrix) -> str:
@@ -83,13 +94,25 @@ class Plan:
     # transferred from, or "byte_model".  Predicted plans are never put in
     # the cache; the default keeps older cache files loading.
     predicted_from: str = ""
+    # The device mesh the plan was measured on ([] = one device): the
+    # allgather/ring crossover moves with P, so another shape is a miss.
+    mesh_shape: list = dataclasses.field(default_factory=list)
     version: int = PLAN_VERSION
 
-    def matches(self, backend: str | None, scale: Iterable[int] | None) -> bool:
-        """True when this plan's measurement context covers the request."""
+    def matches(
+        self,
+        backend: str | None,
+        scale: Iterable[int] | None,
+        mesh_shape: Iterable[int] | None = None,
+    ) -> bool:
+        """True when this plan's measurement context covers the request.
+        ``mesh_shape`` is always checked: None or () is one device, so a
+        mesh plan never serves a single device, nor the reverse."""
         if backend is not None and self.backend != backend:
             return False
         if scale is not None and list(self.scale) != [int(s) for s in scale]:
+            return False
+        if [int(s) for s in self.mesh_shape] != [int(s) for s in (mesh_shape or ())]:
             return False
         return True
 
@@ -170,8 +193,10 @@ class PlanCache:
         }
 
     @staticmethod
-    def _key(fp: str, kind: str, k: int = 1) -> str:
-        return f"{fp}:{kind}:k{k}"
+    def _key(fp: str, kind: str, k: int = 1, mesh_shape: Iterable[int] = ()) -> str:
+        base = f"{fp}:{kind}:k{k}"
+        mesh = "x".join(str(int(s)) for s in mesh_shape or ())
+        return f"{base}:mesh{mesh}" if mesh else base
 
     def __len__(self) -> int:
         return len(self._plans)
@@ -184,16 +209,19 @@ class PlanCache:
         *,
         backend: str | None = None,
         scale: Iterable[int] | None = None,
+        mesh_shape: Iterable[int] | None = None,
     ) -> Plan | None:
-        """Fetch a plan; a backend or scale mismatch is a miss."""
-        d = self._plans.get(self._key(fp, kind, k))
+        """Fetch a plan; a backend, scale or mesh-shape mismatch is a miss.
+        Mesh plans have keys of their own per shape, so a mesh plan never
+        shadows the single-device plan of the same matrix."""
+        d = self._plans.get(self._key(fp, kind, k, mesh_shape or ()))
         if d is None:
             return None
         try:
             plan = Plan.from_json(d)
         except TypeError:  # entry shape drifted: a miss, never a crash
             return None
-        return plan if plan.matches(backend, scale) else None
+        return plan if plan.matches(backend, scale, mesh_shape) else None
 
     def plans(self) -> list[Plan]:
         """Every well-formed resident plan: the transfer predictor's
@@ -224,7 +252,8 @@ class PlanCache:
                 fcntl.flock(lock_f, fcntl.LOCK_UN)
 
     def put(self, plan: Plan) -> None:
-        self._plans[self._key(plan.fingerprint, plan.kind, plan.k)] = plan.to_json()
+        key = self._key(plan.fingerprint, plan.kind, plan.k, plan.mesh_shape)
+        self._plans[key] = plan.to_json()
         if self.path is None:
             return
         self.path.parent.mkdir(parents=True, exist_ok=True)

@@ -8,16 +8,14 @@ off its nearest neighbours instead of measured.  :func:`predict_candidate`:
 
 * embeds the request and every usable cache entry with
   :func:`~repro_torch.tune.features.feature_vector` (same kind, same k, same
-  backend: a plan timed on one card model does not transfer to another);
+  backend: a plan timed on one card model does not transfer to another;
+  same mesh shape: a collective schedule does not serve one device);
 * normalises each dimension by its spread over the pool and takes the RMS
   distance;
 * serves the nearest neighbour's candidate when it lies within ``radius``
   (a **confident** transfer);
 * otherwise falls back to the byte model's argmin over the enumerated
   space, flagged ``confident=False``.
-
-The port has no device mesh yet, so every plan is single-device and the
-pool has no mesh filter; both come with the mesh.
 
 One deviation from the JAX package: off the CPU the byte model prices a
 kernel and its plain version alike (``sell/cuda`` and ``sell/ref``,
@@ -97,6 +95,7 @@ def predict_candidate(
     *,
     feats: MatrixFeatures | None = None,
     backend: str | None = None,
+    mesh_shape: Iterable[int] = (),
     exclude: Iterable[str] = (),
     radius: float = PREDICT_RADIUS,
     device: str | torch.device = "cuda",
@@ -104,14 +103,14 @@ def predict_candidate(
     """Pick a serve-now candidate for ``a`` without a measured search.
 
     ``exclude`` drops training fingerprints (leave-one-out, or the
-    request's own).  ``device`` only sets the byte model's view (CPU
-    penalties, the tie-break toward kernels); no tensor is made, so a CUDA
-    device needs no card here.  Always returns a candidate: the byte model
-    is the floor.  Every port plan is single-device until the mesh is
-    ported, so there is no mesh argument and the pool no mesh filter.
+    request's own).  Only plans of ``mesh_shape`` (() = one device) train
+    it.  ``device`` only sets the byte model's view (CPU penalties, the
+    tie-break toward kernels); no tensor is made, so a CUDA device needs no
+    card here.  Always returns a candidate: the byte model is the floor.
     """
     feats = extract(a, k=k) if feats is None else feats
     target = feature_vector(feats)
+    mesh_shape = [int(s) for s in mesh_shape]
     exclude = set(exclude)
 
     pool: list[tuple[str, Candidate, np.ndarray]] = []
@@ -122,6 +121,8 @@ def predict_candidate(
             if p.fingerprint in exclude or not p.features:
                 continue
             if backend is not None and p.backend != backend:
+                continue
+            if [int(s) for s in p.mesh_shape] != mesh_shape:
                 continue
             vec = feature_vector(p.features)
             if vec is None:

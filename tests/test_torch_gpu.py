@@ -816,3 +816,79 @@ def test_gpu_predicted_merge_is_passed_over_on_webbase(cuda_device):
     y = (op @ torch.as_tensor(x, device=cuda_device)).cpu().numpy()
     assert_rowtol(y, _oracle(web, x), web, x)
     assert len(cache) == 1
+
+
+# -- the mesh: P shards on the card ------------------------------------------
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 4, 64])
+def test_gpu_mesh_schedules_match_float64(cuda_device, k):
+    """Both collective schedules at P = 4 on the card (the shards share
+    the visible cards round-robin) within 1e-5 of float64, and the same
+    bits on a second run."""
+    from repro_torch.core import distributed as dist
+    from repro_torch.launch.mesh import make_spmm_mesh
+
+    a = generate("cant", scale=1 / 4)
+    mesh = make_spmm_mesh(4)
+    assert mesh.devices[0].type == "cuda"
+    x = np.random.default_rng(8).standard_normal((a.shape[1], k)).astype(np.float32)
+    want = _oracle(a, x)
+    for schedule in dist.SCHEDULES:
+        prep = dist.place_mesh_operand(dist.build_mesh_operand(a, 4, schedule), mesh,
+                                       "shard")
+        fn = dist.mesh_spmm_runner(mesh, "shard", prep)
+        xd = torch.as_tensor(x[:, 0] if k == 1 else x, device=mesh.devices[0])
+        y = fn(xd)
+        assert torch.equal(y, fn(xd)), schedule
+        got = y.cpu().numpy().reshape(a.shape[0], k)
+        for j in range(k):
+            assert_rowtol(got[:, j], want[:, j], a, x[:, j], schedule)
+
+
+@pytest.mark.gpu
+def test_gpu_mesh_engine_async_equals_sync_bitwise(cuda_device):
+    """A mesh engine at P = 4 on the card: async_depth=2 gives the bits of
+    async_depth=0 on every bucket, within 1e-5 of float64, no event."""
+    from repro_torch.launch.mesh import make_spmm_mesh
+    from repro_torch.runtime.engine import SparseEngine
+
+    a = generate("cant", scale=1 / 4)
+    mesh = make_spmm_mesh(4)
+    cache = PlanCache()
+    rng = np.random.default_rng(9)
+    xs = [rng.standard_normal(a.shape[1]).astype(np.float32) for _ in range(25)]
+    runs = []
+    for depth in (2, 0):
+        eng = SparseEngine(a, ks=(1, 4, 16), mesh=mesh, cache=cache, async_depth=depth)
+        assert all(op.plan.fmt == "dist" for op in eng.ops.values())
+        reqs = [eng.submit(torch.as_tensor(xs[0], device=eng.device))]
+        eng.step()
+        reqs += [eng.submit(torch.as_tensor(x, device=eng.device)) for x in xs[1:]]
+        eng.drain()
+        runs.append([r.result() for r in reqs])
+        assert not eng.supervisor.events
+        eng.close()
+    assert all(torch.equal(p, q) for p, q in zip(*runs))
+    for y, x in zip(runs[0], xs):
+        assert_rowtol(y.cpu().numpy(), _oracle(a, x), a, x)
+
+
+@pytest.mark.gpu
+def test_gpu_mesh_on_cuda_without_a_card_raises(cuda_device, monkeypatch):
+    """Through the device check: with no card visible, a CUDA mesh, and a
+    mesh engine or solver over a CUDA mesh, raise; nothing falls back to
+    the CPU."""
+    from repro_torch.core.distributed import Mesh
+    from repro_torch.launch.mesh import make_spmm_mesh
+    from repro_torch.runtime.engine import SparseEngine
+    from repro_torch.runtime.solver import SparseSolver
+
+    a = generate("cant", scale=1 / 64)
+    mesh = Mesh([torch.device("cuda", 0)] * 2)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_spmm_mesh(2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SparseEngine(a, mesh=mesh)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SparseSolver(a, mesh=mesh)

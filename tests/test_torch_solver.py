@@ -364,12 +364,19 @@ def test_the_env_plan_arms_solver_dispatch(monkeypatch):
 
 
 def test_unfaulted_solves_record_no_event_and_mesh_raises():
+    """Unfaulted solves record nothing.  Mesh solves are ported: what still
+    raises is a mesh whose first device is not the solver's ``device``
+    (a CPU mesh asked to solve on a card)."""
+    from repro_torch.launch.mesh import make_spmm_mesh
+
     _, a = random_spd(seed=27, n=64)
     s = solver(a)
     s.cg(np.ones(64, np.float32), maxiter=50)
     s.lanczos(num_steps=8)
     assert s.supervisor.events == [] and s.supervisor.demotions == 0
-    with pytest.raises(NotImplementedError, match="A.4"):
-        SparseSolver(a, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="A.4"):
-        SparseSolver(a, axis="x", device="cpu")
+    mesh = make_spmm_mesh(2, device="cpu")
+    ms = SparseSolver(a, mesh=mesh, cache=tt.PlanCache(), warmup=0, timed=1)
+    ms.cg(np.ones(64, np.float32), maxiter=50)
+    assert ms.supervisor.events == [] and ms.op(1).plan.fmt == "dist"
+    with pytest.raises((ValueError, RuntimeError)):
+        SparseSolver(a, mesh=mesh, device="cuda")
