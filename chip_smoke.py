@@ -6,7 +6,7 @@
 Needs one CUDA device, ``nvcc`` (``$CUDA_HOME`` or ``/usr/local/cuda``) and
 scipy; imports nothing of JAX or of the JAX package.  Phases:
 
-1. print the card's name and power limit; build the four kernels from
+1. print the card's name and power limit; build the four kernel sources from
    ``src/repro_torch/kernels/csrc`` (nvcc, sm_90a, all in parallel);
 2. hold each kernel against its plain torch version on the card, at the
    paper's Table 1 sizes (``cant``, ``ldoor`` at scale 1.0), with x from
@@ -156,7 +156,34 @@ scipy; imports nothing of JAX or of the JAX package.  Phases:
    ``torch.profiler`` lists in a fresh process (``--mesh-device-ops``);
    then, while the phase is under 45 s, one ldoor
    product per schedule.  Each kernel row gains ``mesh_launches`` (no
-   kernel is on this path: the shards run the plain row sum).
+   kernel is on this path: the shards run the plain row sum);
+11. LM serving (``models.lm``, ``runtime.server``) of qwen1.5-4b at full
+   width and depth (40 layers) in bf16, weights from seed 0 on the card:
+   (a) ``serve --arch qwen1.5-4b --requests 8 --slots 4 --prompt-len 32
+   --max-new 16 --max-seq 128`` serves 8/8 with no BCSR launch (dense
+   FFN), and so does ``--arch h2o-danube-3-4b`` (24 layers, GQA); (b) the
+   bcsr-FFN variant (``SparseFFNConfig(kind="bcsr")``: (128, 128) blocks,
+   density 0.25, impl ``cuda``): layer 0's W1 and W2 through
+   ``bcsr_spmm_bf16`` against the plain version at k in {1, 4, 32}, at
+   1e-5 (|A| |x|)_i and the same bits on a second launch; (c) with the
+   launch counts set to 0, a 4-slot ``BatchedServer`` serves 8 requests
+   (prompt 32, max_new 16): ``bcsr_spmm_bf16`` must launch 2 x 40 x
+   (prefills + decode steps) times and nothing else; (g) prefill ms (32
+   tokens) and decode step ms (4 slots) of the dense and the bcsr model
+   beside the decode step's bound (weight bytes over 3.35 TB/s), and the
+   kernel per weight at k = 4 and 32 (L2 flushed) beside its plain
+   version, a dense bf16 matmul of the densified weight (``library_ms``)
+   and its bound (bf16 blocks and X read, float32 Y written, over 3.35
+   TB/s, against 2 nnz k over 989 TFLOP/s); (f) ``impl="auto"``: the two
+   searches at k = 4 on a scratch plan cache, each weight's plan and impl,
+   the 8 requests again; (d) a float32 copy of the bcsr model (TF32 off):
+   prefill + 15 decode steps equal ``forward`` at every position within
+   1e-3 max|logits|, and its 4-slot server gives each request the tokens of
+   a 1-slot server; (e) the bf16 first-token logits of the 8 prompts
+   against the float32 copy's (largest deviation within ``LM_BF16_LIMIT``
+   x max|logits|; the share of equal first tokens).  Each kernel row gains
+   ``lm_launches``; the ``bcsr_spmm_bf16`` rows carry (b)'s error and (g)'s
+   times.
 
 Any failed check exits non-zero.  The last lines are the card's name and
 power limit, one JSON object with the kernel table, and the JSON status
@@ -164,6 +191,7 @@ line.  The full record also goes to ``chiprun_out/chip_smoke.json``.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -1080,6 +1108,352 @@ def mesh_phase(dev, scale: float, record: dict, *, tuned: dict | None = None,
     print(f"  phase 10 wall time {rec['wall_s']:.1f}s", flush=True)
     tmp.cleanup()
     return launches
+
+
+# -- phase 11: LM serving ---------------------------------------------------
+LM_ARCHES = ("qwen1.5-4b", "h2o-danube-3-4b")  # (a): both dense, at full width
+LM_REQUESTS, LM_SLOTS, LM_PROMPT, LM_NEW, LM_MAX_SEQ = 8, 4, 32, 16, 128
+LM_CHECK_KS = (1, 4, 32)  # (b): decode at 1 and 4 slots, the 32-token prefill
+LM_TIMED_KS = (4, 32)  # (g)
+LM_CONSISTENCY = 1e-3  # (d): float32 decode against forward, x max|logits|
+# (e): served bf16 first-token logits against the float32 copy's, as a share
+# of max|logits| (PERF.md §2 gives the limit's reason)
+LM_BF16_LIMIT = 0.05
+BF16_FLOPS = 989e12  # H100 SXM, bf16 tensor cores, dense
+
+
+def lm_phase(dev, record: dict, *, reduced: bool = False) -> tuple[dict, list]:
+    """Phase 11: LM serving of qwen1.5-4b at full width and depth in bf16
+    (``reduced``: the reduced configs, a CPU rehearsal with no times).
+    Returns the launch counts of (c) and the ``bcsr_spmm_bf16`` rows."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config, get_reduced
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.bcsr_spmm import bcsr_spmm, bcsr_spmm_plain
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.models import lm
+    from repro_torch.models.ffn import SparseFFNConfig
+    from repro_torch.runtime.server import BatchedServer, Request, _merge_slot
+    from repro_torch.tune import PlanCache
+
+    rec = record.setdefault("lm", {})
+    t_phase = time.perf_counter()
+    cuda = dev.type == "cuda"
+    get = get_reduced if reduced else get_config
+    cfg = get(LM_ARCHES[0])
+    block = (32, 32) if reduced else (128, 128)
+    rng = np.random.default_rng(0)  # the CLI's prompts, drawn the same way
+    prompts = [rng.integers(0, cfg.vocab, LM_PROMPT).astype(np.int32)
+               for _ in range(LM_REQUESTS)]
+    flush = torch.empty(64 * 2**20 if cuda else 1, dtype=torch.int32, device=dev)
+
+    def sync() -> None:
+        if cuda:
+            torch.cuda.synchronize()
+
+    def free() -> None:
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+
+    def median_ms(fn, l2_flush: bool = False) -> float:
+        """CUDA events around each of REPS runs (host clock on the CPU,
+        for the rehearsal only)."""
+        for _ in range(2):
+            fn()
+        sync()
+        ts = []
+        for _ in range(REPS):
+            if l2_flush:
+                flush.zero_()
+            if cuda:
+                s = torch.cuda.Event(enable_timing=True)
+                e = torch.cuda.Event(enable_timing=True)
+                s.record()
+                fn()
+                e.record()
+                e.synchronize()
+                ts.append(s.elapsed_time(e))
+            else:
+                t = time.perf_counter()
+                fn()
+                ts.append((time.perf_counter() - t) * 1e3)
+        return float(np.median(ts))
+
+    def serve(cfg_, model, slots, ps=prompts):
+        srv = BatchedServer(cfg_, model, batch_slots=slots, max_seq=LM_MAX_SEQ)
+        reqs = [Request(rid=i, prompt=p, max_new=LM_NEW) for i, p in enumerate(ps)]
+        t0 = time.perf_counter()
+        for r in reqs:
+            srv.submit(r)
+        srv.run_until_drained()
+        sync()
+        dt = time.perf_counter() - t0
+        if not all(r.done and len(r.out) == LM_NEW for r in reqs):
+            fail(f"{cfg_.arch_id}: served {sum(r.done for r in reqs)}/{len(reqs)}")
+        lats = sorted(r.latency_s for r in reqs)
+        return srv, reqs, {
+            "served": len(reqs), "seconds": dt, "tok_per_s": LM_NEW * len(reqs) / dt,
+            "latency_p50_s": lats[len(lats) // 2],
+            "latency_p99_s": lats[int(len(lats) * 0.99)],
+            "decode_steps": srv.steps, "prefills": srv.prefills}
+
+    def step_times(cfg_, model) -> dict:
+        """Prefill ms at LM_PROMPT tokens (batch 1), decode step ms at
+        LM_SLOTS slots, and the decode step's bound: the weight bytes a
+        step reads (every weight but the embedding table, of which it reads
+        LM_SLOTS rows, plus the kernel's block indices) over 3.35 TB/s."""
+        toks1 = torch.as_tensor(prompts[0][None], device=dev).long()
+        prefill_ms = median_ms(lambda: lm.prefill(cfg_, model, {"tokens": toks1},
+                                                  LM_MAX_SEQ))
+        state = lm.init_decode_state(cfg_, LM_SLOTS, LM_MAX_SEQ, dev)
+        for i in range(LM_SLOTS):
+            one, _ = lm.prefill(cfg_, model, {"tokens": prompts[i][None]}, LM_MAX_SEQ)
+            _merge_slot(state, one, i)
+        toks = torch.zeros((LM_SLOTS, 1), dtype=torch.long, device=dev)
+        decode_ms = median_ms(lambda: lm.decode_step(cfg_, model, state, toks))
+        weights = sum(t.numel() * t.element_size() for name, t in model.named_parameters()
+                      if name != "embed")
+        weights += sum(t.numel() * t.element_size() for name, t in model.named_buffers()
+                       if name.endswith(("_cols", "_indptr")))
+        weights += LM_SLOTS * cfg_.d_model * model.embed.element_size()
+        kv = sum(t.numel() * t.element_size() for t in state["kv"].values())
+        out = {"prefill_ms": prefill_ms, "decode_step_ms": decode_ms,
+               "decode_weight_bytes": weights, "kv_cache_bytes": kv,
+               "decode_bound_ms": weights / HBM_BYTES_PER_S * 1e3}
+        print(f"  {cfg_.arch_id} {str(cfg_.dtype)[6:]} "
+              f"{'bcsr' if cfg_.sparse_ffn else 'dense'}: prefill {prefill_ms:.3f} ms "
+              f"({LM_PROMPT} tokens), decode step {decode_ms:.3f} ms ({LM_SLOTS} slots) "
+              f"against its bound {out['decode_bound_ms']:.3f} ms "
+              f"({weights / 1e9:.3f} GB of weights; KV cache {kv / 1e6:.1f} MB)",
+              flush=True)
+        return out
+
+    # (a) the CLI, dense FFN: qwen1.5-4b, then h2o-danube-3-4b
+    for arch in LM_ARCHES:
+        t0 = time.perf_counter()
+        print(f"phase 11a: serve --arch {arch}" + (" --reduced" if reduced else ""),
+              flush=True)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_lm_") as td:
+            stats = Path(td) / "lm.json"
+            _build.reset_launches()
+            serve_cli.main(["--arch", arch, "--requests", str(LM_REQUESTS),
+                            "--slots", str(LM_SLOTS), "--prompt-len", str(LM_PROMPT),
+                            "--max-new", str(LM_NEW), "--max-seq", str(LM_MAX_SEQ),
+                            "--device", dev.type, "--stats-json", str(stats)]
+                           + (["--reduced"] if reduced else []))
+            summary = json.loads(stats.read_text())
+        dense_launches = dict(_build.LAUNCHES)
+        if summary["served"] != LM_REQUESTS:
+            fail(f"serve --arch {arch} served {summary['served']}/{LM_REQUESTS}")
+        if cuda and dense_launches:
+            fail(f"serve --arch {arch} (dense FFN) launched {dense_launches}")
+        summary["wall_s"] = time.perf_counter() - t0
+        rec[f"cli/{arch}"] = summary
+        free()
+
+    # the dense model's step times (g)
+    model = lm.init_model(cfg, 0, device=dev)
+    rec["dense_params"] = lm.param_count(model)
+    rec["times/dense"] = step_times(cfg, model)
+    del model
+    free()
+
+    # (b) the bcsr-FFN variant: layer 0's weights through the bf16 kernel
+    sff = SparseFFNConfig(kind="bcsr", block=block)
+    cfg_b = dataclasses.replace(cfg, sparse_ffn=sff)
+    t0 = time.perf_counter()
+    model_b = lm.init_model(cfg_b, 0, device=dev)
+    sync()
+    rec["bcsr_params"] = lm.param_count(model_b)
+    rec["bcsr_init_s"] = time.perf_counter() - t0
+    ffn0 = model_b.blocks[0].ffn
+    bm, bk = block
+    print(f"phase 11b: {cfg_b.arch_id} bcsr FFN {block}, density {sff.density}: "
+          f"W1 {ffn0.w1_blocks.shape[0]} blocks, W2 {ffn0.w2_blocks.shape[0]} blocks; "
+          f"{rec['bcsr_params'] / 1e9:.3f} G parameters (dense "
+          f"{rec['dense_params'] / 1e9:.3f} G)", flush=True)
+    weights = {}
+    errs = {}
+    for which, n_cb in (("w1", cfg.d_model // bk), ("w2", cfg.d_ff // bm)):
+        args = (ffn0[f"{which}_blocks"], ffn0[f"{which}_cols"], ffn0[f"{which}_indptr"])
+        weights[which] = (args, n_cb)
+        for k in LM_CHECK_KS:
+            xb = torch.as_tensor(rng.standard_normal((n_cb, args[0].shape[2], k))
+                                 .astype(np.float32), device=dev).to(torch.bfloat16)
+            y = bcsr_spmm(*args, xb)
+            if not torch.equal(y, bcsr_spmm(*args, xb)):
+                fail(f"bcsr_spmm_bf16 {which} k={k}: two launches differ")
+            yp = bcsr_spmm_plain(*args, xb)
+            scale = bcsr_spmm_plain(args[0].abs(), *args[1:], xb.abs()).double()
+            err = (y.double() - yp.double()).abs()
+            if y.dtype != torch.float32 or not bool((err <= TOL * scale).all()):
+                fail(f"bcsr_spmm_bf16 {which} k={k}: {int((err > TOL * scale).sum())} "
+                     f"entries over {TOL:g} (|A| |x|)_i, max_abs_err {float(err.max()):.3e}")
+            errs[f"{which}/k{k}"] = float(err.max())
+            print(f"  ok bcsr_spmm_bf16 layer-0 {which} k={k}: max_abs_err "
+                  f"{errs[f'{which}/k{k}']:.3e}, the same bits on a second launch")
+    rec["kernel_checks"] = errs
+
+    # (c) serving the variant: the main path, launches counted
+    print(f"phase 11c: BatchedServer({LM_SLOTS} slots), {LM_REQUESTS} requests, "
+          f"prompt {LM_PROMPT}, max_new {LM_NEW}", flush=True)
+    _build.reset_launches()
+    srv, reqs_b, served_b = serve(cfg_b, model_b, LM_SLOTS)
+    launches = dict(_build.LAUNCHES)
+    expect = 2 * cfg.n_layers * (srv.prefills + srv.steps)
+    print(f"  served {LM_REQUESTS}/{LM_REQUESTS} in {served_b['seconds']:.2f}s "
+          f"({served_b['tok_per_s']:.1f} tok/s, latency p50 "
+          f"{served_b['latency_p50_s']:.2f}s p99 {served_b['latency_p99_s']:.2f}s): "
+          f"{srv.prefills} prefills, {srv.steps} decode steps, launches {launches} "
+          f"(2 x {cfg.n_layers} x {srv.prefills + srv.steps} = {expect} expected)",
+          flush=True)
+    if cuda and (launches.get("bcsr_spmm_bf16", 0) != expect
+                 or set(launches) != {"bcsr_spmm_bf16"}):
+        fail(f"phase 11c launches {launches}, expected bcsr_spmm_bf16 = {expect} only")
+    rec["serve/bcsr"] = served_b
+    rec["launches"] = launches
+    del srv
+
+    # (g) times of the variant and of its kernel at the FFN's shapes
+    rec["times/bcsr"] = step_times(cfg_b, model_b)
+    rows = []
+    for which, (args, n_cb) in weights.items():
+        blocks, cols, indptr = args
+        gm = indptr.shape[0] - 1
+        brows = torch.repeat_interleave(
+            torch.arange(gm, device=dev), (indptr[1:] - indptr[:-1]).long())
+        r, c = blocks.shape[1:]
+        dense = torch.zeros((gm, n_cb, r, c), dtype=torch.bfloat16, device=dev)
+        dense[brows, cols.long()] = blocks
+        dense = dense.permute(0, 2, 1, 3).reshape(gm * r, n_cb * c)
+        for k in LM_TIMED_KS:
+            xb = torch.as_tensor(rng.standard_normal((n_cb, c, k)).astype(np.float32),
+                                 device=dev).to(torch.bfloat16)
+            x2 = xb.view(-1, k)
+            fn_bytes = blocks.numel() * 2 + xb.numel() * 2 + gm * r * k * 4
+            flops = 2 * blocks.numel() * k
+            b_s, f_s = fn_bytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+            row = {
+                "name": "bcsr_spmm_bf16",
+                "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/bcsr_spmm.cu",
+                "replaces": "src/repro/kernels/bcsr_spmm.py:56",
+                "shape": f"{cfg.arch_id} FFN {which} {tuple(dense.shape)} "
+                         f"{blocks.shape[0]} blocks {block} bf16 k={k}",
+                "launches": int(launches.get("bcsr_spmm_bf16", 0)),
+                "max_abs_err": max(errs.values()),
+                "ms": median_ms(lambda: bcsr_spmm(*args, xb), True),
+                "plain_ms": median_ms(lambda: bcsr_spmm_plain(*args, xb), True),
+                "bound_ms": max(b_s, f_s) * 1e3,
+                "bound_by": "bytes" if b_s >= f_s else "operations",
+                "bytes": int(fn_bytes),
+                "flops": int(flops),
+                "library_ms": median_ms(lambda: dense @ x2, True),
+            }
+            rows.append(row)
+            print(f"  bcsr_spmm_bf16 [{row['shape']}]: {row['ms']:.4f} ms, plain "
+                  f"{row['plain_ms']:.4f}, dense bf16 matmul {row['library_ms']:.4f}, "
+                  f"bound {row['bound_ms']:.4f} ({row['bound_by']}, "
+                  f"{fn_bytes / 1e6:.2f} MB), share "
+                  f"{row['bound_ms'] / row['ms'] * 100:.1f} %", flush=True)
+        del dense
+
+    # (f) the tuned variant: impl="auto" searches W1 and W2 at k = slots
+    print(f"phase 11f: impl='auto' (two searches at k = {LM_SLOTS}, scratch plan "
+          "cache)", flush=True)
+    cfg_auto = dataclasses.replace(cfg_b, sparse_ffn=dataclasses.replace(sff, impl="auto"))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_lm_plans_") as td:
+        cache = PlanCache(Path(td) / "plans.json")
+        t0 = time.perf_counter()
+        srv = BatchedServer(cfg_auto, model_b, batch_slots=LM_SLOTS,
+                            max_seq=LM_MAX_SEQ, plan_cache=cache)
+        search_s = time.perf_counter() - t0
+        plans = [{"shape": p.scale[:2], "fmt": p.fmt, "impl": p.impl,
+                  "params": p.params, "measured_ms": p.measured_s * 1e3,
+                  "n_measured": p.n_measured} for p in cache.plans()]
+    tuned = srv.cfg.sparse_ffn
+    for p in plans:
+        which = "W1" if p["shape"] == [cfg.d_ff, cfg.d_model] else "W2"
+        print(f"  {which} {p['shape']}: plan {p['fmt']}/{p['impl']} {p['params']} "
+              f"{p['measured_ms']:.4f} ms ({p['n_measured']} measured)")
+    print(f"  searched in {search_s:.1f}s: W1 -> impl {tuned.impl_for('w1')!r}, "
+          f"W2 -> impl {tuned.impl_for('w2')!r}", flush=True)
+    reqs = [Request(rid=i, prompt=p, max_new=LM_NEW) for i, p in enumerate(prompts)]
+    for r in reqs:
+        srv.submit(r)
+    srv.run_until_drained()
+    if not all(r.done for r in reqs):
+        fail("phase 11f: the tuned server left requests unserved")
+    rec["tuned"] = {"plans": plans, "search_s": search_s, "impl_w1": tuned.impl_for("w1"),
+                    "impl_w2": tuned.impl_for("w2"), "served": len(reqs)}
+    print(f"  served {len(reqs)}/{LM_REQUESTS} with the tuned routing")
+    del srv
+
+    # (e) first-token logits of the served bf16 model, kept for the float32 copy
+    bf_first = torch.stack([lm.prefill(cfg_b, model_b, {"tokens": p[None]},
+                                       LM_MAX_SEQ)[1][0].float() for p in prompts])
+    cfg_f = dataclasses.replace(cfg_b, dtype=torch.float32)
+    model_f = lm.LM(cfg_f, dev)
+    model_f.load_state_dict(model_b.state_dict())
+    del model_b, ffn0, weights
+    free()
+
+    # (d) consistency of the float32 copy, TF32 off
+    print(f"phase 11d: float32 copy ({lm.param_count(model_f) * 4 / 1e9:.2f} GB): "
+          f"prefill + {LM_NEW - 1} decode steps against forward", flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    state, lg = lm.prefill(cfg_f, model_f, {"tokens": prompts[0][None]}, LM_MAX_SEQ)
+    logits, toks = [lg[0]], [int(torch.argmax(lg[0]))]
+    for _ in range(LM_NEW - 1):
+        state, lg = lm.decode_step(cfg_f, model_f, state, [[toks[-1]]])
+        logits.append(lg[0, 0])
+        toks.append(int(torch.argmax(lg[0, 0])))
+    seq = np.concatenate([prompts[0], np.asarray(toks[:-1], np.int32)])
+    full, _ = lm.forward(cfg_f, model_f, {"tokens": seq[None]})
+    worst = 0.0
+    for j, got in enumerate(logits):
+        ref = full[0, LM_PROMPT - 1 + j]
+        rel = float((got - ref).abs().max() / ref.abs().max())
+        worst = max(worst, rel)
+        if not rel <= LM_CONSISTENCY:
+            fail(f"phase 11d: position {LM_PROMPT - 1 + j}: decode differs from "
+                 f"forward by {rel:.3e} x max|logits| (limit {LM_CONSISTENCY:g})")
+    print(f"  ok decode == forward at {len(logits)} positions: worst {worst:.3e} x "
+          f"max|logits| (limit {LM_CONSISTENCY:g})")
+    del state, full
+    _, reqs4, served_f = serve(cfg_f, model_f, LM_SLOTS)
+    for p, r in zip(prompts, reqs4):
+        _, (alone,), _ = serve(cfg_f, model_f, 1, [p])
+        if alone.out != r.out:
+            fail(f"phase 11d: request {r.rid}: {LM_SLOTS} slots gave {r.out}, one "
+                 f"slot {alone.out}")
+    print(f"  ok float32 {LM_SLOTS}-slot server: every request's tokens equal a "
+          "1-slot server's")
+    rec["consistency"] = {"worst": worst, "limit": LM_CONSISTENCY,
+                          "serve_float32": served_f}
+
+    # (e) bf16 against float32
+    f_first = torch.stack([lm.prefill(cfg_f, model_f, {"tokens": p[None]},
+                                      LM_MAX_SEQ)[1][0] for p in prompts])
+    dev_rel = float((bf_first - f_first).abs().max() / f_first.abs().max())
+    same = float((bf_first.argmax(-1) == f_first.argmax(-1)).float().mean())
+    print(f"phase 11e: bf16 first-token logits against the float32 copy: largest "
+          f"deviation {dev_rel:.4e} x max|logits| (limit {LM_BF16_LIMIT:g}), equal "
+          f"first tokens {same * 100:.1f} %", flush=True)
+    if not dev_rel <= LM_BF16_LIMIT:
+        fail(f"phase 11e: bf16 deviates {dev_rel:.3e} x max|logits| from float32")
+    rec["bf16_vs_f32"] = {"max_dev_rel": dev_rel, "equal_first_tokens": same,
+                          "limit": LM_BF16_LIMIT}
+    del model_f, bf_first, f_first
+    free()
+    rec["wall_s"] = time.perf_counter() - t_phase
+    print(f"  phase 11 wall time {rec['wall_s']:.1f}s", flush=True)
+    return launches, rows
 
 
 def main() -> None:
@@ -2654,6 +3028,18 @@ def main() -> None:
     for row in kernels:  # the shards run plain torch: no kernel is on the path
         row["mesh_launches"] = int(launches10.get(row["name"], 0))
     phase_done("mesh", t0)
+
+    # -- phase 11: LM serving, launches counted over (c) -------------------
+    t0 = time.perf_counter()
+    launches11, lm_rows = lm_phase(dev, record)
+    record["lm_launches"] = launches11
+    for row in lm_rows:  # the bf16 path did not exist before this phase
+        for key in ("solver_launches", "fleet_launches", "mesh_launches"):
+            row[key] = int(record[key].get(row["name"], 0))
+    kernels.extend(lm_rows)
+    for row in kernels:
+        row["lm_launches"] = int(launches11.get(row["name"], 0))
+    phase_done("lm", t0)
 
     record["kernels"] = kernels
     record["card"] = smi

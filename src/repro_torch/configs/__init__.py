@@ -1,0 +1,38 @@
+"""Architecture registry of the port: the configurations it serves.
+
+Only the dense-family language models that the port runs are registered
+(``repro_torch.models.lm``); the other families of the JAX package's
+registry wait for their slices, and so do its shape grid and dry-run input
+specs.  Each configuration file is the JAX package's own, copied unchanged
+but for its import.
+"""
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.models.lm import ModelConfig
+
+__all__ = ["ARCH_IDS", "get_config", "get_reduced"]
+
+_MODULES = {
+    "h2o-danube-3-4b": "h2o_danube_3_4b",
+    "qwen1.5-4b": "qwen1_5_4b",
+}
+ARCH_IDS = list(_MODULES)
+
+
+def _mod(arch_id: str):
+    if arch_id not in _MODULES:
+        raise KeyError(f"unknown architecture {arch_id!r}; the port serves "
+                       f"{', '.join(ARCH_IDS)}")
+    return importlib.import_module(f"repro_torch.configs.{_MODULES[arch_id]}")
+
+
+def get_config(arch_id: str) -> ModelConfig:
+    """The published configuration, at full width and depth."""
+    return _mod(arch_id).CONFIG
+
+
+def get_reduced(arch_id: str) -> ModelConfig:
+    """A few layers at narrow widths, for tests and CPU runs."""
+    return _mod(arch_id).REDUCED

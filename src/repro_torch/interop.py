@@ -7,20 +7,30 @@ exposing the buffer protocol, so this module imports no JAX), and
 :func:`prep_from_arrays` puts them on a torch device in this package's
 layout, so the port's kernels and plain versions can run on exactly the
 arrays the JAX package prepared.
+
+:func:`lm_params_from_numpy` does the same for a language model: the JAX
+package's ``init_model`` tree as numpy arrays becomes the port's
+:class:`~repro_torch.models.lm.LM` for the same configuration, so both
+packages compute the same function (``jax.random`` and
+``torch.Generator`` draw different weights from one seed).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any
 
 import numpy as np
 
 import torch
 
+from repro_torch.core.device import resolve
 from repro_torch.core.formats import CSRMatrix
 from repro_torch.kernels import merge_spmv
 from repro_torch.kernels.ops import from_arrays
+from repro_torch.models.ffn import SparseFFNConfig
+from repro_torch.models.lm import LM, ModelConfig
 
-__all__ = ["split", "prep_from_arrays"]
+__all__ = ["split", "prep_from_arrays", "port_config", "lm_params_from_numpy"]
 
 _ARRAY_KEYS = ("cols", "vals", "row_perm", "block_rows", "block_cols", "blocks",
                "bounds", "col_start", "col_len", "rows", "indices", "data",
@@ -68,3 +78,69 @@ def prep_from_arrays(fmt: str, arrays: dict, meta: dict, device) -> dict[str, An
                                       meta["inner"], device),
         }
     return from_arrays(fmt, arrays, meta, device)
+
+
+def port_config(cfg):
+    """The port's ``ModelConfig`` with the fields of ``cfg``, a
+    configuration of either package: its dtype becomes the torch dtype of
+    the same name, and a bcsr FFN's ``"pallas"`` tier the kernel's
+    ``"cuda"``."""
+    fields = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+    fields["dtype"] = getattr(torch, np.dtype(fields["dtype"]).name)
+    sff = fields["sparse_ffn"]
+    if sff is not None:
+        sff = {f.name: getattr(sff, f.name) for f in dataclasses.fields(sff)}
+        for key in ("impl", "impl_w2"):
+            if sff[key] == "pallas":
+                sff[key] = "cuda"
+        fields["sparse_ffn"] = SparseFFNConfig(**sff)
+    return ModelConfig(**fields)
+
+
+def lm_params_from_numpy(cfg, params: dict, device="cpu"):
+    """The port's model for ``cfg`` holding the weights of ``params``.
+
+    ``params`` is the JAX package's ``init_model(cfg)[0]`` tree with numpy
+    leaves: ``embed``, ``unembed``, ``ln_f`` and ``blocks`` stacked on a
+    leading layers axis (a bcsr FFN as ``w*_blocks`` / ``w*_rows`` /
+    ``w*_cols``).  ``cfg`` may be either package's configuration
+    (:func:`port_config`).  The bcsr block positions must be the port's own
+    seeded pattern, which they are for the same ``SparseFFNConfig``.
+    """
+    cfg = port_config(cfg)
+    model = LM(cfg, resolve(device))
+    L = cfg.n_layers
+
+    def flat(tree, prefix=""):
+        for key, value in tree.items():
+            if isinstance(value, dict):
+                yield from flat(value, f"{prefix}{key}.")
+            else:
+                yield f"{prefix}{key}", np.asarray(value)
+
+    state = {}
+    for name, value in flat(params):
+        if name.startswith("blocks."):
+            if value.shape[0] != L:
+                raise ValueError(f"{name}: {value.shape[0]} layers, config has {L}")
+            for i in range(L):
+                state[f"blocks.{i}.{name[len('blocks.'):]}"] = value[i]
+        else:
+            state[name] = value
+    own = model.state_dict()
+    if set(state) != set(own):
+        raise ValueError(f"parameter trees differ: only in params "
+                         f"{sorted(set(state) - set(own))}, only in the port "
+                         f"{sorted(set(own) - set(state))}")
+    for name, target in own.items():
+        # float leaves through float32 (exact for bf16), indices as int64
+        value = torch.as_tensor(np.array(
+            state[name], np.float32 if target.is_floating_point() else np.int64))
+        if value.shape != target.shape:
+            raise ValueError(f"{name}: shape {tuple(value.shape)}, the port "
+                             f"expects {tuple(target.shape)}")
+        if name.endswith(("_rows", "_cols")):
+            if not torch.equal(value.to(target.device), target.long()):
+                raise ValueError(f"{name}: another block pattern than the port's")
+        target.copy_(value)
+    return model

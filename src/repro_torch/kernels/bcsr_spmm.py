@@ -12,6 +12,14 @@ shape and every k is taken.  ``blocks`` and ``x_blocked`` are read in
 allocates does; an offset view may not, and is refused).  The TPU kernel's zero-block padding to
 ``block_tile`` and its VMEM clamp on the N tile do not apply here.
 
+The wrapper dispatches on ``blocks.dtype``.  float32 operands take the
+kernels above.  bf16 operands (the sparse FFN's weights and activations)
+take a kernel of their own, ``bcsr_bf16`` in the same source: each value
+widens to float32 in registers, the sums and Y are float32, as the TPU kernel
+accumulates with ``preferred_element_type``.  Its launches count under
+``bcsr_spmm_bf16``; it takes bk in {8, 16, 32, 64, 128, 256} and any bm.
+Both operands must share the dtype.
+
 A wrapper runs the plain version only because its operand lies on the CPU;
 for a CUDA tensor it launches its kernel or raises.
 """
@@ -30,9 +38,19 @@ __all__ = ["bcsr_spmm", "bcsr_spmm_plain"]
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
+BF16_BK = (8, 16, 32, 64, 128, 256)
+
+
 def bcsr_spmm_plain(blocks, block_cols, indptr, x_blocked) -> torch.Tensor:
     """One dense (bm, bk) x (bk, k) product per stored block, summed per
-    block row over ``indptr`` — the kernel's arithmetic in plain torch."""
+    block row over ``indptr`` — the kernel's arithmetic in plain torch.
+    bf16 operands are widened to float32 first (both must be bf16), so the
+    products are exact and the sums float32, as in the kernel."""
+    if torch.bfloat16 in (blocks.dtype, x_blocked.dtype):
+        if blocks.dtype != x_blocked.dtype:
+            raise TypeError(f"blocks are {blocks.dtype} but x_blocked is "
+                            f"{x_blocked.dtype}: the operands must share a dtype")
+        blocks, x_blocked = blocks.float(), x_blocked.float()
     return spmm_bcsr_dense(
         {"blocks": blocks, "block_cols": block_cols, "indptr": indptr},
         x_blocked,
@@ -41,19 +59,21 @@ def bcsr_spmm_plain(blocks, block_cols, indptr, x_blocked) -> torch.Tensor:
 
 
 def bcsr_spmm(
-    blocks: torch.Tensor,  # (n_blocks, bm, bk) float32, sorted by block row
+    blocks: torch.Tensor,  # (n_blocks, bm, bk) float32 or bf16, sorted by block row
     block_cols: torch.Tensor,  # (n_blocks,) int32
     indptr: torch.Tensor,  # (n_block_rows + 1,) int32 block-row pointer
-    x_blocked: torch.Tensor,  # (n_col_blocks, bk, k) float32
+    x_blocked: torch.Tensor,  # (n_col_blocks, bk, k), the dtype of blocks
 ) -> torch.Tensor:
     """Y = A @ X for A in BCSR; returns (n_block_rows, bm, k) float32."""
     if x_blocked.device.type == "cpu":
         return bcsr_spmm_plain(blocks, block_cols, indptr, x_blocked)
     dev = x_blocked.device
-    _build.expect(blocks, "blocks", torch.float32, dev, 3, align=16)
+    bf16 = blocks.dtype == torch.bfloat16
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    _build.expect(blocks, "blocks", dtype, dev, 3, align=16)
     _build.expect(block_cols, "block_cols", torch.int32, dev, 1)
     _build.expect(indptr, "indptr", torch.int32, dev, 1)
-    _build.expect(x_blocked, "x_blocked", torch.float32, dev, 3, align=16)
+    _build.expect(x_blocked, "x_blocked", dtype, dev, 3, align=16)
     n_blocks, bm, bk = blocks.shape
     _, bk2, k = x_blocked.shape
     gm = indptr.shape[0] - 1
@@ -62,16 +82,18 @@ def bcsr_spmm(
             f"BCSR shapes blocks {tuple(blocks.shape)} block_cols "
             f"{tuple(block_cols.shape)} x_blocked {tuple(x_blocked.shape)}"
         )
+    if bf16 and bk not in BF16_BK:
+        raise ValueError(f"the bf16 kernel takes bk in {BF16_BK}, not {bk}")
     y = torch.empty((gm, bm, k), dtype=torch.float32, device=dev)
     if gm == 0 or k == 0:
         return y
-    fn = _build.function(
-        "bcsr_spmm", "bcsr_spmm_launch", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
-    )
+    key = "bcsr_spmm_bf16" if bf16 else "bcsr_spmm"
+    fn = _build.function("bcsr_spmm", f"{key}_launch",
+                         [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P])
     with torch.cuda.device(dev):
         code = fn(indptr.data_ptr(), block_cols.data_ptr(), blocks.data_ptr(),
                   x_blocked.data_ptr(), y.data_ptr(), gm, bm, bk, k,
                   _build.stream(dev))
-    _build.check("bcsr_spmm", code, "bcsr_spmm launch")
-    _build.count("bcsr_spmm")
+    _build.check("bcsr_spmm", code, f"{key} launch")
+    _build.count(key)
     return y

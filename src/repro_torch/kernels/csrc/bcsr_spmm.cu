@@ -418,6 +418,186 @@ int launch_bk(const Launch& L, const int* indptr, const int* block_cols,
   return launch_wide<BK, 2, 4>(L, indptr, block_cols, blocks, x, y, s);
 }
 
+// ---------------------------------------------------------------------------
+// bf16 operands: the sparse FFN's path (blocks and X in bf16, as the model
+// stores them; the TPU kernel takes the same and accumulates in float32 with
+// preferred_element_type).  Each bf16 value widens to float in registers
+// (its 16 bits are the top half of a float), every product of two of them is
+// exact in float32, and Y is float32: only the order of the sums differs from
+// the plain version.  The float32 paths above are untouched.
+//
+// Bound.  At decode (k = the slot count) the stored blocks are nearly all
+// the bytes, 2 per stored value: bytes-bound.  The unit of work is one CTA
+// per (block row, 8-row group, N tile of KT columns); its kWarps warps split
+// the row's stored blocks (warp w takes blocks w, w + kWarps, ...), so even a
+// block row of 15 blocks keeps 8 warps' 16-byte loads in flight.  In a warp,
+// L = bk / 8 lanes read one slice row of 8 x 16 bytes, so RP = 32 / L rows
+// go per warp load and each lane keeps MR rows of 8 values; the next block's
+// values are loaded before the current block's FMAs.  A lane's partial sums
+// meet in a fixed xor-shuffle tree over its L lanes, then the warps' partial
+// sums meet in shared memory in warp order: no atomics, bitwise repeatable.
+// X is read from global memory (16 bytes per row at k = 8n, 8 at k = 4n, 16
+// for the 8 rows at k = 1, else by element).  Simple first: no tensor cores
+// (a later redesign: mma/wgmma in bf16), each N tile of a row group reads
+// the row's blocks again (from L2).  Takes bk in {8, 16, 32, 64, 128, 256}
+// and any bm.
+__device__ __forceinline__ float bf_lo(unsigned w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float bf_hi(unsigned w) { return __uint_as_float(w & 0xffff0000u); }
+
+__device__ __forceinline__ void widen8(const uint4 v, float (&f)[8]) {
+  f[0] = bf_lo(v.x); f[1] = bf_hi(v.x); f[2] = bf_lo(v.y); f[3] = bf_hi(v.y);
+  f[4] = bf_lo(v.z); f[5] = bf_hi(v.z); f[6] = bf_lo(v.w); f[7] = bf_hi(v.w);
+}
+
+// KT consecutive bf16 X elements (columns j0 .. j0 + KT - 1 of one row) as
+// floats, zero past k; `vec`: k is a multiple of KT, so one vector load.
+template <int KT>
+__device__ __forceinline__ void load_x_bf16(float (&v)[KT],
+                                            const unsigned short* p, int j0,
+                                            int k, bool vec) {
+  if constexpr (KT == 8) {
+    if (vec) {
+      float f[8];
+      widen8(j0 < k ? __ldg(reinterpret_cast<const uint4*>(p)) : make_uint4(0, 0, 0, 0), f);
+#pragma unroll
+      for (int q = 0; q < 8; ++q) v[q] = f[q];
+      return;
+    }
+  }
+  if constexpr (KT == 4) {
+    if (vec) {
+      const uint2 t = j0 < k ? __ldg(reinterpret_cast<const uint2*>(p)) : make_uint2(0, 0);
+      v[0] = bf_lo(t.x); v[1] = bf_hi(t.x); v[2] = bf_lo(t.y); v[3] = bf_hi(t.y);
+      return;
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < KT; ++q)
+    v[q] = j0 + q < k ? __uint_as_float((unsigned)__ldg(p + q) << 16) : 0.f;
+}
+
+template <int L, int KT>
+__global__ void __launch_bounds__(kWarps * 32)
+bcsr_bf16(const int* __restrict__ indptr, const int* __restrict__ block_cols,
+          const unsigned short* __restrict__ blocks,
+          const unsigned short* __restrict__ x, float* __restrict__ y, int bm,
+          int k, int n_rg) {
+  constexpr int BK = 8 * L;
+  constexpr int RP = 32 / L;                 // slice rows per warp load
+  constexpr int MR = RP >= 8 ? 1 : 8 / RP;   // rows a lane keeps
+  __shared__ float part[kWarps][8][KT];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int n_tiles = (k + KT - 1) / KT;
+  const int row_unit = blockIdx.x / n_tiles;
+  const int brow = row_unit / n_rg;
+  const int r0 = (row_unit - brow * n_rg) * 8;
+  const int j0 = (blockIdx.x - row_unit * n_tiles) * KT;
+  const int sub = lane / L;  // slice row within a warp load
+  const int c = lane % L;    // 16-byte chunk of that row: columns 8c .. 8c + 7
+  const bool vec = (k % KT) == 0;
+  bool live[MR];
+#pragma unroll
+  for (int m = 0; m < MR; ++m) {
+    const int i = sub + m * RP;
+    live[m] = i < 8 && r0 + i < bm;
+  }
+
+  float acc[MR][KT];
+#pragma unroll
+  for (int m = 0; m < MR; ++m)
+#pragma unroll
+    for (int q = 0; q < KT; ++q) acc[m][q] = 0.f;
+
+  const int g1 = indptr[brow + 1];
+  auto fetch = [&](uint4 (&a)[MR], int g) {
+#pragma unroll
+    for (int m = 0; m < MR; ++m) {
+      a[m] = make_uint4(0, 0, 0, 0);
+      if (g < g1 && live[m])
+        a[m] = __ldcs(reinterpret_cast<const uint4*>(
+            blocks + ((long long)g * bm + r0 + sub + m * RP) * BK + c * 8));
+    }
+  };
+  uint4 a[MR], a_next[MR];
+  int g = indptr[brow] + warp;
+  fetch(a, g);
+  for (; g < g1; g += kWarps) {
+    fetch(a_next, g + kWarps);
+    float af[MR][8];
+#pragma unroll
+    for (int m = 0; m < MR; ++m) widen8(a[m], af[m]);
+    const long long xrow = (long long)__ldg(block_cols + g) * BK + c * 8;
+    if constexpr (KT == 1) {
+      // k == 1: the chunk's 8 X rows are 8 consecutive values
+      float xv[8];
+      widen8(__ldg(reinterpret_cast<const uint4*>(x + xrow)), xv);
+#pragma unroll
+      for (int m = 0; m < MR; ++m)
+#pragma unroll
+        for (int t = 0; t < 8; ++t) acc[m][0] = fmaf(af[m][t], xv[t], acc[m][0]);
+    } else {
+#pragma unroll
+      for (int t = 0; t < 8; ++t) {
+        float xv[KT];
+        load_x_bf16<KT>(xv, x + (xrow + t) * k + j0, j0, k, vec);
+#pragma unroll
+        for (int m = 0; m < MR; ++m)
+#pragma unroll
+          for (int q = 0; q < KT; ++q) acc[m][q] = fmaf(af[m][t], xv[q], acc[m][q]);
+      }
+    }
+#pragma unroll
+    for (int m = 0; m < MR; ++m) a[m] = a_next[m];
+  }
+
+#pragma unroll
+  for (int m = 0; m < MR; ++m)
+#pragma unroll
+    for (int q = 0; q < KT; ++q)
+#pragma unroll
+      for (int off = 1; off < L; off <<= 1)
+        acc[m][q] += __shfl_xor_sync(kFull, acc[m][q], off);
+  if (c == 0) {
+#pragma unroll
+    for (int m = 0; m < MR; ++m) {
+      const int i = sub + m * RP;
+      if (i < 8)
+#pragma unroll
+        for (int q = 0; q < KT; ++q) part[warp][i][q] = acc[m][q];
+    }
+  }
+  __syncthreads();
+  const int t = threadIdx.x;
+  if (t < 8 * KT) {
+    const int i = t / KT;
+    const int q = t % KT;
+    float s = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) s += part[w][i][q];
+    if (r0 + i < bm && j0 + q < k) y[((long long)brow * bm + r0 + i) * k + j0 + q] = s;
+  }
+}
+
+template <int L>
+int launch_bf16_bk(const int* indptr, const int* block_cols,
+                   const unsigned short* blocks, const unsigned short* x,
+                   float* y, int gm, int bm, int k, int n_rg, cudaStream_t s) {
+  const int kt = k == 1 ? 1 : k <= 4 ? 4 : 8;
+  const long long nb = (long long)gm * n_rg * ((k + kt - 1) / kt);
+  if (nb > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  if (kt == 1)
+    bcsr_bf16<L, 1><<<(unsigned)nb, kWarps * 32, 0, s>>>(indptr, block_cols,
+                                                          blocks, x, y, bm, k, n_rg);
+  else if (kt == 4)
+    bcsr_bf16<L, 4><<<(unsigned)nb, kWarps * 32, 0, s>>>(indptr, block_cols,
+                                                          blocks, x, y, bm, k, n_rg);
+  else
+    bcsr_bf16<L, 8><<<(unsigned)nb, kWarps * 32, 0, s>>>(indptr, block_cols,
+                                                          blocks, x, y, bm, k, n_rg);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int bcsr_spmm_launch(const int* indptr, const int* block_cols,
@@ -438,6 +618,26 @@ extern "C" int bcsr_spmm_launch(const int* indptr, const int* block_cols,
   bcsr_generic<<<nb, kWarps * 32, 0, s>>>(indptr, block_cols, blocks, x, y, gm,
                                           bm, bk, k, L.n_rg);
   return (int)cudaGetLastError();
+}
+
+// Y (float32) = A @ X with bf16 blocks and X: bk in {8, 16, 32, 64, 128, 256}.
+extern "C" int bcsr_spmm_bf16_launch(const int* indptr, const int* block_cols,
+                                     const unsigned short* blocks,
+                                     const unsigned short* x, float* y, int gm,
+                                     int bm, int bk, int k, void* stream) {
+  if (gm <= 0 || k <= 0) return 0;
+  if (bm < 1) return (int)cudaErrorInvalidValue;
+  const int n_rg = (bm + 7) / 8;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (bk) {
+    case 8: return launch_bf16_bk<1>(indptr, block_cols, blocks, x, y, gm, bm, k, n_rg, s);
+    case 16: return launch_bf16_bk<2>(indptr, block_cols, blocks, x, y, gm, bm, k, n_rg, s);
+    case 32: return launch_bf16_bk<4>(indptr, block_cols, blocks, x, y, gm, bm, k, n_rg, s);
+    case 64: return launch_bf16_bk<8>(indptr, block_cols, blocks, x, y, gm, bm, k, n_rg, s);
+    case 128: return launch_bf16_bk<16>(indptr, block_cols, blocks, x, y, gm, bm, k, n_rg, s);
+    case 256: return launch_bf16_bk<32>(indptr, block_cols, blocks, x, y, gm, bm, k, n_rg, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 extern "C" const char* kernel_error_string(int code) {

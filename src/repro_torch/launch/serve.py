@@ -40,11 +40,21 @@ Several matrices at once: ``--fleet M1,M2,...`` serves each as a
 plans (plan cache, nearest cached neighbour, byte model) with no measured
 search, interleaving their requests; the background retune runs the
 search and hot-swaps the measured plans, and the report waits up to
-``--retune-wait-s`` for it.  Exactly one of ``--sparse`` and ``--fleet``
-is required:
+``--retune-wait-s`` for it:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --fleet cant,webbase-1M \\
       --scale 1.0 --requests 64 --stats-json fleet.json
+
+A language model: ``--arch`` serves ``--requests`` greedy requests of
+``--prompt-len`` random tokens (``default_rng(0)``) and ``--max-new`` new
+tokens each through ``repro_torch.runtime.server.BatchedServer`` with
+``--slots`` decode slots, over the registered configuration at full width
+or ``--reduced``, with weights drawn from seed 0:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-4b \\
+      --reduced --device cpu --requests 8 --slots 4
+
+Exactly one of ``--sparse``, ``--fleet`` and ``--arch`` is required.
 """
 from __future__ import annotations
 
@@ -290,9 +300,57 @@ def serve_fleet(args) -> None:
         })
 
 
+def serve_lm(args) -> dict:
+    from repro_torch.configs import get_config, get_reduced
+    from repro_torch.models.lm import init_model
+    from repro_torch.runtime.server import BatchedServer, Request
+
+    cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
+    model = init_model(cfg, 0, device=args.device)
+    srv = BatchedServer(cfg, model, batch_slots=args.slots, max_seq=args.max_seq)
+    rng = np.random.default_rng(0)
+    reqs = [
+        Request(rid=i,
+                prompt=rng.integers(0, cfg.vocab, args.prompt_len).astype(np.int32),
+                max_new=args.max_new)
+        for i in range(args.requests)
+    ]
+    for r in reqs:
+        srv.submit(r)
+    t0 = time.perf_counter()
+    srv.run_until_drained()
+    if srv.device.type == "cuda":
+        torch.cuda.synchronize(srv.device)
+    dt = time.perf_counter() - t0
+    done = sum(r.done for r in reqs)
+    toks = sum(len(r.out) for r in reqs)
+    lats = sorted(r.latency_s for r in reqs if r.done)
+    p50 = lats[len(lats) // 2] if lats else None
+    p99 = lats[int(len(lats) * 0.99)] if lats else None
+    lat_txt = f", request latency p50 {p50:.2f}s p99 {p99:.2f}s" if lats else ""
+    print(f"served {done}/{len(reqs)} requests, {toks} tokens in {dt:.2f}s "
+          f"({toks / dt:.1f} tok/s, {srv.steps} decode steps, "
+          f"{srv.prefills} prefills, "
+          f"batch occupancy {srv.occupancy * args.slots:.2f}/{args.slots}"
+          f"{lat_txt})")
+    summary = {
+        "arch": cfg.arch_id, "device": str(srv.device), "requests": len(reqs),
+        "served": done, "tokens": toks, "elapsed_s": dt, "tok_per_s": toks / dt,
+        "decode_steps": srv.steps, "prefills": srv.prefills,
+        "occupancy": srv.occupancy, "latency_p50_s": p50, "latency_p99_s": p99,
+    }
+    if args.stats_json:
+        _dump_stats(args.stats_json, summary)
+    return summary
+
+
 def main(argv=None):
+    from repro_torch.configs import ARCH_IDS
+
     ap = argparse.ArgumentParser()
     mode = ap.add_mutually_exclusive_group(required=True)
+    mode.add_argument("--arch", choices=ARCH_IDS, default=None,
+                      help="serve greedy LM requests over this architecture")
     mode.add_argument("--sparse", default=None, metavar="MATRIX",
                       help="serve autotuned SpMV over this suite matrix")
     mode.add_argument("--fleet", default=None, metavar="M1,M2,...",
@@ -342,9 +400,17 @@ def main(argv=None):
                          "under pressure dispatch pins to the widest bucket "
                          "and repair pauses; when shedding, submit refuses")
     ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--reduced", action="store_true",
+                    help="--arch: the reduced configuration (a few narrow layers)")
+    ap.add_argument("--slots", type=int, default=4, help="--arch: decode slots")
+    ap.add_argument("--prompt-len", type=int, default=4)
+    ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--max-seq", type=int, default=128)
     args = ap.parse_args(argv)
     if args.fleet is not None:
         serve_fleet(args)
+    elif args.arch is not None:
+        serve_lm(args)
     else:
         serve_sparse(args)
 

@@ -1,0 +1,105 @@
+"""Shared model helpers: initialisers, norms, rotary and sinusoidal positions.
+
+The JAX package's ``models.common`` also holds its parameter-with-logical-
+axes leaves, mesh rules and sharding constraints; on one card the port
+needs none of them (its parameters are ``nn.Module`` attributes), and
+M-RoPE waits for the VLM slice.  Norms and RoPE compute in float32 and cast
+back, as the JAX package does.
+
+Initialisers draw from a seeded ``torch.Generator`` on the target device.
+They give other numbers than ``jax.random`` for the same seed, so parity
+tests carry the JAX package's weights across
+(:func:`repro_torch.interop.lm_params_from_numpy`).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+__all__ = [
+    "dense_init",
+    "embed_init",
+    "frozen",
+    "weight",
+    "rms_norm",
+    "layer_norm",
+    "rope",
+    "apply_rope",
+    "sinusoidal_positions",
+]
+
+
+def dense_init(gen: torch.Generator, shape, dtype=torch.float32,
+               scale: float | None = None) -> torch.Tensor:
+    """Truncated-normal fan-in init (the matmul weights' default): N(0, 1)
+    cut at +-2, times ``scale`` or 1/sqrt(fan_in), drawn in float32 on the
+    generator's device and cast to ``dtype``."""
+    fan_in = shape[0] if len(shape) >= 2 else max(shape[0], 1)
+    std = scale if scale is not None else 1.0 / math.sqrt(fan_in)
+    value = torch.empty(shape, dtype=torch.float32, device=gen.device)
+    torch.nn.init.trunc_normal_(value, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    return value.mul_(std).to(dtype)
+
+
+def embed_init(gen: torch.Generator, shape, dtype=torch.float32) -> torch.Tensor:
+    value = torch.empty(shape, dtype=torch.float32, device=gen.device)
+    value.normal_(0.0, 1.0, generator=gen)
+    return value.mul_(0.02).to(dtype)
+
+
+def frozen(t: torch.Tensor) -> nn.Parameter:
+    """A parameter that takes no gradient (the port serves; training waits)."""
+    return nn.Parameter(t, requires_grad=False)
+
+
+def weight(gen: torch.Generator | None, shape, dtype, device, init=dense_init,
+           **kw) -> nn.Parameter:
+    """A frozen parameter drawn by ``init`` from ``gen``, or, with no
+    generator, left empty on ``device`` to be filled from a carried state."""
+    if gen is None:
+        return frozen(torch.empty(shape, dtype=dtype, device=device))
+    return frozen(init(gen, shape, dtype, **kw))
+
+
+def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * gamma.float()).to(x.dtype)
+
+
+def layer_norm(x, gamma, beta, eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean((xf - mu) ** 2, dim=-1, keepdim=True)
+    out = (xf - mu) * torch.rsqrt(var + eps)
+    return (out * gamma.float() + beta.float()).to(x.dtype)
+
+
+def rope(positions: torch.Tensor, head_dim: int, theta: float = 10000.0):
+    """positions (...,) int -> (cos, sin) each (..., head_dim // 2) float32."""
+    half = head_dim // 2
+    # a Python float base: no host-to-device copy (which would synchronise)
+    freqs = float(theta) ** (
+        -torch.arange(0, half, dtype=torch.float32, device=positions.device) / half)
+    angles = positions.float()[..., None] * freqs
+    return torch.cos(angles), torch.sin(angles)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """x (b, s, h, d); cos/sin (b, s, d // 2) -> x rotated (half-split pairs)."""
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    cos, sin = cos[:, :, None, :], sin[:, :, None, :]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+def sinusoidal_positions(seq: int, dim: int, device=None) -> torch.Tensor:
+    """Whisper-style fixed sinusoidal embeddings (seq, dim) float32."""
+    half = dim // 2
+    freqs = torch.exp(-math.log(10000.0)
+                      * torch.arange(half, dtype=torch.float32, device=device)
+                      / max(half - 1, 1))
+    angles = torch.arange(seq, dtype=torch.float32, device=device)[:, None] * freqs[None, :]
+    return torch.cat([torch.sin(angles), torch.cos(angles)], dim=-1)

@@ -892,3 +892,105 @@ def test_gpu_mesh_on_cuda_without_a_card_raises(cuda_device, monkeypatch):
         SparseEngine(a, mesh=mesh)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         SparseSolver(a, mesh=mesh)
+
+
+# ---------------------------------------------------------------------------
+# The bf16 BCSR path (the sparse FFN's)
+# ---------------------------------------------------------------------------
+def _ffn_weights(device, which="w1", d_model=2560, d_ff=6912):
+    """One bcsr FFN weight of qwen1.5-4b's shapes (the seeded block pattern
+    at (128, 128), density 0.25), bf16 blocks from default_rng."""
+    from repro_torch.models.ffn import SparseFFN, SparseFFNConfig
+
+    p = SparseFFN(d_model, d_ff, SparseFFNConfig(kind="bcsr"), torch.bfloat16, device)
+    blocks = p[f"{which}_blocks"]
+    blocks.copy_(torch.as_tensor(
+        np.random.default_rng(0).standard_normal(tuple(blocks.shape)).astype(np.float32)
+        * 0.05))
+    n_cb = (d_model if which == "w1" else d_ff) // 128
+    return blocks, p[f"{which}_cols"], p[f"{which}_indptr"], n_cb
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("which", ["w1", "w2"])
+def test_gpu_bf16_bcsr_matches_plain_at_the_ffn_shapes(cuda_device, which):
+    """bf16 blocks and X, float32 Y: the kernel against its plain version
+    (widened to float32, summed per block row) at 1e-5·(|A|·|x|)_i for
+    k in {1, 4, 32, 100}, the same bits on a second launch, one launch
+    counted under ``bcsr_spmm_bf16`` each and none under ``bcsr_spmm``."""
+    blocks, cols, indptr, n_cb = _ffn_weights(cuda_device, which)
+    for k in (1, 4, 32, 100):
+        xb = torch.as_tensor(np.random.default_rng(k).standard_normal(
+            (n_cb, 128, k)).astype(np.float32), device=cuda_device).to(torch.bfloat16)
+        before = dict(_build.LAUNCHES)
+        y = bcsr_spmm(blocks, cols, indptr, xb)
+        assert _build.LAUNCHES["bcsr_spmm_bf16"] == before.get("bcsr_spmm_bf16", 0) + 1
+        assert _build.LAUNCHES["bcsr_spmm"] == before.get("bcsr_spmm", 0)
+        assert y.dtype == torch.float32
+        assert torch.equal(y, bcsr_spmm(blocks, cols, indptr, xb)), k
+        yp = bcsr_spmm_plain(blocks, cols, indptr, xb)
+        scale = bcsr_spmm_plain(blocks.abs(), cols, indptr, xb.abs())
+        err = (y.double() - yp.double()).abs()
+        assert bool((err <= TOL * scale.double()).all()), (which, k, float(err.max()))
+
+
+@pytest.mark.gpu
+def test_gpu_bf16_bcsr_refuses_misaligned_and_mixed_operands(cuda_device):
+    blocks, cols, indptr, n_cb = _ffn_weights(cuda_device)
+    xb = torch.zeros((n_cb, 128, 4), dtype=torch.bfloat16, device=cuda_device)
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        v = buf[1:].view(t.shape)
+        v.copy_(t)
+        assert v.data_ptr() % 16
+        return v
+
+    before = dict(_build.LAUNCHES)
+    with pytest.raises(ValueError, match="blocks must start on a 16-byte"):
+        bcsr_spmm(shifted(blocks), cols, indptr, xb)
+    with pytest.raises(ValueError, match="x_blocked must start on a 16-byte"):
+        bcsr_spmm(blocks, cols, indptr, shifted(xb))
+    with pytest.raises(TypeError, match="x_blocked has dtype torch.float32"):
+        bcsr_spmm(blocks, cols, indptr, xb.float())
+    with pytest.raises(TypeError, match="x_blocked has dtype torch.bfloat16"):
+        bcsr_spmm(blocks.float(), cols, indptr, xb)
+    with pytest.raises(ValueError, match="must be contiguous"):
+        bcsr_spmm(blocks, cols, indptr, xb.transpose(1, 2))
+    assert dict(_build.LAUNCHES) == before
+    y = bcsr_spmm(blocks, cols, indptr, xb)  # the card still works
+    assert bool((y == 0).all())
+
+
+@pytest.mark.gpu
+def test_gpu_reduced_bcsr_model_serves_through_the_bf16_kernel(cuda_device):
+    """A reduced qwen1.5-4b with a (32, 32) bcsr FFN in bf16 on the card:
+    every prefill and decode step launches the bf16 kernel twice a layer,
+    and the served model's logits match the same model on the CPU."""
+    import dataclasses
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import lm
+    from repro_torch.models.ffn import SparseFFNConfig
+    from repro_torch.runtime.server import BatchedServer, Request
+
+    cfg = dataclasses.replace(get_reduced("qwen1.5-4b"),
+                              sparse_ffn=SparseFFNConfig(kind="bcsr", block=(32, 32)))
+    model = lm.init_model(cfg, 0, device=cuda_device)
+    srv = BatchedServer(cfg, model, batch_slots=2, max_seq=32)
+    rng = np.random.default_rng(0)
+    for i in range(3):
+        srv.submit(Request(rid=i, prompt=rng.integers(0, cfg.vocab, 6).astype(np.int32),
+                           max_new=4))
+    _build.reset_launches()
+    done = srv.run_until_drained()
+    assert len(done) == 3
+    assert _build.LAUNCHES["bcsr_spmm_bf16"] == 2 * cfg.n_layers * (srv.prefills + srv.steps)
+    assert _build.LAUNCHES["bcsr_spmm"] == 0
+    toks = rng.integers(0, cfg.vocab, (2, 9))
+    got, _ = lm.forward(cfg, model, {"tokens": toks})
+    host = lm.init_model(cfg, 0, device="cpu")
+    host.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    ref, _ = lm.forward(cfg, host, {"tokens": toks})
+    err = (got.float().cpu() - ref.float()).abs().max()
+    assert float(err) <= 3e-2 * float(ref.float().abs().max())

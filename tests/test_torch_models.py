@@ -1,0 +1,447 @@
+"""The port's language model (``repro_torch.models``) against the JAX
+package's on the same inputs, on the CPU.
+
+Inputs come from ``numpy.random.default_rng``; model weights are drawn by
+``repro.models.lm.init_model`` and carried across with
+``repro_torch.interop.lm_params_from_numpy``, so both packages compute the
+same function.  ``repro``'s bcsr FFN runs its Pallas kernel in interpret
+mode (``impl="pallas"``, as its own tests run it on the CPU) or its plain
+dense-block tier (``impl="ref"``).
+
+Tolerances: in float32, |Δ| <= 1e-4 · max|ref| on logits, attention outputs
+and layer outputs (only the order of float32 sums differs), and
+|Δ_i| <= 1e-5 · (|A| · |x|)_i on each bcsr FFN product; in bf16,
+3e-2 · max|ref| (the two frameworks round bf16 at other places), and
+greedy tokens are not compared.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_reduced as j_get_reduced
+from repro.kernels.bcsr_spmm import bcsr_spmm_pallas
+from repro.models import attention as jattn
+from repro.models import common as jcommon
+from repro.models import ffn as jffn
+from repro.models import lm as jlm
+from repro.models.common import KeyGen
+
+from repro_torch.configs import ARCH_IDS, get_config, get_reduced
+from repro_torch.interop import lm_params_from_numpy, port_config
+from repro_torch.kernels.bcsr_spmm import bcsr_spmm, bcsr_spmm_plain
+from repro_torch.models import attention as tattn
+from repro_torch.models import common as tcommon
+from repro_torch.models import ffn as tffn
+from repro_torch.models import lm as tlm
+
+F32_TOL = 1e-4
+BF16_TOL = 3e-2
+ROW_TOL = 1e-5
+CPU = torch.device("cpu")
+
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Small tensors gain nothing from intra-op threads, and the suite runs
+    in several worker processes at once: keep this file to one thread."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def close(got, ref, tol, what=""):
+    got = np.asarray(torch.as_tensor(got).float().numpy() if isinstance(got, torch.Tensor)
+                     else got, np.float64)
+    ref = np.asarray(ref, np.float64)
+    assert got.shape == ref.shape, (what, got.shape, ref.shape)
+    assert np.isfinite(got).all(), what
+    err = np.abs(got - ref).max() if got.size else 0.0
+    assert err <= tol * max(np.abs(ref).max(), 1e-30), (what, err, np.abs(ref).max())
+
+
+def rng_f32(seed, shape, scale=1.0):
+    return (np.random.default_rng(seed).standard_normal(shape) * scale).astype(np.float32)
+
+
+# ---------------------------------------------------------------------------
+# common
+# ---------------------------------------------------------------------------
+def test_norms_rope_and_positions_match_reference():
+    x = rng_f32(0, (2, 5, 4, 16))
+    g = rng_f32(1, (16,))
+    b = rng_f32(2, (16,))
+    tx = torch.as_tensor(x)
+    close(tcommon.rms_norm(tx, torch.as_tensor(g)), jcommon.rms_norm(x, g), F32_TOL)
+    close(tcommon.layer_norm(tx, torch.as_tensor(g), torch.as_tensor(b)),
+          jcommon.layer_norm(x, g, b), F32_TOL)
+    positions = np.random.default_rng(3).integers(0, 4096, (2, 5)).astype(np.int32)
+    for theta in (10000.0, 1000000.0):
+        cos, sin = tcommon.rope(torch.as_tensor(positions), 16, theta)
+        jcos, jsin = jcommon.rope(jnp.asarray(positions), 16, theta)
+        close(cos, jcos, F32_TOL, "cos")
+        close(sin, jsin, F32_TOL, "sin")
+        close(tcommon.apply_rope(tx, cos, sin), jcommon.apply_rope(x, jcos, jsin),
+              F32_TOL, "apply_rope")
+    bx = tx.to(torch.bfloat16)
+    cos, sin = tcommon.rope(torch.as_tensor(positions), 16)
+    assert tcommon.apply_rope(bx, cos, sin).dtype == torch.bfloat16
+    assert tcommon.rms_norm(bx, torch.ones(16, dtype=torch.bfloat16)).dtype == torch.bfloat16
+    close(tcommon.sinusoidal_positions(7, 12), jcommon.sinusoidal_positions(7, 12), F32_TOL)
+
+
+def test_initialisers_are_seeded_truncated_and_scaled():
+    gen = torch.Generator().manual_seed(0)
+    w = tcommon.dense_init(gen, (256, 64))
+    assert w.dtype == torch.float32 and float(w.abs().max()) <= 2 / 16
+    assert abs(float(w.std()) - 0.88 / 16) < 0.01  # std of N(0,1) cut at +-2
+    w2 = tcommon.dense_init(torch.Generator().manual_seed(0), (256, 64))
+    assert torch.equal(w, w2)
+    e = tcommon.embed_init(torch.Generator().manual_seed(1), (512, 32), torch.bfloat16)
+    assert e.dtype == torch.bfloat16 and abs(float(e.float().std()) - 0.02) < 0.002
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("kw", [
+    dict(causal=True),
+    dict(causal=False),
+    dict(causal=True, window=11),
+    dict(causal=True, skip_masked_blocks=True),
+    dict(causal=True, q_offset=5),
+])
+@pytest.mark.parametrize("sq,skv,chunks", [(64, 64, (16, 16)), (24, 24, (16, 7)),
+                                           (18, 18, (5, 64))])
+def test_flash_attention_matches_reference(kw, sq, skv, chunks):
+    """GQA (8 query heads over 4 kv heads); chunks that divide the lengths
+    and chunks that do not (the largest divisor below is taken)."""
+    q = rng_f32(0, (2, sq, 8, 16))
+    k = rng_f32(1, (2, skv, 4, 16))
+    v = rng_f32(2, (2, skv, 4, 16))
+    qc, kc = chunks
+    got = tattn.flash_attention(torch.as_tensor(q), torch.as_tensor(k),
+                                torch.as_tensor(v), q_chunk=qc, kv_chunk=kc, **kw)
+    ref = jattn.flash_attention(q, k, v, q_chunk=qc, kv_chunk=kc, **kw)
+    close(got, ref, F32_TOL, str(kw))
+
+
+def test_kv_cache_and_decode_attention_through_a_ring_wrap():
+    """An 8-slot ring with window 8 over 21 tokens (wraps twice), and a full
+    cache; batch elements start at different depths.  Every cache leaf and
+    every decode output equals the reference's."""
+    q = rng_f32(0, (2, 21, 8, 16))
+    k = rng_f32(1, (2, 21, 4, 16))
+    v = rng_f32(2, (2, 21, 4, 16))
+    for slots, window in ((8, 8), (32, None)):
+        jc = jattn.init_kv_cache(2, slots, 4, 16, jnp.float32)
+        jc["pos"] = jnp.asarray([0, 3], jnp.int32)
+        tc = tattn.init_kv_cache(2, slots, 4, 16, torch.float32, device="cpu")
+        tc["pos"].copy_(torch.tensor([0, 3]))
+        for t in range(21):
+            jc = jattn.update_kv_cache(jc, k[:, t:t + 1], v[:, t:t + 1])
+            out = tattn.update_kv_cache(tc, torch.as_tensor(k[:, t:t + 1]),
+                                        torch.as_tensor(v[:, t:t + 1]))
+            assert out is tc  # written in place
+            for key in ("k", "v", "positions", "pos"):
+                assert np.array_equal(tc[key].numpy(), np.asarray(jc[key])), (t, key)
+            close(tattn.decode_attention(torch.as_tensor(q[:, t:t + 1]), tc,
+                                         window=window),
+                  jattn.decode_attention(q[:, t:t + 1], jc, window=window),
+                  F32_TOL, f"decode t={t} slots={slots}")
+
+
+# ---------------------------------------------------------------------------
+# FFNs
+# ---------------------------------------------------------------------------
+def _carry(module, tree):
+    """Copy a JAX parameter dict (Px leaves or arrays) into a port module."""
+    for name, leaf in tree.items():
+        value = np.asarray(getattr(leaf, "value", leaf))
+        own = getattr(module, name)
+        assert tuple(own.shape) == value.shape, name
+        if own.is_floating_point():
+            own.copy_(torch.as_tensor(np.array(value, np.float32)))
+        else:
+            assert np.array_equal(own.numpy(), value), name
+
+
+@pytest.mark.parametrize("kind", ["swiglu", "gelu", "structured"])
+def test_dense_and_structured_ffns_match_reference(kind):
+    d_model, d_ff = 32, 64
+    kg = KeyGen(0)
+    x = rng_f32(5, (2, 3, d_model))
+    gen = torch.Generator().manual_seed(0)
+    if kind == "swiglu":
+        jp = jffn.swiglu_init(kg, d_model, d_ff)
+        tp = tffn.swiglu_init(gen, d_model, d_ff)
+        _carry(tp, jp)
+        ref, got = jffn.swiglu_apply({k: v.value for k, v in jp.items()}, x), \
+            tffn.swiglu_apply(tp, torch.as_tensor(x))
+    elif kind == "gelu":
+        jp = jffn.gelu_ffn_init(kg, d_model, d_ff)
+        tp = tffn.gelu_ffn_init(gen, d_model, d_ff)
+        _carry(tp, jp)
+        ref, got = jffn.gelu_ffn_apply({k: v.value for k, v in jp.items()}, x), \
+            tffn.gelu_ffn_apply(tp, torch.as_tensor(x))
+    else:
+        jcfg = jffn.SparseFFNConfig(kind="structured", n_groups=4, band=1)
+        tcfg = tffn.SparseFFNConfig(kind="structured", n_groups=4, band=1)
+        jp = jffn.sparse_ffn_init(kg, d_model, d_ff, jcfg)
+        tp = tffn.sparse_ffn_init(gen, d_model, d_ff, tcfg)
+        _carry(tp, jp)
+        ref = jffn.sparse_ffn_apply({k: v.value for k, v in jp.items()}, x, jcfg, d_ff)
+        got = tffn.sparse_ffn_apply(tp, torch.as_tensor(x), tcfg, d_ff)
+    close(got, ref, F32_TOL, kind)
+
+
+def _bcsr_pair(d_model, d_ff, block, seed=0, density=0.25):
+    jcfg = jffn.SparseFFNConfig(kind="bcsr", block=block, density=density, seed=seed)
+    tcfg = tffn.SparseFFNConfig(kind="bcsr", block=block, density=density, seed=seed)
+    jp = jffn.sparse_ffn_init(KeyGen(0), d_model, d_ff, jcfg)
+    jp = {k: v.value for k, v in jp.items()}
+    tp = tffn.SparseFFN(d_model, d_ff, tcfg, torch.float32, CPU,
+                        torch.Generator().manual_seed(0))
+    return jcfg, tcfg, jp, tp
+
+
+@pytest.mark.parametrize("d_model,d_ff,block,seed,n1,n2", [
+    (2560, 6912, (128, 128), 0, 254, 302),  # qwen1.5-4b at full width
+    (3840, 10240, (128, 128), 0, None, None),  # h2o-danube-3-4b
+    (128, 256, (32, 32), 0, None, None),
+    (128, 256, (32, 32), 7, None, None),
+])
+def test_bcsr_block_pattern_is_the_references_bit_for_bit(d_model, d_ff, block,
+                                                          seed, n1, n2):
+    jcfg = jffn.SparseFFNConfig(kind="bcsr", block=block, seed=seed)
+    tcfg = tffn.SparseFFNConfig(kind="bcsr", block=block, seed=seed)
+    (r1, c1), (r2, c2) = tffn.bcsr_pattern(tcfg, d_model, d_ff)
+    jrng = np.random.default_rng(seed)
+    bm, bk = block
+    m1 = jrng.random((d_ff // bm, d_model // bk)) < 0.25
+    m1[:, 0] |= ~m1.any(axis=1)
+    m2 = jrng.random((d_model // bk, d_ff // bm)) < 0.25
+    m2[:, 0] |= ~m2.any(axis=1)
+    if d_model <= 512:  # the reference's own init, arrays and all
+        jp = jffn.sparse_ffn_init(KeyGen(0), d_model, d_ff, jcfg)
+        for name, arr in (("w1_rows", r1), ("w1_cols", c1), ("w2_rows", r2),
+                          ("w2_cols", c2)):
+            assert np.array_equal(np.asarray(jp[name].value), arr), name
+    assert np.array_equal(np.stack(np.nonzero(m1)), np.stack([r1, c1]))
+    assert np.array_equal(np.stack(np.nonzero(m2)), np.stack([r2, c2]))
+    if n1 is not None:
+        assert (len(r1), len(r2)) == (n1, n2)
+    tp = tffn.SparseFFN(d_model, d_ff, tcfg, torch.bfloat16, CPU)
+    for which, rows, n in (("w1", r1, d_ff // bm), ("w2", r2, d_model // bk)):
+        indptr = tp[f"{which}_indptr"].numpy()
+        assert indptr.dtype == np.int32 and len(indptr) == n + 1
+        assert np.array_equal(np.repeat(np.arange(n), np.diff(indptr)), rows)
+    assert "w1_indptr" not in tp.state_dict()
+
+
+@pytest.mark.parametrize("d_model,d_ff,block,T", [(128, 256, (32, 32), 6),
+                                                   (64, 128, (16, 32), 5),
+                                                   (256, 384, (128, 128), 3)])
+def test_bcsr_ffn_products_and_layer_match_reference(d_model, d_ff, block, T):
+    """Each weight product through the port's ``bcsr_spmm`` (its plain
+    version on the CPU) against ``bcsr_spmm_pallas`` in interpret mode at
+    1e-5·(|A|·|x|)_i, and the whole layer at both tiers."""
+    jcfg, tcfg, jp, tp = _bcsr_pair(d_model, d_ff, block)
+    _carry(tp, jp)
+    bm, bk = block
+    x = rng_f32(3, (1, T, d_model))
+    xt = np.ascontiguousarray(x.reshape(T, d_model).T)
+    for which, xb, n_rows in (("w1", xt.reshape(d_model // bk, bk, T), d_ff // bm),
+                              ("w2", rng_f32(4, (d_ff // bm, bm, T)), d_model // bk)):
+        ref = bcsr_spmm_pallas(jp[f"{which}_rows"], jp[f"{which}_cols"],
+                               jp[f"{which}_blocks"], xb, n_block_rows=n_rows,
+                               interpret=True)
+        args = (tp[f"{which}_blocks"], tp[f"{which}_cols"], tp[f"{which}_indptr"])
+        got = bcsr_spmm(*args, torch.as_tensor(xb))
+        scale = bcsr_spmm_plain(args[0].abs(), *args[1:], torch.as_tensor(np.abs(xb)))
+        err = np.abs(got.numpy().astype(np.float64) - np.asarray(ref, np.float64))
+        assert np.all(err <= ROW_TOL * scale.numpy()), (which, float(err.max()))
+    for j_impl, t_impl in (("pallas", "cuda"), ("ref", "ref")):
+        ref = jffn.sparse_ffn_apply(jp, x, dataclasses.replace(jcfg, impl=j_impl), d_ff)
+        got = tffn.sparse_ffn_apply(tp, torch.as_tensor(x),
+                                    dataclasses.replace(tcfg, impl=t_impl), d_ff)
+        close(got, ref, F32_TOL, j_impl)
+    bf = tp.to(torch.bfloat16)
+    y = tffn.sparse_ffn_apply(bf, torch.as_tensor(x).to(torch.bfloat16), tcfg, d_ff)
+    assert y.dtype == torch.bfloat16  # the residual stream keeps the model's dtype
+    close(y, jffn.sparse_ffn_apply(jp, x, dataclasses.replace(jcfg, impl="ref"), d_ff),
+          BF16_TOL, "bf16")
+
+
+def test_bf16_plain_bcsr_widens_and_refuses_mixed_operands():
+    _, _, jp, tp = _bcsr_pair(128, 256, (32, 32))
+    tp = tp.to(torch.bfloat16)
+    xb = torch.as_tensor(rng_f32(0, (4, 32, 3))).to(torch.bfloat16)
+    args = (tp["w1_blocks"], tp["w1_cols"], tp["w1_indptr"])
+    y = bcsr_spmm(*args, xb)
+    ref = bcsr_spmm_plain(args[0].float(), *args[1:], xb.float())
+    assert y.dtype == torch.float32 and torch.equal(y, ref)
+    with pytest.raises(TypeError, match="share a dtype"):
+        bcsr_spmm(*args, xb.float())
+
+
+def test_tune_sparse_ffn_maps_each_weight_through_its_own_plan():
+    """A planted plan cache with opposite winners for W1 and W2 (as
+    ``tests/test_models.py`` plants one for the reference): W1 keeps the
+    kernel, W2 goes to the plain tier, and the mixed layer computes what the
+    uniform plain layer computes."""
+    from repro_torch.tune import Plan, PlanCache, fingerprint
+
+    d_model, d_ff = 32, 64
+    cfg = tffn.SparseFFNConfig(kind="bcsr", block=(8, 8), density=0.4, impl="auto")
+    p = tffn.SparseFFN(d_model, d_ff, cfg, torch.float32, CPU,
+                       torch.Generator().manual_seed(0))
+    a1 = tffn.sparse_ffn_weight_csr(p, "w1", cfg, d_model, d_ff)
+    a2 = tffn.sparse_ffn_weight_csr(p, "w2", cfg, d_model, d_ff)
+    assert fingerprint(a1) != fingerprint(a2)
+    def plant(cache, a, fmt, impl, params):
+        cache.put(Plan(fingerprint=fingerprint(a), kind="spmm", fmt=fmt, impl=impl,
+                       params=params, est_cost=1.0, measured_s=1e-4,
+                       n_candidates=1, n_measured=1, k=16, backend="cpu",
+                       scale=[a.shape[0], a.shape[1], a.nnz]))
+
+    cache = PlanCache()
+    plant(cache, a1, "bcsr", "cuda", {"block": [8, 8]})
+    plant(cache, a2, "csr", "vector", {})
+    tuned = tffn.tune_sparse_ffn(cfg, p, d_model, d_ff, k=16, cache=cache)
+    assert (tuned.impl, tuned.impl_w2) == ("cuda", "ref")
+    x = torch.as_tensor(rng_f32(1, (2, 3, d_model)))
+    close(tffn.sparse_ffn_apply(p, x, tuned, d_ff),
+          tffn.sparse_ffn_apply(p, x, dataclasses.replace(tuned, impl="ref",
+                                                          impl_w2="ref"), d_ff),
+          F32_TOL)
+    # the other way round; a resolved config passes through untouched
+    swapped = PlanCache()
+    plant(swapped, a1, "csr", "vector", {})
+    plant(swapped, a2, "bcsr", "cuda", {"block": [8, 8]})
+    tuned = tffn.tune_sparse_ffn(cfg, p, d_model, d_ff, k=16, cache=swapped)
+    assert (tuned.impl, tuned.impl_w2) == ("ref", "cuda")
+    fixed = dataclasses.replace(cfg, impl="ref")
+    assert tffn.tune_sparse_ffn(fixed, p, d_model, d_ff, cache=cache) is fixed
+
+
+# ---------------------------------------------------------------------------
+# the model
+# ---------------------------------------------------------------------------
+def _models(arch, bcsr, dtype, j_impl="pallas"):
+    sff = jffn.SparseFFNConfig(kind="bcsr", block=(32, 32), impl=j_impl) if bcsr else None
+    jcfg = dataclasses.replace(j_get_reduced(arch), dtype=dtype, sparse_ffn=sff)
+    params, _ = jlm.init_model(jcfg, 0)
+    model = lm_params_from_numpy(jcfg, jax.tree.map(np.asarray, params))
+    return jcfg, params, model.cfg, model
+
+
+def test_ported_configs_are_the_references():
+    assert set(ARCH_IDS) == {"qwen1.5-4b", "h2o-danube-3-4b"}
+    from repro.configs import get_config as j_get_config
+
+    for arch in ARCH_IDS:
+        for mine, theirs in ((get_config(arch), j_get_config(arch)),
+                             (get_reduced(arch), j_get_reduced(arch))):
+            assert mine == port_config(theirs)
+            assert mine.dtype == torch.bfloat16
+    qwen = get_config("qwen1.5-4b")
+    assert (qwen.n_layers, qwen.d_model, qwen.d_ff, qwen.vocab_padded) == \
+        (40, 2560, 6912, 152064)
+    with pytest.raises(KeyError, match="serves"):
+        get_config("granite-moe-1b-a400m")
+
+
+@pytest.mark.parametrize("arch", ["qwen1.5-4b", "h2o-danube-3-4b"])
+@pytest.mark.parametrize("bcsr", [False, True], ids=["dense", "bcsr"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_forward_prefill_and_decode_match_reference(arch, bcsr, dtype):
+    """Reduced configs; the prompt (20 tokens) is longer than
+    h2o-danube's 16-token window, so its ring cache wraps at prefill and
+    again while decoding.  bf16 runs the reference's bcsr FFN at
+    ``impl="ref"``: its Pallas tier refuses a bf16 model (see
+    :func:`test_reference_pallas_ffn_refuses_a_bf16_model`)."""
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    tol = F32_TOL if dtype == "float32" else BF16_TOL
+    jcfg, params, tcfg, model = _models(arch, bcsr, jdt,
+                                        "pallas" if dtype == "float32" else "ref")
+    if bcsr:
+        assert tcfg.sparse_ffn.impl == ("cuda" if dtype == "float32" else "ref")
+    assert tlm.param_count(model) == jlm.param_count(params)
+    toks = np.random.default_rng(1).integers(0, jcfg.vocab, (2, 23)).astype(np.int32)
+    ref, _ = jlm.forward(jcfg, params, {"tokens": jnp.asarray(toks)})
+    got, aux = tlm.forward(tcfg, model, {"tokens": toks})
+    assert got.dtype == getattr(torch, dtype) and aux == 0.0
+    close(got, ref, tol, "forward")
+    jst, jlg = jlm.prefill(jcfg, params, {"tokens": jnp.asarray(toks[:, :20])}, 32)
+    tst, tlg = tlm.prefill(tcfg, model, {"tokens": toks[:, :20]}, 32)
+    close(tlg, jlg, tol, "prefill logits")
+    for step in range(4):
+        for key in ("k", "v"):
+            close(tst["kv"][key], jst["kv"][key], tol, f"step {step} cache {key}")
+        for key in ("positions", "pos"):
+            assert np.array_equal(tst["kv"][key].numpy(), np.asarray(jst["kv"][key]))
+        if step == 3:
+            break
+        t = toks[:, 20 + step:21 + step]
+        jst, jlg = jlm.decode_step(jcfg, params, jst, jnp.asarray(t))
+        tst, tlg = tlm.decode_step(tcfg, model, tst, t)
+        close(tlg, jlg, tol, f"decode {step}")
+
+
+@pytest.mark.parametrize("arch", ["qwen1.5-4b", "h2o-danube-3-4b"])
+@pytest.mark.parametrize("bcsr", [False, True], ids=["dense", "bcsr"])
+def test_decode_matches_forward_in_the_port(arch, bcsr):
+    """The port alone: prefill of 20 tokens and 6 decode steps give
+    ``forward``'s logits at the same positions (float32)."""
+    sff = tffn.SparseFFNConfig(kind="bcsr", block=(32, 32)) if bcsr else None
+    cfg = dataclasses.replace(get_reduced(arch), dtype=torch.float32, sparse_ffn=sff)
+    model = tlm.init_model(cfg, 3, device="cpu")
+    toks = np.random.default_rng(2).integers(0, cfg.vocab, (2, 26)).astype(np.int32)
+    full, _ = tlm.forward(cfg, model, {"tokens": toks})
+    st, lg = tlm.prefill(cfg, model, {"tokens": toks[:, :20]}, 32)
+    close(lg, full[:, 19], F32_TOL, "prefill")
+    for j in range(20, 26):
+        st, lg = tlm.decode_step(cfg, model, st, toks[:, j:j + 1])
+        close(lg[:, 0], full[:, j], F32_TOL, f"position {j}")
+
+
+def test_reference_pallas_ffn_refuses_a_bf16_model():
+    """The reference's bcsr tier returns float32 from its kernel, and its
+    layer scan refuses a bf16 carry that turns float32 (ROADMAP C.17); the
+    port's layer returns the input's dtype, so its bf16 model runs the
+    kernel path."""
+    sff = jffn.SparseFFNConfig(kind="bcsr", block=(32, 32), impl="pallas")
+    jcfg = dataclasses.replace(j_get_reduced("qwen1.5-4b"), sparse_ffn=sff)
+    params, _ = jlm.init_model(jcfg, 0)
+    toks = jnp.zeros((1, 4), jnp.int32)
+    with pytest.raises(TypeError, match="carry"):
+        jlm.forward(jcfg, params, {"tokens": toks})
+    model = lm_params_from_numpy(jcfg, jax.tree.map(np.asarray, params))
+    assert model.cfg.sparse_ffn.impl == "cuda"
+    logits, _ = tlm.forward(model.cfg, model, {"tokens": np.zeros((1, 4), np.int32)})
+    assert logits.dtype == torch.bfloat16 and bool(torch.isfinite(logits.float()).all())
+
+
+def test_models_need_a_device_and_refuse_unported_families(monkeypatch):
+    cfg = get_reduced("qwen1.5-4b")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tlm.init_model(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tlm.init_decode_state(cfg, 2, 16)
+    model = tlm.init_model(cfg, device="cpu")
+    assert model.device.type == "cpu"
+    assert not any(p.requires_grad for p in model.parameters())
+    for fam, kw in (("ssm", dict(ssm_kind="rwkv6")), ("hybrid", {}), ("audio", {}),
+                    ("vlm", {}), ("moe", {})):
+        bad = dataclasses.replace(cfg, family=fam, **kw)
+        with pytest.raises(NotImplementedError, match="ROADMAP A.5"):
+            tlm.init_model(bad, device="cpu")
+    with pytest.raises(NotImplementedError, match="moe"):
+        tlm.init_model(dataclasses.replace(cfg, moe=object()), device="cpu")

@@ -1,0 +1,155 @@
+"""The port's LM server and CLI (``repro_torch.runtime.server``,
+``repro_torch.launch.serve --arch``) against the JAX package's, on the CPU.
+
+Weights are drawn by ``repro.models.lm.init_model`` and carried across
+(``repro_torch.interop.lm_params_from_numpy``); prompts come from
+``numpy.random.default_rng``.  In float32 the greedy tokens must equal the
+reference server's; in bf16 tokens are not compared.
+"""
+import dataclasses
+import json
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_reduced as j_get_reduced
+from repro.models import lm as jlm
+from repro.models.ffn import SparseFFNConfig as JSparseFFNConfig
+from repro.runtime.server import BatchedServer as JServer
+from repro.runtime.server import Request as JRequest
+
+from repro_torch.configs import get_reduced
+from repro_torch.interop import lm_params_from_numpy
+from repro_torch.launch import serve as serve_cli
+from repro_torch.models import lm as tlm
+from repro_torch.models.ffn import SparseFFNConfig
+from repro_torch.runtime.server import BatchedServer, Request, _merge_slot
+
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Small tensors gain nothing from intra-op threads, and the suite runs
+    in several worker processes at once: keep this file to one thread."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _prompts(n, vocab, seed=0, lens=(5, 9, 3, 12, 7)):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, vocab, lens[i % len(lens)]).astype(np.int32)
+            for i in range(n)]
+
+
+def _serve(server_cls, request_cls, cfg, params, prompts, slots, max_new=6,
+           max_seq=32):
+    srv = server_cls(cfg, params, batch_slots=slots, max_seq=max_seq)
+    reqs = [request_cls(rid=i, prompt=p, max_new=max_new) for i, p in enumerate(prompts)]
+    for r in reqs:
+        srv.submit(r)
+    srv.run_until_drained()
+    return srv, reqs
+
+
+def _pair(arch, bcsr, dtype=jnp.float32):
+    sff = JSparseFFNConfig(kind="bcsr", block=(32, 32), impl="pallas") if bcsr else None
+    jcfg = dataclasses.replace(j_get_reduced(arch), dtype=dtype, sparse_ffn=sff)
+    params, _ = jlm.init_model(jcfg, 0)
+    model = lm_params_from_numpy(jcfg, jax.tree.map(np.asarray, params))
+    return jcfg, params, model
+
+
+@pytest.mark.parametrize("arch,bcsr", [("qwen1.5-4b", False), ("qwen1.5-4b", True),
+                                       ("h2o-danube-3-4b", False)])
+def test_greedy_tokens_equal_the_reference_server(arch, bcsr):
+    """Five requests of mixed prompt lengths through 2 slots (continuous
+    batching: slots refill mid-run), float32: the same tokens, one prefill
+    per request, and the same step and occupancy counts."""
+    jcfg, params, model = _pair(arch, bcsr)
+    prompts = _prompts(5, jcfg.vocab)
+    jsrv, jreqs = _serve(JServer, JRequest, jcfg, params, prompts, 2)
+    tsrv, treqs = _serve(BatchedServer, Request, model.cfg, model, prompts, 2)
+    assert [r.out for r in treqs] == [r.out for r in jreqs]
+    assert all(r.done and len(r.out) == 6 for r in treqs)
+    assert tsrv.prefills == jsrv.prefills == 5
+    assert (tsrv.steps, tsrv.occupancy) == (jsrv.steps, jsrv.occupancy)
+    assert all(r.latency_s >= 0 for r in treqs)
+
+
+@pytest.mark.parametrize("bcsr", [False, True], ids=["dense", "bcsr"])
+def test_two_slots_give_the_tokens_of_two_one_slot_servers(bcsr):
+    sff = SparseFFNConfig(kind="bcsr", block=(32, 32)) if bcsr else None
+    cfg = dataclasses.replace(get_reduced("h2o-danube-3-4b"), dtype=torch.float32,
+                              sparse_ffn=sff)
+    model = tlm.init_model(cfg, 1, device="cpu")
+    prompts = _prompts(2, cfg.vocab, seed=4, lens=(20, 6))  # 20 > the window
+    _, both = _serve(BatchedServer, Request, cfg, model, prompts, 2, max_new=8)
+    for p, r in zip(prompts, both):
+        _, (alone,) = _serve(BatchedServer, Request, cfg, model, [p], 1, max_new=8)
+        assert alone.out == r.out
+
+
+def test_bf16_server_serves_and_merges_slots_by_layout():
+    """A bf16 model serves every request (tokens not compared).  The slot
+    merge writes slot i of every layer and nothing else, also where the
+    slot count equals the layer count (2) or the kv-head count (4): the
+    port merges on the state's known batch axis, where the reference
+    searches for the axis by shape."""
+    cfg = get_reduced("qwen1.5-4b")  # 2 layers, 4 kv heads
+    model = tlm.init_model(cfg, 0, device="cpu")
+    srv, reqs = _serve(BatchedServer, Request, cfg, model, _prompts(3, cfg.vocab), 4)
+    assert all(r.done for r in reqs) and srv.prefills == 3
+    for slots in (2, 4):
+        state = tlm.init_decode_state(cfg, slots, 16, "cpu")
+        one, _ = tlm.prefill(cfg, model, {"tokens": np.arange(5)[None]}, 16)
+        before = {k: v.clone() for k, v in state["kv"].items()}
+        _merge_slot(state, one, 1)
+        for key, t in state["kv"].items():
+            assert torch.equal(t[:, 1], one["kv"][key][:, 0]), key
+            others = [i for i in range(slots) if i != 1]
+            assert torch.equal(t[:, others], before[key][:, others]), key
+
+
+def test_auto_impl_routes_through_the_tuner_at_the_slot_count():
+    """``impl="auto"``: the server resolves W1 and W2 through the measured
+    search at k = slots on the given plan cache; each resolves to the kernel
+    tier or the plain one, and the served tokens equal a pinned server's."""
+    from repro_torch.tune import PlanCache
+
+    base = dataclasses.replace(get_reduced("qwen1.5-4b"), dtype=torch.float32)
+    auto = dataclasses.replace(base, sparse_ffn=SparseFFNConfig(
+        kind="bcsr", block=(32, 32), impl="auto"))
+    model = tlm.init_model(auto, 0, device="cpu")
+    cache = PlanCache()
+    srv = BatchedServer(auto, model, batch_slots=4, max_seq=32, plan_cache=cache)
+    sff = srv.cfg.sparse_ffn
+    assert sff.impl in ("cuda", "ref") and sff.impl_w2 in ("cuda", "ref")
+    assert {p.k for p in cache.plans()} == {4}
+    prompts = _prompts(4, base.vocab)
+    for r in (Request(rid=i, prompt=p, max_new=4) for i, p in enumerate(prompts)):
+        srv.submit(r)
+    got = [r.out for r in sorted(srv.run_until_drained(), key=lambda r: r.rid)]
+    pinned = dataclasses.replace(auto, sparse_ffn=dataclasses.replace(
+        sff, impl="cuda", impl_w2=None))
+    _, ref = _serve(BatchedServer, Request, pinned, model, prompts, 4, max_new=4)
+    assert got == [r.out for r in ref]
+
+
+@pytest.mark.parametrize("arch", ["qwen1.5-4b", "h2o-danube-3-4b"])
+def test_cli_serves_every_request_on_the_cpu(arch, tmp_path, capsys):
+    stats = tmp_path / "lm.json"
+    serve_cli.main(["--arch", arch, "--reduced", "--device", "cpu", "--requests", "6",
+                    "--slots", "4", "--prompt-len", "8", "--max-new", "5",
+                    "--stats-json", str(stats)])
+    out = capsys.readouterr().out
+    assert "served 6/6 requests, 30 tokens" in out and "6 prefills" in out
+    summary = json.loads(stats.read_text())
+    assert summary["served"] == 6 and summary["tokens"] == 30
+    assert summary["device"] == "cpu" and summary["latency_p99_s"] > 0
+    with pytest.raises(SystemExit):
+        serve_cli.main(["--arch", "qwen1.5-4b", "--sparse", "cant"])
