@@ -164,17 +164,24 @@ scipy; imports nothing of JAX or of the JAX package.  Phases:
    FFN), and so does ``--arch h2o-danube-3-4b`` (24 layers, GQA); (b) the
    bcsr-FFN variant (``SparseFFNConfig(kind="bcsr")``: (128, 128) blocks,
    density 0.25, impl ``cuda``): layer 0's W1 and W2 through
-   ``bcsr_spmm_bf16`` against the plain version at k in {1, 4, 32}, at
-   1e-5 (|A| |x|)_i and the same bits on a second launch; (c) with the
-   launch counts set to 0, a 4-slot ``BatchedServer`` serves 8 requests
-   (prompt 32, max_new 16): ``bcsr_spmm_bf16`` must launch 2 x 40 x
-   (prefills + decode steps) times and nothing else; (g) prefill ms (32
-   tokens) and decode step ms (4 slots) of the dense and the bcsr model
-   beside the decode step's bound (weight bytes over 3.35 TB/s), and the
-   kernel per weight at k = 4 and 32 (L2 flushed) beside its plain
-   version, a dense bf16 matmul of the densified weight (``library_ms``)
-   and its bound (bf16 blocks and X read, float32 Y written, over 3.35
-   TB/s, against 2 nnz k over 989 TFLOP/s); (f) ``impl="auto"``: the two
+   ``bcsr_spmm_bf16`` (its tensor-core kernel) against the plain version
+   at k in {1, 3, 4, 17, 32, 100, 128, 512}, at 1e-5 (|A| |x|)_i (a row
+   that breaks it is printed with its term count k_i) and the same bits on
+   a second launch; (c) with the launch counts set to 0, a 4-slot
+   ``BatchedServer`` serves 8 requests (prompt 32, max_new 16):
+   ``bcsr_spmm_bf16`` and ``bcsr_spmm_bf16_mma`` must each launch 2 x 40 x
+   (prefills + decode steps) times (every launch on the tensor cores) and
+   nothing else; (g) prefill ms (32 tokens) and decode step ms (4 slots)
+   of the dense and the bcsr model beside the decode step's bound (weight
+   bytes over 3.35 TB/s), and the kernel per weight at k = 4, 32, 128 and
+   512 (L2 flushed) beside its plain version, a dense bf16 matmul of the
+   densified weight (``library_ms``) and its bound (bf16 blocks and X
+   read, float32 Y written, over 3.35 TB/s, against 2 nnz k over 989
+   TFLOP/s) and the same launch on an empty matrix of the same shapes
+   (``empty_ms``: the launch and a zero Y, the floor of this timing);
+   then W1 cut into (128, 8) blocks, which take the CUDA-core
+   kernel, checked the same way and timed at k = 4 and 32 (not on the
+   main path, so not in the kernel table); (f) ``impl="auto"``: the two
    searches at k = 4 on a scratch plan cache, each weight's plan and impl,
    the 8 requests again; (d) a float32 copy of the bcsr model (TF32 off):
    prefill + 15 decode steps equal ``forward`` at every position within
@@ -1113,8 +1120,11 @@ def mesh_phase(dev, scale: float, record: dict, *, tuned: dict | None = None,
 # -- phase 11: LM serving ---------------------------------------------------
 LM_ARCHES = ("qwen1.5-4b", "h2o-danube-3-4b")  # (a): both dense, at full width
 LM_REQUESTS, LM_SLOTS, LM_PROMPT, LM_NEW, LM_MAX_SEQ = 8, 4, 32, 16, 128
-LM_CHECK_KS = (1, 4, 32)  # (b): decode at 1 and 4 slots, the 32-token prefill
-LM_TIMED_KS = (4, 32)  # (g)
+# (b): decode at 1 and 4 slots, the 32-token prefill, a 4-slot x 128-token
+# prefill (512), and ragged widths for the N tiles' masks
+LM_CHECK_KS = (1, 3, 4, 17, 32, 100, 128, 512)
+LM_TIMED_KS = (4, 32, 128, 512)  # (g)
+LM_CORE_KS = (4, 32)  # (g): the CUDA-core path on the same weight, re-blocked
 LM_CONSISTENCY = 1e-3  # (d): float32 decode against forward, x max|logits|
 # (e): served bf16 first-token logits against the float32 copy's, as a share
 # of max|logits| (PERF.md §2 gives the limit's reason)
@@ -1133,7 +1143,11 @@ def lm_phase(dev, record: dict, *, reduced: bool = False) -> tuple[dict, list]:
 
     from repro_torch.configs import get_config, get_reduced
     from repro_torch.kernels import _build
-    from repro_torch.kernels.bcsr_spmm import bcsr_spmm, bcsr_spmm_plain
+    from repro_torch.kernels.bcsr_spmm import (
+        bcsr_spmm,
+        bcsr_spmm_plain,
+        bf16_tensor_core_path,
+    )
     from repro_torch.launch import serve as serve_cli
     from repro_torch.models import lm
     from repro_torch.models.ffn import SparseFFNConfig
@@ -1279,9 +1293,12 @@ def lm_phase(dev, record: dict, *, reduced: bool = False) -> tuple[dict, list]:
           f"{rec['dense_params'] / 1e9:.3f} G)", flush=True)
     weights = {}
     errs = {}
+    path = "tensor cores" if bf16_tensor_core_path(bm, bk) else "CUDA cores"
     for which, n_cb in (("w1", cfg.d_model // bk), ("w2", cfg.d_ff // bm)):
         args = (ffn0[f"{which}_blocks"], ffn0[f"{which}_cols"], ffn0[f"{which}_indptr"])
         weights[which] = (args, n_cb)
+        # k_i, the terms of each output row: its block row's stored blocks x bk
+        terms = (args[2][1:] - args[2][:-1]).long() * args[0].shape[2]
         for k in LM_CHECK_KS:
             xb = torch.as_tensor(rng.standard_normal((n_cb, args[0].shape[2], k))
                                  .astype(np.float32), device=dev).to(torch.bfloat16)
@@ -1291,11 +1308,17 @@ def lm_phase(dev, record: dict, *, reduced: bool = False) -> tuple[dict, list]:
             yp = bcsr_spmm_plain(*args, xb)
             scale = bcsr_spmm_plain(args[0].abs(), *args[1:], xb.abs()).double()
             err = (y.double() - yp.double()).abs()
-            if y.dtype != torch.float32 or not bool((err <= TOL * scale).all()):
-                fail(f"bcsr_spmm_bf16 {which} k={k}: {int((err > TOL * scale).sum())} "
-                     f"entries over {TOL:g} (|A| |x|)_i, max_abs_err {float(err.max()):.3e}")
+            bad = err > TOL * scale
+            if y.dtype != torch.float32 or bool(bad.any()):
+                for r, i in bad.any(-1).nonzero()[:8].tolist():
+                    j = int((err[r, i] / scale[r, i]).argmax())
+                    print(f"  row {r * args[0].shape[1] + i}: k_i {int(terms[r])}, "
+                          f"|err| {float(err[r, i, j]):.3e} = "
+                          f"{float(err[r, i, j] / scale[r, i, j]):.3e} (|A| |x|)_i")
+                fail(f"bcsr_spmm_bf16 {which} k={k}: {int(bad.sum())} entries over "
+                     f"{TOL:g} (|A| |x|)_i, max_abs_err {float(err.max()):.3e}")
             errs[f"{which}/k{k}"] = float(err.max())
-            print(f"  ok bcsr_spmm_bf16 layer-0 {which} k={k}: max_abs_err "
+            print(f"  ok bcsr_spmm_bf16 ({path}) layer-0 {which} k={k}: max_abs_err "
                   f"{errs[f'{which}/k{k}']:.3e}, the same bits on a second launch")
     rec["kernel_checks"] = errs
 
@@ -1312,12 +1335,65 @@ def lm_phase(dev, record: dict, *, reduced: bool = False) -> tuple[dict, list]:
           f"{srv.prefills} prefills, {srv.steps} decode steps, launches {launches} "
           f"(2 x {cfg.n_layers} x {srv.prefills + srv.steps} = {expect} expected)",
           flush=True)
+    # every launch on the tensor cores: both counters equal, nothing else
     if cuda and (launches.get("bcsr_spmm_bf16", 0) != expect
-                 or set(launches) != {"bcsr_spmm_bf16"}):
-        fail(f"phase 11c launches {launches}, expected bcsr_spmm_bf16 = {expect} only")
+                 or launches.get("bcsr_spmm_bf16_mma", 0) != expect
+                 or set(launches) != {"bcsr_spmm_bf16", "bcsr_spmm_bf16_mma"}):
+        fail(f"phase 11c launches {launches}, expected bcsr_spmm_bf16 = "
+             f"bcsr_spmm_bf16_mma = {expect} and nothing else")
     rec["serve/bcsr"] = served_b
     rec["launches"] = launches
     del srv
+
+    def core_rows(args, n_cb, dense) -> list:
+        """The CUDA-core path on the same function: W1's (bm, bk) blocks cut
+        into (bm, 8) ones (bk = 8 takes bcsr_bf16), X viewed to match;
+        checked against the plain version (1e-5 (|A| |x|)_i, the same bits on
+        a second launch) and timed as the rows above.  Not on the main path."""
+        blocks, cols, indptr = args
+        nb, r, c = blocks.shape
+        cut = c // 8
+        b8 = blocks.view(nb, r, cut, 8).permute(0, 2, 1, 3).contiguous().view(nb * cut, r, 8)
+        c8 = (cols.long()[:, None] * cut + torch.arange(cut, device=dev)).reshape(-1).int()
+        ip8 = (indptr * cut).int()
+        if bf16_tensor_core_path(r, 8):
+            fail(f"({r}, 8) blocks would take the tensor cores")
+        out = []
+        for k in LM_CORE_KS:
+            xb = torch.as_tensor(rng.standard_normal((n_cb, c, k)).astype(np.float32),
+                                 device=dev).to(torch.bfloat16)
+            x8 = xb.view(n_cb * cut, 8, k)
+            before = dict(_build.LAUNCHES)
+            y = bcsr_spmm(b8, c8, ip8, x8)
+            if cuda and (_build.LAUNCHES["bcsr_spmm_bf16"]
+                         != before.get("bcsr_spmm_bf16", 0) + 1
+                         or _build.LAUNCHES["bcsr_spmm_bf16_mma"]
+                         != before.get("bcsr_spmm_bf16_mma", 0)):
+                fail("the (bm, 8) launch was not counted as a CUDA-core launch")
+            if not torch.equal(y, bcsr_spmm(b8, c8, ip8, x8)):
+                fail(f"bcsr_spmm_bf16 CUDA cores k={k}: two launches differ")
+            yp = bcsr_spmm_plain(*args, xb)
+            scale = bcsr_spmm_plain(blocks.abs(), cols, indptr, xb.abs()).double()
+            err = (y.double() - yp.double()).abs()
+            if not bool((err <= TOL * scale).all()):
+                fail(f"bcsr_spmm_bf16 CUDA cores k={k}: {int((err > TOL * scale).sum())} "
+                     f"entries over {TOL:g} (|A| |x|)_i")
+            fn_bytes = blocks.numel() * 2 + xb.numel() * 2 + y.numel() * 4
+            b_s, f_s = fn_bytes / HBM_BYTES_PER_S, 2 * blocks.numel() * k / BF16_FLOPS
+            row = {"name": "bcsr_spmm_bf16", "path": "CUDA cores",
+                   "shape": f"{cfg.arch_id} FFN w1 as {nb * cut} blocks ({r}, 8) bf16 k={k}",
+                   "max_abs_err": float(err.max()),
+                   "ms": median_ms(lambda: bcsr_spmm(b8, c8, ip8, x8), True),
+                   "plain_ms": median_ms(lambda: bcsr_spmm_plain(*args, xb), True),
+                   "library_ms": median_ms(lambda: dense @ xb.view(-1, k), True),
+                   "bound_ms": max(b_s, f_s) * 1e3,
+                   "bound_by": "bytes" if b_s >= f_s else "operations"}
+            out.append(row)
+            print(f"  bcsr_spmm_bf16 [{row['shape']}] (CUDA cores, not on the main path): "
+                  f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f}, dense bf16 matmul "
+                  f"{row['library_ms']:.4f}, bound {row['bound_ms']:.4f}, max_abs_err "
+                  f"{row['max_abs_err']:.3e}, the same bits on a second launch", flush=True)
+        return out
 
     # (g) times of the variant and of its kernel at the FFN's shapes
     rec["times/bcsr"] = step_times(cfg_b, model_b)
@@ -1331,6 +1407,7 @@ def lm_phase(dev, record: dict, *, reduced: bool = False) -> tuple[dict, list]:
         dense = torch.zeros((gm, n_cb, r, c), dtype=torch.bfloat16, device=dev)
         dense[brows, cols.long()] = blocks
         dense = dense.permute(0, 2, 1, 3).reshape(gm * r, n_cb * c)
+        empty = torch.zeros_like(indptr)  # the same shapes, no stored block
         for k in LM_TIMED_KS:
             xb = torch.as_tensor(rng.standard_normal((n_cb, c, k)).astype(np.float32),
                                  device=dev).to(torch.bfloat16)
@@ -1345,7 +1422,8 @@ def lm_phase(dev, record: dict, *, reduced: bool = False) -> tuple[dict, list]:
                 "replaces": "src/repro/kernels/bcsr_spmm.py:56",
                 "shape": f"{cfg.arch_id} FFN {which} {tuple(dense.shape)} "
                          f"{blocks.shape[0]} blocks {block} bf16 k={k}",
-                "launches": int(launches.get("bcsr_spmm_bf16", 0)),
+                "path": path,
+                "launches": int(launches.get("bcsr_spmm_bf16_mma", 0)),
                 "max_abs_err": max(errs.values()),
                 "ms": median_ms(lambda: bcsr_spmm(*args, xb), True),
                 "plain_ms": median_ms(lambda: bcsr_spmm_plain(*args, xb), True),
@@ -1354,13 +1432,18 @@ def lm_phase(dev, record: dict, *, reduced: bool = False) -> tuple[dict, list]:
                 "bytes": int(fn_bytes),
                 "flops": int(flops),
                 "library_ms": median_ms(lambda: dense @ x2, True),
+                # the launch and a zero Y alone: the floor of this timing
+                "empty_ms": median_ms(lambda: bcsr_spmm(blocks, cols, empty, xb), True),
             }
             rows.append(row)
             print(f"  bcsr_spmm_bf16 [{row['shape']}]: {row['ms']:.4f} ms, plain "
                   f"{row['plain_ms']:.4f}, dense bf16 matmul {row['library_ms']:.4f}, "
                   f"bound {row['bound_ms']:.4f} ({row['bound_by']}, "
                   f"{fn_bytes / 1e6:.2f} MB), share "
-                  f"{row['bound_ms'] / row['ms'] * 100:.1f} %", flush=True)
+                  f"{row['bound_ms'] / row['ms'] * 100:.1f} %; on an empty matrix "
+                  f"{row['empty_ms']:.4f}", flush=True)
+        if which == "w1":
+            rec["cuda_core_rows"] = core_rows(args, n_cb, dense)
         del dense
 
     # (f) the tuned variant: impl="auto" searches W1 and W2 at k = slots

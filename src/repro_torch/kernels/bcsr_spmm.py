@@ -14,11 +14,15 @@ allocates does; an offset view may not, and is refused).  The TPU kernel's zero-
 
 The wrapper dispatches on ``blocks.dtype``.  float32 operands take the
 kernels above.  bf16 operands (the sparse FFN's weights and activations)
-take a kernel of their own, ``bcsr_bf16`` in the same source: each value
-widens to float32 in registers, the sums and Y are float32, as the TPU kernel
-accumulates with ``preferred_element_type``.  Its launches count under
-``bcsr_spmm_bf16``; it takes bk in {8, 16, 32, 64, 128, 256} and any bm.
-Both operands must share the dtype.
+take kernels of their own in the same source, with float32 sums and a
+float32 Y, as the TPU kernel accumulates with ``preferred_element_type``.
+Blocks with bm % 16 == 0 and bk % 16 == 0 (the FFN's (128, 128)) run on the
+bf16 tensor cores (``bcsr_bf16_mma``: ``mma.sync`` with float32
+accumulators); the other shapes on CUDA cores (``bcsr_bf16``).
+:func:`bf16_tensor_core_path` is the launcher's rule.  Every bf16 launch
+counts under ``bcsr_spmm_bf16``, a tensor-core launch under
+``bcsr_spmm_bf16_mma`` as well.  bk must be in {8, 16, 32, 64, 128, 256};
+any bm.  Both operands must share the dtype.
 
 A wrapper runs the plain version only because its operand lies on the CPU;
 for a CUDA tensor it launches its kernel or raises.
@@ -33,12 +37,18 @@ from repro_torch.core.spmv import spmm_bcsr_dense
 
 from . import _build
 
-__all__ = ["bcsr_spmm", "bcsr_spmm_plain"]
+__all__ = ["bcsr_spmm", "bcsr_spmm_plain", "bf16_tensor_core_path"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
 BF16_BK = (8, 16, 32, 64, 128, 256)
+
+
+def bf16_tensor_core_path(bm: int, bk: int) -> bool:
+    """Whether bf16 blocks of (bm, bk) take the tensor-core kernel (as the
+    C launcher decides, by shape alone); the others take the CUDA-core one."""
+    return bm % 16 == 0 and bk % 16 == 0 and bk in BF16_BK
 
 
 def bcsr_spmm_plain(blocks, block_cols, indptr, x_blocked) -> torch.Tensor:
@@ -96,4 +106,6 @@ def bcsr_spmm(
                   _build.stream(dev))
     _build.check("bcsr_spmm", code, f"{key} launch")
     _build.count(key)
+    if bf16 and bf16_tensor_core_path(bm, bk):
+        _build.count("bcsr_spmm_bf16_mma")
     return y

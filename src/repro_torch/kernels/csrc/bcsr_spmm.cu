@@ -419,28 +419,71 @@ int launch_bk(const Launch& L, const int* indptr, const int* block_cols,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 operands: the sparse FFN's path (blocks and X in bf16, as the model
-// stores them; the TPU kernel takes the same and accumulates in float32 with
-// preferred_element_type).  Each bf16 value widens to float in registers
-// (its 16 bits are the top half of a float), every product of two of them is
-// exact in float32, and Y is float32: only the order of the sums differs from
-// the plain version.  The float32 paths above are untouched.
+// bf16 operands: the sparse FFN's path.  Blocks and X are bf16, as the model
+// stores them, and Y is float32: the TPU kernel
+// (src/repro/kernels/bcsr_spmm.py:56, bcsr_spmm_pallas) takes the same and
+// multiplies each block on its matrix unit, jnp.dot(..., preferred_element_type
+// =float32).  Every product of two bf16 values is exact in float32, so only the
+// order of the sums differs from the plain version.  The float32 paths above
+// are untouched.
 //
-// Bound.  At decode (k = the slot count) the stored blocks are nearly all
-// the bytes, 2 per stored value: bytes-bound.  The unit of work is one CTA
-// per (block row, 8-row group, N tile of KT columns); its kWarps warps split
-// the row's stored blocks (warp w takes blocks w, w + kWarps, ...), so even a
-// block row of 15 blocks keeps 8 warps' 16-byte loads in flight.  In a warp,
-// L = bk / 8 lanes read one slice row of 8 x 16 bytes, so RP = 32 / L rows
-// go per warp load and each lane keeps MR rows of 8 values; the next block's
-// values are loaded before the current block's FMAs.  A lane's partial sums
-// meet in a fixed xor-shuffle tree over its L lanes, then the warps' partial
-// sums meet in shared memory in warp order: no atomics, bitwise repeatable.
-// X is read from global memory (16 bytes per row at k = 8n, 8 at k = 4n, 16
-// for the 8 rows at k = 1, else by element).  Simple first: no tensor cores
-// (a later redesign: mma/wgmma in bf16), each N tile of a row group reads
-// the row's blocks again (from L2).  Takes bk in {8, 16, 32, 64, 128, 256}
-// and any bm.
+// Bound on this card.  At decode (k = the slot count, 1 to 4) the stored
+// blocks are nearly all the bytes, 2 per stored value: bytes-bound (qwen1.5-4b's
+// W1, 254 blocks of 128 x 128, is 8.3 MB, 2.5 us at 3.35 TB/s).  The float32
+// Y grows with k, so the function stays bytes-bound at every k the FFN runs,
+// but its operations close in: at k = 512 they take 4.3 us at 989 TFLOP/s
+// against 7.5 us of bytes, and mma.sync reaches only part of that peak.
+//
+// Design (bcsr_bf16_mma): the tensor-core path, taken when bm % 16 == 0 and
+// bk % 16 == 0 (the FFN's (128, 128) blocks and every configuration in
+// configs/).  Each product runs on the bf16 tensor cores with float32
+// accumulators in registers: mma.sync m16n8k16, A (a block's rows, row-major)
+// by ldmatrix, B (X, k contiguous) by ldmatrix.trans.  mma.sync and not wgmma:
+// wgmma's unit is a 64-row warpgroup tile, and at decode the grid needs
+// 16-row slices to fill the card (W2 has 20 block rows); the operations are
+// not the bound at any k the FFN runs.
+// * One CTA of four warps owns (block row, slice of RS rows, N tile of NT
+//   columns), the N tiles of a slice on neighbouring CTAs.  RS = 16 for
+//   k <= 32 (W2's 20 block rows give 160 CTAs), 32 or 64 for wider k.  NT
+//   is 8, 16, 32, 64 or 128, so a stored block leaves DRAM once per N tile,
+//   not once per 8 columns (launch_bf16_mma gives the rule).
+// * The CTA walks its block row's stored blocks in stored order through a
+//   ring of S stages in shared memory (cp.async; S - 1 stages in flight
+//   while one is consumed, S = 8 at k <= 8, where a stage is a 4 KB slice
+//   and a 1-2 KB X tile).  A stage holds the block's RS x bk slice and the
+//   X tile of its column block (bk rows x NT columns), so X reaches the
+//   tensor cores from shared memory.  Rows are padded by 16 bytes, so
+//   ldmatrix reads without bank conflicts.  The row's block columns are
+//   read into shared memory once, and each thread's copy addresses are
+//   fixed for the walk (its rows and column within a stage), so a stage
+//   issues its copies with no index arithmetic and no load of its own (an
+//   integer division per copy made issuing cost more than the copy).
+// * X is copied in 16-, 8- or 4-byte pieces where k is a multiple of 8, 4
+//   or 2, and by element (a plain load and store) where k is odd, into rows
+//   that ldmatrix.trans reads.  Below k = 8 a block's X rows are one
+//   contiguous run of bk k values, copied whole in 16-byte pieces, and B is
+//   built from it by 16-bit loads.  Only the columns j < k enter a product
+//   (a column of B reaches only its own column of it), and Y is written
+//   only where j < k.
+// * What bounds it at decode: the walk is a chain of stages, one per stored
+//   block of the row (W2's longest row holds 22), so the CTAs of the longest
+//   rows set the time.  A bulk copy (TMA) per slice in place of cp.async,
+//   deeper rings and eight warps a CTA were tried and moved nothing.
+// * At k <= 32 the four warps split each block's 16-deep steps (warp w takes
+//   steps w, w + 4, ...) and their partial sums meet in shared memory in warp
+//   order; wider tiles give each warp a 16- or 32-row by 16- to 64-column
+//   part of the tile.  No atomics, and no sum crosses a CTA: every output
+//   is summed in a fixed order, so two launches give the same bits, and an
+//   empty block row writes zeros.
+//
+// Other shapes (bk = 8, or bm not a multiple of 16) take bcsr_bf16, the first
+// kernel of this path: CUDA cores, each value widened to float32 in
+// registers.  One CTA per (block row, 8-row group, N tile of 1, 4 or 8
+// columns); its eight warps split the row's stored blocks (warp w takes
+// blocks w, w + 8, ...), each lane keeps the next block's 16-byte slices in
+// flight, a lane's sums meet in a fixed xor-shuffle tree and the warps' sums
+// in shared memory in warp order.  It takes bk in {8, 16, 32, 64, 128, 256}
+// and any bm.  The launcher chooses between the two by shape alone.
 __device__ __forceinline__ float bf_lo(unsigned w) { return __uint_as_float(w << 16); }
 __device__ __forceinline__ float bf_hi(unsigned w) { return __uint_as_float(w & 0xffff0000u); }
 
@@ -598,6 +641,308 @@ int launch_bf16_bk(const int* indptr, const int* block_cols,
   return (int)cudaGetLastError();
 }
 
+// -- the tensor-core path ----------------------------------------------------
+constexpr int kMmaThreads = 128;  // four warps a CTA
+constexpr int kPad = 8;           // bf16 values of padding after each smem row
+constexpr int kColCap = 256;      // a block row's columns staged in smem
+
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(src));
+}
+
+// Four 8x8 bf16 matrices; lane l gives the row address of matrix l / 8.
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(unsigned (&r)[4], const void* p) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
+}
+
+__device__ __forceinline__ void ldsm_x2_trans(unsigned (&r)[2], const void* p) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(s));
+}
+
+// d (16 x 8, float32) += a (16 x 16, bf16, row) * b (16 x 8, bf16, col).
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// v0 at Y[row, j], v1 at Y[row, j + 1] (j even), each only where it is < k.
+__device__ __forceinline__ void store_pair(float* yr, int j, int k, float v0,
+                                           float v1) {
+  if (j + 1 < k && (k & 1) == 0) {
+    *reinterpret_cast<float2*>(yr + j) = make_float2(v0, v1);
+  } else {
+    if (j < k) yr[j] = v0;
+    if (j + 1 < k) yr[j + 1] = v1;
+  }
+}
+
+// A CTA tile of RS rows x NT columns; the four warps are WM x WN parts of it,
+// each repeated over SK splits of the 16-deep steps; S ring stages.  XD: k < 8
+// and one N tile of 8, so each stage copies its block's X rows whole (bk k
+// values, contiguous) and builds B from them by 16-bit loads.
+template <int RS, int NT, int WM, int WN, int SK, int S, bool XD = false>
+struct MmaTile {
+  static_assert(!XD || (NT == 8 && WN == 1), "dense X tiles take N tiles of 8");
+  static_assert(WM * WN * SK == 4, "four warps a CTA");
+  static constexpr int kWR = RS / WM;  // warp tile rows
+  static constexpr int kWC = NT / WN;  // warp tile columns
+  static constexpr int kMI = kWR / 16;
+  static constexpr int kNI = kWC / 8;
+  static_assert(kMI * 16 == kWR && kNI * 8 == kWC, "whole mma tiles");
+  static_assert(kNI == 1 || kNI % 2 == 0, "B fragments load in pairs");
+  static constexpr int kXS = NT == 8 ? 8 : NT + kPad;  // X row stride in smem
+  // bf16 values of a stage for block width bk: the A slice, then the X tile.
+  __host__ __device__ static int a_elems(int bk) { return RS * (bk + kPad); }
+  __host__ __device__ static int stage_elems(int bk) { return a_elems(bk) + bk * kXS; }
+  static size_t smem_bytes(int bk) {
+    const size_t ring = (size_t)S * stage_elems(bk) * 2;
+    const size_t part = SK > 1 ? (size_t)SK * RS * NT * 4 : 0;
+    return ring > part ? ring : part;
+  }
+};
+
+// xv: the X copy's piece in bf16 values (8, 4 or 2: cp.async of 16, 8 or 4
+// bytes; 1: a plain load and store), the largest that divides k.
+template <int RS, int NT, int WM, int WN, int SK, int S, bool XD>
+__global__ void __launch_bounds__(kMmaThreads)
+bcsr_bf16_mma(const int* __restrict__ indptr, const int* __restrict__ block_cols,
+              const unsigned short* __restrict__ blocks,
+              const unsigned short* __restrict__ x, float* __restrict__ y,
+              int bm, int bk, int k, int n_slices, int n_tiles, int xv) {
+  using T = MmaTile<RS, NT, WM, WN, SK, S, XD>;
+  constexpr int MI = T::kMI, NI = T::kNI, XS = T::kXS;
+  extern __shared__ uint4 smem_mma[];
+  unsigned short* ring = reinterpret_cast<unsigned short*>(smem_mma);
+  const int as = bk + kPad;  // A row stride in smem
+  const int a_elems = T::a_elems(bk);
+  const int stage = T::stage_elems(bk);
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int wn = warp % WN;
+  const int wm = (warp / WN) % WM;
+  const int sk = warp / (WN * WM);
+  const int unit = blockIdx.x / n_tiles;
+  const int brow = unit / n_slices;
+  const int r0 = (unit - brow * n_slices) * RS;
+  const int j0 = (blockIdx.x - unit * n_tiles) * NT;
+  const int g0 = indptr[brow];
+  const int nb = indptr[brow + 1] - g0;
+  const int ksteps = bk >> 4;
+  // The row's first kColCap block columns, read once: a stage's X address
+  // must not wait on a load of its own.
+  __shared__ int s_cols[kColCap];
+  for (int i = tid; i < min(nb, kColCap); i += kMmaThreads)
+    s_cols[i] = __ldg(block_cols + g0 + i);
+  __syncthreads();
+
+  // A thread's pieces are the same in every stage: A rows a_r, a_r + a_step,
+  // ... at column a_q, X rows x_r, x_r + x_step, ... at column x_q (pieces
+  // per row are a power of two), so the walk computes no index but the
+  // stage's base.  X pieces past k are never copied.
+  const int a_pr = bk >> 3;  // 16-byte pieces per slice row
+  const int a_step = kMmaThreads / a_pr;
+  const int a_r = tid / a_pr;
+  const int a_q = (tid % a_pr) * 8;
+  const int x_pr = NT / xv;  // pieces per tile row
+  const int x_step = kMmaThreads / x_pr;
+  const int x_r = tid / x_pr;
+  const int x_q = (tid % x_pr) * xv;
+  const bool x_live = x_q < min(NT, k - j0);
+  const int x_pieces = (bk * k) >> 3;  // XD: 16-byte pieces of a column block
+
+  // Stage b of the ring: block g0 + b's slice and X tile into slot b mod S.
+  auto issue = [&](int b) {
+    if (b < nb) {
+      unsigned short* a_dst = ring + (b % S) * stage + a_q;
+      unsigned short* x_dst = ring + (b % S) * stage + a_elems + x_q;
+      const int g = g0 + b;
+      const unsigned short* a_src = blocks + ((long long)g * bm + r0) * bk + a_q;
+      for (int r = a_r; r < RS; r += a_step) cp_async16(a_dst + r * as, a_src + r * bk);
+      const int col = b < kColCap ? s_cols[b] : __ldg(block_cols + g);
+      if constexpr (XD) {
+        const unsigned short* src = x + (long long)col * bk * k;
+        unsigned short* d = ring + (b % S) * stage + a_elems;
+        for (int c = tid; c < x_pieces; c += kMmaThreads) cp_async16(d + c * 8, src + c * 8);
+      }
+      const unsigned short* x_src = x + (long long)col * bk * k + j0 + x_q;
+      if (!XD && x_live) {
+        for (int r = x_r; r < bk; r += x_step) {
+          unsigned short* d = x_dst + r * XS;
+          const unsigned short* src = x_src + (long long)r * k;
+          if (xv == 8) cp_async16(d, src);
+          else if (xv == 4) cp_async8(d, src);
+          else if (xv == 2) cp_async4(d, src);
+          else *d = __ldg(src);
+        }
+      }
+    }
+    cp_async_commit();  // an empty group keeps the count uniform
+  };
+
+  float acc[MI][NI][4];
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < S - 1; ++s) issue(s);
+  for (int b = 0; b < nb; ++b) {
+    cp_async_wait<S - 2>();  // this thread's copies of stage b landed
+    __syncthreads();         // everyone's, and stage b - 1 is consumed
+    issue(b + S - 1);        // into the slot stage b - 1 held
+    const unsigned short* a_st = ring + (b % S) * stage;
+    const unsigned short* x_st = a_st + a_elems;
+    for (int ks = sk; ks < ksteps; ks += SK) {
+      unsigned af[MI][4];
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi)
+        ldsm_x4(af[mi], a_st + (wm * T::kWR + mi * 16 + (lane & 15)) * as + ks * 16 +
+                            (lane >> 4) * 8);
+      const unsigned short* xr = x_st + (ks * 16 + (lane & 15)) * XS + wn * T::kWC;
+      if constexpr (XD) {
+        // B[2t, 2t + 1][g] and B[2t + 8, 2t + 9][g] of the step, g < k
+        const int g = lane >> 2;
+        unsigned b0 = 0, b1 = 0;
+        if (g < k) {
+          const unsigned short* xc = x_st + (ks * 16 + (lane & 3) * 2) * k + g;
+          b0 = xc[0] | (unsigned)xc[k] << 16;
+          b1 = xc[8 * k] | (unsigned)xc[9 * k] << 16;
+        }
+#pragma unroll
+        for (int mi = 0; mi < MI; ++mi) mma_bf16(acc[mi][0], af[mi], b0, b1);
+      } else if constexpr (NI == 1) {
+        unsigned bf[2];
+        ldsm_x2_trans(bf, xr);
+#pragma unroll
+        for (int mi = 0; mi < MI; ++mi) mma_bf16(acc[mi][0], af[mi], bf[0], bf[1]);
+      } else {
+#pragma unroll
+        for (int ni = 0; ni < NI; ni += 2) {
+          unsigned bf[4];
+          ldsm_x4_trans(bf, xr + (ni + (lane >> 4)) * 8);
+#pragma unroll
+          for (int mi = 0; mi < MI; ++mi) {
+            mma_bf16(acc[mi][ni], af[mi], bf[0], bf[1]);
+            mma_bf16(acc[mi][ni + 1], af[mi], bf[2], bf[3]);
+          }
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // Accumulator e of (mi, ni): row 16 mi + lane / 4 + 8 (e / 2), column
+  // 8 ni + 2 (lane % 4) + e % 2 of the warp's tile.
+  const int fr = lane >> 2;
+  const int fc = (lane & 3) * 2;
+  if constexpr (SK == 1) {
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = r0 + wm * T::kWR + mi * 16 + fr + 8 * h;
+        float* yr = y + ((long long)brow * bm + r) * k;
+#pragma unroll
+        for (int ni = 0; ni < NI; ++ni)
+          store_pair(yr, j0 + wn * T::kWC + ni * 8 + fc, k, acc[mi][ni][2 * h],
+                     acc[mi][ni][2 * h + 1]);
+      }
+  } else {
+    // The SK splits meet in shared memory (the ring is free now), summed in
+    // split order.
+    float* part = reinterpret_cast<float*>(smem_mma);
+    __syncthreads();
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = wm * T::kWR + mi * 16 + fr + 8 * h;
+#pragma unroll
+        for (int ni = 0; ni < NI; ++ni) {
+          float* pr = part + (sk * RS + r) * NT + wn * T::kWC + ni * 8 + fc;
+          pr[0] = acc[mi][ni][2 * h];
+          pr[1] = acc[mi][ni][2 * h + 1];
+        }
+      }
+    __syncthreads();
+    for (int e = tid; e < RS * NT; e += kMmaThreads) {
+      const int r = e / NT;
+      const int j = j0 + (e - r * NT);
+      if (j >= k) continue;
+      float s = part[e];
+#pragma unroll
+      for (int w = 1; w < SK; ++w) s += part[w * RS * NT + e];
+      y[((long long)brow * bm + r0 + r) * k + j] = s;
+    }
+  }
+}
+
+template <int RS, int NT, int WM, int WN, int SK, int S, bool XD = false>
+int launch_mma(const int* indptr, const int* block_cols,
+               const unsigned short* blocks, const unsigned short* x, float* y,
+               int gm, int bm, int bk, int k, cudaStream_t s) {
+  using T = MmaTile<RS, NT, WM, WN, SK, S, XD>;
+  auto kernel = bcsr_bf16_mma<RS, NT, WM, WN, SK, S, XD>;
+  const int n_slices = bm / RS;
+  const int n_tiles = (k + NT - 1) / NT;
+  const long long nb = (long long)gm * n_slices * n_tiles;
+  if (nb > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  const int xv = k % 8 == 0 ? 8 : k % 4 == 0 ? 4 : k % 2 == 0 ? 2 : 1;
+  const size_t smem = T::smem_bytes(bk);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<(unsigned)nb, kMmaThreads, smem, s>>>(indptr, block_cols, blocks, x, y,
+                                                 bm, bk, k, n_slices, n_tiles, xv);
+  return (int)cudaGetLastError();
+}
+
+// The tile for k: 16-row slices and N tiles of 8, 16 or 32 up to k = 32
+// (dense X rows below k = 8); past it 32-row slices and N tiles of 64, or
+// 64 x 128 tiles where the grid still has two CTAs for each of the H100's
+// 132 SMs (16 x 64 where bm is not a multiple of 32).  bm % 16 == 0 and
+// bk % 16 == 0 (bk <= 256: a stage fits).
+int launch_bf16_mma(const int* indptr, const int* block_cols,
+                    const unsigned short* blocks, const unsigned short* x,
+                    float* y, int gm, int bm, int bk, int k, cudaStream_t s) {
+#define BF16_MMA(RS, NT, WM, WN, SK, S) \
+  launch_mma<RS, NT, WM, WN, SK, S>(indptr, block_cols, blocks, x, y, gm, bm, bk, k, s)
+  if (k < 8)
+    return launch_mma<16, 8, 1, 1, 4, 8, true>(indptr, block_cols, blocks, x, y, gm, bm,
+                                              bk, k, s);
+  if (k == 8) return BF16_MMA(16, 8, 1, 1, 4, 8);
+  if (k <= 16) return BF16_MMA(16, 16, 1, 1, 4, 6);
+  if (k <= 32) return BF16_MMA(16, 32, 1, 1, 4, 4);
+  if (bm % 32) return BF16_MMA(16, 64, 1, 4, 1, 3);
+  const long long ctas64 = (long long)gm * (bm / 64) * ((k + 127) / 128);
+  if (k > 64 && bm % 64 == 0 && ctas64 >= 2 * 132) return BF16_MMA(64, 128, 2, 2, 1, 2);
+  return BF16_MMA(32, 64, 2, 2, 1, 4);
+#undef BF16_MMA
+}
+
 }  // namespace
 
 extern "C" int bcsr_spmm_launch(const int* indptr, const int* block_cols,
@@ -621,6 +966,8 @@ extern "C" int bcsr_spmm_launch(const int* indptr, const int* block_cols,
 }
 
 // Y (float32) = A @ X with bf16 blocks and X: bk in {8, 16, 32, 64, 128, 256}.
+// The tensor-core path takes bm % 16 == 0 and bk % 16 == 0, bcsr_bf16 the
+// rest (the wrapper's bf16_tensor_core_path mirrors the rule).
 extern "C" int bcsr_spmm_bf16_launch(const int* indptr, const int* block_cols,
                                      const unsigned short* blocks,
                                      const unsigned short* x, float* y, int gm,
@@ -629,6 +976,8 @@ extern "C" int bcsr_spmm_bf16_launch(const int* indptr, const int* block_cols,
   if (bm < 1) return (int)cudaErrorInvalidValue;
   const int n_rg = (bm + 7) / 8;
   cudaStream_t s = (cudaStream_t)stream;
+  if (bm % 16 == 0 && bk % 16 == 0 && bk <= 256)
+    return launch_bf16_mma(indptr, block_cols, blocks, x, y, gm, bm, bk, k, s);
   switch (bk) {
     case 8: return launch_bf16_bk<1>(indptr, block_cols, blocks, x, y, gm, bm, k, n_rg, s);
     case 16: return launch_bf16_bk<2>(indptr, block_cols, blocks, x, y, gm, bm, k, n_rg, s);

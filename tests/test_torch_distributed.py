@@ -539,9 +539,11 @@ def test_demoted_mesh_bucket_serves_single_device_then_repromotes():
     for r, x in zip(reqs, xs):
         assert not r.failed
         assert_rowtol(r.result().numpy(), d, x)
+    # The demotion is read from its recorded event: by now the repair thread
+    # may already have re-promoted bucket 4, so eng.ops[4] can show either plan.
     demote = eng.supervisor.events_of("demote")
-    assert len(demote) == 1 and demote[0].info["tier"] == "csr/vector"
-    assert eng.ops[4].plan.fmt == "csr" and eng.ops[4].mesh is None
+    assert len(demote) == 1
+    assert demote[0].info["tier"] == "csr/vector" and demote[0].info["bucket"] == 4
     deadline = time.perf_counter() + 5.0
     while eng.supervisor.promotions < 1:
         assert time.perf_counter() < deadline, "the repair never re-promoted"

@@ -934,6 +934,94 @@ def test_gpu_bf16_bcsr_matches_plain_at_the_ffn_shapes(cuda_device, which):
         assert bool((err <= TOL * scale.double()).all()), (which, k, float(err.max()))
 
 
+def _rand_bf16_bcsr(device, gm, n_cb, bm, bk, seed=0, density=0.25):
+    """A seeded random bf16 BCSR operand of gm x n_cb block positions."""
+    rng = np.random.default_rng(seed)
+    rows, cols = np.nonzero(rng.random((gm, n_cb)) < density)
+    indptr = np.zeros(gm + 1, np.int64)
+    np.add.at(indptr, rows + 1, 1)
+    blocks = rng.standard_normal((len(rows), bm, bk)).astype(np.float32)
+    return (torch.as_tensor(blocks, device=device).to(torch.bfloat16),
+            torch.as_tensor(cols.astype(np.int32), device=device),
+            torch.as_tensor(np.cumsum(indptr).astype(np.int32), device=device))
+
+
+def _check_bf16(args, xb, counters):
+    """One launch against the plain version at 1e-5·(|A|·|x|)_i, the same
+    bits on a second launch, and the counters each launch adds to."""
+    before = dict(_build.LAUNCHES)
+    y = bcsr_spmm(*args, xb)
+    for name in ("bcsr_spmm_bf16", "bcsr_spmm_bf16_mma", "bcsr_spmm"):
+        assert _build.LAUNCHES[name] == before.get(name, 0) + (name in counters), name
+    assert y.dtype == torch.float32
+    assert torch.equal(y, bcsr_spmm(*args, xb))
+    yp = bcsr_spmm_plain(*args, xb)
+    scale = bcsr_spmm_plain(args[0].abs(), *args[1:], xb.abs()).double()
+    err = (y.double() - yp.double()).abs()
+    assert bool((err <= TOL * scale).all()), float((err - TOL * scale).max())
+    return y
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", ["ffn-w1", "ffn-w2", (64, 128), (128, 64)])
+def test_gpu_bf16_tensor_core_path_matches_plain(cuda_device, shape):
+    """The tensor-core kernel at the FFN's (128, 128) weights and at (64, 128)
+    and (128, 64) blocks, for k from 1 to 256 (ragged N tiles included):
+    within 1e-5·(|A|·|x|)_i of the plain version, bit for bit on a second
+    launch, each launch counted under ``bcsr_spmm_bf16`` and
+    ``bcsr_spmm_bf16_mma``."""
+    from repro_torch.kernels.bcsr_spmm import bf16_tensor_core_path
+
+    if isinstance(shape, str):
+        blocks, cols, indptr, n_cb = _ffn_weights(cuda_device, shape[4:])
+    else:
+        n_cb = 9
+        blocks, cols, indptr = _rand_bf16_bcsr(cuda_device, 12, n_cb, *shape, seed=1)
+    assert bf16_tensor_core_path(*blocks.shape[1:])
+    for k in (1, 3, 4, 17, 100, 128, 256):
+        xb = torch.as_tensor(np.random.default_rng(k).standard_normal(
+            (n_cb, blocks.shape[2], k)).astype(np.float32), device=cuda_device
+        ).to(torch.bfloat16)
+        _check_bf16((blocks, cols, indptr), xb, {"bcsr_spmm_bf16", "bcsr_spmm_bf16_mma"})
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bm,bk", [(128, 8), (24, 32)])
+def test_gpu_bf16_cuda_core_shapes_count_under_bf16_only(cuda_device, bm, bk):
+    """Blocks the tensor-core kernel does not take (bk = 8, bm not a multiple
+    of 16) run on the CUDA-core kernel: right, repeatable, and counted under
+    ``bcsr_spmm_bf16`` alone."""
+    from repro_torch.kernels.bcsr_spmm import bf16_tensor_core_path
+
+    assert not bf16_tensor_core_path(bm, bk)
+    blocks, cols, indptr = _rand_bf16_bcsr(cuda_device, 10, 7, bm, bk, seed=2)
+    for k in (1, 4, 17, 64):
+        xb = torch.as_tensor(np.random.default_rng(k).standard_normal(
+            (7, bk, k)).astype(np.float32), device=cuda_device).to(torch.bfloat16)
+        _check_bf16((blocks, cols, indptr), xb, {"bcsr_spmm_bf16"})
+
+
+@pytest.mark.gpu
+def test_gpu_bf16_empty_block_row_and_k1_on_w2_rows(cuda_device):
+    """W2's 20 block rows with block row 3 emptied, at k = 1 and 4: the empty
+    row's outputs are zeros and every other row matches the plain version."""
+    blocks, cols, indptr, n_cb = _ffn_weights(cuda_device, "w2")
+    counts = (indptr[1:] - indptr[:-1]).long()
+    brows = torch.repeat_interleave(torch.arange(indptr.shape[0] - 1, device=cuda_device),
+                                    counts)
+    keep = brows != 3
+    counts[3] = 0
+    indptr = torch.cat([torch.zeros(1, dtype=torch.long, device=cuda_device),
+                        counts.cumsum(0)]).int()
+    args = (blocks[keep].contiguous(), cols[keep].contiguous(), indptr)
+    assert indptr.shape[0] == 21 and int(indptr[4] - indptr[3]) == 0
+    for k in (1, 4):
+        xb = torch.as_tensor(np.random.default_rng(k).standard_normal(
+            (n_cb, 128, k)).astype(np.float32), device=cuda_device).to(torch.bfloat16)
+        y = _check_bf16(args, xb, {"bcsr_spmm_bf16", "bcsr_spmm_bf16_mma"})
+        assert bool((y[3] == 0).all())
+
+
 @pytest.mark.gpu
 def test_gpu_bf16_bcsr_refuses_misaligned_and_mixed_operands(cuda_device):
     blocks, cols, indptr, n_cb = _ffn_weights(cuda_device)

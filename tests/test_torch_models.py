@@ -23,6 +23,7 @@ import pytest
 import torch
 
 from repro.configs import get_reduced as j_get_reduced
+from repro.core.spmv import spmm_bcsr_dense as j_spmm_bcsr_dense
 from repro.kernels.bcsr_spmm import bcsr_spmm_pallas
 from repro.models import attention as jattn
 from repro.models import common as jcommon
@@ -32,7 +33,11 @@ from repro.models.common import KeyGen
 
 from repro_torch.configs import ARCH_IDS, get_config, get_reduced
 from repro_torch.interop import lm_params_from_numpy, port_config
-from repro_torch.kernels.bcsr_spmm import bcsr_spmm, bcsr_spmm_plain
+from repro_torch.kernels.bcsr_spmm import (
+    bcsr_spmm,
+    bcsr_spmm_plain,
+    bf16_tensor_core_path,
+)
 from repro_torch.models import attention as tattn
 from repro_torch.models import common as tcommon
 from repro_torch.models import ffn as tffn
@@ -246,11 +251,18 @@ def test_bcsr_block_pattern_is_the_references_bit_for_bit(d_model, d_ff, block,
 
 @pytest.mark.parametrize("d_model,d_ff,block,T", [(128, 256, (32, 32), 6),
                                                    (64, 128, (16, 32), 5),
-                                                   (256, 384, (128, 128), 3)])
+                                                   (256, 384, (128, 128), 3),
+                                                   (128, 256, (32, 32), 128),
+                                                   (128, 256, (32, 32), 200)])
 def test_bcsr_ffn_products_and_layer_match_reference(d_model, d_ff, block, T):
     """Each weight product through the port's ``bcsr_spmm`` (its plain
     version on the CPU) against ``bcsr_spmm_pallas`` in interpret mode at
-    1e-5·(|A|·|x|)_i, and the whole layer at both tiers."""
+    1e-5·(|A|·|x|)_i, and the whole layer at both tiers.  Prefill widths:
+    T = 128 as the rest; the Pallas kernel refuses T = 200 (it asserts
+    k % 128 == 0 or k < 128, ROADMAP C.19), so there the products are held
+    against ``repro``'s plain ``spmm_bcsr_dense`` and the layer against its
+    ``impl="ref"`` only."""
+    pallas = T < 128 or T % 128 == 0
     jcfg, tcfg, jp, tp = _bcsr_pair(d_model, d_ff, block)
     _carry(tp, jp)
     bm, bk = block
@@ -258,15 +270,21 @@ def test_bcsr_ffn_products_and_layer_match_reference(d_model, d_ff, block, T):
     xt = np.ascontiguousarray(x.reshape(T, d_model).T)
     for which, xb, n_rows in (("w1", xt.reshape(d_model // bk, bk, T), d_ff // bm),
                               ("w2", rng_f32(4, (d_ff // bm, bm, T)), d_model // bk)):
-        ref = bcsr_spmm_pallas(jp[f"{which}_rows"], jp[f"{which}_cols"],
-                               jp[f"{which}_blocks"], xb, n_block_rows=n_rows,
-                               interpret=True)
+        if pallas:
+            ref = bcsr_spmm_pallas(jp[f"{which}_rows"], jp[f"{which}_cols"],
+                                   jp[f"{which}_blocks"], xb, n_block_rows=n_rows,
+                                   interpret=True)
+        else:
+            ref = j_spmm_bcsr_dense({"blocks": jp[f"{which}_blocks"],
+                                     "block_cols": jp[f"{which}_cols"],
+                                     "block_rows": jp[f"{which}_rows"]},
+                                    xb, n_block_rows=n_rows)
         args = (tp[f"{which}_blocks"], tp[f"{which}_cols"], tp[f"{which}_indptr"])
         got = bcsr_spmm(*args, torch.as_tensor(xb))
         scale = bcsr_spmm_plain(args[0].abs(), *args[1:], torch.as_tensor(np.abs(xb)))
         err = np.abs(got.numpy().astype(np.float64) - np.asarray(ref, np.float64))
         assert np.all(err <= ROW_TOL * scale.numpy()), (which, float(err.max()))
-    for j_impl, t_impl in (("pallas", "cuda"), ("ref", "ref")):
+    for j_impl, t_impl in (("pallas" if pallas else "ref", "cuda"), ("ref", "ref")):
         ref = jffn.sparse_ffn_apply(jp, x, dataclasses.replace(jcfg, impl=j_impl), d_ff)
         got = tffn.sparse_ffn_apply(tp, torch.as_tensor(x),
                                     dataclasses.replace(tcfg, impl=t_impl), d_ff)
@@ -288,6 +306,27 @@ def test_bf16_plain_bcsr_widens_and_refuses_mixed_operands():
     assert y.dtype == torch.float32 and torch.equal(y, ref)
     with pytest.raises(TypeError, match="share a dtype"):
         bcsr_spmm(*args, xb.float())
+
+
+def test_bf16_tensor_core_rule_pins_the_launchers_shapes():
+    """bf16 blocks with bm % 16 == 0 and bk % 16 == 0 take the tensor-core
+    kernel, the other shapes the bf16 kernel takes (bk = 8, bm not a
+    multiple of 16) the CUDA-core one: the C launcher's rule, by shape
+    alone.  Both weights of every configured bcsr FFN take the tensor cores
+    (W2's blocks are (bk, bm))."""
+    for bm, bk in [(128, 128), (64, 128), (128, 64), (16, 16), (32, 32),
+                   (48, 256), (16, 256), (128, 16)]:
+        assert bf16_tensor_core_path(bm, bk), (bm, bk)
+    for bm, bk in [(128, 8), (8, 8), (8, 128), (24, 32), (12, 16), (1, 64),
+                   (136, 128), (128, 48), (128, 512)]:
+        assert not bf16_tensor_core_path(bm, bk), (bm, bk)
+    for arch in ARCH_IDS:
+        bm, bk = tffn.SparseFFNConfig(kind="bcsr").block
+        assert bf16_tensor_core_path(bm, bk) and bf16_tensor_core_path(bk, bm), arch
+        cfg = get_config(arch).sparse_ffn
+        if cfg is not None and cfg.kind == "bcsr":
+            assert bf16_tensor_core_path(*cfg.block), arch
+            assert bf16_tensor_core_path(*cfg.block[::-1]), arch
 
 
 def test_tune_sparse_ffn_maps_each_weight_through_its_own_plan():
