@@ -20,7 +20,10 @@ scipy; imports nothing of JAX or of the JAX package.  Phases:
    i: |kernel - plain| <= 1e-5 * (|A| |x|)_i, because only the summation
    order differs.  The SELL, column-slab and BCSR kernels must also give
    the same bits on a second launch, and the csr/vector tier is checked
-   bitwise repeatable on the card;
+   bitwise repeatable on the card; (2b) ``op.aot()`` (a CUDA graph) of
+   pinned ``sell/cuda``, ``sell_blocked/cuda`` and ``bcsr/cuda`` (k = 64) on
+   cant equals ``op @ x`` bit for bit on two calls and leaves the first
+   result alone, with the wall time per call of both;
 3. the tuned main path: ``SparseOperator.build`` on cant for SpMV and k=16
    (fresh plan cache), an ldoor SpMV search over a cut candidate list, and
    pinned column-slab operators on cant and ldoor; every result against a
@@ -30,7 +33,15 @@ scipy; imports nothing of JAX or of the JAX package.  Phases:
    sell/cuda (k=1) and bcsr/cuda (k>1) answers 64 more, async equal to
    ``async_depth=0`` bit for bit; ``repro_torch.launch.serve --sparse cant
    --scale 1.0`` serves 64 more from the plan cache; every kernel's launch
-   count over phases 3-4 must be > 0;
+   count over phases 3-4 must be > 0.  The engines' dense buckets run as
+   CUDA graphs: an engine with ``captured=False`` on the pinned plans must
+   serve the same bits, each bucket's graph must equal its eager closure,
+   the buckets' graphs must share the engine's pool, whose allocator bytes
+   are printed per engine, and the host time of one dispatch per bucket,
+   graphed and eager; then the wide bucket (k = 64) of cant (bcsr/cuda)
+   and ldoor (csr/vector), graphed against ``captured=False`` in turns:
+   req/s through the serve CLI's loop (``serve.offer``) and the device ms
+   of one batch, the results bit for bit equal;
 5. times per kernel (CUDA events, median of 25 single launches, L2
    flushed before each): kernel, plain version, one cuSPARSE call through
    ``torch.sparse_csr_tensor`` (``library_ms``), and the bound of the
@@ -97,14 +108,17 @@ scipy; imports nothing of JAX or of the JAX package.  Phases:
    1e-4 of lambda_1 of the same iteration run in float64 from the same
    start, theta_1 within 1e-3 of eigsh's lambda_1, and the thetas under
    the Ky Fan bound of eigsh's top 8; the
-   device-decided loop and the host loop (``cg_host_loop``,
+   blocks run as CUDA graphs and each solve equals the same solve with
+   eager blocks (``captured=False``: count, flag and reads, x or V bit for
+   bit); the device-decided loop and the host loop (``cg_host_loop``,
    ``block_power_host_loop``) on the same plan must give the same count and
    flag, x within 1e-6 and theta within 1e-5, also for a CG whose tol is
    met inside a block (iteration 5 of the block 4-7); SELL and BCSR must
    both launch; the unfaulted solvers record no event.  Then ms per iteration
    at a fixed budget (tol < 0, 128 iterations; best of 5, fused and host
-   loop in turns) with the synchronising calls torch counts, each CG's
-   wall time to tol 1e-5 against the host loop's, an injected ``solver.dispatch`` fault (retry ->
+   loop in turns, now graphed blocks, eager blocks and the host loop) with
+   the synchronising calls torch counts, each CG's wall time to tol 1e-5
+   against the eager blocks' and the host loop's, an injected ``solver.dispatch`` fault (retry ->
    demote) and a plan that really refuses its launch (``cg()`` raises,
    no retry).  Each kernel row gains ``solver_launches``;
 9. the fleet (``runtime.fleet.SparseFleet``) at scale 1.0 over cant, hood,
@@ -117,15 +131,18 @@ scipy; imports nothing of JAX or of the JAX package.  Phases:
    on webbase-1M is merge; one cold ``build_multi`` of webbase-1M beside
    its admission; (b) 64 requests to each tenant but scircuit (1 alone, 63
    interleaved), max_wait 1 ms, each within 1e-5 of scipy float64,
-   ``sell_spmv`` and ``bcsr_spmm`` both launched, zero supervisor events;
+   ``sell_spmv`` and ``bcsr_spmm`` both launched, zero supervisor events,
+   and each tenant's first-request latency (its k = 1 capture included);
    (c) webbase-1M retuned on the worker's own stream while 4 requests of
    it a round are served: latency p50/p99 during and after,
-   ``swaps_applied >= 1``, every batch dispatched before the swap equal
-   bit for bit to the old table's closure on the same operands, the
+   ``swaps_applied >= 1``, every retuned closure a CUDA graph captured by
+   the worker, every batch dispatched before the swap (through the old
+   table's graphs) equal bit for bit to the old plans' eager closures on
+   the same operands, the
    retuned plans and medians beside a quiet build; (d) with the budget
    full, the zero-traffic scircuit is evicted first and the allocator
-   frees >= 90 % of its prepared bytes (slab bytes the budget does not
-   count printed per tenant); webbase-1M, evicted, reactivates from the
+   frees >= 90 % of its prepared bytes (slab and graph-pool bytes the
+   budget does not count printed per tenant); webbase-1M, evicted, reactivates from the
    cache in every bucket with no search; (e) a second fleet: an injected
    ``engine.dispatch`` storm on cant opens its breaker after 3 batches
    (``CircuitOpenError`` after), webbase-1M beside it resolves within 1e-5 with
@@ -168,12 +185,19 @@ scipy; imports nothing of JAX or of the JAX package.  Phases:
    at k in {1, 3, 4, 17, 32, 100, 128, 512}, at 1e-5 (|A| |x|)_i (a row
    that breaks it is printed with its term count k_i) and the same bits on
    a second launch; (c) with the launch counts set to 0, a 4-slot
-   ``BatchedServer`` serves 8 requests (prompt 32, max_new 16):
-   ``bcsr_spmm_bf16`` and ``bcsr_spmm_bf16_mma`` must each launch 2 x 40 x
-   (prefills + decode steps) times (every launch on the tensor cores) and
-   nothing else; (g) prefill ms (32 tokens) and decode step ms (4 slots)
-   of the dense and the bcsr model beside the decode step's bound (weight
-   bytes over 3.35 TB/s), and the kernel per weight at k = 4, 32, 128 and
+   ``BatchedServer`` serves 8 requests (prompt 32, max_new 16) through its
+   CUDA graphs (decode, and prefill at 32 tokens): ``bcsr_spmm_bf16`` and
+   ``bcsr_spmm_bf16_mma`` must each launch 2 x 40 x (prefills + decode
+   steps + warm-ups) times (each replay counts its captured launches, each
+   of the two warm-up passes before a capture its own; every launch on the
+   tensor cores) and nothing else; (g) prefill ms (32 tokens) and decode
+   step ms (4 slots) of the dense and the bcsr model, each through a
+   server's own path (a ``captured=False`` server's eager passes, a
+   default server's graphs after their pinned copies), beside the decode
+   step's bound (weight bytes over 3.35 TB/s), ``torch.profiler``'s device
+   busy time, idle share and kernel count of one eager and one graphed
+   bcsr decode step of those servers (in a fresh process,
+   ``--lm-profile``), and the kernel per weight at k = 4, 32, 128 and
    512 (L2 flushed) beside its plain version, a dense bf16 matmul of the
    densified weight (``library_ms``) and its bound (bf16 blocks and X
    read, float32 Y written, over 3.35 TB/s, against 2 nnz k over 989
@@ -185,8 +209,8 @@ scipy; imports nothing of JAX or of the JAX package.  Phases:
    searches at k = 4 on a scratch plan cache, each weight's plan and impl,
    the 8 requests again; (d) a float32 copy of the bcsr model (TF32 off):
    prefill + 15 decode steps equal ``forward`` at every position within
-   1e-3 max|logits|, and its 4-slot server gives each request the tokens of
-   a 1-slot server; (e) the bf16 first-token logits of the 8 prompts
+   1e-3 max|logits|, and so do a 1-slot server's 16 graphed decode steps;
+   its 4-slot server gives each request the tokens of a 1-slot server; (e) the bf16 first-token logits of the 8 prompts
    against the float32 copy's (largest deviation within ``LM_BF16_LIMIT``
    x max|logits|; the share of equal first tokens).  Each kernel row gains
    ``lm_launches``; the ``bcsr_spmm_bf16`` rows carry (b)'s error and (g)'s
@@ -199,6 +223,7 @@ line.  The full record also goes to ``chiprun_out/chip_smoke.json``.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import os
 import subprocess
@@ -216,6 +241,8 @@ REPS = 25
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores
 K_BUCKETS = (1, 4, 16, 64)
+WIDE_REQUESTS = {"cant": 2048, "ldoor": 512}  # phase 4's wide-bucket turns
+WIDE_TURNS = 3  # graphed and eager turns each, alternating
 MERGE_ULPS = 8  # the merge tier's limit: 1e-5 (|A| |x|)_i + 8 * 2**-24 * max|P|
 
 
@@ -257,7 +284,8 @@ def fleet_phase(dev, scale: float, plans_text: str, record: dict,
     from repro_torch.data.suite import generate
     from repro_torch.kernels import _build
     from repro_torch.launch import serve as serve_cli
-    from repro_torch.runtime.engine import SparseEngine
+    from repro_torch.runtime.engine import CAPTURE_MAX_OUTPUT_BYTES, SparseEngine
+    from repro_torch.runtime.executable import pool_bytes
     from repro_torch.runtime.faults import FaultPlan
     from repro_torch.runtime.fleet import CircuitOpenError, SparseFleet
     from repro_torch.runtime.overload import OverloadError
@@ -389,8 +417,17 @@ def fleet_phase(dev, scale: float, plans_text: str, record: dict,
                    for _ in range(64)] for n in served_names}
     xs_dev = {n: [torch.as_tensor(x, device=dev) for x in v] for n, v in xs_host.items()}
     before = dict(_build.LAUNCHES)
-    reqs = {n: [fleet.submit(n, xs_dev[n][0])] for n in served_names}
-    serve(fleet, [r for v in reqs.values() for r in v])
+    # each tenant's first request alone (its k = 1 graph is captured at
+    # its dispatch), then the same x again (the graph replayed)
+    reqs, first_ms = {}, {}
+    for n in served_names:
+        reqs[n] = [fleet.submit(n, xs_dev[n][0])]
+        serve(fleet, reqs[n])
+        again = fleet.submit(n, xs_dev[n][0])
+        serve(fleet, [again])
+        if not torch.equal(again.result(), reqs[n][0].result()):
+            fail(f"9b {n}: the first request's replay differs from its capture run")
+        first_ms[n] = {"first": reqs[n][0].latency_s * 1e3, "again": again.latency_s * 1e3}
     for i in range(1, 64):
         for n in served_names:
             reqs[n].append(fleet.submit(n, xs_dev[n][i]))
@@ -406,7 +443,11 @@ def fleet_phase(dev, scale: float, plans_text: str, record: dict,
     print(f"  launches over 9b: {l9b}; reactivations {fleet.stats_fleet.reactivations}")
     if on_card and (l9b.get("sell_spmv", 0) <= 0 or l9b.get("bcsr_spmm", 0) <= 0):
         fail(f"9b: sell_spmv and bcsr_spmm must both launch: {l9b}")
-    rec["serving"] = {"launches": l9b, "reactivations": fleet.stats_fleet.reactivations}
+    print("  first-request latency (submit to result; the first includes its bucket's "
+          "capture), ms: " + ", ".join(f"{n} {v['first']:.3f} then {v['again']:.3f}"
+                                        for n, v in first_ms.items()))
+    rec["serving"] = {"launches": l9b, "reactivations": fleet.stats_fleet.reactivations,
+                      "first_request_ms": first_ms}
     del reqs
     record["phases_s"]["fleet_serving"] = round(time.perf_counter() - t0, 3)
 
@@ -460,9 +501,18 @@ def fleet_phase(dev, scale: float, plans_text: str, record: dict,
     for n, e in engs.items():
         if e.swaps_applied < 1 or fleet.tenants[n].engine is not e:
             fail(f"9c {n}: swaps_applied {e.swaps_applied}")
-        # the batches dispatched before the swap, replayed through the old
-        # table's own closures with the same operands: bit for bit
-        pinned = SparseEngine(mats[n], ks=K_BUCKETS, ops=old[n], device=dev)
+        # every retuned closure whose output fits CAPTURE_MAX_OUTPUT_BYTES is
+        # a graph, and the others are eager
+        for k, fn in e._execs.items():
+            small = mats[n].shape[0] * k * 4 <= CAPTURE_MAX_OUTPUT_BYTES
+            if on_card and hasattr(fn, "executable") != small:
+                fail(f"9c {n}: the retuned k={k} closure is "
+                     f"{'not ' if small else ''}a CUDA graph")
+        # the batches dispatched before the swap (through the old table's
+        # graphs), replayed through the old plans' eager closures with the
+        # same operands: bit for bit
+        pinned = SparseEngine(mats[n], ks=K_BUCKETS, ops=old[n], device=dev,
+                              captured=False)
         batches: dict = {}
         for r in pre[n]:
             batches.setdefault(id(r._ys), []).append(r)
@@ -517,6 +567,15 @@ def fleet_phase(dev, scale: float, plans_text: str, record: dict,
     slabs = {n: sum(fn.slab.nbytes for fn in t.engine._execs.values()
                     if hasattr(fn, "slab"))
              for n, t in fleet.tenants.items() if t.resident}
+    # the engine's own pool and the pools of its retuned closures, once a
+    # pool no graph holds has gone back to the card
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    pools = {n: pool_bytes({fn.executable.pool for fn in t.engine._execs.values()
+                            if hasattr(fn, "executable")}
+                           | ({t.engine.graph_pool} - {None})) if on_card else 0
+             for n, t in fleet.tenants.items() if t.resident}
     gc.collect()
     sync()
     mem0 = torch.cuda.memory_allocated(dev) if on_card else 0
@@ -535,7 +594,9 @@ def fleet_phase(dev, scale: float, plans_text: str, record: dict,
           f"{mem0 / 1e6:.1f} -> {mem1 / 1e6:.1f} MB (freed {(mem0 - mem1) / 1e6:.1f}); "
           f"resident_bytes {res0 / 1e6:.1f} -> {fleet.resident_bytes / 1e6:.1f} MB")
     print(f"  slab bytes the budget does not count: "
-          f"{ {n: round(v / 1e6, 1) for n, v in slabs.items()} } MB")
+          f"{ {n: round(v / 1e6, 1) for n, v in slabs.items()} } MB; graph pools "
+          f"(allocator bytes, not counted either): "
+          f"{ {n: round(v / 1e6, 1) for n, v in pools.items()} } MB")
     if on_card and mem0 - mem1 < 0.9 * nb:
         fail(f"9d: the allocator freed {mem0 - mem1} B of {nb} B prepared")
     again = FLEET_RETUNED[0]  # evicted and reactivated: the retune's plans
@@ -556,7 +617,8 @@ def fleet_phase(dev, scale: float, plans_text: str, record: dict,
                         "allocated_before": mem0, "allocated_after": mem1,
                         "resident_bytes_before": res0,
                         "resident_bytes_after": fleet.resident_bytes,
-                        "slab_bytes": slabs, "reactivate_s": react_s}
+                        "slab_bytes": slabs, "graph_pool_bytes": pools,
+                        "reactivate_s": react_s}
     rec["summary"] = fleet.stats().summary()
     fleet.close()
     del fleet, engs, r_h, t_h, victim, xs_dev
@@ -1132,6 +1194,77 @@ LM_BF16_LIMIT = 0.05
 BF16_FLOPS = 989e12  # H100 SXM, bf16 tensor cores, dense
 
 
+def lm_profile() -> None:
+    """``python3 chip_smoke.py --lm-profile``: one eager and one graphed
+    decode step of the bcsr-FFN qwen1.5-4b (bf16, LM_SLOTS slots after
+    LM_PROMPT-token prefills) under ``torch.profiler``, in a fresh process
+    (see ``mesh_device_ops``).  Each step is a server's own:
+    ``_decode_once`` of a ``captured=False`` server (eager) and of a
+    default server (the pinned token copy and its decode graph's replay).
+    Each runs inside a ``record_function`` range that ends after a
+    synchronise; prints one JSON object {"eager"|"graph": {"wall_ms",
+    "busy_ms", "idle_share", "kernels", "device_ops"}}: the range's wall
+    time, the union of the device operations inside it, the share of the
+    range the device was idle, and the kernels and all device operations
+    (copies and fills too) counted."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.models.ffn import SparseFFNConfig
+    from repro_torch.runtime.server import BatchedServer, _merge_slot
+
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(get_config(LM_ARCHES[0]), sparse_ffn=SparseFFNConfig(
+        kind="bcsr", block=(128, 128)))
+    model = lm.init_model(cfg, 0, device=dev)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, LM_PROMPT).astype(np.int32)
+               for _ in range(LM_SLOTS)]
+    toks = np.zeros((LM_SLOTS, 1), np.int64)
+    steps = {}
+    for name, captured in (("eager", False), ("graph", True)):
+        srv = BatchedServer(cfg, model, batch_slots=LM_SLOTS, max_seq=LM_MAX_SEQ,
+                            captured=captured)
+        for i, p in enumerate(prompts):  # fill the slots as the server does
+            one, _ = srv._prefill_one(p)
+            _merge_slot(srv.state, one, i)
+            torch.cuda.synchronize()
+        steps[name] = functools.partial(srv._decode_once, toks)
+    for _ in range(3):
+        for fn in steps.values():
+            fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for name, fn in steps.items():
+            with record_function(f"decode_step/{name}"):
+                fn()
+                torch.cuda.synchronize()
+    events = prof.events()
+    out = {}
+    for name in steps:
+        rng_ = [e for e in events if e.name == f"decode_step/{name}"
+                and e.device_type == torch.autograd.DeviceType.CPU][0].time_range
+        ops = sorted((e.time_range.start, e.time_range.end, e.name) for e in events
+                     if e.device_type == torch.autograd.DeviceType.CUDA
+                     and rng_.start <= e.time_range.start <= rng_.end
+                     and not e.name.startswith("decode_step/"))
+        busy, end = 0.0, float("-inf")
+        for a_, b_, _ in ops:  # the union of the device operations' intervals
+            if b_ > end:
+                busy += b_ - max(a_, end)
+                end = b_
+        wall = rng_.end - rng_.start
+        kernels = [o for o in ops if "memcpy" not in o[2].lower()
+                   and "memset" not in o[2].lower()]
+        out[name] = {"wall_ms": wall / 1e3, "busy_ms": busy / 1e3,
+                     "idle_share": 1.0 - busy / wall if wall > 0 else None,
+                     "kernels": len(kernels), "device_ops": len(ops)}
+    print(json.dumps(out))
+
+
 def lm_phase(dev, record: dict, *, reduced: bool = False) -> tuple[dict, list]:
     """Phase 11: LM serving of qwen1.5-4b at full width and depth in bf16
     (``reduced``: the reduced configs, a CPU rehearsal with no times).
@@ -1214,35 +1347,55 @@ def lm_phase(dev, record: dict, *, reduced: bool = False) -> tuple[dict, list]:
             "served": len(reqs), "seconds": dt, "tok_per_s": LM_NEW * len(reqs) / dt,
             "latency_p50_s": lats[len(lats) // 2],
             "latency_p99_s": lats[int(len(lats) * 0.99)],
-            "decode_steps": srv.steps, "prefills": srv.prefills}
+            "decode_steps": srv.steps, "prefills": srv.prefills,
+            "graphs": srv.graphs, "warmups": srv.warmups, "capture_s": srv.capture_s}
 
     def step_times(cfg_, model) -> dict:
-        """Prefill ms at LM_PROMPT tokens (batch 1), decode step ms at
-        LM_SLOTS slots, and the decode step's bound: the weight bytes a
-        step reads (every weight but the embedding table, of which it reads
-        LM_SLOTS rows, plus the kernel's block indices) over 3.35 TB/s."""
-        toks1 = torch.as_tensor(prompts[0][None], device=dev).long()
-        prefill_ms = median_ms(lambda: lm.prefill(cfg_, model, {"tokens": toks1},
-                                                  LM_MAX_SEQ))
-        state = lm.init_decode_state(cfg_, LM_SLOTS, LM_MAX_SEQ, dev)
-        for i in range(LM_SLOTS):
-            one, _ = lm.prefill(cfg_, model, {"tokens": prompts[i][None]}, LM_MAX_SEQ)
-            _merge_slot(state, one, i)
-        toks = torch.zeros((LM_SLOTS, 1), dtype=torch.long, device=dev)
-        decode_ms = median_ms(lambda: lm.decode_step(cfg_, model, state, toks))
+        """Prefill ms at LM_PROMPT tokens (batch 1) and decode step ms at
+        LM_SLOTS slots, each through a server's own path: a
+        ``captured=False`` server's eager passes and (on a card) a default
+        server's graphs (``_prefill_one``: the pinned copy and the prompt
+        length's replay; ``_decode_once``: the pinned token copy and the
+        decode graph's replay); and the decode step's bound: the weight
+        bytes a step reads (every weight but the embedding table, of which
+        it reads LM_SLOTS rows, plus the kernel's block indices) over
+        3.35 TB/s."""
+        toks = np.zeros((LM_SLOTS, 1), np.int64)
+        times = {"prefill_graph_ms": None, "decode_step_graph_ms": None}
+        for captured in (False, True) if cuda else (False,):
+            srv = BatchedServer(cfg_, model, batch_slots=LM_SLOTS, max_seq=LM_MAX_SEQ,
+                                captured=captured)
+            for i in range(LM_SLOTS):  # fill the slots as the server does
+                one, _ = srv._prefill_one(prompts[i])
+                _merge_slot(srv.state, one, i)
+                sync()
+            tag = "_graph" if captured else ""
+            times[f"prefill{tag}_ms"] = median_ms(lambda: srv._prefill_one(prompts[0]))
+            times[f"decode_step{tag}_ms"] = median_ms(lambda: srv._decode_once(toks))
+            if captured:  # the replay alone, without the pinned token copy
+                times["decode_replay_ms"] = median_ms(srv._decode[0].replay)
+            kv = sum(t.numel() * t.element_size() for t in srv.state["kv"].values())
+            del srv
+            free()
+        graphed = {k: times.get(k) for k in ("prefill_graph_ms", "decode_step_graph_ms",
+                                             "decode_replay_ms")}
+        prefill_ms, decode_ms = times["prefill_ms"], times["decode_step_ms"]
         weights = sum(t.numel() * t.element_size() for name, t in model.named_parameters()
                       if name != "embed")
         weights += sum(t.numel() * t.element_size() for name, t in model.named_buffers()
                        if name.endswith(("_cols", "_indptr")))
         weights += LM_SLOTS * cfg_.d_model * model.embed.element_size()
-        kv = sum(t.numel() * t.element_size() for t in state["kv"].values())
-        out = {"prefill_ms": prefill_ms, "decode_step_ms": decode_ms,
+        out = {"prefill_ms": prefill_ms, "decode_step_ms": decode_ms, **graphed,
                "decode_weight_bytes": weights, "kv_cache_bytes": kv,
                "decode_bound_ms": weights / HBM_BYTES_PER_S * 1e3}
+        g_txt = ("" if not cuda else
+                 f"; as CUDA graphs: prefill {graphed['prefill_graph_ms']:.3f} ms, "
+                 f"decode step {graphed['decode_step_graph_ms']:.3f} ms (the replay "
+                 f"alone {graphed['decode_replay_ms']:.3f})")
         print(f"  {cfg_.arch_id} {str(cfg_.dtype)[6:]} "
-              f"{'bcsr' if cfg_.sparse_ffn else 'dense'}: prefill {prefill_ms:.3f} ms "
-              f"({LM_PROMPT} tokens), decode step {decode_ms:.3f} ms ({LM_SLOTS} slots) "
-              f"against its bound {out['decode_bound_ms']:.3f} ms "
+              f"{'bcsr' if cfg_.sparse_ffn else 'dense'}: eager prefill {prefill_ms:.3f} ms "
+              f"({LM_PROMPT} tokens), decode step {decode_ms:.3f} ms ({LM_SLOTS} slots)"
+              f"{g_txt}; the step's bound {out['decode_bound_ms']:.3f} ms "
               f"({weights / 1e9:.3f} GB of weights; KV cache {kv / 1e6:.1f} MB)",
               flush=True)
         return out
@@ -1328,13 +1481,20 @@ def lm_phase(dev, record: dict, *, reduced: bool = False) -> tuple[dict, list]:
     _build.reset_launches()
     srv, reqs_b, served_b = serve(cfg_b, model_b, LM_SLOTS)
     launches = dict(_build.LAUNCHES)
-    expect = 2 * cfg.n_layers * (srv.prefills + srv.steps)
+    # every replay counts its captured launches and every warm-up pass (one
+    # eager pass before each capture: decode, and each prompt length) its own
+    passes = srv.prefills + srv.steps + srv.warmups
+    expect = 2 * cfg.n_layers * passes
     print(f"  served {LM_REQUESTS}/{LM_REQUESTS} in {served_b['seconds']:.2f}s "
           f"({served_b['tok_per_s']:.1f} tok/s, latency p50 "
           f"{served_b['latency_p50_s']:.2f}s p99 {served_b['latency_p99_s']:.2f}s): "
-          f"{srv.prefills} prefills, {srv.steps} decode steps, launches {launches} "
-          f"(2 x {cfg.n_layers} x {srv.prefills + srv.steps} = {expect} expected)",
-          flush=True)
+          f"{srv.prefills} prefills, {srv.steps} decode steps, {srv.graphs} CUDA graphs "
+          f"captured in {srv.capture_s:.2f}s after {srv.warmups} warm-up passes, "
+          f"launches {launches} (2 x {cfg.n_layers} x ({srv.prefills} + {srv.steps} + "
+          f"{srv.warmups}) = {expect} expected)", flush=True)
+    if cuda and (srv.graphs != 2 or srv.warmups != 2):
+        fail(f"phase 11c: {srv.graphs} graphs and {srv.warmups} warm-ups, expected the "
+             "decode graph and one prefill graph (one prompt length)")
     # every launch on the tensor cores: both counters equal, nothing else
     if cuda and (launches.get("bcsr_spmm_bf16", 0) != expect
                  or launches.get("bcsr_spmm_bf16_mma", 0) != expect
@@ -1397,6 +1557,18 @@ def lm_phase(dev, record: dict, *, reduced: bool = False) -> tuple[dict, list]:
 
     # (g) times of the variant and of its kernel at the FFN's shapes
     rec["times/bcsr"] = step_times(cfg_b, model_b)
+    if cuda and not reduced:  # the device's idle share in one decode step
+        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                               "--lm-profile"], capture_output=True, text=True,
+                              timeout=600)
+        if proc.returncode != 0:
+            fail(f"11g: profiling a decode step failed: {proc.stderr[-2000:]}")
+        prof = rec["decode_profile"] = json.loads(proc.stdout.strip().splitlines()[-1])
+        for name, p_ in prof.items():
+            print(f"  one bcsr decode step, {name}, by torch.profiler: wall "
+                  f"{p_['wall_ms']:.3f} ms, device busy {p_['busy_ms']:.3f} ms, idle "
+                  f"share {p_['idle_share']:.4f}, {p_['kernels']} kernels, "
+                  f"{p_['device_ops']} device operations", flush=True)
     rows = []
     for which, (args, n_cb) in weights.items():
         blocks, cols, indptr = args
@@ -1508,7 +1680,29 @@ def lm_phase(dev, record: dict, *, reduced: bool = False) -> tuple[dict, list]:
                  f"forward by {rel:.3e} x max|logits| (limit {LM_CONSISTENCY:g})")
     print(f"  ok decode == forward at {len(logits)} positions: worst {worst:.3e} x "
           f"max|logits| (limit {LM_CONSISTENCY:g})")
-    del state, full
+    # the same through a 1-slot server: its prefill and decode graphs on a card
+    srv1 = BatchedServer(cfg_f, model_f, batch_slots=1, max_seq=LM_MAX_SEQ)
+    req1 = Request(rid=0, prompt=prompts[0], max_new=LM_NEW)
+    srv1.submit(req1)
+    g_logits = []
+    while srv1.step():
+        g_logits.append(srv1.last_logits[0, 0].clone())
+    seq1 = np.concatenate([prompts[0], np.asarray([req1._first] + req1.out[:-1],
+                                                   np.int32)])
+    full1, _ = lm.forward(cfg_f, model_f, {"tokens": seq1[None]})
+    worst_g = 0.0
+    for j, got in enumerate(g_logits):
+        ref = full1[0, LM_PROMPT + j]
+        rel = float((got - ref).abs().max() / ref.abs().max())
+        worst_g = max(worst_g, rel)
+        if not rel <= LM_CONSISTENCY:
+            fail(f"phase 11d: server step {j}: decode differs from forward by "
+                 f"{rel:.3e} x max|logits| (limit {LM_CONSISTENCY:g})")
+    if cuda and srv1.graphs != 2:
+        fail(f"phase 11d: the 1-slot server captured {srv1.graphs} graphs, not 2")
+    print(f"  ok the 1-slot server's decode steps (graphs: {srv1.graphs}) == forward at "
+          f"{len(g_logits)} positions: worst {worst_g:.3e} x max|logits|")
+    del state, full, full1, srv1
     _, reqs4, served_f = serve(cfg_f, model_f, LM_SLOTS)
     for p, r in zip(prompts, reqs4):
         _, (alone,), _ = serve(cfg_f, model_f, 1, [p])
@@ -1517,8 +1711,8 @@ def lm_phase(dev, record: dict, *, reduced: bool = False) -> tuple[dict, list]:
                  f"slot {alone.out}")
     print(f"  ok float32 {LM_SLOTS}-slot server: every request's tokens equal a "
           "1-slot server's")
-    rec["consistency"] = {"worst": worst, "limit": LM_CONSISTENCY,
-                          "serve_float32": served_f}
+    rec["consistency"] = {"worst": worst, "worst_server_graphs": worst_g,
+                          "limit": LM_CONSISTENCY, "serve_float32": served_f}
 
     # (e) bf16 against float32
     f_first = torch.stack([lm.prefill(cfg_f, model_f, {"tokens": p[None]},
@@ -1576,7 +1770,8 @@ def main() -> None:
     from repro_torch.core.metrics import matrix_bandwidth, ucld
     from repro_torch.core.reorder import random_order
     from repro_torch.launch import serve as serve_cli
-    from repro_torch.runtime.engine import SparseEngine
+    from repro_torch.runtime.engine import CAPTURE_MAX_OUTPUT_BYTES, SparseEngine
+    from repro_torch.runtime.executable import fused_batch_executable, pool_bytes
     from repro_torch.runtime.faults import FaultPlan
     from repro_torch.runtime.overload import (
         BROWNOUT,
@@ -1829,6 +2024,55 @@ def main() -> None:
     torch.cuda.empty_cache()
     phase_done("kernels_vs_plain", t0)
 
+    # -- phase 2b: op.aot(), a CUDA graph, against op @ x -----------------
+    t0 = time.perf_counter()
+    print("phase 2b: op.aot() (a CUDA graph) against op @ x on cant, bit for bit",
+          flush=True)
+    aot_rec = record["aot"] = {}
+    rng_a = np.random.default_rng(2)
+
+    def host_us(fn, x, reps: int = 200) -> float:
+        """Host microseconds per call, the device waited for at the end."""
+        fn(x)
+        torch.cuda.synchronize()
+        t_ = time.perf_counter()
+        for _ in range(reps):
+            fn(x)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t_) / reps * 1e6
+
+    for label, cand, k in (
+            ("sell/cuda k=1", make("sell", "cuda", C=8, sigma=64, chunk_tile=8), None),
+            ("sell_blocked/cuda k=1", make("sell_blocked", "cuda", C=8, sigma=64,
+                                           n_slabs=2, chunk_tile=8), None),
+            ("bcsr/cuda k=64", make("bcsr", "cuda", block=(8, 8)), 64)):
+        op = SparseOperator.from_candidate(cant, cand, k=k, device=dev)
+        exe = op.aot()
+        shape = (n,) if k is None else (n, k)
+        x1, x2 = (torch.as_tensor(rng_a.standard_normal(shape).astype(np.float32),
+                                  device=dev) for _ in range(2))
+        y1 = exe(x1)
+        kept = y1.clone()
+        y2 = exe(x2)
+        torch.cuda.synchronize()
+        if exe is op._run or not hasattr(exe, "graph"):
+            fail(f"op.aot() of {label} is not a captured executable")
+        if not (torch.equal(y1, op @ x1) and torch.equal(y2, op @ x2)):
+            fail(f"op.aot() of {label} differs from op @ x")
+        if not torch.equal(y1, kept):
+            fail(f"op.aot() of {label}: the second call changed the first result")
+        us_graph, us_eager = host_us(exe, x1), host_us(op.__matmul__, x1)
+        aot_rec[label] = {"host_us_per_call_graph": us_graph,
+                          "host_us_per_call_eager": us_eager,
+                          "tally": dict(exe.graph.tally)}
+        print(f"  ok {label}: op.aot() == op @ x bit for bit on two calls, the first "
+              f"result kept; captured launches {dict(exe.graph.tally)}; wall per call "
+              f"{us_graph:.1f} us graph (copy in, replay, copy out), {us_eager:.1f} us "
+              f"eager [{smi}]")
+        del op, exe
+    torch.cuda.empty_cache()
+    phase_done("aot", t0)
+
     # -- phase 3 + 4: the main path, launches counted ---------------------
     _build.reset_launches()
     t0 = time.perf_counter()
@@ -1936,14 +2180,129 @@ def main() -> None:
     ys_sync = serve(eng_sync, req_dev[64:])
     if not all(torch.equal(a_, b_) for a_, b_ in zip(ys_async, ys_sync)):
         fail("pinned engine: async results differ from async_depth=0 results")
-    print("  ok pinned engine: async == sync bit for bit")
+    print("  ok pinned engine: async == sync bit for bit (both through CUDA graphs)")
+    eng_eager = SparseEngine(cant, ks=K_BUCKETS, ops=pinned, device=dev,
+                             captured=False)
+    ys_eager = serve(eng_eager, req_dev[64:])
+    if not all(torch.equal(a_, b_) for a_, b_ in zip(ys_async, ys_eager)):
+        fail("pinned engine: the graphs' results differ from the eager closures'")
+    for k in K_BUCKETS:  # each bucket's graph against its eager closure
+        g_fn, e_fn = eng_async._execs[k], eng_eager._execs[k]
+        if not hasattr(g_fn, "executable") or hasattr(e_fn, "executable"):
+            fail(f"bucket {k}: the default engine's closure is not a graph, or the "
+                 "captured=False one is")
+        if not torch.equal(g_fn(*req_dev[:k]), e_fn(*req_dev[:k])):
+            fail(f"bucket {k}: its graph differs from its eager closure")
+    print("  ok pinned engine: every bucket's graph equals its eager closure bit for "
+          "bit, and the served results equal an eager engine's")
+    pools = {}
+    for label, eng_ in (("tuned", eng), ("pinned async", eng_async),
+                        ("pinned sync", eng_sync)):
+        graphs_ = [fn.executable for fn in eng_._execs.values()
+                   if hasattr(fn, "executable")]
+        if {g.pool for g in graphs_} != {eng_.graph_pool}:
+            fail(f"{label} engine: its buckets' graphs do not share the engine's pool")
+        pools[label] = {"graphs": len(graphs_), "pool_bytes": pool_bytes([eng_.graph_pool])}
+    print(f"  graph pools per engine (allocator bytes): {pools}")
+    record["engine_graph_pools"] = pools
+
+    def dispatch_us(captured: bool) -> dict:
+        """Median host microseconds of one step() per bucket (a dispatch; the
+        batch it retires has finished), the capturing first one left out."""
+        e_ = SparseEngine(cant, ks=K_BUCKETS, ops=pinned, device=dev,
+                          captured=captured)
+        out = {}
+        for k in K_BUCKETS:
+            ts = []
+            for _ in range(33):
+                for x in req_dev[:k]:
+                    e_.submit(x)
+                torch.cuda.synchronize()
+                t_ = time.perf_counter()
+                e_.step()
+                ts.append(time.perf_counter() - t_)
+            e_.drain()
+            out[k] = float(np.median(ts[1:])) * 1e6
+        e_.close()
+        assert_unfaulted(f"dispatch timing engine (captured={captured})", e_)
+        return out
+
+    turns = [dispatch_us(c) for c in (True, False, True, False)]
+    disp = record["dispatch_host_us"] = {
+        "graph": {k: min(turns[0][k], turns[2][k]) for k in K_BUCKETS},
+        "eager": {k: min(turns[1][k], turns[3][k]) for k in K_BUCKETS},
+        "card": smi}
+    for k in K_BUCKETS:
+        print(f"  host time per dispatch, bucket {k}: graph {disp['graph'][k]:.1f} us, "
+              f"eager {disp['eager'][k]:.1f} us (median of 32, best of 2 in turns) "
+              f"[{smi}]")
+    # The wide bucket, graphed against eager: each result is a copy of the
+    # graph's static output, one more write and read of Y per batch.
+    print("phase 4 (wide): serve --sparse's loop at k = 64, graphed against "
+          "captured=False, in turns", flush=True)
+    wide = record["wide_bucket"] = {"card": smi}
+    for name, cand in (("cant", make("bcsr", "cuda", block=(8, 8))),
+                       ("ldoor", make("csr", "vector"))):
+        a_ = mats[name]
+        op_ = SparseOperator.from_candidate(a_, cand, k=64, device=dev)
+        gen = torch.Generator(device=dev).manual_seed(4)
+        xs_ = [torch.randn(a_.shape[1], generator=gen, device=dev)
+               for _ in range(WIDE_REQUESTS[name])]
+        turns_ = {True: [], False: []}
+        outs = {}
+        # the engine's own choice: a graph up to CAPTURE_MAX_OUTPUT_BYTES
+        engine_graphs = a_.shape[0] * 64 * 4 <= CAPTURE_MAX_OUTPUT_BYTES
+        for captured in (True, False) * WIDE_TURNS:
+            e_ = SparseEngine(a_, ks=(64,), ops={64: op_}, device=dev)
+            if hasattr(e_._exec(64), "executable") != engine_graphs:
+                fail(f"wide bucket on {name}: the engine's capture choice is not "
+                     f"the output-size rule's ({engine_graphs})")
+            if captured != engine_graphs:  # the other side, bound by hand
+                e_.hot_swap({64: op_}, execs={64: fused_batch_executable(
+                    op_._run, bucket=64, n=a_.shape[1], device=dev,
+                    captured=captured)})
+            e_.run(xs_[:64])  # the first dispatch (the graph's capture)
+            fn = e_._exec(64)
+            if hasattr(fn, "executable") != captured:
+                fail(f"wide bucket on {name}: captured={captured} closure mismatch")
+            # device ms of one batch (stack, run, and the graph's copy out):
+            # 20 batches enqueued back to back between two events
+            fn(*xs_[:64])
+            ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            ev0.record()
+            for _ in range(20):
+                fn(*xs_[:64])
+            ev1.record()
+            ev1.synchronize()
+            reqs_, _, dt_ = serve_cli.offer(e_, xs_)
+            outs[captured] = [r.result() for r in reqs_]
+            e_.close()
+            assert_unfaulted(f"wide bucket engine on {name} (captured={captured})", e_)
+            turns_[captured].append({"req_per_s": len(reqs_) / dt_,
+                                     "batch_device_ms": ev0.elapsed_time(ev1) / 20})
+        if not all(torch.equal(gy, ey) for gy, ey in zip(outs[True], outs[False])):
+            fail(f"wide bucket on {name}: graphed results differ from eager ones")
+        del outs, xs_, op_
+        torch.cuda.empty_cache()
+        w = wide[name] = {"plan": cand.key(), "requests": WIDE_REQUESTS[name],
+                          "output_bytes": a_.shape[0] * 64 * 4,
+                          "engine_captures": engine_graphs,
+                          "graph": turns_[True], "eager": turns_[False]}
+        print(f"  {name} k=64 {cand.key()} (Y {w['output_bytes'] / 1e6:.1f} MB; the "
+              f"engine {'captures' if engine_graphs else 'keeps eager'}): "
+              f"req/s graph {[round(t['req_per_s'], 1) for t in w['graph']]}, eager "
+              f"{[round(t['req_per_s'], 1) for t in w['eager']]}; device ms per batch "
+              f"graph {[round(t['batch_device_ms'], 4) for t in w['graph']]}, eager "
+              f"{[round(t['batch_device_ms'], 4) for t in w['eager']]}; results bit for "
+              f"bit equal [{smi}]", flush=True)
     check_served("pinned engine, 64 requests vs float64 oracle", ys_async,
                  req_host[64:])
     by_bucket = eng_async.stats.summary()["by_bucket"]
     if sorted(by_bucket) != list(K_BUCKETS):
         fail(f"pinned engine did not serve every bucket: {by_bucket}")
     for label, eng_ in (("tuned engine", eng), ("pinned engine async", eng_async),
-                        ("pinned engine sync", eng_sync)):
+                        ("pinned engine sync", eng_sync),
+                        ("pinned engine eager", eng_eager)):
         eng_.close()
         assert_unfaulted(label, eng_)
     print("  ok phase 4 engines: zero supervisor events, zero demotions")
@@ -2816,6 +3175,13 @@ def main() -> None:
             candidates=[make("sell", "cuda", C=8, sigma=64, chunk_tile=8)]),
     }
     sc, sb, sl = solvers.values()
+    # the same plans with their blocks enqueued eagerly (captured=False): the
+    # graphs' baseline
+    eager_solvers = {}
+    for label, s_ in solvers.items():
+        e_ = eager_solvers[label] = SparseSolver(s_.a, device=dev, captured=False)
+        e_._ops = s_._ops  # shared: every width is built below, once
+    sc_e, sb_e, sl_e = eager_solvers.values()
     # every plan the solves below run, searched (or pinned) and prepared
     step_ops = {"spd_cant k=1, tuned": (sc.op(1), 1),
                 "spd_cant k=8, tuned": (sc.op(8), 8),
@@ -2883,6 +3249,28 @@ def main() -> None:
                 or not gap <= atol:
             fail(f"{label}: fused and host loop differ")
 
+    def same_as_eager(label: str, graphed, eager) -> None:
+        """Graphed and eager blocks on one plan: the same count, flag and
+        reads, and the same bits (within 1e-6 if a library reduction
+        differs under capture, which is then printed)."""
+        pair = ((graphed.x, eager.x) if graphed.x is not None
+                else (graphed.eigenvectors, eager.eigenvectors))
+        bitwise = torch.equal(*pair) and (
+            graphed.x is not None
+            or np.array_equal(graphed.eigenvalues, eager.eigenvalues))
+        gap = float((pair[0] - pair[1]).abs().max())
+        sol[f"{label}, graphed vs eager blocks"] = {
+            "iterations": [graphed.iterations, eager.iterations],
+            "syncs": [graphed.syncs, eager.syncs], "bitwise": bitwise, "max_gap": gap}
+        print(f"  {label}: graphed blocks {graphed.iterations} iterations "
+              f"({graphed.syncs} host reads), eager blocks {eager.iterations} "
+              f"({eager.syncs}), flags {graphed.converged}/{eager.converged}, "
+              + ("bit for bit" if bitwise else f"NOT bit for bit: max gap {gap:.3e}"))
+        if ((graphed.iterations, graphed.converged, graphed.syncs)
+                != (eager.iterations, eager.converged, eager.syncs)
+                or not (bitwise or gap <= 1e-6)):
+            fail(f"{label}: graphed and eager blocks differ")
+
     def block_power64(name: str, v0, iters: int) -> np.ndarray:
         """The same block power iteration in float64 on the card (a library
         product, no plan, no kernel of the port, so no launch counted): the
@@ -2906,6 +3294,7 @@ def main() -> None:
     b_c = torch.as_tensor(b_host["cant"], device=dev)
     r_cg = sc.cg(b_c, tol=1e-5, maxiter=500)
     cg_check("cant CG, tuned", "cant", r_cg)
+    same_as_eager("cant CG", r_cg, sc_e.cg(b_c, tol=1e-5, maxiter=500))
     same_run("cant CG", r_cg, cg_host_loop(sc.op(1)._run, b_c, tol=1e-5, maxiter=500,
                                            device=dev), 1e-6)
     # A tol the host loop first meets at iteration 5, inside the block of
@@ -2917,6 +3306,8 @@ def main() -> None:
     same_run(f"cant CG to tol {tol_mid:.3e}, converged inside a block", r_mid,
              cg_host_loop(sc.op(1)._run, b_c, tol=tol_mid, maxiter=500, device=dev),
              1e-6)
+    same_as_eager(f"cant CG to tol {tol_mid:.3e}", r_mid,
+                  sc_e.cg(b_c, tol=tol_mid, maxiter=500))
     if (r_mid.iterations, r_mid.converged, r_mid.syncs) != (5, True, 3 + 1):
         fail(f"CG to tol {tol_mid:.3e}: {r_mid.iterations} iterations, converged "
              f"{r_mid.converged}, {r_mid.syncs} host reads; want 5, True, 4")
@@ -2933,11 +3324,12 @@ def main() -> None:
     v0 = torch.as_tensor(np.random.default_rng(1).standard_normal(
         (spd["cant"].shape[0], 8)).astype(np.float32), device=dev)
     bp_runs = {}
-    for label, s_ in (("cant block power k=8, tuned", sc),
-                      ("cant block power k=8, bcsr/cuda", sb)):
+    for label, s_, e_ in (("cant block power k=8, tuned", sc, sc_e),
+                          ("cant block power k=8, bcsr/cuda", sb, sb_e)):
         r_bp = bp_runs[label] = s_.block_power(8, tol=1e-4, maxiter=100, v0=v0)
         same_run(label, r_bp, block_power_host_loop(
             s_.op(8)._run, v0, tol=1e-4, maxiter=100, device=dev), 1e-5)
+        same_as_eager(label, r_bp, e_.block_power(8, tol=1e-4, maxiter=100, v0=v0))
     lap("cant: Lanczos and block power")
     for label, r_bp in bp_runs.items():
         # Every theta, index by index, against the float64 run of the same
@@ -2973,6 +3365,7 @@ def main() -> None:
     cg_check("ldoor CG, sell/cuda", "ldoor", r_l)
     same_run("ldoor CG", r_l, cg_host_loop(sl.op(1)._run, b_l, tol=1e-5, maxiter=500,
                                            device=dev), 1e-6)
+    same_as_eager("ldoor CG", r_l, sl_e.cg(b_l, tol=1e-5, maxiter=500))
     torch.cuda.synchronize()
     launches8 = dict(_build.LAUNCHES)
     print(f"  launches over the phase 8 solves: {launches8}")
@@ -2986,9 +3379,14 @@ def main() -> None:
             fail(f"unfaulted solver {label}: supervisor events {ev}")
     print("  ok phase 8 solvers: zero supervisor events, zero demotions")
 
+    graphs8 = {label: s_.n_graphs for label, s_ in solvers.items()}
+    print(f"  CUDA graphs captured per solver (one per block size, kind and width): "
+          f"{graphs8}")
+    sol["graphs"] = graphs8
+
     # Rate: ms per iteration at a fixed budget (tol < 0, 128 iterations),
-    # fused against host loop on one plan, best of 5 taken in turns; host
-    # reads counted by torch's sync debug mode.
+    # graphed blocks, eager blocks and the host loop on one plan, best of 5
+    # taken in turns; host reads counted by torch's sync debug mode.
     def per_iter_ms(fn) -> float:
         torch.cuda.synchronize()
         t_ = time.perf_counter()
@@ -3009,27 +3407,36 @@ def main() -> None:
     rates = record["solver_rates"] = {}
     cases = (
         ("cant CG", lambda: sc.cg(b_c, tol=-1.0, maxiter=128),
+         lambda: sc_e.cg(b_c, tol=-1.0, maxiter=128),
          lambda: cg_host_loop(sc.op(1)._run, b_c, tol=-1.0, maxiter=128, device=dev)),
         ("ldoor CG", lambda: sl.cg(b_l, tol=-1.0, maxiter=128),
+         lambda: sl_e.cg(b_l, tol=-1.0, maxiter=128),
          lambda: cg_host_loop(sl.op(1)._run, b_l, tol=-1.0, maxiter=128, device=dev)),
         ("cant block power k=8, bcsr/cuda",
          lambda: sb.block_power(8, tol=-1.0, maxiter=128, v0=v0),
+         lambda: sb_e.block_power(8, tol=-1.0, maxiter=128, v0=v0),
          lambda: block_power_host_loop(sb.op(8)._run, v0, tol=-1.0, maxiter=128,
                                        device=dev)),
     )
-    for label, fused_fn, host_fn in cases:
-        fused_fn(), host_fn()  # warm
-        f_ms, h_ms = [], []
+    for label, graph_fn, eager_fn, host_fn in cases:
+        graph_fn(), eager_fn(), host_fn()  # warm (the graphs are captured here)
+        g_ms, e_ms, h_ms = [], [], []
         for _ in range(5):
-            f_ms.append(per_iter_ms(fused_fn))
+            g_ms.append(per_iter_ms(graph_fn))
+            e_ms.append(per_iter_ms(eager_fn))
             h_ms.append(per_iter_ms(host_fn))
-        rates[label] = {"fused_ms_per_iter": min(f_ms), "host_ms_per_iter": min(h_ms),
-                        "fused_syncs_counted": sync_count(fused_fn),
-                        "host_syncs_counted": sync_count(host_fn)}
-        print(f"  {label}, 128 iterations at tol < 0: fused {min(f_ms):.4f} ms per "
-              f"iteration, host loop {min(h_ms):.4f} (best of 5 in turns); "
-              f"synchronising calls counted {rates[label]['fused_syncs_counted']} / "
-              f"{rates[label]['host_syncs_counted']}", flush=True)
+        rates[label] = {"graph_ms_per_iter": min(g_ms),
+                        "eager_blocks_ms_per_iter": min(e_ms),
+                        "host_ms_per_iter": min(h_ms),
+                        "graph_syncs_counted": sync_count(graph_fn),
+                        "eager_blocks_syncs_counted": sync_count(eager_fn),
+                        "host_syncs_counted": sync_count(host_fn), "card": smi}
+        print(f"  {label}, 128 iterations at tol < 0: graphed blocks {min(g_ms):.4f} "
+              f"ms per iteration, eager blocks {min(e_ms):.4f}, host loop "
+              f"{min(h_ms):.4f} (best of 5 in turns); synchronising calls counted "
+              f"{rates[label]['graph_syncs_counted']} / "
+              f"{rates[label]['eager_blocks_syncs_counted']} / "
+              f"{rates[label]['host_syncs_counted']} [{smi}]", flush=True)
     def wall(fn) -> float:
         torch.cuda.synchronize()
         t_ = time.perf_counter()
@@ -3037,19 +3444,22 @@ def main() -> None:
         torch.cuda.synchronize()
         return (time.perf_counter() - t_) * 1e3
 
-    for label, s_, b_ in (("cant CG", sc, b_c), ("ldoor CG", sl, b_l)):
-        walls = {"fused": [], "host": []}
+    for label, s_, e_, b_ in (("cant CG", sc, sc_e, b_c), ("ldoor CG", sl, sl_e, b_l)):
+        walls = {"graph": [], "eager": [], "host": []}
         for _ in range(5):  # in turns, plans already built
-            walls["fused"].append(wall(lambda: s_.cg(b_, tol=1e-5, maxiter=500)))
+            walls["graph"].append(wall(lambda: s_.cg(b_, tol=1e-5, maxiter=500)))
+            walls["eager"].append(wall(lambda: e_.cg(b_, tol=1e-5, maxiter=500)))
             walls["host"].append(wall(lambda: cg_host_loop(
                 s_.op(1)._run, b_, tol=1e-5, maxiter=500, device=dev)))
         res_ = s_.cg(b_, tol=1e-5, maxiter=500)
-        rates[label].update(solve_wall_ms=min(walls["fused"]),
+        rates[label].update(solve_wall_ms=min(walls["graph"]),
+                            eager_blocks_solve_wall_ms=min(walls["eager"]),
                             host_solve_wall_ms=min(walls["host"]),
                             solve_iterations=res_.iterations, solve_syncs=res_.syncs)
         print(f"  {label} to tol 1e-5 ({res_.iterations} iterations, {res_.syncs} host "
-              f"reads): fused {min(walls['fused']):.3f} ms wall, host loop "
-              f"{min(walls['host']):.3f} (best of 5 in turns)")
+              f"reads): graphed blocks {min(walls['graph']):.3f} ms wall, eager blocks "
+              f"{min(walls['eager']):.3f}, host loop {min(walls['host']):.3f} (best of 5 "
+              f"in turns)")
     lap("rates")
 
     # Supervision: an injected solver.dispatch fault retries, then demotes;
@@ -3086,6 +3496,7 @@ def main() -> None:
                           "real": [e.kind for e in sup_bad.events]}
     sol_tmp.cleanup()
     del solvers, step_ops, bp_runs, sc, sb, sl, s_f, s_bad, good, prep_bad, shifted
+    del eager_solvers, sc_e, sb_e, sl_e, e_
     torch.cuda.empty_cache()
     phase_done("solvers", t0)
     for row in kernels:
@@ -3146,5 +3557,7 @@ def main() -> None:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--mesh-device-ops"]:
         mesh_device_ops(sys.argv[2])
+    elif sys.argv[1:2] == ["--lm-profile"]:
+        lm_profile()
     else:
         main()

@@ -122,11 +122,14 @@ def unpermute(sums: torch.Tensor, row_perm: torch.Tensor, n_rows: int) -> torch.
     """Scatter sorted-row sums to original rows; ``row_perm`` -1 = padding.
 
     ``row_perm`` is a permutation of the valid rows, so each row receives
-    exactly one sum and the scatter is a plain store."""
-    valid = row_perm >= 0
-    y = torch.zeros((n_rows,) + sums.shape[1:], dtype=sums.dtype, device=sums.device)
-    y[row_perm[valid].long()] = sums[valid]
-    return y
+    exactly one sum and the scatter is a plain store.  Padding sums land
+    in one extra row that is dropped: no size depends on the data, so the
+    host never waits for the device and the tier can be captured in a CUDA
+    graph."""
+    dest = torch.where(row_perm >= 0, row_perm, n_rows).long()
+    y = torch.zeros((n_rows + 1,) + sums.shape[1:], dtype=sums.dtype, device=sums.device)
+    y[dest] = sums
+    return y[:n_rows]
 
 
 def spmv_sell(sell: dict[str, Any], x: torch.Tensor, *, n_rows: int) -> torch.Tensor:

@@ -16,6 +16,13 @@ stream.  ``LAUNCHES`` counts kernel launches by name; each wrapper adds one
 (:func:`count`) where it launches its kernel and nowhere else, so a run can
 show which kernels the main path really went through.  The count takes a
 lock: an engine's repair thread launches beside its serving thread.
+
+A launch made while the calling thread's current stream captures a CUDA
+graph runs nothing yet: :func:`count` adds it to that thread's capture
+tally instead.  The capture takes the tally (:func:`take_tally`) and each
+replay of the graph adds it to ``LAUNCHES`` (:func:`add_replay`).  The
+tally is per thread, so a thread that captures never counts the eager
+launches of another, nor they its captured ones.
 """
 from __future__ import annotations
 
@@ -37,6 +44,8 @@ __all__ = [
     "BUILD_LOG",
     "reset_launches",
     "count",
+    "take_tally",
+    "add_replay",
     "ensure_built",
     "function",
     "check",
@@ -66,6 +75,7 @@ _libs: dict[str, ctypes.CDLL] = {}
 _fns: dict[tuple[str, str], ctypes._CFuncPtr] = {}
 _lock = threading.Lock()
 _count_lock = threading.Lock()
+_capturing = threading.local()  # .tally: this thread's captured launches
 
 
 def reset_launches() -> None:
@@ -73,10 +83,35 @@ def reset_launches() -> None:
         LAUNCHES.clear()
 
 
+def _tally() -> collections.Counter:
+    tally = getattr(_capturing, "tally", None)
+    if tally is None:
+        tally = _capturing.tally = collections.Counter()
+    return tally
+
+
 def count(name: str) -> None:
-    """Add one launch of kernel ``name`` to ``LAUNCHES``."""
+    """Add one launch of kernel ``name`` to ``LAUNCHES``, or to the calling
+    thread's capture tally while its current stream is capturing."""
+    if torch.cuda.is_current_stream_capturing():
+        _tally()[name] += 1
+        return
     with _count_lock:
         LAUNCHES[name] += 1
+
+
+def take_tally() -> collections.Counter:
+    """The launches the calling thread captured since its last call; its
+    tally starts again from nothing."""
+    tally = _tally()
+    _capturing.tally = collections.Counter()
+    return tally
+
+
+def add_replay(tally: collections.Counter) -> None:
+    """Count one replay of a graph that captured ``tally``."""
+    with _count_lock:
+        LAUNCHES.update(tally)
 
 
 def _nvcc() -> str:

@@ -49,7 +49,9 @@ A language model: ``--arch`` serves ``--requests`` greedy requests of
 ``--prompt-len`` random tokens (``default_rng(0)``) and ``--max-new`` new
 tokens each through ``repro_torch.runtime.server.BatchedServer`` with
 ``--slots`` decode slots, over the registered configuration at full width
-or ``--reduced``, with weights drawn from seed 0:
+or ``--reduced``, with weights drawn from seed 0.  On a card the decode
+step and each prompt length's prefill run as CUDA graphs; the report and
+``--stats-json`` give the graphs captured and the seconds spent capturing:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-4b \\
       --reduced --device cpu --requests 8 --slots 4
@@ -82,10 +84,33 @@ def _overload_kwargs(args) -> dict:
     return kw
 
 
+def offer(eng, xs, max_wait_s: float | None = None) -> tuple[list, int, float]:
+    """Offer every request of ``xs`` to ``eng`` at once and serve them all;
+    returns ``(requests, refused, seconds)``.  With ``max_wait_s`` full
+    buckets dispatch at once and the partial tail waits out its SLO."""
+    from repro_torch.runtime.engine import OverloadError
+
+    t0 = time.perf_counter()
+    reqs, refused = [], 0
+    for x in xs:  # offered load: all pending at once
+        try:
+            reqs.append(eng.submit(x))
+        except OverloadError:
+            refused += 1  # a typed refusal: an open-loop caller backs off
+    if max_wait_s is None:
+        eng.drain()
+    else:
+        while eng.pending:
+            if eng.step() == 0:
+                time.sleep(min(max_wait_s / 4, 1e-3))
+        eng.flush()
+    return reqs, refused, time.perf_counter() - t0
+
+
 def serve_sparse(args) -> None:
     from repro_torch.data.suite import SUITE, generate
     from repro_torch.launch.mesh import make_spmm_mesh
-    from repro_torch.runtime.engine import OverloadError, SparseEngine
+    from repro_torch.runtime.engine import SparseEngine
 
     names = [s.name for s in SUITE]
     if args.sparse not in names:
@@ -125,23 +150,12 @@ def serve_sparse(args) -> None:
                        **(topo if mesh is not None or args.shards > 1
                           else {"ops": warm.ops, "device": args.device}),
                        **_overload_kwargs(args))
+    if mesh is None and args.shards <= 1:
+        # the warm engine's closures, whose CUDA graphs it captured on a
+        # card: the timed window captures nothing
+        eng.hot_swap(warm.ops, execs=warm._execs)
 
-    t0 = time.perf_counter()
-    reqs, refused = [], 0
-    for x in xs:  # offered load: all pending at once
-        try:
-            reqs.append(eng.submit(x))
-        except OverloadError:
-            refused += 1  # a typed refusal: an open-loop caller backs off
-    if max_wait_s is None:
-        eng.drain()
-    else:
-        # Full buckets dispatch at once; the partial tail waits out its SLO.
-        while eng.pending:
-            if eng.step() == 0:
-                time.sleep(min(max_wait_s / 4, 1e-3))
-        eng.flush()
-    dt = time.perf_counter() - t0
+    reqs, refused, dt = offer(eng, xs, max_wait_s)
     served = [r for r in reqs if not r.failed]
     shed = len(reqs) - len(served)
     flops = 2 * a.nnz * len(served)
@@ -332,12 +346,16 @@ def serve_lm(args) -> dict:
           f"({toks / dt:.1f} tok/s, {srv.steps} decode steps, "
           f"{srv.prefills} prefills, "
           f"batch occupancy {srv.occupancy * args.slots:.2f}/{args.slots}"
-          f"{lat_txt})")
+          f"{lat_txt}; {srv.graphs} CUDA graphs captured in {srv.capture_s:.2f}s)")
     summary = {
         "arch": cfg.arch_id, "device": str(srv.device), "requests": len(reqs),
         "served": done, "tokens": toks, "elapsed_s": dt, "tok_per_s": toks / dt,
         "decode_steps": srv.steps, "prefills": srv.prefills,
         "occupancy": srv.occupancy, "latency_p50_s": p50, "latency_p99_s": p99,
+        # CUDA graphs (decode + one prefill per prompt length) and the
+        # seconds their warm-ups and captures took, inside elapsed_s but the
+        # decode graph's, which the server captured when it was built
+        "graphs": srv.graphs, "capture_s": srv.capture_s,
     }
     if args.stats_json:
         _dump_stats(args.stats_json, summary)

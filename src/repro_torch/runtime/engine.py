@@ -11,7 +11,18 @@ Plans are held per *k-bucket* (default k in {1, 4, 16, 64}); a batch of b
 pending requests is rounded up to the smallest bucket >= b, the tail padded
 with a shared zero column.  Each bucket binds one closure
 (``runtime.executable``) that stacks the batch into a preallocated device
-slab and runs the plan.
+slab and runs the plan.  On a card (``captured=True``, the default) the
+plan's run is a CUDA graph over the slab, captured when the bucket first
+dispatches, in a memory pool that the engine's buckets share
+(``graph_pool``); ``captured=False`` keeps it eager (the measured baseline).
+A bucket whose output is larger than ``CAPTURE_MAX_OUTPUT_BYTES`` stays
+eager too: copying a graph's output out costs more device time there than
+the graph saves on the host.
+The stacked-shard and mesh buckets, the sparse lane and the fallback
+closures of a demoted bucket stay eager: the mesh runner places and
+copies across devices itself, the sparse lane's host staging has sizes
+that depend on the request, and capturing a fallback would add capture
+time to the serving thread at the moment it is already degraded.
 
 The loop is asynchronous: ``step()`` enqueues a batch on the device and
 keeps up to ``async_depth`` (<= 2) batches in flight, each marked by a CUDA
@@ -101,7 +112,7 @@ from repro_torch.core.distributed import assemble_rows, place_stacked, stacked_s
 from repro_torch.core.formats import CSRMatrix
 from repro_torch.core.partition import rows_balanced, stack_csr_shards
 from repro_torch.kernels.spmspv import pad_sparse_rhs, validate_sparse_rhs
-from repro_torch.runtime.executable import finite_guard, fused_batch_executable
+from repro_torch.runtime.executable import GraphPool, finite_guard, fused_batch_executable
 from repro_torch.runtime.faults import FaultPlan, InjectedFault, active_plan
 from repro_torch.runtime.overload import (
     HEALTHY,
@@ -132,6 +143,15 @@ __all__ = [
 ]
 
 K_BUCKETS = (1, 4, 16, 64)
+
+# A captured bucket returns a copy of its graph's static output, one more
+# write and read of Y on the device per batch.  A bucket whose Y (float32,
+# rows x bucket) is larger stays eager: at 32 MiB the copy takes about
+# 20 us at 3.35 TB/s, half the host time a graph saves per dispatch at
+# buckets 4 and 16 (25-46 us on an H100, chip_smoke.py phase 4), and a
+# bucket that writes more is device-bound, where saved host time buys
+# nothing (ldoor at k = 64, 244 MB: 0.5 % more device time graphed).
+CAPTURE_MAX_OUTPUT_BYTES = 32 * 2**20
 
 OVERLOAD_POLICIES = ("reject", "shed-oldest", "block")
 
@@ -281,6 +301,7 @@ class SparseEngine:
     ``ops=`` injects a prebuilt ``{k: SparseOperator}`` table instead of
     tuning one.  ``device`` is where the engine serves (``"cuda"`` unless
     the caller passes ``"cpu"``; with ``mesh=`` the mesh's first device).
+    ``captured`` runs the dense buckets' plans as CUDA graphs on a card.
     ``n_shards`` and ``mesh``/``axis`` serve A row-partitioned (see the
     module docstring); they exclude each other and ``ops=``.
     ``max_wait_s`` caps how long a request
@@ -327,6 +348,7 @@ class SparseEngine:
         supervisor: Supervisor | None = None,
         faults: FaultPlan | None = None,
         nan_guard: bool = False,
+        captured: bool = True,
         **build_kwargs: Any,
     ):
         if not ks:
@@ -356,6 +378,8 @@ class SparseEngine:
         self.supervisor = supervisor if supervisor is not None else Supervisor()
         self.faults = faults if faults is not None else active_plan()
         self.nan_guard = bool(nan_guard)
+        self.captured = bool(captured)
+        self.graph_pool: GraphPool | None = None  # the buckets' graphs, on a card
         self.ks = tuple(sorted({int(k) for k in ks}))
         self.max_wait_s = max_wait_s
         self.max_queue = None if max_queue is None else int(max_queue)
@@ -680,6 +704,14 @@ class SparseEngine:
                 self._execs[k] = execs[k]
             else:
                 self._execs.pop(k, None)
+        pool = self.graph_pool
+        if pool is not None and not any(
+                getattr(getattr(fn, "executable", None), "pool", None) is pool
+                for fn in self._execs.values()):
+            # no bucket serves from the engine's pool now (a retune brought
+            # its own): let it go with its last graph, and start a new one
+            # for a bucket bound later
+            self.graph_pool = None
 
     # -- dispatch -----------------------------------------------------------
     def _bucket_for(self, n_pending: int) -> tuple[int, int]:
@@ -831,15 +863,28 @@ class SparseEngine:
                     return y[:, 0] if x.dim() == 1 else y
 
                 fn = fused_batch_executable(run, bucket=bucket, n=self.shape[1],
-                                            device=self.device, guard=self.nan_guard)
+                                            device=self.device, guard=self.nan_guard,
+                                            captured=False)
             else:
                 fn = self._make_exec(bucket, self.ops[bucket])
             self._execs[bucket] = fn
         return fn
 
-    def _make_exec(self, bucket: int, op: SparseOperator):
-        return fused_batch_executable(op._run, bucket=bucket, n=self.shape[1],
-                                      device=self.device, guard=self.nan_guard)
+    def _make_exec(self, bucket: int, op: SparseOperator, *, fallback: bool = False,
+                   pool: GraphPool | None = None):
+        """A bucket's closure; captured unless it is a fallback's or a mesh
+        plan's (see the module docstring) or its output is larger than
+        ``CAPTURE_MAX_OUTPUT_BYTES``, into ``pool`` (default: the engine's
+        own, which its buckets share)."""
+        captured = (self.captured and not fallback and op.mesh is None
+                    and self.shape[0] * bucket * 4 <= CAPTURE_MAX_OUTPUT_BYTES)
+        if captured and self.device.type == "cuda" and pool is None:
+            if self.graph_pool is None:
+                self.graph_pool = GraphPool(self.device)
+            pool = self.graph_pool
+        return fused_batch_executable(
+            op._run, bucket=bucket, n=self.shape[1], device=self.device,
+            guard=self.nan_guard, captured=captured, pool=pool)
 
     # -- retirement ---------------------------------------------------------
     def _settle(self, bucket, ys, ok, event, poisoned) -> None:
@@ -939,7 +984,7 @@ class SparseEngine:
                 continue  # this tier cannot build here; try the next one
             sparse = isinstance(bucket, tuple)
             fn = (self._sparse_exec_for(op) if sparse
-                  else self._make_exec(bucket, op))
+                  else self._make_exec(bucket, op, fallback=True))
             with self._swap_lock:
                 if bucket not in self._demote_saved:
                     self._demote_saved[bucket] = (
@@ -956,8 +1001,12 @@ class SparseEngine:
                 self._execs[bucket] = fn
             self.stats.demotions += 1
             self.supervisor.demotions += 1
+            # where the fallback serves: on a mesh engine this is the
+            # single-device placement, recorded once and never rewritten
+            n_dev = 1 if op.mesh is None else op.mesh.n_devices
             self.supervisor.record("demote", engine=self.name, bucket=bucket,
-                                   tier=tier, level=level, error=repr(exc))
+                                   tier=tier, level=level, error=repr(exc),
+                                   n_devices=n_dev, device=str(op.device))
             self._start_repair()
             return True
         return False

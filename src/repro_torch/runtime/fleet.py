@@ -15,13 +15,15 @@ prewarms the new per-bucket closures and stages them with
 :meth:`SparseEngine.hot_swap`.  The serving thread adopts the table at its
 next dispatch; batches in flight retire on the old plan, bit for bit.
 
-On a card the worker builds and prewarms on a CUDA stream of its own,
-ordered after the serving stream's work so far, and waits for that stream
-before it stages the table, so no prepared tensor or slab is still being
-written when the serving stream first reads it.  The new tensors are then
-marked as used by the serving stream (``record_stream``): the allocator
-keeps their memory from the worker's stream until serving batches that
-may read them are done.  The search's CUDA-event timings run while serving
+On a card the worker builds, captures (each new closure's CUDA graph,
+``runtime.executable``) and prewarms on a CUDA stream of its own, ordered
+after the serving stream's work so far, and waits for that stream before
+it stages the table, so no prepared tensor, slab or graph buffer is still
+being written when the serving stream first reads it.  The new tensors
+(prepared dicts, each closure's slab and its graph's static outputs) are
+then marked as used by the serving stream (``record_stream``): the
+allocator keeps their memory from the worker's stream until serving
+batches that may read them are done.  The search's CUDA-event timings run while serving
 batches share the card, and its host work shares the interpreter with the
 serving thread.
 
@@ -32,7 +34,9 @@ lowest decayed traffic first, their engines dropped and their prepared
 dicts purged from the process-wide memo.  An evicted tenant is re-admitted
 on its next ``submit``, an exact cache hit once its retune has landed.  The
 budget counts prepared bytes only: each resident engine also holds one
-``(n, k)`` float32 slab per bucket wider than 1, which it does not see.
+``(n, k)`` float32 slab per bucket wider than 1 and, on a card, the graph
+pool its buckets share (each bucket's static output, and intermediates as
+large as the largest bucket's), which it does not see.
 
 **Scheduling.**  ``step()`` serves every tenant with work, deadline-first
 (the oldest pending request's ``t_submit + max_wait_s``), with a rotating
@@ -74,6 +78,7 @@ import torch
 from repro_torch.core.device import resolve
 from repro_torch.core.formats import CSRMatrix
 from repro_torch.runtime.engine import K_BUCKETS, EngineRequest, SparseEngine
+from repro_torch.runtime.executable import GraphPool
 from repro_torch.runtime.faults import FaultPlan, active_plan
 from repro_torch.runtime.overload import (
     HEALTHY,
@@ -561,10 +566,10 @@ class SparseFleet:
         """The measured search for one tenant, off the serving thread.
 
         ``build_multi`` per bucket (each winning plan persisted), each new
-        closure prewarmed once on a zero batch, then the table staged with
-        ``hot_swap``.  On a card all of it runs on the worker's stream,
-        which is waited for before the swap; the new tensors are marked as
-        used by the engine's stream.  A tenant evicted meanwhile is
+        closure captured and prewarmed once on a zero batch, then the table
+        staged with ``hot_swap``.  On a card all of it runs on the worker's
+        stream, which is waited for before the swap; the new tensors are
+        marked as used by the engine's stream.  A tenant evicted meanwhile is
         skipped: its cached plans make its reactivation an exact hit.
         """
         tenant = self._tenants.get(name)
@@ -582,15 +587,19 @@ class SparseFleet:
             zero = torch.zeros((tenant.a.shape[1],), dtype=torch.float32,
                                device=self.device)
             execs: dict[int, Any] = {}
+            # the new closures' graphs share a pool of their own: they are
+            # prewarmed here while the engine replays its graphs
+            pool = GraphPool(self.device) if self.device.type == "cuda" else None
             for k in self.ks:
-                fn = execs[k] = eng._make_exec(k, ops[k])
+                fn = execs[k] = eng._make_exec(k, ops[k], pool=pool)
                 fn(*([zero] * k))
             if side is not None:
                 done = torch.cuda.Event()
                 done.record(side)
                 done.synchronize()
                 for t in _device_tensors([op._prep for op in ops.values()]
-                                         + [getattr(fn, "slab", None)
+                                         + [getattr(fn, "buffers", None)
+                                            or getattr(fn, "slab", None)
                                             for fn in execs.values()]):
                     t.record_stream(eng._stream)
         eng.hot_swap(ops, execs=execs)

@@ -12,6 +12,22 @@ Decode is the paper's k = 1 regime (memory-bound, as SpMV), and batching B
 requests is its SpMM move: with the block-sparse FFN each decode step runs
 the BCSR kernel at k = B.  With ``impl="auto"`` the server routes W1 and W2
 through the tuner's measured search at k = B when it is built.
+
+On a card (``captured=True``, the default) the server runs compiled, as
+the JAX package's server runs ``jax.jit(decode_step, donate_argnums=(1,))``
+and ``jax.jit(prefill)``: one CUDA graph of ``decode_step`` for its B slots,
+captured when it is built, and one graph of ``prefill`` per prompt length
+it serves, captured at that length's first request (``runtime.executable``).
+The decode graph updates the server's own decode state in place, the
+counterpart of the donated state; each step copies its tokens into the
+graph's static ``(B, 1)`` input from pinned host memory, replays, and reads
+the argmax of the static logits before the next replay.  A prefill graph's
+state and last-token logits are static: the slot merge copies the state
+out before the next prefill replays.  Each capture first runs its function
+once eagerly (the warm-up; the decode warm-up runs on a scratch state, so
+the first served token reads an unwritten cache): ``warmups`` counts those
+passes, ``graphs`` the graphs and ``capture_s`` the seconds spent
+capturing.  On the CPU, or with ``captured=False``, every pass is eager.
 """
 from __future__ import annotations
 
@@ -22,6 +38,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.lm import LM, ModelConfig, decode_step, init_decode_state, prefill
+from repro_torch.runtime.executable import GraphPool, capture
 
 __all__ = ["Request", "BatchedServer"]
 
@@ -57,11 +74,12 @@ class BatchedServer:
     All slots share each step; empty slots decode token 0 into their own
     cache rows, which the next prefill into that slot overwrites.
     ``plan_cache``: the tuner's plan cache for ``impl="auto"`` (the default
-    cache when None).
+    cache when None).  ``captured``: decode and prefill as CUDA graphs on a
+    card (see the module docstring).
     """
 
     def __init__(self, cfg: ModelConfig, model: LM, batch_slots: int, max_seq: int,
-                 *, plan_cache=None):
+                 *, plan_cache=None, captured: bool = True):
         sff = cfg.sparse_ffn
         if sff is not None and sff.kind == "bcsr" and sff.impl == "auto":
             from repro_torch.models.ffn import tune_sparse_ffn
@@ -81,6 +99,75 @@ class BatchedServer:
         self.prefills = 0
         self.slot_tokens = 0  # decoded tokens, for occupancy reporting
         self.completed: list[Request] = []
+        self.captured = bool(captured) and self.device.type == "cuda"
+        self.graphs = 0
+        self.warmups = 0
+        self.capture_s = 0.0
+        # the last decode step's logits (B, 1, V); on a card the decode
+        # graph's static output, which the next step rewrites
+        self.last_logits: torch.Tensor | None = None
+        self._decode = None  # (graph, tokens, pinned tokens, logits)
+        self._prefill: dict[int, tuple] = {}  # length -> (graph, tokens, pinned, state, logits)
+        # one pool for every graph of the server: each replay's outputs are
+        # read (the argmax) or copied out (the slot merge) before the next
+        self._pool = GraphPool(self.device) if self.captured else None
+        if self.captured:
+            self._capture_decode()
+
+    def _captured(self, fn, *args, warmup_args=None):
+        t0 = time.perf_counter()
+        graph, out = capture(fn, *args, warmup_args=warmup_args, device=self.device,
+                             pool=self._pool)
+        self.capture_s += time.perf_counter() - t0
+        self.graphs += 1
+        self.warmups += 1
+        return graph, out
+
+    def _capture_decode(self) -> None:
+        cfg, model = self.cfg, self.model
+        tokens = torch.zeros((self.B, 1), dtype=torch.long, device=self.device)
+        scratch = init_decode_state(cfg, self.B, self.max_seq, self.device)
+        graph, logits = self._captured(
+            lambda state, toks: decode_step(cfg, model, state, toks)[1],
+            self.state, tokens, warmup_args=(scratch, tokens))
+        pinned = torch.zeros((self.B, 1), dtype=torch.long).pin_memory()
+        self._decode = (graph, tokens, pinned, logits)
+
+    def _prefill_one(self, prompt: np.ndarray) -> tuple[dict, torch.Tensor]:
+        """(batch-1 decode state, last-token logits) of one prompt: a
+        replay of the prompt length's graph, or an eager pass."""
+        prompt = np.asarray(prompt)[None, :]
+        if not self.captured:
+            tokens = torch.as_tensor(prompt, dtype=torch.long, device=self.device)
+            return prefill(self.cfg, self.model, {"tokens": tokens}, self.max_seq)
+        entry = self._prefill.get(prompt.shape[1])
+        if entry is None:
+            pinned = torch.as_tensor(prompt, dtype=torch.long).pin_memory()
+            tokens = pinned.to(self.device)
+            cfg, model, max_seq = self.cfg, self.model, self.max_seq
+            graph, (state, logits) = self._captured(
+                lambda toks: prefill(cfg, model, {"tokens": toks}, max_seq), tokens)
+            entry = self._prefill[prompt.shape[1]] = (graph, tokens, pinned, state, logits)
+        graph, tokens, pinned, state, logits = entry
+        pinned.copy_(torch.from_numpy(prompt.astype(np.int64)))
+        tokens.copy_(pinned, non_blocking=True)
+        graph.replay()
+        return state, logits
+
+    def _decode_once(self, toks: np.ndarray) -> torch.Tensor:
+        """One decode step of every slot on the host tokens ``toks`` (B, 1)
+        int64: the decode graph's replay after the pinned copy, or an eager
+        pass.  Returns the logits (B, 1, V), on a card the graph's static
+        output."""
+        if self._decode is None:
+            self.state, logits = decode_step(self.cfg, self.model, self.state,
+                                             torch.as_tensor(toks, device=self.device))
+            return logits
+        graph, tokens, pinned, logits = self._decode
+        pinned.copy_(torch.from_numpy(toks))
+        tokens.copy_(pinned, non_blocking=True)
+        graph.replay()
+        return logits
 
     def submit(self, req: Request) -> None:
         req.t_submit = time.perf_counter()
@@ -92,11 +179,10 @@ class BatchedServer:
             if self.slot_req[i] is None and self.queue:
                 req = self.queue.pop(0)
                 self.slot_req[i] = req
-                tokens = torch.as_tensor(np.asarray(req.prompt)[None, :],
-                                         dtype=torch.long, device=self.device)
-                state1, logits = prefill(self.cfg, self.model, {"tokens": tokens},
-                                         self.max_seq)
+                state1, logits = self._prefill_one(req.prompt)
                 _merge_slot(self.state, state1, i)
+                # reading the token waits for the merge, so the next prefill
+                # replay cannot overwrite a graph's state before it is copied
                 req._first = int(torch.argmax(logits[0]))
                 req.t_start = time.perf_counter()
                 self.prefills += 1
@@ -111,8 +197,10 @@ class BatchedServer:
         for i in active:
             req = self.slot_req[i]
             toks[i, 0] = req.out[-1] if req.out else req._first
-        self.state, logits = decode_step(self.cfg, self.model, self.state,
-                                         torch.as_tensor(toks, device=self.device))
+        logits = self._decode_once(toks)
+        # the host waits for the argmax here, before the pinned tokens and
+        # the static logits are written again
+        self.last_logits = logits
         nxt = torch.argmax(logits[:, 0], dim=-1).cpu().numpy()
         t_now = time.perf_counter()
         for i in active:

@@ -40,10 +40,20 @@ the device:
   fallback tiers are single-device, and unsharding a solve laid out over a
   mesh would change where its memory lives, so the failure is raised.
 
+* On a card (``captured=True``, the default) each block is a CUDA graph,
+  the counterpart of the JAX package's compiled ``lax.while_loop`` body:
+  one graph per block size (1, 2, 4, ... ``block``) per solver kind and
+  width, all over one set of static tensors (the state, the iteration
+  counter and the loop's constants).  A graph runs its masked steps and
+  ends by copying the new state into those tensors, so the next replay
+  continues from it; the host still reads one flag per block.
+  ``captured=False`` enqueues the same steps eagerly.  Mesh solves stay
+  eager.
+
 ``cg_host_loop`` / ``block_power_host_loop`` keep the loop on the host (one
-read per iteration) as the measured baseline.  Both loops run the same step
+read per iteration) as the measured baseline.  All loops run the same step
 functions, so "the same count as the host loop" is a statement about where
-the loop runs.  Capturing a block as a CUDA graph is a later step.
+the loop runs.
 
     from repro_torch.runtime.solver import SparseSolver
     s = SparseSolver(spd_csr)            # on cuda; device="cpu" for the host
@@ -66,6 +76,7 @@ import torch
 from repro_torch.core.device import resolve, resolve_on
 from repro_torch.core.distributed import psum_dot_runner
 from repro_torch.core.formats import CSRMatrix
+from repro_torch.runtime.executable import Graph, GraphPool, capture
 from repro_torch.runtime.faults import FaultPlan, active_plan
 from repro_torch.runtime.supervisor import (
     FALLBACK_TIERS,
@@ -192,41 +203,102 @@ def _block_power_body(run, dot=_dot):
     return body
 
 
-def _run_blocks(body, state: tuple, active_of: Callable, maxiter: int,
-                block: int) -> tuple[tuple, torch.Tensor, int]:
+def _masked_steps(body, cond, steps: int, ns: int) -> Callable:
+    """``fn(*state, it, *consts)`` over ``ns`` state tensors: ``steps``
+    iterations of ``body``, each masked by the device-side condition
+    ``cond(state, consts)``; the new state and count are copied into the
+    operands."""
+
+    def fn(*flat):
+        state, it, consts = flat[:ns], flat[ns], flat[ns + 1:]
+        new, count = state, it
+        for _ in range(steps):
+            active = cond(new, consts)
+            stepped = body(new)
+            new = tuple(torch.where(active, a, b) for a, b in zip(stepped, new))
+            count = count + active
+        for dst, src in zip(state, new):
+            dst.copy_(src)
+        it.copy_(count)
+
+    return fn
+
+
+class _BlockGraphs:
+    """The captured blocks of one solver kind at one width over one plan's
+    runner: one graph per block size over shared static tensors, in one
+    memory pool (a solve replays them one after another)."""
+
+    def __init__(self, run: Callable):
+        self.run = run
+        self.static: tuple[torch.Tensor, ...] | None = None
+        self.graphs: dict[int, Graph] = {}
+        self.pool: GraphPool | None = None
+
+    def load(self, flat: tuple) -> tuple:
+        """Copy a solve's starting state, counter and constants into the
+        static tensors (made on the first solve); returns them."""
+        if self.static is None:
+            self.static = tuple(t.clone() for t in flat)
+        else:
+            for dst, src in zip(self.static, flat):
+                dst.copy_(src)
+        return self.static
+
+    def replay(self, steps: int, fn: Callable) -> None:
+        graph = self.graphs.get(steps)
+        if graph is None:
+            scratch = tuple(t.clone() for t in self.static)  # the warm-up's
+            if self.pool is None:
+                self.pool = GraphPool(self.static[0].device)
+            graph, _ = capture(fn, *self.static, warmup_args=scratch, pool=self.pool)
+            self.graphs[steps] = graph
+        graph.replay()
+
+
+def _run_blocks(body, state: tuple, cond: Callable, consts: tuple, maxiter: int,
+                block: int, graphs: _BlockGraphs | None = None
+                ) -> tuple[tuple, torch.Tensor, int]:
     """Iterate ``body`` in blocks of 1, 2, 4, ... up to ``block`` steps,
-    each step masked by the device-side condition ``active_of(state)``;
+    each step masked by the device-side condition ``cond(state, consts)``;
     the host reads that condition once per block and enqueues no more than
-    ``maxiter`` steps.  Returns the final state, the device-side count of
-    unmasked steps and the reads."""
+    ``maxiter`` steps.  With ``graphs`` each block is a replay of its
+    captured graph, else it is enqueued eagerly.  Returns the final state,
+    the device-side count of unmasked steps and the reads."""
+    ns = len(state)
     it = torch.zeros((), dtype=torch.int32, device=state[0].device)
+    flat = (*state, it, *consts)
+    # the blocks write their operands: never the caller's (x0), nor one
+    # tensor twice (CG starts with p = r)
+    flat = graphs.load(flat) if graphs is not None else tuple(t.clone() for t in flat)
     done = reads = 0
     size = 1
     while done < maxiter:
         steps = min(size, maxiter - done)
-        for _ in range(steps):
-            active = active_of(state)
-            new = body(state)
-            state = tuple(torch.where(active, n, o) for n, o in zip(new, state))
-            it = it + active
+        fn = _masked_steps(body, cond, steps, ns)
+        if graphs is not None:
+            graphs.replay(steps, fn)
+        else:
+            fn(*flat)
         done += steps
         size = min(2 * size, block)
         if done >= maxiter:
             break  # the budget is spent: no flag to read
         reads += 1
-        if not bool(active_of(state)):
+        if not bool(cond(flat[:ns], flat[ns + 1:])):
             break
-    return state, it, reads
+    return flat[:ns], flat[ns], reads
 
 
-def _cg_blocks(run, b, x0, tol: float, maxiter: int, block: int, dot=_dot):
+def _cg_blocks(run, b, x0, tol: float, maxiter: int, block: int, dot=_dot,
+               graphs: _BlockGraphs | None = None):
     thresh2, r0, rs0 = _cg_setup(b, x0, tol, run, dot)
     (x, _, _, rs), it, reads = _run_blocks(
-        _cg_body(run, dot), (x0, r0, r0, rs0), lambda s: s[3] > thresh2, maxiter,
-        block)
+        _cg_body(run, dot), (x0, r0, r0, rs0), lambda s, c: s[3] > c[0],
+        (thresh2,), maxiter, block, graphs)
     it_h, res_h, conv_h = torch.stack(
         [it.double(), torch.sqrt(rs).double(), (rs <= thresh2).double()]).tolist()
-    return x, res_h, int(it_h), bool(conv_h), reads + 1
+    return x.clone(), res_h, int(it_h), bool(conv_h), reads + 1
 
 
 def _lanczos_steps(run, v0, num_steps: int, dot=_dot):
@@ -243,18 +315,23 @@ def _lanczos_steps(run, v0, num_steps: int, dot=_dot):
     return alphas, betas, 1
 
 
-def _block_power_blocks(run, v0, tol: float, maxiter: int, block: int, dot=_dot):
+def _block_power_blocks(run, v0, tol: float, maxiter: int, block: int, dot=_dot,
+                        graphs: _BlockGraphs | None = None):
     k = v0.shape[1]
     dev = v0.device
     state = (torch.linalg.qr(v0).Q, torch.zeros(k, dtype=torch.float32, device=dev),
              torch.full((), torch.inf, dtype=torch.float32, device=dev))
+    # tol as a float32 0-d tensor: the comparison the device makes with the
+    # Python float, and a graph's input rather than a constant baked into it
+    tol_t = torch.full((), tol, dtype=torch.float32, device=dev)
     (V, theta, diff), it, reads = _run_blocks(
-        _block_power_body(run, dot), state, lambda s: s[2] > tol, maxiter, block)
+        _block_power_body(run, dot), state, lambda s, c: s[2] > c[0], (tol_t,),
+        maxiter, block, graphs)
     head = torch.cat([torch.stack([it.double(), diff.double(),
                                    (diff <= tol).double()]), theta.double()])
     it_h, diff_h, conv_h, *theta_h = head.tolist()
-    return (V, np.asarray(theta_h, np.float32), diff_h, int(it_h), bool(conv_h),
-            reads + 1)
+    return (V.clone(), np.asarray(theta_h, np.float32), diff_h, int(it_h),
+            bool(conv_h), reads + 1)
 
 
 def _finite(out) -> bool:
@@ -277,9 +354,10 @@ class SparseSolver:
     read of the convergence flag.  ``mesh=`` / ``axis=`` shard the
     product with the tuned collective schedule and reduce every dot over
     the same shards (``psum_dot_runner``); the solver then runs on the
-    mesh's first device.  Remaining keyword arguments pass through to
-    :meth:`SparseOperator.build` (warmup, timed, candidates, force_search,
-    ...).
+    mesh's first device.  ``captured`` runs the blocks of CG and block
+    power as CUDA graphs on a card (see the module docstring).  Remaining
+    keyword arguments pass through to :meth:`SparseOperator.build` (warmup,
+    timed, candidates, force_search, ...).
     """
 
     def __init__(
@@ -295,6 +373,7 @@ class SparseSolver:
         nan_guard: bool = False,
         block: int = BLOCK,
         device: str | torch.device | None = None,
+        captured: bool = True,
         **build_kwargs: Any,
     ):
         m, n = a.shape
@@ -315,7 +394,9 @@ class SparseSolver:
         self.faults = faults if faults is not None else active_plan()
         self.nan_guard = bool(nan_guard)
         self.block = int(block)
+        self.captured = bool(captured)
         self._build_kwargs = build_kwargs
+        self._graphs: dict[tuple[str, int], _BlockGraphs] = {}
         self._ops: dict[int, SparseOperator] = {}
         self._demoted: dict[int, int] = {}  # k -> fallback-chain level
 
@@ -331,6 +412,22 @@ class SparseSolver:
                 axis=self.axis, **self._build_kwargs,
             )
         return op
+
+    def _block_graphs(self, solver: str, k: int, run: Callable) -> _BlockGraphs | None:
+        """The captured blocks of ``solver`` at width k over ``run`` (None
+        where the blocks run eagerly: the CPU, a mesh, ``captured=False``);
+        a new runner (a demotion) gets new graphs."""
+        if not self.captured or self.mesh is not None or self.device.type != "cuda":
+            return None
+        graphs = self._graphs.get((solver, k))
+        if graphs is None or graphs.run is not run:
+            graphs = self._graphs[(solver, k)] = _BlockGraphs(run)
+        return graphs
+
+    @property
+    def n_graphs(self) -> int:
+        """CUDA graphs captured so far (one per block size, kind and width)."""
+        return sum(len(g.graphs) for g in self._graphs.values())
 
     @property
     def from_cache(self) -> bool:
@@ -419,7 +516,7 @@ class SparseSolver:
         x, res, it, conv, syncs = self._call(
             "cg", 1,
             lambda run: _cg_blocks(run, b, x0, float(tol), int(maxiter), self.block,
-                                   self._dot))
+                                   self._dot, self._block_graphs("cg", 1, run)))
         return SolverResult(solver="cg", iterations=it, residual=res, converged=conv,
                             plan=self.op(1).plan.candidate.key(), x=x, syncs=syncs)
 
@@ -461,7 +558,8 @@ class SparseSolver:
         V, theta, diff, it, conv, syncs = self._call(
             "block_power", k,
             lambda run: _block_power_blocks(run, v0, float(tol), int(maxiter),
-                                            self.block, self._dot))
+                                            self.block, self._dot,
+                                            self._block_graphs("block_power", k, run)))
         return SolverResult(solver="block_power", iterations=it, residual=diff,
                             converged=conv, plan=self.op(k).plan.candidate.key(),
                             eigenvalues=theta, eigenvectors=V, syncs=syncs)

@@ -53,6 +53,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import merge_spmv as kmerge
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import spmspv as kspmspv
+from repro_torch.runtime.executable import aot_compile
 from repro_torch.runtime.faults import active_plan
 
 from .candidates import (
@@ -605,6 +606,7 @@ class SparseOperator:
         else:
             self._run = runner(a, plan.candidate, prep, k=plan.k, mesh=mesh, axis=axis)
         self._csr_dev: dict | None = prep.get("dev")  # fallback path, lazy
+        self._aot: dict[tuple, Callable] = {}  # operand shape -> executable
 
     # -- construction -------------------------------------------------------
     @classmethod
@@ -1007,6 +1009,37 @@ class SparseOperator:
         op.predicted = pred
         op.check_s = check_s
         return op
+
+    # -- persistent executables ---------------------------------------------
+    def aot(self, *, donate_rhs: bool = False) -> Callable:
+        """This operator's dispatch compiled into a persistent executable.
+
+        On a card: a CUDA graph (``runtime.executable.aot_compile``) over
+        exactly the plan's operand shape, (n,) for a k = 1 plan and (n, k)
+        otherwise, with the prepared tensors captured in; a call copies x
+        into the graph's input, replays, and returns a result that later
+        calls leave alone.  On the CPU the bound runner runs eagerly.
+
+        A sparse-RHS plan returns its bound runner, as the JAX package
+        does: its host staging has sizes that depend on x.  A mesh plan
+        returns its bound runner as it is, which places and copies across
+        devices itself.
+
+        ``donate_rhs=True`` keeps the JAX package's contract (the caller
+        hands the operand over and must not reuse it) but changes nothing
+        here: x is copied into the graph's own input either way, so both
+        values return the same executable.
+        """
+        del donate_rhs  # see the docstring
+        if self.plan.kind == "spmspv" or self.mesh is not None:
+            return self._run
+        n = self.shape[1]
+        shape = (n,) if self.plan.k == 1 else (n, self.plan.k)
+        fn = self._aot.get(shape)
+        if fn is None:
+            fn = self._aot[shape] = aot_compile(
+                self._run, torch.zeros(shape, dtype=torch.float32, device=self.device))
+        return fn
 
     # -- application --------------------------------------------------------
     def apply_sparse(self, indices, values) -> torch.Tensor:

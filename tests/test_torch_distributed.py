@@ -544,6 +544,9 @@ def test_demoted_mesh_bucket_serves_single_device_then_repromotes():
     demote = eng.supervisor.events_of("demote")
     assert len(demote) == 1
     assert demote[0].info["tier"] == "csr/vector" and demote[0].info["bucket"] == 4
+    # the fallback's placement, fixed in the event when it was installed
+    assert demote[0].info["n_devices"] == 1
+    assert demote[0].info["device"] == str(eng.mesh.devices[0])
     deadline = time.perf_counter() + 5.0
     while eng.supervisor.promotions < 1:
         assert time.perf_counter() < deadline, "the repair never re-promoted"

@@ -782,6 +782,9 @@ def test_gpu_retune_on_its_stream_hot_swaps_with_in_flight_futures_bitwise(cuda_
     late = [fl.submit("t", x) for x in xs[8:]]
     fl.drain()
     assert t.engine.swaps_applied == 1
+    # the retune's graphs share a pool of their own, not the engine's
+    pools = {fn.executable.pool for fn in t.engine._execs.values()}
+    assert len(pools) == 1 and t.engine.graph_pool not in pools
     for r, y in zip(reqs, ref):
         assert torch.equal(r.result(), y)
     for r, x in zip(late, xs[8:]):
@@ -1071,9 +1074,12 @@ def test_gpu_reduced_bcsr_model_serves_through_the_bf16_kernel(cuda_device):
         srv.submit(Request(rid=i, prompt=rng.integers(0, cfg.vocab, 6).astype(np.int32),
                            max_new=4))
     _build.reset_launches()
+    warm = srv.warmups  # the decode graph's warm-up ran before the count
     done = srv.run_until_drained()
     assert len(done) == 3
-    assert _build.LAUNCHES["bcsr_spmm_bf16"] == 2 * cfg.n_layers * (srv.prefills + srv.steps)
+    # every replay counts its captured launches, every warm-up pass its own
+    assert _build.LAUNCHES["bcsr_spmm_bf16"] == 2 * cfg.n_layers * (
+        srv.prefills + srv.steps + srv.warmups - warm)
     assert _build.LAUNCHES["bcsr_spmm"] == 0
     toks = rng.integers(0, cfg.vocab, (2, 9))
     got, _ = lm.forward(cfg, model, {"tokens": toks})
@@ -1082,3 +1088,266 @@ def test_gpu_reduced_bcsr_model_serves_through_the_bf16_kernel(cuda_device):
     ref, _ = lm.forward(cfg, host, {"tokens": toks})
     err = (got.float().cpu() - ref.float()).abs().max()
     assert float(err) <= 3e-2 * float(ref.float().abs().max())
+
+
+# ---------------------------------------------------------------------------
+# CUDA graphs: every captured path against its eager twin
+# ---------------------------------------------------------------------------
+_AOT_CASES = {
+    "sell/cuda k=1": (lambda: make("sell", "cuda", C=8, sigma=64, chunk_tile=8), None),
+    "sell_blocked/cuda k=1": (
+        lambda: make("sell_blocked", "cuda", C=8, sigma=64, n_slabs=2, chunk_tile=8),
+        None),
+    "bcsr/cuda k=4": (lambda: make("bcsr", "cuda", block=(8, 8)), 4),
+    "csr/vector k=16": (lambda: make("csr", "vector"), 16),
+}
+_KERNEL = {"sell": "sell_spmv", "sell_blocked": "sell_spmv_blocked", "bcsr": "bcsr_spmm"}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(_AOT_CASES))
+def test_gpu_aot_replay_equals_eager_bitwise(cuda_device, case):
+    """op.aot() on a card is a graph: bit for bit op @ x on two calls, the
+    first result untouched by the second call, and exactly one launch of
+    the plan's kernel counted per call."""
+    a, _ = _gpu_case()
+    cand, k = _AOT_CASES[case]
+    op = SparseOperator.from_candidate(a, cand(), k=k, device=cuda_device)
+    exe = op.aot()
+    assert exe is op.aot() and exe is not op._run
+    rng = np.random.default_rng(8)
+    shape = (a.shape[1],) if k is None else (a.shape[1], k)
+    x1, x2 = (torch.as_tensor(rng.standard_normal(shape).astype(np.float32),
+                              device=cuda_device) for _ in range(2))
+    kernel = _KERNEL.get(op.plan.fmt)
+    _build.reset_launches()
+    y1 = exe(x1)
+    y1_copy = y1.clone()
+    y2 = exe(x2)
+    torch.cuda.synchronize()
+    assert dict(_build.LAUNCHES) == ({kernel: 2} if kernel else {})
+    assert torch.equal(y1, op @ x1) and torch.equal(y2, op @ x2)
+    assert torch.equal(y1, y1_copy)
+
+
+def _pinned_engine_ops(a, device):
+    return {k: SparseOperator.from_candidate(
+        a, make("sell", "cuda", C=8, sigma=64, chunk_tile=8) if k == 1
+        else make("bcsr", "cuda", block=(8, 8)), k=None if k == 1 else k, device=device)
+        for k in (1, 4, 16, 64)}
+
+
+def _serve_groups(eng, xs, groups=(1, 3, 4, 12, 44)):
+    reqs, i = [], 0
+    for g in groups:
+        reqs += [eng.submit(x) for x in xs[i:i + g]]
+        i += g
+        eng.step()
+    eng.drain()
+    return [r.result() for r in reqs]
+
+
+@pytest.mark.gpu
+def test_gpu_engine_graphs_equal_eager_and_async_equals_sync(cuda_device):
+    """Every bucket of a pinned engine serves through its graph: the results
+    equal an eager engine's (captured=False) bit for bit, and the async
+    loop's equal the synchronous one's, with graphs on."""
+    from repro_torch.runtime.engine import SparseEngine
+
+    a, _ = _gpu_case()
+    ops = _pinned_engine_ops(a, cuda_device)
+    rng = np.random.default_rng(9)
+    xs = [torch.as_tensor(rng.standard_normal(a.shape[1]).astype(np.float32),
+                          device=cuda_device) for _ in range(64)]
+    out = {}
+    for label, kw in (("graph", {}), ("eager", {"captured": False}),
+                      ("graph sync", {"async_depth": 0})):
+        eng = SparseEngine(a, ks=(1, 4, 16, 64), ops=ops, device=cuda_device, **kw)
+        out[label] = _serve_groups(eng, xs)
+        execs = dict(eng._execs)
+        eng.close()
+        assert sorted(eng.stats.summary()["by_bucket"]) == [1, 4, 16, 64]
+        assert all(hasattr(fn, "executable") == (label != "eager")
+                   for fn in execs.values())
+        if label != "eager":  # the buckets' graphs share the engine's pool
+            assert {fn.executable.pool for fn in execs.values()} == {eng.graph_pool}
+    for label in ("eager", "graph sync"):
+        assert all(torch.equal(g, e) for g, e in zip(out["graph"], out[label])), label
+    for y, x in zip(out["graph"], xs):
+        xh = x.cpu().numpy()
+        assert_rowtol(y.cpu().numpy(), _oracle(a, xh), a, xh)
+
+
+@pytest.mark.gpu
+def test_gpu_engine_graph_launch_counts_are_exact_across_replays(cuda_device):
+    """After a bucket's first dispatch (one warm-up launch, one replay),
+    every further batch counts exactly one launch of the bucket's kernel."""
+    from repro_torch.runtime.engine import SparseEngine
+
+    a, x = _gpu_case()
+    eng = SparseEngine(a, ks=(1, 64), ops={k: v for k, v in _pinned_engine_ops(
+        a, cuda_device).items() if k in (1, 64)}, device=cuda_device)
+    xt = torch.as_tensor(x, device=cuda_device)
+    _build.reset_launches()
+    eng.run([xt] * 65)
+    torch.cuda.synchronize()
+    assert dict(_build.LAUNCHES) == {"bcsr_spmm": 2, "sell_spmv": 2}
+    _build.reset_launches()
+    eng.run([xt] * (3 * 64 + 1))
+    torch.cuda.synchronize()
+    assert dict(_build.LAUNCHES) == {"bcsr_spmm": 3, "sell_spmv": 1}
+    eng.close()
+
+
+@pytest.mark.gpu
+def test_gpu_error_during_capture_fails_the_batch_and_leaves_the_stream_usable(
+        cuda_device):
+    """A runner that synchronises (legal eagerly, forbidden while capturing)
+    fails its bucket's capture: the batch fails with that error, no retry
+    and no demotion, and afterwards the card launches, draws random
+    numbers, captures and serves as before.  A failed capture drops its
+    hold on its memory pool: the pool takes further captures, and once it
+    and its graphs are gone its memory goes back to the card."""
+    import gc
+    import types
+
+    from repro_torch.runtime.engine import SparseEngine
+    from repro_torch.runtime.executable import GraphPool, capture, pool_bytes
+    from repro_torch.runtime.supervisor import Supervisor
+
+    a, x = _gpu_case()
+    ops = {k: v for k, v in _pinned_engine_ops(a, cuda_device).items() if k in (1, 4)}
+    good = ops[4]._run
+
+    def syncing(x2):
+        y = good(x2)
+        float(y.sum())  # a host read: invalidates a capture
+        return y
+
+    ops[4]._run = syncing
+    sup = Supervisor(max_retries=2, backoff_base_s=0.0, repair_interval_s=0.01)
+    eng = SparseEngine(a, ks=(1, 4), ops=ops, device=cuda_device, supervisor=sup)
+    xt = torch.as_tensor(x, device=cuda_device)
+    reqs = [eng.submit(xt) for _ in range(4)]
+    eng.drain()
+    assert all(r.failed for r in reqs)
+    assert "capturing" in str(reqs[0]._exc)
+    assert [e.kind for e in sup.events] == ["batch_failed", "batch_abandoned"]
+    assert sup.retries == 0 and eng.stats.demotions == 0
+    y = eng.submit(xt).result(timeout=5)  # bucket 1 captures and serves
+    assert_rowtol(y.cpu().numpy(), _oracle(a, x), a, x)
+    eng.close()
+    r = torch.randn(16, device=cuda_device)
+    assert not torch.cuda.is_current_stream_capturing()
+    exe = SparseOperator.from_candidate(a, make("bcsr", "cuda", block=(8, 8)), k=4,
+                                        device=cuda_device).aot()
+    y4 = exe(torch.ones((a.shape[1], 4), device=cuda_device))
+    assert bool(torch.isfinite(y4).all()) and bool(torch.isfinite(r).all())
+    pool = GraphPool(cuda_device)
+    x4 = torch.ones((a.shape[1], 4), device=cuda_device)
+    handles = []
+    for _ in range(2):  # the pool stays usable after a failed capture
+        try:
+            capture(syncing, x4, pool=pool)
+            raise AssertionError("a synchronising capture did not raise")
+        except RuntimeError as e:
+            assert "capturing" in str(e)
+        handles.append(types.SimpleNamespace(handle=pool.handle))  # the one that failed
+    graph, y4 = capture(good, x4, pool=pool)
+    graph.replay()
+    assert torch.equal(y4, good(x4))
+    handles.append(types.SimpleNamespace(handle=pool.handle))
+    assert len({tuple(h.handle) for h in handles}) == 3  # a fresh pool after each failure
+    del pool, graph, y4
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    assert pool_bytes(handles) == 0
+    assert bool(torch.isfinite(exe(x4)).all())
+
+
+@pytest.mark.gpu
+def test_gpu_solver_blocks_as_graphs_equal_eager_blocks(cuda_device):
+    """CG (pinned sell/cuda) and block power (pinned bcsr/cuda, k = 8) as
+    graphs against the same solves with eager blocks: the same count, flag
+    and reads, x and V bit for bit, theta equal; against the host loop the
+    count and flag, x within 1e-6.  One graph per block size."""
+    from repro_torch.core.spmv import spd_shift
+    from repro_torch.runtime.solver import SparseSolver, cg_host_loop
+
+    a = spd_shift(generate("cant", scale=1 / 16))
+    b = np.random.default_rng(4).standard_normal(a.shape[0]).astype(np.float32)
+    res = {}
+    for captured in (True, False):
+        kw = {"device": cuda_device, "captured": captured}
+        s = SparseSolver(a, cache=PlanCache(), candidates=[
+            make("sell", "cuda", C=8, sigma=64, chunk_tile=8)], **kw)
+        sb = SparseSolver(a, cache=PlanCache(), candidates=[
+            make("bcsr", "cuda", block=(8, 8))], **kw)
+        res[captured] = (s.cg(b, tol=1e-5), s.cg(b, tol=-1.0, maxiter=40),
+                         sb.block_power(8, tol=1e-4, maxiter=60))
+        assert (s.n_graphs > 0) == captured and (sb.n_graphs > 0) == captured
+        if captured:
+            # block sizes 1, 2, 4, 8, 16, and 9 to end the 40-iteration budget
+            assert s.n_graphs == 6
+            host = cg_host_loop(s.op(1)._run, b, tol=1e-5, device=cuda_device)
+    for g, e in zip(res[True], res[False]):
+        assert (g.iterations, g.converged, g.syncs) == (e.iterations, e.converged,
+                                                        e.syncs)
+        if g.x is not None:
+            assert torch.equal(g.x, e.x)
+        else:
+            assert torch.equal(g.eigenvectors, e.eigenvectors)
+            assert np.array_equal(g.eigenvalues, e.eigenvalues)
+    cg = res[True][0]
+    assert (cg.iterations, cg.converged) == (host.iterations, host.converged)
+    np.testing.assert_allclose(cg.x.cpu().numpy(), host.x.cpu().numpy(), rtol=0,
+                               atol=1e-6)
+
+
+@pytest.mark.gpu
+def test_gpu_decode_graph_equals_eager_decode(cuda_device):
+    """A reduced float32 qwen1.5-4b with a (32, 32) bcsr FFN on the kernel:
+    one replay of the server's decode graph gives eager decode_step's
+    logits within 1e-3 max|logits| and the same cache; captured and eager
+    servers give every request the same tokens."""
+    import dataclasses
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import lm
+    from repro_torch.models.ffn import SparseFFNConfig
+    from repro_torch.runtime.server import BatchedServer, Request, _merge_slot
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_reduced("qwen1.5-4b"), dtype=torch.float32,
+                              sparse_ffn=SparseFFNConfig(kind="bcsr", block=(32, 32)))
+    model = lm.init_model(cfg, 0, device=cuda_device)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32) for n in (5, 9, 5)]
+    srv = BatchedServer(cfg, model, batch_slots=2, max_seq=32)
+    assert srv.graphs == 1 and srv.warmups == 1
+    state = lm.init_decode_state(cfg, 2, 32, cuda_device)
+    for i, p in enumerate(prompts[:2]):
+        one, _ = lm.prefill(cfg, model, {"tokens": p[None]}, 32)
+        _merge_slot(state, one, i)
+    for key, t in state["kv"].items():
+        srv.state["kv"][key].copy_(t)
+    toks = torch.as_tensor([[3], [7]], device=cuda_device)
+    _, ref = lm.decode_step(cfg, model, state, toks)
+    graph, tokens, _, logits = srv._decode
+    tokens.copy_(toks)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert float((logits - ref).abs().max()) <= 1e-3 * float(ref.abs().max())
+    for key, t in state["kv"].items():
+        assert torch.equal(srv.state["kv"][key], t), key
+    outs = {}
+    for captured in (True, False):
+        s = BatchedServer(cfg, model, batch_slots=2, max_seq=32, captured=captured)
+        reqs = [Request(rid=i, prompt=p, max_new=6) for i, p in enumerate(prompts)]
+        for r in reqs:
+            s.submit(r)
+        s.run_until_drained()
+        outs[captured] = [r.out for r in reqs]
+        assert s.graphs == (3 if captured else 0)  # decode + prompt lengths 5, 9
+    assert outs[True] == outs[False]
