@@ -216,12 +216,54 @@ scipy; imports nothing of JAX or of the JAX package.  Phases:
    ``lm_launches``; the ``bcsr_spmm_bf16`` rows carry (b)'s error and (g)'s
    times.
 
+12. MoE and RWKV-6 serving (``models.moe``, ``models.rwkv6``; plain torch on
+   the serving path, as the JAX package writes them in ``jnp``), weights
+   from seed 0 on the card, each model freed before the next, each
+   sub-phase's wall time and allocator peak printed: (a) granite-moe-1b-a400m
+   in bf16 at full width and depth (24 layers, 32 experts top-8): ``serve
+   --arch`` and a 4-slot ``BatchedServer`` serve 8/8 (prompt 32, max_new
+   16) through the decode graph and one prefill graph with no kernel
+   launched, every token below ``vocab``; prefill and decode step ms,
+   eager and graphed, against the step's bytes bound (every weight a step
+   reads: at one token a row every expert runs), tok/s; (c) the combine
+   through kernel 4: layer 0's experts in float32, x of 4 rows x 32 tokens,
+   ``moe_apply_spmspv(impl="cuda")`` at capacity_factor E / top_k (nothing
+   drops) against ``moe_apply_dense_ref`` and at 1.25 against
+   ``moe_apply``, each output within 1e-5 (|A| |x|)_i of the products
+   behind it (``moe.combine_scale``: A the experts' wo, x the gate-weighted
+   h and, to first order, what the gate and up products' reordering can
+   move it by), with exactly one
+   ``spmspv_scatter`` launch per token that keeps a slot (one per
+   ``apply_sparse`` call where nothing drops); (b) a float32 copy (TF32
+   off) at capacity_factor E / top_k: prefill + 15 decode steps equal
+   ``forward`` within 1e-3 max|logits|, one replay of a 4-slot server's
+   decode graph equals eager ``decode_step`` bit for bit (logits and
+   state), 4-slot tokens equal 1-slot tokens; (f) bf16 first-token logits
+   against the float32 copy's, at full depth (reported) and over the first
+   ``BF16_CHECK_LAYERS`` layers (held): each prompt's deviation (held to
+   ``LM_BF16_LIMIT`` where its routing agrees, reported where it does
+   not), the share of (token, layer) routing decisions that pick the same
+   experts, the float32 copy on the bf16 model's routing (held on every
+   prompt), and the float32 copy's own move when only its norm inputs are
+   rounded to bf16 (the model's sensitivity to rounding, which these
+   random inits amplify with depth);
+   (d) llama4-scout-17b-a16e at full width, cut to ``SCOUT_LAYERS`` of 48
+   layers (reckoned before it is built): ``serve --arch ... --layers``,
+   the server and the times as in (a); (e) rwkv6-7b in bf16 at full width
+   and depth (32 layers): as (a), then its float32 copy at full depth as in
+   (b) (decode against forward, graph against eager) and (f); last, one
+   eager and one graphed decode step of granite and rwkv6 under
+   ``torch.profiler`` in a fresh process (device busy time, idle share,
+   kernel count).  Each kernel row gains ``moe_launches`` (c's counts).
+
 Any failed check exits non-zero.  The last lines are the card's name and
 power limit, one JSON object with the kernel table, and the JSON status
 line.  The full record also goes to ``chiprun_out/chip_smoke.json``.
 """
 from __future__ import annotations
 
+import collections
+import contextlib
 import dataclasses
 import functools
 import json
@@ -1194,130 +1236,48 @@ LM_BF16_LIMIT = 0.05
 BF16_FLOPS = 989e12  # H100 SXM, bf16 tensor cores, dense
 
 
-def lm_profile() -> None:
-    """``python3 chip_smoke.py --lm-profile``: one eager and one graphed
-    decode step of the bcsr-FFN qwen1.5-4b (bf16, LM_SLOTS slots after
-    LM_PROMPT-token prefills) under ``torch.profiler``, in a fresh process
-    (see ``mesh_device_ops``).  Each step is a server's own:
-    ``_decode_once`` of a ``captured=False`` server (eager) and of a
-    default server (the pinned token copy and its decode graph's replay).
-    Each runs inside a ``record_function`` range that ends after a
-    synchronise; prints one JSON object {"eager"|"graph": {"wall_ms",
-    "busy_ms", "idle_share", "kernels", "device_ops"}}: the range's wall
-    time, the union of the device operations inside it, the share of the
-    range the device was idle, and the kernels and all device operations
-    (copies and fills too) counted."""
-    import numpy as np
-    import torch
-    from torch.profiler import ProfilerActivity, profile, record_function
+class LMBench:
+    """The LM phases' tools on one device, over the prompts they serve:
+    ``sync``, ``free``, ``median_ms`` (CUDA events; the host clock on the
+    CPU, for a rehearsal only), ``serve`` and ``step_times``."""
 
-    from repro_torch.configs import get_config
-    from repro_torch.models import lm
-    from repro_torch.models.ffn import SparseFFNConfig
-    from repro_torch.runtime.server import BatchedServer, _merge_slot
+    def __init__(self, dev, prompts):
+        import torch
 
-    dev = torch.device("cuda")
-    cfg = dataclasses.replace(get_config(LM_ARCHES[0]), sparse_ffn=SparseFFNConfig(
-        kind="bcsr", block=(128, 128)))
-    model = lm.init_model(cfg, 0, device=dev)
-    rng = np.random.default_rng(0)
-    prompts = [rng.integers(0, cfg.vocab, LM_PROMPT).astype(np.int32)
-               for _ in range(LM_SLOTS)]
-    toks = np.zeros((LM_SLOTS, 1), np.int64)
-    steps = {}
-    for name, captured in (("eager", False), ("graph", True)):
-        srv = BatchedServer(cfg, model, batch_slots=LM_SLOTS, max_seq=LM_MAX_SEQ,
-                            captured=captured)
-        for i, p in enumerate(prompts):  # fill the slots as the server does
-            one, _ = srv._prefill_one(p)
-            _merge_slot(srv.state, one, i)
-            torch.cuda.synchronize()
-        steps[name] = functools.partial(srv._decode_once, toks)
-    for _ in range(3):
-        for fn in steps.values():
-            fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for name, fn in steps.items():
-            with record_function(f"decode_step/{name}"):
-                fn()
-                torch.cuda.synchronize()
-    events = prof.events()
-    out = {}
-    for name in steps:
-        rng_ = [e for e in events if e.name == f"decode_step/{name}"
-                and e.device_type == torch.autograd.DeviceType.CPU][0].time_range
-        ops = sorted((e.time_range.start, e.time_range.end, e.name) for e in events
-                     if e.device_type == torch.autograd.DeviceType.CUDA
-                     and rng_.start <= e.time_range.start <= rng_.end
-                     and not e.name.startswith("decode_step/"))
-        busy, end = 0.0, float("-inf")
-        for a_, b_, _ in ops:  # the union of the device operations' intervals
-            if b_ > end:
-                busy += b_ - max(a_, end)
-                end = b_
-        wall = rng_.end - rng_.start
-        kernels = [o for o in ops if "memcpy" not in o[2].lower()
-                   and "memset" not in o[2].lower()]
-        out[name] = {"wall_ms": wall / 1e3, "busy_ms": busy / 1e3,
-                     "idle_share": 1.0 - busy / wall if wall > 0 else None,
-                     "kernels": len(kernels), "device_ops": len(ops)}
-    print(json.dumps(out))
+        self.dev, self.prompts = dev, prompts
+        self.cuda = dev.type == "cuda"
+        self.flush = torch.empty(64 * 2**20 if self.cuda else 1, dtype=torch.int32,
+                                 device=dev)
 
+    def sync(self) -> None:
+        import torch
 
-def lm_phase(dev, record: dict, *, reduced: bool = False) -> tuple[dict, list]:
-    """Phase 11: LM serving of qwen1.5-4b at full width and depth in bf16
-    (``reduced``: the reduced configs, a CPU rehearsal with no times).
-    Returns the launch counts of (c) and the ``bcsr_spmm_bf16`` rows."""
-    import gc
-
-    import numpy as np
-    import torch
-
-    from repro_torch.configs import get_config, get_reduced
-    from repro_torch.kernels import _build
-    from repro_torch.kernels.bcsr_spmm import (
-        bcsr_spmm,
-        bcsr_spmm_plain,
-        bf16_tensor_core_path,
-    )
-    from repro_torch.launch import serve as serve_cli
-    from repro_torch.models import lm
-    from repro_torch.models.ffn import SparseFFNConfig
-    from repro_torch.runtime.server import BatchedServer, Request, _merge_slot
-    from repro_torch.tune import PlanCache
-
-    rec = record.setdefault("lm", {})
-    t_phase = time.perf_counter()
-    cuda = dev.type == "cuda"
-    get = get_reduced if reduced else get_config
-    cfg = get(LM_ARCHES[0])
-    block = (32, 32) if reduced else (128, 128)
-    rng = np.random.default_rng(0)  # the CLI's prompts, drawn the same way
-    prompts = [rng.integers(0, cfg.vocab, LM_PROMPT).astype(np.int32)
-               for _ in range(LM_REQUESTS)]
-    flush = torch.empty(64 * 2**20 if cuda else 1, dtype=torch.int32, device=dev)
-
-    def sync() -> None:
-        if cuda:
+        if self.cuda:
             torch.cuda.synchronize()
 
-    def free() -> None:
+    def free(self) -> None:
+        import gc
+
+        import torch
+
         gc.collect()
-        if cuda:
+        if self.cuda:
             torch.cuda.empty_cache()
 
-    def median_ms(fn, l2_flush: bool = False) -> float:
+    def median_ms(self, fn, l2_flush: bool = False) -> float:
         """CUDA events around each of REPS runs (host clock on the CPU,
         for the rehearsal only)."""
+        import numpy as np
+        import torch
+
         for _ in range(2):
             fn()
-        sync()
+        self.sync()
         ts = []
         for _ in range(REPS):
             if l2_flush:
-                flush.zero_()
-            if cuda:
+                self.flush.zero_()
+            if self.cuda:
                 s = torch.cuda.Event(enable_timing=True)
                 e = torch.cuda.Event(enable_timing=True)
                 s.record()
@@ -1331,17 +1291,25 @@ def lm_phase(dev, record: dict, *, reduced: bool = False) -> tuple[dict, list]:
                 ts.append((time.perf_counter() - t) * 1e3)
         return float(np.median(ts))
 
-    def serve(cfg_, model, slots, ps=prompts):
+    def serve(self, cfg_, model, slots, ps=None):
+        """A ``BatchedServer`` with ``slots`` slots serves ``ps`` (the
+        prompts), LM_NEW tokens each; fails unless every request is served
+        with tokens below ``vocab``."""
+        from repro_torch.runtime.server import BatchedServer, Request
+
+        ps = self.prompts if ps is None else ps
         srv = BatchedServer(cfg_, model, batch_slots=slots, max_seq=LM_MAX_SEQ)
         reqs = [Request(rid=i, prompt=p, max_new=LM_NEW) for i, p in enumerate(ps)]
         t0 = time.perf_counter()
         for r in reqs:
             srv.submit(r)
         srv.run_until_drained()
-        sync()
+        self.sync()
         dt = time.perf_counter() - t0
         if not all(r.done and len(r.out) == LM_NEW for r in reqs):
             fail(f"{cfg_.arch_id}: served {sum(r.done for r in reqs)}/{len(reqs)}")
+        if any(t >= cfg_.vocab for r in reqs for t in [r._first, *r.out]):
+            fail(f"{cfg_.arch_id}: a served token is a pad id (>= {cfg_.vocab})")
         lats = sorted(r.latency_s for r in reqs)
         return srv, reqs, {
             "served": len(reqs), "seconds": dt, "tok_per_s": LM_NEW * len(reqs) / dt,
@@ -1350,7 +1318,7 @@ def lm_phase(dev, record: dict, *, reduced: bool = False) -> tuple[dict, list]:
             "decode_steps": srv.steps, "prefills": srv.prefills,
             "graphs": srv.graphs, "warmups": srv.warmups, "capture_s": srv.capture_s}
 
-    def step_times(cfg_, model) -> dict:
+    def step_times(self, cfg_, model) -> dict:
         """Prefill ms at LM_PROMPT tokens (batch 1) and decode step ms at
         LM_SLOTS slots, each through a server's own path: a
         ``captured=False`` server's eager passes and (on a card) a default
@@ -1359,24 +1327,32 @@ def lm_phase(dev, record: dict, *, reduced: bool = False) -> tuple[dict, list]:
         decode graph's replay); and the decode step's bound: the weight
         bytes a step reads (every weight but the embedding table, of which
         it reads LM_SLOTS rows, plus the kernel's block indices) over
-        3.35 TB/s."""
+        3.35 TB/s.  A MoE decode step reads every expert: at one token a
+        row, each expert's capacity is one slot, and the batched expert
+        products run over all of them."""
+        import numpy as np
+
+        from repro_torch.runtime.server import BatchedServer, _merge_slot
+
+        prompts, median_ms = self.prompts, self.median_ms
         toks = np.zeros((LM_SLOTS, 1), np.int64)
         times = {"prefill_graph_ms": None, "decode_step_graph_ms": None}
-        for captured in (False, True) if cuda else (False,):
+        for captured in (False, True) if self.cuda else (False,):
             srv = BatchedServer(cfg_, model, batch_slots=LM_SLOTS, max_seq=LM_MAX_SEQ,
                                 captured=captured)
             for i in range(LM_SLOTS):  # fill the slots as the server does
                 one, _ = srv._prefill_one(prompts[i])
                 _merge_slot(srv.state, one, i)
-                sync()
+                self.sync()
             tag = "_graph" if captured else ""
             times[f"prefill{tag}_ms"] = median_ms(lambda: srv._prefill_one(prompts[0]))
             times[f"decode_step{tag}_ms"] = median_ms(lambda: srv._decode_once(toks))
             if captured:  # the replay alone, without the pinned token copy
                 times["decode_replay_ms"] = median_ms(srv._decode[0].replay)
-            kv = sum(t.numel() * t.element_size() for t in srv.state["kv"].values())
+            state_bytes = sum(t.numel() * t.element_size()
+                              for leaves in srv.state.values() for t in leaves.values())
             del srv
-            free()
+            self.free()
         graphed = {k: times.get(k) for k in ("prefill_graph_ms", "decode_step_graph_ms",
                                              "decode_replay_ms")}
         prefill_ms, decode_ms = times["prefill_ms"], times["decode_step_ms"]
@@ -1386,19 +1362,151 @@ def lm_phase(dev, record: dict, *, reduced: bool = False) -> tuple[dict, list]:
                        if name.endswith(("_cols", "_indptr")))
         weights += LM_SLOTS * cfg_.d_model * model.embed.element_size()
         out = {"prefill_ms": prefill_ms, "decode_step_ms": decode_ms, **graphed,
-               "decode_weight_bytes": weights, "kv_cache_bytes": kv,
+               "decode_weight_bytes": weights, "state_bytes": state_bytes,
                "decode_bound_ms": weights / HBM_BYTES_PER_S * 1e3}
-        g_txt = ("" if not cuda else
+        g_txt = ("" if not self.cuda else
                  f"; as CUDA graphs: prefill {graphed['prefill_graph_ms']:.3f} ms, "
                  f"decode step {graphed['decode_step_graph_ms']:.3f} ms (the replay "
                  f"alone {graphed['decode_replay_ms']:.3f})")
-        print(f"  {cfg_.arch_id} {str(cfg_.dtype)[6:]} "
-              f"{'bcsr' if cfg_.sparse_ffn else 'dense'}: eager prefill {prefill_ms:.3f} ms "
-              f"({LM_PROMPT} tokens), decode step {decode_ms:.3f} ms ({LM_SLOTS} slots)"
-              f"{g_txt}; the step's bound {out['decode_bound_ms']:.3f} ms "
-              f"({weights / 1e9:.3f} GB of weights; KV cache {kv / 1e6:.1f} MB)",
-              flush=True)
+        kind = ("bcsr" if cfg_.sparse_ffn else "moe" if cfg_.moe else
+                cfg_.ssm_kind or "dense")
+        print(f"  {cfg_.arch_id} {str(cfg_.dtype)[6:]} {kind}: eager prefill "
+              f"{prefill_ms:.3f} ms ({LM_PROMPT} tokens), decode step {decode_ms:.3f} ms "
+              f"({LM_SLOTS} slots){g_txt}; the step's bound {out['decode_bound_ms']:.3f} "
+              f"ms ({weights / 1e9:.3f} GB of weights; decode state "
+              f"{state_bytes / 1e6:.1f} MB)", flush=True)
         return out
+
+
+def lm_profile(labels: list[str]) -> None:
+    """``python3 chip_smoke.py --lm-profile LABEL ...``: one eager and one
+    graphed decode step of each model under ``torch.profiler``, in a fresh
+    process (see ``mesh_device_ops``).  A label is an architecture id at
+    its full configuration in bf16, or ``<arch>/bcsr`` for its bcsr-FFN
+    variant ((128, 128) blocks, phase 11g's); weights from seed 0, LM_SLOTS
+    slots after LM_PROMPT-token prefills.  Each step is a server's own:
+    ``_decode_once`` of a ``captured=False`` server (eager) and of a
+    default server (the pinned token copy and its decode graph's replay).
+    Each runs inside a ``record_function`` range that ends after a
+    synchronise; all of them under one profiler.  Prints one JSON
+    object {label: {"eager"|"graph": {"wall_ms", "busy_ms", "idle_share",
+    "kernels", "device_ops"}}}: the range's wall time, the union of the
+    device operations inside it, the share of the range the device was
+    idle, and the kernels and all device operations (copies and fills too)
+    counted."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.models.ffn import SparseFFNConfig
+    from repro_torch.runtime.server import BatchedServer, _merge_slot
+
+    dev = torch.device("cuda")
+    steps = {}
+    for label in labels:
+        arch, _, variant = label.partition("/")
+        cfg = get_config(arch)
+        if variant == "bcsr":
+            cfg = dataclasses.replace(cfg, sparse_ffn=SparseFFNConfig(
+                kind="bcsr", block=(128, 128)))
+        model = lm.init_model(cfg, 0, device=dev)
+        rng = np.random.default_rng(0)
+        prompts = [rng.integers(0, cfg.vocab, LM_PROMPT).astype(np.int32)
+                   for _ in range(LM_SLOTS)]
+        toks = np.zeros((LM_SLOTS, 1), np.int64)
+        for name, captured in (("eager", False), ("graph", True)):
+            srv = BatchedServer(cfg, model, batch_slots=LM_SLOTS, max_seq=LM_MAX_SEQ,
+                                captured=captured)
+            for i, p in enumerate(prompts):  # fill the slots as the server does
+                one, _ = srv._prefill_one(p)
+                _merge_slot(srv.state, one, i)
+                torch.cuda.synchronize()
+            steps[f"{label}:{name}"] = functools.partial(srv._decode_once, toks)
+    for _ in range(3):
+        for fn in steps.values():
+            fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for key, fn in steps.items():
+            with record_function(f"decode_step/{key}"):
+                fn()
+                torch.cuda.synchronize()
+    events = prof.events()
+    out: dict = {}
+    for key in steps:
+        rng_ = [e for e in events if e.name == f"decode_step/{key}"
+                and e.device_type == torch.autograd.DeviceType.CPU][0].time_range
+        ops = sorted((e.time_range.start, e.time_range.end, e.name) for e in events
+                     if e.device_type == torch.autograd.DeviceType.CUDA
+                     and rng_.start <= e.time_range.start <= rng_.end
+                     and not e.name.startswith("decode_step/"))
+        busy, end = 0.0, float("-inf")
+        for a_, b_, _ in ops:  # the union of the device operations' intervals
+            if b_ > end:
+                busy += b_ - max(a_, end)
+                end = b_
+        wall = rng_.end - rng_.start
+        kernels = [o for o in ops if "memcpy" not in o[2].lower()
+                   and "memset" not in o[2].lower()]
+        label, name = key.rsplit(":", 1)
+        out.setdefault(label, {})[name] = {
+            "wall_ms": wall / 1e3, "busy_ms": busy / 1e3,
+            "idle_share": 1.0 - busy / wall if wall > 0 else None,
+            "kernels": len(kernels), "device_ops": len(ops)}
+    print(json.dumps(out))
+
+
+def run_lm_profile(labels: list[str]) -> dict:
+    """``lm_profile`` in a fresh process; its JSON, or a failed run."""
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                           "--lm-profile", *labels], capture_output=True, text=True,
+                          timeout=600)
+    if proc.returncode != 0:
+        fail(f"profiling decode steps of {labels} failed: {proc.stderr[-2000:]}")
+    prof = json.loads(proc.stdout.strip().splitlines()[-1])
+    for label, by_name in prof.items():
+        for name, p_ in by_name.items():
+            print(f"  one {label} decode step, {name}, by torch.profiler: wall "
+                  f"{p_['wall_ms']:.3f} ms, device busy {p_['busy_ms']:.3f} ms, idle "
+                  f"share {p_['idle_share']:.4f}, {p_['kernels']} kernels, "
+                  f"{p_['device_ops']} device operations", flush=True)
+    return prof
+
+
+def lm_phase(dev, record: dict, *, reduced: bool = False) -> tuple[dict, list]:
+    """Phase 11: LM serving of qwen1.5-4b at full width and depth in bf16
+    (``reduced``: the reduced configs, a CPU rehearsal with no times).
+    Returns the launch counts of (c) and the ``bcsr_spmm_bf16`` rows."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config, get_reduced
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.bcsr_spmm import (
+        bcsr_spmm,
+        bcsr_spmm_plain,
+        bf16_tensor_core_path,
+    )
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.models import lm
+    from repro_torch.models.ffn import SparseFFNConfig
+    from repro_torch.runtime.server import BatchedServer, Request
+    from repro_torch.tune import PlanCache
+
+    rec = record.setdefault("lm", {})
+    t_phase = time.perf_counter()
+    cuda = dev.type == "cuda"
+    get = get_reduced if reduced else get_config
+    cfg = get(LM_ARCHES[0])
+    block = (32, 32) if reduced else (128, 128)
+    rng = np.random.default_rng(0)  # the CLI's prompts, drawn the same way
+    prompts = [rng.integers(0, cfg.vocab, LM_PROMPT).astype(np.int32)
+               for _ in range(LM_REQUESTS)]
+    bench = LMBench(dev, prompts)
+    sync, free, median_ms = bench.sync, bench.free, bench.median_ms
+    serve, step_times = bench.serve, bench.step_times
 
     # (a) the CLI, dense FFN: qwen1.5-4b, then h2o-danube-3-4b
     for arch in LM_ARCHES:
@@ -1558,17 +1666,8 @@ def lm_phase(dev, record: dict, *, reduced: bool = False) -> tuple[dict, list]:
     # (g) times of the variant and of its kernel at the FFN's shapes
     rec["times/bcsr"] = step_times(cfg_b, model_b)
     if cuda and not reduced:  # the device's idle share in one decode step
-        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
-                               "--lm-profile"], capture_output=True, text=True,
-                              timeout=600)
-        if proc.returncode != 0:
-            fail(f"11g: profiling a decode step failed: {proc.stderr[-2000:]}")
-        prof = rec["decode_profile"] = json.loads(proc.stdout.strip().splitlines()[-1])
-        for name, p_ in prof.items():
-            print(f"  one bcsr decode step, {name}, by torch.profiler: wall "
-                  f"{p_['wall_ms']:.3f} ms, device busy {p_['busy_ms']:.3f} ms, idle "
-                  f"share {p_['idle_share']:.4f}, {p_['kernels']} kernels, "
-                  f"{p_['device_ops']} device operations", flush=True)
+        rec["decode_profile"] = run_lm_profile([f"{LM_ARCHES[0]}/bcsr"])[
+            f"{LM_ARCHES[0]}/bcsr"]
     rows = []
     for which, (args, n_cb) in weights.items():
         blocks, cols, indptr = args
@@ -1731,6 +1830,483 @@ def lm_phase(dev, record: dict, *, reduced: bool = False) -> tuple[dict, list]:
     rec["wall_s"] = time.perf_counter() - t_phase
     print(f"  phase 11 wall time {rec['wall_s']:.1f}s", flush=True)
     return launches, rows
+
+
+# -- phase 12: MoE and RWKV-6 serving ---------------------------------------
+MOE_ARCH, SCOUT_ARCH, RWKV_ARCH = ("granite-moe-1b-a400m", "llama4-scout-17b-a16e",
+                                   "rwkv6-7b")
+# 12d: llama4-scout's depth on one card.  A layer holds 16 experts x 3 x
+# 5120 x 8192 bf16 weights (4.03 GB) and its attention (0.13 GB); embed and
+# unembed 202240 x 5120 x 2 x 2 B (4.14 GB): 12 of the 48 layers take
+# ~54 GB of the 80, which leaves room for the KV cache and the graphs.
+SCOUT_LAYERS = 12
+# 12f: the depth at which bf16 is held to its float32 copy.  These random
+# inits amplify a bf16 rounding of the residual stream with depth: the
+# float32 copy's own move with its norm inputs rounded to bf16 is ~0.01 x
+# max|logits| at 2 layers and 0.5-0.7 at rwkv6-7b's 32 (0.02-0.04 for
+# granite's 24 on fixed routing), so 5e-2 can tell a wrong path from
+# rounding only at a few layers (PERF.md §2)
+BF16_CHECK_LAYERS = 2
+COMBINE_ROWS = 4  # 12c: x of 4 rows x LM_PROMPT tokens through one granite layer
+
+
+@contextlib.contextmanager
+def forcing_routes(ids_seq):
+    """Every MoE layer call routes to the next ids of ``ids_seq`` (in call
+    order), its gate weights the softmax of its own router logits there:
+    a float32 copy run on the routing a bf16 model chose."""
+    import torch
+
+    from repro_torch.models import moe as moe_mod
+
+    it, orig = iter(ids_seq), moe_mod._route
+
+    def forced(p, x, cfg, aux=True):
+        ids = next(it)
+        logits = x.float() @ p.router.float()
+        return torch.softmax(logits.gather(-1, ids), dim=-1), ids, 0.0, 0.0
+
+    moe_mod._route = forced
+    try:
+        yield
+    finally:
+        moe_mod._route = orig
+
+
+@contextlib.contextmanager
+def bf16_rounded_norm_inputs():
+    """Every RMSNorm's input rounded to bf16 first (the blocks' pre-norms,
+    RWKV-6's ``ln_x`` and the final norm): run on a float32 copy, the
+    logits' move is the model's own sensitivity to bf16 rounding of its
+    residual stream, with no bf16 product anywhere."""
+    import torch
+
+    from repro_torch.models import lm
+    from repro_torch.models import rwkv6
+
+    orig = lm.rms_norm
+
+    def rounded(x, gamma, eps: float = 1e-6):
+        return orig(x.to(torch.bfloat16).to(x.dtype), gamma, eps)
+
+    lm.rms_norm = rwkv6.rms_norm = rounded
+    try:
+        yield
+    finally:
+        lm.rms_norm = rwkv6.rms_norm = orig
+
+
+@contextlib.contextmanager
+def recording_routes():
+    """Every MoE layer call's routing ids (b, s, k), in call order."""
+    from repro_torch.models import moe as moe_mod
+
+    seen, orig = [], moe_mod._route
+
+    def rec(*a, **kw):
+        out = orig(*a, **kw)
+        seen.append(out[1].clone())
+        return out
+
+    moe_mod._route = rec
+    try:
+        yield seen
+    finally:
+        moe_mod._route = orig
+
+
+def moe_ssm_phase(dev, record: dict, *, reduced: bool = False) -> dict:
+    """Phase 12: MoE and RWKV-6 serving (``reduced``: the reduced configs,
+    a CPU rehearsal with no times or launch checks).  Returns 12c's launch
+    counts, the kernel rows' ``moe_launches``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config, get_reduced
+    from repro_torch.kernels import _build
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.models import lm
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.runtime.server import BatchedServer, _merge_slot
+
+    rec = record.setdefault("moe_ssm", {})
+    t_phase = time.perf_counter()
+    cuda = dev.type == "cuda"
+    get = get_reduced if reduced else get_config
+    moe_launches: collections.Counter = collections.Counter()
+    failures: list[str] = []  # 12f's limits, checked at the phase's end
+
+    def begin(name: str, text: str) -> float:
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        print(f"phase {name}: {text}", flush=True)
+        return time.perf_counter()
+
+    def end(name: str, t0: float) -> None:
+        peak = torch.cuda.max_memory_allocated() / 1e9 if cuda else float("nan")
+        rec.setdefault("wall_s", {})[name] = time.perf_counter() - t0
+        rec.setdefault("peak_gb", {})[name] = peak
+        print(f"  [{name}: {time.perf_counter() - t0:.1f}s, allocator peak "
+              f"{peak:.2f} GB]", flush=True)
+
+    def cli(cfg_, layers: int = 0) -> dict:
+        """``serve --arch``: 8/8 served, decode and prefill graphed on a
+        card, no kernel launched (the path is plain torch)."""
+        args = ["--arch", cfg_.arch_id.split("/")[0], "--requests", str(LM_REQUESTS),
+                "--slots", str(LM_SLOTS), "--prompt-len", str(LM_PROMPT),
+                "--max-new", str(LM_NEW), "--max-seq", str(LM_MAX_SEQ),
+                "--device", dev.type] + (["--reduced"] if reduced else [])
+        if layers:
+            args += ["--layers", str(layers)]
+        print(f"  serve {' '.join(args)}", flush=True)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_moe_") as td:
+            stats = Path(td) / "lm.json"
+            _build.reset_launches()
+            serve_cli.main(args + ["--stats-json", str(stats)])
+            summary = json.loads(stats.read_text())
+        if summary["served"] != LM_REQUESTS:
+            fail(f"serve --arch {cfg_.arch_id} served {summary['served']}/{LM_REQUESTS}")
+        if cuda and (dict(_build.LAUNCHES) or summary["graphs"] != 2):
+            fail(f"serve --arch {cfg_.arch_id}: launches {dict(_build.LAUNCHES)}, "
+                 f"{summary['graphs']} graphs (expected none, and 2)")
+        return summary
+
+    def served(cfg_, model, bench) -> dict:
+        """A 4-slot server over the 8 prompts (graphed on a card), then the
+        step times and the bound."""
+        _build.reset_launches()
+        srv, _, stats = bench.serve(cfg_, model, LM_SLOTS)
+        if cuda and (srv.graphs != 2 or srv.warmups != 2 or dict(_build.LAUNCHES)):
+            fail(f"{cfg_.arch_id}: {srv.graphs} graphs, {srv.warmups} warm-ups, launches "
+                 f"{dict(_build.LAUNCHES)} (expected the decode graph and one prefill "
+                 "graph, and no kernel)")
+        print(f"  {cfg_.arch_id}: served {LM_REQUESTS}/{LM_REQUESTS} in "
+              f"{stats['seconds']:.2f}s ({stats['tok_per_s']:.1f} tok/s, latency p50 "
+              f"{stats['latency_p50_s']:.2f}s p99 {stats['latency_p99_s']:.2f}s), "
+              f"every token < vocab {cfg_.vocab}; {srv.graphs} CUDA graphs captured in "
+              f"{srv.capture_s:.2f}s", flush=True)
+        del srv
+        bench.free()
+        return {"serve": stats, "times": bench.step_times(cfg_, model)}
+
+    def first_logits(cfg_, model, prompts) -> torch.Tensor:
+        return torch.stack([lm.prefill(cfg_, model, {"tokens": p[None]}, LM_MAX_SEQ)[1][0]
+                            .float() for p in prompts])
+
+    def copy_as(model, cfg_to):
+        """``model``'s weights in ``cfg_to``'s dtype, at its first n_layers."""
+        copy = lm.LM(cfg_to, dev)
+        copy.load_state_dict({k: v for k, v in model.state_dict().items()
+                              if not k.startswith("blocks.")
+                              or int(k.split(".")[1]) < cfg_to.n_layers})
+        return copy
+
+    def consistency(cfg_f, model_f, prompts, name: str) -> dict:
+        """float32, TF32 off: prefill + LM_NEW - 1 greedy decode steps
+        against ``forward`` at every position (LM_CONSISTENCY), and one
+        replay of a 4-slot server's decode graph against eager
+        ``decode_step`` on a copy of its state, bit for bit."""
+        torch.backends.cuda.matmul.allow_tf32 = False
+        state, lg = lm.prefill(cfg_f, model_f, {"tokens": prompts[0][None]}, LM_MAX_SEQ)
+        logits, toks = [lg[0]], [int(torch.argmax(lg[0, :cfg_f.vocab]))]
+        for _ in range(LM_NEW - 1):
+            state, lg = lm.decode_step(cfg_f, model_f, state, [[toks[-1]]])
+            logits.append(lg[0, 0])
+            toks.append(int(torch.argmax(lg[0, 0, :cfg_f.vocab])))
+        seq = np.concatenate([prompts[0], np.asarray(toks[:-1], np.int32)])
+        full, _ = lm.forward(cfg_f, model_f, {"tokens": seq[None]})
+        worst = 0.0
+        for j, got in enumerate(logits):
+            ref = full[0, LM_PROMPT - 1 + j]
+            rel = float((got - ref).abs().max() / ref.abs().max())
+            worst = max(worst, rel)
+            if not rel <= LM_CONSISTENCY:
+                fail(f"phase {name}: position {LM_PROMPT - 1 + j}: decode differs from "
+                     f"forward by {rel:.3e} x max|logits| (limit {LM_CONSISTENCY:g})")
+        print(f"  ok {cfg_f.arch_id} float32 decode == forward at {len(logits)} "
+              f"positions: worst {worst:.3e} x max|logits| (limit {LM_CONSISTENCY:g})",
+              flush=True)
+        del state, full
+        srv = BatchedServer(cfg_f, model_f, batch_slots=LM_SLOTS, max_seq=LM_MAX_SEQ)
+        for i in range(LM_SLOTS):
+            one, _ = srv._prefill_one(prompts[i])
+            _merge_slot(srv.state, one, i)
+        twin = {g: {k: t.clone() for k, t in leaves.items()}
+                for g, leaves in srv.state.items()}
+        toks = torch.as_tensor([[int(p[-1])] for p in prompts[:LM_SLOTS]], device=dev)
+        _, eager = lm.decode_step(cfg_f, model_f, twin, toks)
+        bitwise = None
+        if srv._decode is not None:
+            graph, tokens, _, logits_g = srv._decode
+            tokens.copy_(toks)
+            graph.replay()
+            torch.cuda.synchronize()
+            bitwise = bool(torch.equal(logits_g, eager)) and all(
+                torch.equal(srv.state[g][k], t)
+                for g, leaves in twin.items() for k, t in leaves.items())
+            if not bitwise:
+                fail(f"phase {name}: the decode graph's step differs from eager "
+                     "decode_step (logits or state)")
+            print("  ok one graphed decode step == its eager twin bit for bit "
+                  "(logits and every state leaf)", flush=True)
+        del srv, twin
+        return {"worst": worst, "limit": LM_CONSISTENCY, "graph_bitwise": bitwise}
+
+    def rel_dev(a, b) -> list:
+        return ((a - b).abs().amax(-1) / b.abs().amax(-1)).tolist()
+
+    def bf16_vs_f32(cfg_b, model_b, model_f, prompts, layers: int, held: bool) -> dict:
+        """12f over the first ``layers`` layers of the served bf16 model and
+        its float32 copy ``model_f`` (cut copies of both below full
+        depth): first-token logits as a share of max|logits| per prompt;
+        ``floor``, the float32 copy's own move when its norm inputs are
+        rounded to bf16 (no bf16 product: the model's sensitivity); for a
+        MoE, the share of (token, layer) routing decisions that pick the
+        same experts and the float32 copy on the bf16 model's routing.
+        ``held``: LM_BF16_LIMIT holds on every prompt whose routing agrees
+        and, on the bf16 routing, on every prompt; a broken limit is
+        recorded in ``failures``, which fail the phase at its end."""
+        name = f"{cfg_b.arch_id}, {layers} of {cfg_b.n_layers} layers"
+        cut = dataclasses.replace(cfg_b, n_layers=layers)
+        cut_f = dataclasses.replace(cut, dtype=torch.float32)
+        if layers != cfg_b.n_layers:
+            model_b, model_f = copy_as(model_b, cut), copy_as(model_b, cut_f)
+        with recording_routes() as rb:
+            bf = first_logits(cut, model_b, prompts)
+        with recording_routes() as rf:
+            f32 = first_logits(cut_f, model_f, prompts)
+        out = {"layers": layers, "dev_rel": rel_dev(bf, f32), "limit": LM_BF16_LIMIT,
+               "held": held,
+               "equal_first_tokens": float((bf.argmax(-1) == f32.argmax(-1)).float().mean())}
+        base, flips = f32, [0] * len(prompts)
+        if cut.moe is not None:
+            for i, (a_, b_) in enumerate(zip(rb, rf)):  # prompt i // layers
+                flips[i // layers] += int((a_.sort(-1).values != b_.sort(-1).values)
+                                          .any(-1).sum())
+            total = sum(a_.shape[0] * a_.shape[1] for a_ in rb)
+            out["routing_agree_share"] = 1 - sum(flips) / total
+            out["flipped_decisions_per_prompt"] = flips
+            with forcing_routes(rb):
+                base = first_logits(cut_f, model_f, prompts)
+            out["dev_rel_on_bf16_routing"] = rel_dev(bf, base)
+        with forcing_routes(rb) if cut.moe is not None else contextlib.nullcontext(), \
+                bf16_rounded_norm_inputs():
+            out["floor_rel"] = rel_dev(first_logits(cut_f, model_f, prompts), base)
+        fl, dv = out["floor_rel"], out["dev_rel"]
+        print(f"  {name}: the float32 copy's own move with its norm inputs rounded to "
+              f"bf16 {min(fl):.4e}-{max(fl):.4e} x max|logits|", flush=True)
+        if cut.moe is not None:
+            on = out["dev_rel_on_bf16_routing"]
+            print(f"  {name}: bf16 and float32 pick the same experts at "
+                  f"{out['routing_agree_share'] * 100:.2f} % of (token, layer) decisions "
+                  f"({sum(f > 0 for f in flips)}/{len(flips)} prompts with a flip); on the "
+                  f"bf16 model's routing the float32 copy deviates {min(on):.4e}-"
+                  f"{max(on):.4e} x max|logits|", flush=True)
+        for i, (d_, f_) in enumerate(zip(dv, flips)):
+            print(f"    prompt {i}: bf16 deviates {d_:.4e} x max|logits|"
+                  + (f" (its routing differs at {f_} decisions: reported, not held)"
+                     if f_ else ""))
+        print(f"  {name}: largest deviation {max(dv):.4e} x max|logits|, equal first "
+              f"tokens {out['equal_first_tokens'] * 100:.1f} %; "
+              + (f"held to {LM_BF16_LIMIT:g}" if held else "reported, not held"),
+              flush=True)
+        if held:
+            agreeing = [d_ for d_, f_ in zip(dv, flips) if not f_]
+            if agreeing and not max(agreeing) <= LM_BF16_LIMIT:
+                failures.append(f"12f {name}: bf16 deviates {max(agreeing):.3e} x "
+                                "max|logits| from float32 on a prompt whose routing agrees")
+            if cut.moe is not None and not max(out["dev_rel_on_bf16_routing"]) <= LM_BF16_LIMIT:
+                failures.append(f"12f {name}: on the bf16 routing, bf16 deviates "
+                                f"{max(out['dev_rel_on_bf16_routing']):.3e} x max|logits|")
+        return out
+
+    # -- granite-moe-1b-a400m ------------------------------------------------
+    cfg = get(MOE_ARCH)
+    rng = np.random.default_rng(0)  # the CLI's prompts, drawn the same way
+    prompts = [rng.integers(0, cfg.vocab, LM_PROMPT).astype(np.int32)
+               for _ in range(LM_REQUESTS)]
+    bench = LMBench(dev, prompts)
+    t0 = begin("12a", f"{cfg.arch_id} bf16, {cfg.n_layers} layers, d {cfg.d_model}, "
+                      f"{cfg.moe.n_experts} experts top-{cfg.moe.top_k} of d_ff "
+                      f"{cfg.moe.d_ff}")
+    rec["cli/" + MOE_ARCH] = cli(cfg)
+    bench.free()
+    model = lm.init_model(cfg, 0, device=dev)
+    rec["granite_params"] = lm.param_count(model)
+    print(f"  {rec['granite_params'] / 1e9:.3f} G parameters "
+          f"({sum(t.numel() * t.element_size() for t in model.parameters()) / 1e9:.2f} GB)")
+    rec["granite"] = served(cfg, model, bench)
+    end("12a", t0)
+
+    # 12c: the MoE combine through kernel 4, one layer at full width, float32
+    t0 = begin("12c", f"moe_apply_spmspv(impl='cuda') on layer 0's experts (float32 copy), "
+                      f"x {COMBINE_ROWS} rows x {LM_PROMPT} tokens")
+    src = model.blocks[0].ffn
+    p32 = moe_mod.MoE(cfg.d_model, cfg.moe, torch.float32, dev)
+    for key in ("router", "wi_gate", "wi_up", "wo"):
+        getattr(p32, key).copy_(getattr(src, key))
+    x = torch.as_tensor(np.random.default_rng(12).standard_normal(
+        (COMBINE_ROWS, LM_PROMPT, cfg.d_model)).astype(np.float32), device=dev)
+    b, s_, d = x.shape
+    E, k = cfg.moe.n_experts, cfg.moe.top_k
+    rec["combine"] = {}
+    for cf in (E / k, cfg.moe.capacity_factor):
+        mcfg = dataclasses.replace(cfg.moe, capacity_factor=cf)
+        _, dest, _, _, _, C = moe_mod._dispatch_expert_outputs(p32, x, mcfg, aux=False)
+        # (|A| |x|)_i of the products behind each output: the experts' wo
+        # against the gate-weighted h (and what reordering the gate and up
+        # products' sums can move h by)
+        scale = moe_mod.combine_scale(p32, x, mcfg)
+        nonempty = int((dest.reshape(b, s_, k) < E * C).any(-1).sum())
+        dropped = int((dest == E * C).sum())
+        bench.sync()
+        _build.reset_launches()
+        t1 = time.perf_counter()
+        y = moe_mod.moe_apply_spmspv(p32, x, mcfg, impl="cuda")
+        bench.sync()
+        wall = time.perf_counter() - t1
+        launches = dict(_build.LAUNCHES)
+        moe_launches.update(launches)
+        no_drop = cf >= E / k
+        ref = (moe_mod.moe_apply_dense_ref(p32, x, mcfg) if no_drop
+               else moe_mod.moe_apply(p32, x, mcfg, aux=False)[0])
+        t1 = time.perf_counter()
+        moe_mod.moe_apply(p32, x, mcfg, aux=False)
+        bench.sync()
+        wall_apply = time.perf_counter() - t1
+        err = (y.double() - ref.double()).abs()
+        ratio = float((err / scale.clamp_min(1e-300)).max())
+        what = ("moe_apply_dense_ref" if no_drop else "moe_apply")
+        if cuda and (launches.get("spmspv_scatter", 0) != nonempty
+                     or set(launches) != {"spmspv_scatter"}):
+            fail(f"12c cf={cf}: launches {launches}, expected spmspv_scatter = "
+                 f"{nonempty} (one per token with a kept slot) and nothing else")
+        if no_drop and (dropped or nonempty != b * s_):
+            fail(f"12c cf={cf}: {dropped} slots dropped where none may")
+        if not bool((err <= TOL * scale).all()):
+            fail(f"12c cf={cf}: the combine through the kernel differs from {what} by "
+                 f"{ratio:.3e} (|A| |x|)_i at worst (limit {TOL:g})")
+        rec["combine"][f"cf{cf:g}"] = {
+            "C": C, "dropped_slots": dropped, "tokens": b * s_, "launches": launches,
+            "apply_sparse_calls": b * s_, "nonempty_tokens": nonempty,
+            "max_abs_err": float(err.max()), "worst_ratio": ratio,
+            "spmspv_wall_s": wall, "moe_apply_wall_s": wall_apply, "oracle": what}
+        print(f"  ok capacity_factor {cf:g} (C = {C}, {dropped} slots dropped): the "
+              f"combine through the kernel == {what} within {TOL:g} (|A| |x|)_i (worst "
+              f"{ratio:.3e}, max_abs_err {float(err.max()):.3e}); launches {launches} "
+              f"for {b * s_} apply_sparse calls ({nonempty} with a kept slot); host-side "
+              f"{wall:.2f}s against moe_apply's {wall_apply * 1e3:.2f} ms", flush=True)
+        del y, ref, err, scale
+    del p32, x, src
+    end("12c", t0)
+
+    # 12f: bf16 against its float32 copy, at full depth and at BF16_CHECK_LAYERS
+    cfg_f = dataclasses.replace(cfg, dtype=torch.float32)
+    model_f = copy_as(model, cfg_f)
+    t0 = begin("12f", f"{cfg.arch_id}: bf16 first-token logits against the float32 copy "
+                      f"(capacity_factor {cfg.moe.capacity_factor:g})")
+    rec["bf16_vs_f32/granite"] = bf16_vs_f32(cfg, model, model_f, prompts,
+                                             cfg.n_layers, held=False)
+    rec["bf16_vs_f32/granite/cut"] = bf16_vs_f32(cfg, model, model_f, prompts,
+                                                 min(BF16_CHECK_LAYERS, cfg.n_layers),
+                                                 held=True)
+    del model
+    bench.free()
+    end("12f", t0)
+
+    # 12b: the float32 copy's consistency
+    nodrop = dataclasses.replace(cfg_f, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=E / k))
+    t0 = begin("12b", f"float32 copy ({lm.param_count(model_f) * 4 / 1e9:.2f} GB, all "
+                      f"{cfg_f.n_layers} layers) at capacity_factor E / top_k = "
+                      f"{E / k:g}, where nothing drops (at {cfg.moe.capacity_factor:g} "
+                      "forward's capacity grows with the sequence, a decode step's is "
+                      "one slot)")
+    rec["consistency/granite"] = consistency(nodrop, model_f, prompts, "12b")
+    _, reqs4, _ = bench.serve(nodrop, model_f, LM_SLOTS)
+    for p_, r in zip(prompts, reqs4):
+        _, (alone,), _ = bench.serve(nodrop, model_f, 1, [p_])
+        if alone.out != r.out:
+            fail(f"12b: request {r.rid}: {LM_SLOTS} slots gave {r.out}, one slot "
+                 f"{alone.out}")
+    print(f"  ok float32 {LM_SLOTS}-slot server: every request's tokens equal a 1-slot "
+          "server's", flush=True)
+    del model_f
+    bench.free()
+    end("12b", t0)
+
+    # -- llama4-scout-17b-a16e, cut in depth ------------------------------
+    full = get(SCOUT_ARCH)
+    layers = min(SCOUT_LAYERS, full.n_layers)
+    cfg_s = dataclasses.replace(full, n_layers=layers)
+    (qd, kvd), ms = cfg_s.qkv_dims, cfg_s.moe
+    layer_bytes = 2 * (3 * ms.n_experts * cfg_s.d_model * ms.d_ff
+                       + 2 * cfg_s.d_model * (qd + kvd) + 2 * cfg_s.d_model) \
+        + 4 * cfg_s.d_model * ms.n_experts
+    table_bytes = 2 * 2 * cfg_s.vocab_padded * cfg_s.d_model
+    t0 = begin("12d", f"{SCOUT_ARCH} at full width (d {cfg_s.d_model}, {ms.n_experts} "
+                      f"experts top-{ms.top_k} of d_ff {ms.d_ff}), cut to {layers} of "
+                      f"{full.n_layers} layers: reckoned {layer_bytes / 1e9:.2f} GB a "
+                      f"layer + {table_bytes / 1e9:.2f} GB embed/unembed = "
+                      f"{(layers * layer_bytes + table_bytes) / 1e9:.1f} GB in bf16")
+    rng = np.random.default_rng(0)
+    prompts_s = [rng.integers(0, cfg_s.vocab, LM_PROMPT).astype(np.int32)
+                 for _ in range(LM_REQUESTS)]
+    bench_s = LMBench(dev, prompts_s)
+    rec["cli/" + SCOUT_ARCH] = cli(cfg_s, layers=0 if reduced else layers)
+    bench_s.free()
+    model = lm.init_model(cfg_s, 0, device=dev)
+    rec["scout"] = {"layers": layers, "of": full.n_layers,
+                    "reckoned_gb": (layers * layer_bytes + table_bytes) / 1e9,
+                    **served(cfg_s, model, bench_s)}
+    del model
+    bench_s.free()
+    end("12d", t0)
+
+    # -- rwkv6-7b ------------------------------------------------------------
+    cfg_r = get(RWKV_ARCH)
+    rng = np.random.default_rng(0)
+    prompts_r = [rng.integers(0, cfg_r.vocab, LM_PROMPT).astype(np.int32)
+                 for _ in range(LM_REQUESTS)]
+    bench_r = LMBench(dev, prompts_r)
+    t0 = begin("12e", f"{cfg_r.arch_id} bf16, {cfg_r.n_layers} layers, d {cfg_r.d_model}, "
+                      f"d_ff {cfg_r.d_ff}, vocab {cfg_r.vocab}")
+    rec["cli/" + RWKV_ARCH] = cli(cfg_r)
+    bench_r.free()
+    model = lm.init_model(cfg_r, 0, device=dev)
+    rec["rwkv_params"] = lm.param_count(model)
+    print(f"  {rec['rwkv_params'] / 1e9:.3f} G parameters "
+          f"({sum(t.numel() * t.element_size() for t in model.parameters()) / 1e9:.2f} GB)")
+    rec["rwkv"] = served(cfg_r, model, bench_r)
+    cfg_rf = dataclasses.replace(cfg_r, dtype=torch.float32)
+    model_f = copy_as(model, cfg_rf)
+    print(f"  float32 copy ({lm.param_count(model_f) * 4 / 1e9:.2f} GB, all "
+          f"{cfg_rf.n_layers} layers)", flush=True)
+    end("12e", t0)
+    t0 = begin("12f", f"{cfg_r.arch_id}: bf16 first-token logits against the float32 copy")
+    rec["bf16_vs_f32/rwkv"] = bf16_vs_f32(cfg_r, model, model_f, prompts_r,
+                                          cfg_r.n_layers, held=False)
+    rec["bf16_vs_f32/rwkv/cut"] = bf16_vs_f32(cfg_r, model, model_f, prompts_r,
+                                              min(BF16_CHECK_LAYERS, cfg_r.n_layers),
+                                              held=True)
+    del model
+    bench_r.free()
+    end("12f/rwkv", t0)
+    t0 = begin("12e", f"{cfg_r.arch_id} float32 copy: decode against forward, graph "
+                      "against eager")
+    rec["consistency/rwkv"] = consistency(cfg_rf, model_f, prompts_r, "12e")
+    del model_f
+    bench_r.free()
+    end("12e/float32", t0)
+
+    if cuda and not reduced:  # the device's idle share in one decode step
+        rec["decode_profile"] = run_lm_profile([MOE_ARCH, RWKV_ARCH])
+    rec["moe_launches"] = dict(moe_launches)
+    rec["total_s"] = time.perf_counter() - t_phase
+    print(f"  phase 12 wall time {rec['total_s']:.1f}s", flush=True)
+    if failures:
+        fail("phase " + "; ".join(failures))
+    return dict(moe_launches)
 
 
 def main() -> None:
@@ -3535,6 +4111,16 @@ def main() -> None:
         row["lm_launches"] = int(launches11.get(row["name"], 0))
     phase_done("lm", t0)
 
+    # -- phase 12: MoE and RWKV-6 serving, 12c's launches counted ----------
+    t0 = time.perf_counter()
+    launches12 = moe_ssm_phase(dev, record)
+    record["moe_launches"] = launches12
+    if launches12.get("spmspv_scatter", 0) <= 0:
+        fail("kernel spmspv_scatter was never launched by the MoE combine")
+    for row in kernels:
+        row["moe_launches"] = int(launches12.get(row["name"], 0))
+    phase_done("moe_ssm", t0)
+
     record["kernels"] = kernels
     record["card"] = smi
     record["total_s"] = round(time.perf_counter() - t_start, 3)
@@ -3558,6 +4144,6 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--mesh-device-ops"]:
         mesh_device_ops(sys.argv[2])
     elif sys.argv[1:2] == ["--lm-profile"]:
-        lm_profile()
+        lm_profile(sys.argv[2:])
     else:
         main()

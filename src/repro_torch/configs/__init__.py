@@ -1,10 +1,12 @@
 """Architecture registry of the port: the configurations it serves.
 
-Only the dense-family language models that the port runs are registered
-(``repro_torch.models.lm``); the other families of the JAX package's
-registry wait for their slices, and so do its shape grid and dry-run input
-specs.  Each configuration file is the JAX package's own, copied unchanged
-but for its import.
+The language models of the families the port runs are registered
+(``repro_torch.models.lm``): dense (qwen1.5-4b, h2o-danube-3-4b), moe
+(granite-moe-1b-a400m, llama4-scout-17b-a16e) and ssm (rwkv6-7b).  The
+hybrid, audio and VLM families of the JAX package's registry wait for their
+slices, and so do its shape grid and dry-run input specs.  Each
+configuration file is the JAX package's own, copied unchanged but for its
+imports.
 """
 from __future__ import annotations
 
@@ -17,6 +19,9 @@ __all__ = ["ARCH_IDS", "get_config", "get_reduced"]
 _MODULES = {
     "h2o-danube-3-4b": "h2o_danube_3_4b",
     "qwen1.5-4b": "qwen1_5_4b",
+    "granite-moe-1b-a400m": "granite_moe_1b_a400m",
+    "llama4-scout-17b-a16e": "llama4_scout_17b_a16e",
+    "rwkv6-7b": "rwkv6_7b",
 }
 ARCH_IDS = list(_MODULES)
 

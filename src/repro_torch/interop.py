@@ -29,6 +29,7 @@ from repro_torch.kernels import merge_spmv
 from repro_torch.kernels.ops import from_arrays
 from repro_torch.models.ffn import SparseFFNConfig
 from repro_torch.models.lm import LM, ModelConfig
+from repro_torch.models.moe import MoEConfig
 
 __all__ = ["split", "prep_from_arrays", "port_config", "lm_params_from_numpy"]
 
@@ -83,10 +84,12 @@ def prep_from_arrays(fmt: str, arrays: dict, meta: dict, device) -> dict[str, An
 def port_config(cfg):
     """The port's ``ModelConfig`` with the fields of ``cfg``, a
     configuration of either package: its dtype becomes the torch dtype of
-    the same name, and a bcsr FFN's ``"pallas"`` tier the kernel's
-    ``"cuda"``."""
+    the same name, its ``MoEConfig`` the port's, and a bcsr FFN's
+    ``"pallas"`` tier the kernel's ``"cuda"``."""
     fields = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
     fields["dtype"] = getattr(torch, np.dtype(fields["dtype"]).name)
+    if fields["moe"] is not None:
+        fields["moe"] = MoEConfig(**dataclasses.asdict(fields["moe"]))
     sff = fields["sparse_ffn"]
     if sff is not None:
         sff = {f.name: getattr(sff, f.name) for f in dataclasses.fields(sff)}
@@ -103,7 +106,9 @@ def lm_params_from_numpy(cfg, params: dict, device="cpu"):
     ``params`` is the JAX package's ``init_model(cfg)[0]`` tree with numpy
     leaves: ``embed``, ``unembed``, ``ln_f`` and ``blocks`` stacked on a
     leading layers axis (a bcsr FFN as ``w*_blocks`` / ``w*_rows`` /
-    ``w*_cols``).  ``cfg`` may be either package's configuration
+    ``w*_cols``; a MoE FFN as ``ffn.router`` / ``wi_gate`` / ``wi_up`` /
+    ``wo``; an RWKV-6 block's leaves, ``mu_base`` to ``ln2``, directly under
+    ``blocks``).  ``cfg`` may be either package's configuration
     (:func:`port_config`).  The bcsr block positions must be the port's own
     seeded pattern, which they are for the same ``SparseFFNConfig``.
     """

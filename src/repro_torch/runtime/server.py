@@ -4,9 +4,11 @@ A request queue, B decode slots, and per-slot free/assign/evict
 bookkeeping.  A new request is prefilled with one ``prefill`` pass (batch
 1) and its KV cache copied into the freed slot while the other slots keep
 decoding; the cache tracks positions per slot, so sequences at different
-depths share one B-wide ``decode_step``.  Greedy sampling: the argmax over
-the padded vocabulary, as the JAX package takes it (a pad id can win:
-ROADMAP C.18).
+depths share one B-wide ``decode_step``; an RWKV-6 model's recurrent state
+is copied into the slot the same way.  Greedy sampling: the argmax over the
+``vocab`` real columns of the logits.  The JAX package takes it over the
+padded vocabulary, so a pad id can win there; the port masks the pad
+columns out (ROADMAP C.18, a recorded deviation).
 
 Decode is the paper's k = 1 regime (memory-bound, as SpMV), and batching B
 requests is its SpMM move: with the block-sparse FFN each decode step runs
@@ -63,9 +65,11 @@ class Request:
 
 def _merge_slot(state: dict, state1: dict, i: int) -> None:
     """Copy a batch-1 decode state into slot ``i`` of ``state``: every leaf
-    has the layers axis first and the batch axis second."""
-    for key, t in state["kv"].items():
-        t[:, i] = state1["kv"][key][:, 0]
+    of every group (``kv``, ``rwkv``) has the layers axis first and the
+    batch axis second."""
+    for group, leaves in state.items():
+        for key, t in leaves.items():
+            t[:, i] = state1[group][key][:, 0]
 
 
 class BatchedServer:
@@ -183,7 +187,7 @@ class BatchedServer:
                 _merge_slot(self.state, state1, i)
                 # reading the token waits for the merge, so the next prefill
                 # replay cannot overwrite a graph's state before it is copied
-                req._first = int(torch.argmax(logits[0]))
+                req._first = int(torch.argmax(logits[0, :self.cfg.vocab]))
                 req.t_start = time.perf_counter()
                 self.prefills += 1
 
@@ -201,7 +205,7 @@ class BatchedServer:
         # the host waits for the argmax here, before the pinned tokens and
         # the static logits are written again
         self.last_logits = logits
-        nxt = torch.argmax(logits[:, 0], dim=-1).cpu().numpy()
+        nxt = torch.argmax(logits[:, 0, :self.cfg.vocab], dim=-1).cpu().numpy()
         t_now = time.perf_counter()
         for i in active:
             req = self.slot_req[i]

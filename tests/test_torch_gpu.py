@@ -1351,3 +1351,84 @@ def test_gpu_decode_graph_equals_eager_decode(cuda_device):
         outs[captured] = [r.out for r in reqs]
         assert s.graphs == (3 if captured else 0)  # decode + prompt lengths 5, 9
     assert outs[True] == outs[False]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("top_k,n_experts", [(2, 8), (1, 4)])
+def test_gpu_moe_combine_through_the_spmspv_kernel(cuda_device, top_k, n_experts):
+    """The port's ``moe_apply_spmspv(impl="cuda")`` launches the fused
+    SpMSpV kernel once per token that keeps a slot, and at capacity_factor
+    E / top_k (nothing drops) agrees with ``moe_apply_dense_ref`` within
+    1e-5 of ``moe.combine_scale`` (the (|A| |x|)_i of the products behind
+    each output, float32); at 1.25 it agrees with ``moe_apply`` the same
+    way."""
+    from repro_torch.models import moe
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for cf in (n_experts / top_k, 1.25):
+        cfg = moe.MoEConfig(n_experts=n_experts, top_k=top_k, d_ff=64,
+                            capacity_factor=cf)
+        gen = torch.Generator(device=cuda_device).manual_seed(0)
+        p = moe.moe_init(gen, 128, cfg)
+        x = torch.randn(2, 12, 128, generator=gen, device=cuda_device)
+        scale = moe.combine_scale(p, x, cfg)
+        dest = moe._dispatch_expert_outputs(p, x, cfg, aux=False)[1]
+        _build.reset_launches()
+        y = moe.moe_apply_spmspv(p, x, cfg, impl="cuda")
+        # a token whose every slot dropped has no product: no launch
+        nonempty = int((dest.reshape(2, 12, top_k)
+                        < n_experts * moe.moe_capacity(12, cfg)).any(-1).sum())
+        assert _build.LAUNCHES["spmspv_scatter"] == nonempty
+        assert nonempty == 24 or cf < n_experts / top_k
+        ref = (moe.moe_apply_dense_ref(p, x, cfg) if cf >= n_experts / top_k
+               else moe.moe_apply(p, x, cfg)[0])
+        err = (y.double() - ref.double()).abs()
+        assert bool((err <= TOL * scale).all()), float((err - TOL * scale).max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "rwkv6-7b"])
+def test_gpu_moe_and_rwkv6_decode_graphs_equal_eager_bitwise(cuda_device, arch):
+    """A reduced float32 granite-moe (routing, capacity scatter, batched
+    experts) and rwkv6 (recurrent state updated in place): one replay of
+    the server's decode graph gives eager ``decode_step``'s logits and
+    state bit for bit, and captured and eager servers give every request
+    the same tokens."""
+    import dataclasses
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import lm
+    from repro_torch.runtime.server import BatchedServer, Request, _merge_slot
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_reduced(arch), dtype=torch.float32)
+    model = lm.init_model(cfg, 0, device=cuda_device)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32) for n in (5, 9, 5)]
+    srv = BatchedServer(cfg, model, batch_slots=2, max_seq=32)
+    assert srv.graphs == 1
+    for i, p in enumerate(prompts[:2]):
+        one, _ = lm.prefill(cfg, model, {"tokens": p[None]}, 32)
+        _merge_slot(srv.state, one, i)
+    state = {g: {k: t.clone() for k, t in leaves.items()}
+             for g, leaves in srv.state.items()}
+    toks = torch.as_tensor([[3], [7]], device=cuda_device)
+    _, ref = lm.decode_step(cfg, model, state, toks)
+    graph, tokens, _, logits = srv._decode
+    tokens.copy_(toks)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(logits, ref)
+    for g, leaves in state.items():
+        for key, t in leaves.items():
+            assert torch.equal(srv.state[g][key], t), (g, key)
+    outs = {}
+    for captured in (True, False):
+        s = BatchedServer(cfg, model, batch_slots=2, max_seq=32, captured=captured)
+        reqs = [Request(rid=i, prompt=p, max_new=6) for i, p in enumerate(prompts)]
+        for r in reqs:
+            s.submit(r)
+        s.run_until_drained()
+        outs[captured] = [r.out for r in reqs]
+        assert all(t < cfg.vocab for o in outs[captured] for t in o)
+    assert outs[True] == outs[False]

@@ -11,8 +11,17 @@ dense-block tier (``impl="ref"``).
 Tolerances: in float32, |Δ| <= 1e-4 · max|ref| on logits, attention outputs
 and layer outputs (only the order of float32 sums differs), and
 |Δ_i| <= 1e-5 · (|A| · |x|)_i on each bcsr FFN product; in bf16,
-3e-2 · max|ref| (the two frameworks round bf16 at other places), and
-greedy tokens are not compared.
+3e-2 · max|ref| (the two frameworks round bf16 at other places), 5e-2 for
+RWKV-6 (``tests/test_torch_rwkv6.py`` gives the reason), and greedy tokens
+are not compared.  A bf16 MoE model's routing can flip on a near tie
+(``_route`` reads x, which the two packages round to bf16 at other
+places), and one flipped slot moves the logits far past any bf16 limit.
+So the bf16 MoE cases record the routing ids of every layer call in both
+packages, assert that they agree, and hold the logits to 3e-2 on seeds
+where they do: seed 0 for llama4-scout's reduced config, and 4 for
+granite's, whose seed 0 flips (ROADMAP C.22;
+:func:`test_bf16_moe_routing_can_flip_between_the_packages`).  float32
+keeps seed 0 everywhere.
 """
 import dataclasses
 
@@ -29,6 +38,7 @@ from repro.models import attention as jattn
 from repro.models import common as jcommon
 from repro.models import ffn as jffn
 from repro.models import lm as jlm
+from repro.models import moe as jmoe
 from repro.models.common import KeyGen
 
 from repro_torch.configs import ARCH_IDS, get_config, get_reduced
@@ -42,9 +52,11 @@ from repro_torch.models import attention as tattn
 from repro_torch.models import common as tcommon
 from repro_torch.models import ffn as tffn
 from repro_torch.models import lm as tlm
+from repro_torch.models import moe as tmoe
 
 F32_TOL = 1e-4
 BF16_TOL = 3e-2
+RWKV6_BF16_TOL = 5e-2
 ROW_TOL = 1e-5
 CPU = torch.device("cpu")
 
@@ -372,16 +384,17 @@ def test_tune_sparse_ffn_maps_each_weight_through_its_own_plan():
 # ---------------------------------------------------------------------------
 # the model
 # ---------------------------------------------------------------------------
-def _models(arch, bcsr, dtype, j_impl="pallas"):
+def _models(arch, bcsr, dtype, j_impl="pallas", seed=0):
     sff = jffn.SparseFFNConfig(kind="bcsr", block=(32, 32), impl=j_impl) if bcsr else None
     jcfg = dataclasses.replace(j_get_reduced(arch), dtype=dtype, sparse_ffn=sff)
-    params, _ = jlm.init_model(jcfg, 0)
+    params, _ = jlm.init_model(jcfg, seed)
     model = lm_params_from_numpy(jcfg, jax.tree.map(np.asarray, params))
     return jcfg, params, model.cfg, model
 
 
 def test_ported_configs_are_the_references():
-    assert set(ARCH_IDS) == {"qwen1.5-4b", "h2o-danube-3-4b"}
+    assert set(ARCH_IDS) == {"qwen1.5-4b", "h2o-danube-3-4b", "granite-moe-1b-a400m",
+                             "llama4-scout-17b-a16e", "rwkv6-7b"}
     from repro.configs import get_config as j_get_config
 
     for arch in ARCH_IDS:
@@ -392,54 +405,151 @@ def test_ported_configs_are_the_references():
     qwen = get_config("qwen1.5-4b")
     assert (qwen.n_layers, qwen.d_model, qwen.d_ff, qwen.vocab_padded) == \
         (40, 2560, 6912, 152064)
+    granite = get_config("granite-moe-1b-a400m")
+    assert isinstance(granite.moe, tmoe.MoEConfig)
+    assert (granite.n_layers, granite.d_model, granite.moe.n_experts, granite.moe.top_k,
+            granite.moe.d_ff, granite.vocab_padded) == (24, 1024, 32, 8, 512, 49408)
+    scout = get_config("llama4-scout-17b-a16e")
+    assert (scout.n_layers, scout.d_model, scout.moe.n_experts, scout.moe.top_k,
+            scout.moe.d_ff, scout.vocab_padded) == (48, 5120, 16, 1, 8192, 202240)
+    rwkv = get_config("rwkv6-7b")
+    assert (rwkv.family, rwkv.ssm_kind, rwkv.n_layers, rwkv.d_model, rwkv.d_ff,
+            rwkv.vocab_padded) == ("ssm", "rwkv6", 32, 4096, 14336, 65536)
     with pytest.raises(KeyError, match="serves"):
-        get_config("granite-moe-1b-a400m")
+        get_config("zamba2-2.7b")
 
 
-@pytest.mark.parametrize("arch", ["qwen1.5-4b", "h2o-danube-3-4b"])
-@pytest.mark.parametrize("bcsr", [False, True], ids=["dense", "bcsr"])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_forward_prefill_and_decode_match_reference(arch, bcsr, dtype):
+DENSE_ARCHES = ("qwen1.5-4b", "h2o-danube-3-4b")
+OTHER_ARCHES = {"granite-moe-1b-a400m": "moe", "llama4-scout-17b-a16e": "moe",
+                "rwkv6-7b": "ssm"}
+# (dtype, bcsr, arch), named dtype-ffn-arch
+PARITY_CASES = [
+    pytest.param(dt, ffn == "bcsr", arch, id=f"{dt}-{ffn}-{arch}")
+    for dt in ("float32", "bfloat16")
+    for ffn, arches in (("dense", DENSE_ARCHES), ("bcsr", DENSE_ARCHES),
+                        *((fam, (arch,)) for arch, fam in OTHER_ARCHES.items()))
+    for arch in arches
+]
+
+
+# bf16 MoE: seeds on which both packages route every slot alike
+BF16_ROUTING_SEED = {"granite-moe-1b-a400m": 4, "llama4-scout-17b-a16e": 0}
+
+
+def _recording_routes(monkeypatch):
+    """Record the routing ids of every MoE layer call in both packages (the
+    reference's through a debug callback, since its layers run in a scan)."""
+    seen = {"ref": [], "port": []}
+
+    def ref_route(*a, _orig=jmoe._route, **kw):
+        out = _orig(*a, **kw)
+        jax.debug.callback(lambda ids: seen["ref"].append(np.asarray(ids)), out[1],
+                           ordered=True)
+        return out
+
+    def port_route(*a, _orig=tmoe._route, **kw):
+        out = _orig(*a, **kw)
+        seen["port"].append(out[1].numpy())
+        return out
+
+    monkeypatch.setattr(jmoe, "_route", ref_route)
+    monkeypatch.setattr(tmoe, "_route", port_route)
+    return seen
+
+
+@pytest.mark.parametrize("dtype,bcsr,arch", PARITY_CASES)
+def test_forward_prefill_and_decode_match_reference(arch, bcsr, dtype, monkeypatch):
     """Reduced configs; the prompt (20 tokens) is longer than
     h2o-danube's 16-token window, so its ring cache wraps at prefill and
     again while decoding.  bf16 runs the reference's bcsr FFN at
     ``impl="ref"``: its Pallas tier refuses a bf16 model (see
-    :func:`test_reference_pallas_ffn_refuses_a_bf16_model`)."""
+    :func:`test_reference_pallas_ffn_refuses_a_bf16_model`).  The MoE
+    configs route with the default capacity factor (1.25: forward's and
+    prefill's slots can drop, the same in both packages); RWKV-6 compares
+    its recurrent state, leaf by leaf, where the others compare caches."""
     jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
-    tol = F32_TOL if dtype == "float32" else BF16_TOL
+    tol = F32_TOL if dtype == "float32" else (
+        RWKV6_BF16_TOL if arch == "rwkv6-7b" else BF16_TOL)
+    routed = arch in BF16_ROUTING_SEED and dtype == "bfloat16"
     jcfg, params, tcfg, model = _models(arch, bcsr, jdt,
-                                        "pallas" if dtype == "float32" else "ref")
+                                        "pallas" if dtype == "float32" else "ref",
+                                        seed=BF16_ROUTING_SEED[arch] if routed else 0)
     if bcsr:
         assert tcfg.sparse_ffn.impl == ("cuda" if dtype == "float32" else "ref")
     assert tlm.param_count(model) == jlm.param_count(params)
+    routes = _recording_routes(monkeypatch) if routed else None
     toks = np.random.default_rng(1).integers(0, jcfg.vocab, (2, 23)).astype(np.int32)
-    ref, _ = jlm.forward(jcfg, params, {"tokens": jnp.asarray(toks)})
+    ref, jaux = jlm.forward(jcfg, params, {"tokens": jnp.asarray(toks)})
     got, aux = tlm.forward(tcfg, model, {"tokens": toks})
-    assert got.dtype == getattr(torch, dtype) and aux == 0.0
+    assert got.dtype == getattr(torch, dtype)
+    if jcfg.moe is None:
+        assert aux == 0.0
+    else:
+        close(aux, jaux, tol, "aux")
     close(got, ref, tol, "forward")
     jst, jlg = jlm.prefill(jcfg, params, {"tokens": jnp.asarray(toks[:, :20])}, 32)
     tst, tlg = tlm.prefill(tcfg, model, {"tokens": toks[:, :20]}, 32)
     close(tlg, jlg, tol, "prefill logits")
     for step in range(4):
-        for key in ("k", "v"):
-            close(tst["kv"][key], jst["kv"][key], tol, f"step {step} cache {key}")
-        for key in ("positions", "pos"):
-            assert np.array_equal(tst["kv"][key].numpy(), np.asarray(jst["kv"][key]))
+        if "rwkv" in tst:
+            for key in ("tm_shift", "cm_shift", "wkv"):
+                close(tst["rwkv"][key], jst["rwkv"][key], tol, f"step {step} {key}")
+        else:
+            for key in ("k", "v"):
+                close(tst["kv"][key], jst["kv"][key], tol, f"step {step} cache {key}")
+            for key in ("positions", "pos"):
+                assert np.array_equal(tst["kv"][key].numpy(), np.asarray(jst["kv"][key]))
         if step == 3:
             break
         t = toks[:, 20 + step:21 + step]
         jst, jlg = jlm.decode_step(jcfg, params, jst, jnp.asarray(t))
         tst, tlg = tlm.decode_step(tcfg, model, tst, t)
         close(tlg, jlg, tol, f"decode {step}")
+    if routes is not None:  # forward, prefill and 3 steps, every layer
+        jax.effects_barrier()
+        assert len(routes["ref"]) == len(routes["port"]) == 5 * jcfg.n_layers
+        for i, (a, b) in enumerate(zip(routes["ref"], routes["port"])):
+            assert np.array_equal(a, b), f"routing differs at call {i}"
 
 
-@pytest.mark.parametrize("arch", ["qwen1.5-4b", "h2o-danube-3-4b"])
-@pytest.mark.parametrize("bcsr", [False, True], ids=["dense", "bcsr"])
+def test_bf16_moe_routing_can_flip_between_the_packages(monkeypatch):
+    """ROADMAP C.22.  The reduced granite in bf16 at init seed 0: the jitted
+    reference and the port route at least one (token, layer) slot to other
+    experts over a forward pass and a prefill (the parity test's inputs),
+    because ``_route`` reads x, which the two round to bf16 at other places;
+    in float32 every decision agrees."""
+    flips = {}
+    for dtype in (jnp.bfloat16, jnp.float32):
+        routes = _recording_routes(monkeypatch)
+        jcfg, params, tcfg, model = _models("granite-moe-1b-a400m", False, dtype, "ref")
+        toks = np.random.default_rng(1).integers(0, jcfg.vocab, (2, 23)).astype(np.int32)
+        jlm.forward(jcfg, params, {"tokens": jnp.asarray(toks)})
+        jlm.prefill(jcfg, params, {"tokens": jnp.asarray(toks[:, :20])}, 32)
+        tlm.forward(tcfg, model, {"tokens": toks})
+        tlm.prefill(tcfg, model, {"tokens": toks[:, :20]}, 32)
+        jax.effects_barrier()
+        assert len(routes["ref"]) == len(routes["port"]) == 2 * jcfg.n_layers
+        flips[dtype] = sum(int((a != b).any(-1).sum())
+                           for a, b in zip(routes["ref"], routes["port"]))
+    assert flips[jnp.bfloat16] > 0 and flips[jnp.float32] == 0, flips
+
+
+@pytest.mark.parametrize("arch,bcsr", [
+    pytest.param(arch, ffn == "bcsr", id=f"{ffn}-{arch}")
+    for ffn, arches in (("dense", DENSE_ARCHES), ("bcsr", DENSE_ARCHES),
+                        *((fam, (arch,)) for arch, fam in OTHER_ARCHES.items()))
+    for arch in arches])
 def test_decode_matches_forward_in_the_port(arch, bcsr):
     """The port alone: prefill of 20 tokens and 6 decode steps give
-    ``forward``'s logits at the same positions (float32)."""
+    ``forward``'s logits at the same positions (float32).  The MoE configs
+    take capacity_factor = E / top_k, where nothing drops: at 1.25 a slot
+    that forward drops (its capacity grows with the sequence) is kept by a
+    decode step, which routes one token."""
     sff = tffn.SparseFFNConfig(kind="bcsr", block=(32, 32)) if bcsr else None
     cfg = dataclasses.replace(get_reduced(arch), dtype=torch.float32, sparse_ffn=sff)
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
     model = tlm.init_model(cfg, 3, device="cpu")
     toks = np.random.default_rng(2).integers(0, cfg.vocab, (2, 26)).astype(np.int32)
     full, _ = tlm.forward(cfg, model, {"tokens": toks})
@@ -477,10 +587,24 @@ def test_models_need_a_device_and_refuse_unported_families(monkeypatch):
     model = tlm.init_model(cfg, device="cpu")
     assert model.device.type == "cpu"
     assert not any(p.requires_grad for p in model.parameters())
-    for fam, kw in (("ssm", dict(ssm_kind="rwkv6")), ("hybrid", {}), ("audio", {}),
-                    ("vlm", {}), ("moe", {})):
+    for fam, kw in (("hybrid", dict(ssm_kind="mamba2")), ("audio", {}), ("vlm", {}),
+                    ("ssm", dict(ssm_kind="mamba2"))):
         bad = dataclasses.replace(cfg, family=fam, **kw)
         with pytest.raises(NotImplementedError, match="ROADMAP A.5"):
             tlm.init_model(bad, device="cpu")
-    with pytest.raises(NotImplementedError, match="moe"):
-        tlm.init_model(dataclasses.replace(cfg, moe=object()), device="cpu")
+    with pytest.raises(NotImplementedError, match="vlm"):
+        tlm.init_model(dataclasses.replace(cfg, mrope_sections=(16, 24, 24)),
+                       device="cpu")
+    # the moe and ssm (rwkv6) families build on the CPU, and still need a
+    # device to be named
+    for arch in ("granite-moe-1b-a400m", "rwkv6-7b"):
+        red = get_reduced(arch)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            tlm.init_model(red)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            tlm.init_decode_state(red, 2, 16)
+        m = tlm.init_model(red, device="cpu")
+        assert m.device.type == "cpu" and len(m.blocks) == red.n_layers
+        assert not any(p.requires_grad for p in m.parameters())
+    assert isinstance(tlm.init_model(get_reduced("granite-moe-1b-a400m"),
+                                     device="cpu").blocks[0].ffn, tmoe.MoE)

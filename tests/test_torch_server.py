@@ -4,7 +4,11 @@
 Weights are drawn by ``repro.models.lm.init_model`` and carried across
 (``repro_torch.interop.lm_params_from_numpy``); prompts come from
 ``numpy.random.default_rng``.  In float32 the greedy tokens must equal the
-reference server's; in bf16 tokens are not compared.
+reference server's; in bf16 tokens are not compared.  The port's greedy
+argmax skips the pad columns of the logits (ROADMAP C.18), where the
+reference's takes the padded vocabulary; the reduced configs have none
+(vocab 512), and the pad-column case is held against the reference's
+logits sliced to ``vocab``.
 """
 import dataclasses
 import json
@@ -65,12 +69,17 @@ def _pair(arch, bcsr, dtype=jnp.float32):
 
 
 @pytest.mark.parametrize("arch,bcsr", [("qwen1.5-4b", False), ("qwen1.5-4b", True),
-                                       ("h2o-danube-3-4b", False)])
+                                       ("h2o-danube-3-4b", False),
+                                       ("granite-moe-1b-a400m", False),
+                                       ("rwkv6-7b", False)])
 def test_greedy_tokens_equal_the_reference_server(arch, bcsr):
     """Five requests of mixed prompt lengths through 2 slots (continuous
     batching: slots refill mid-run), float32: the same tokens, one prefill
-    per request, and the same step and occupancy counts."""
+    per request, and the same step and occupancy counts.  The MoE routes at
+    its configured capacity factor; RWKV-6 merges its recurrent state into
+    the slots."""
     jcfg, params, model = _pair(arch, bcsr)
+    assert jcfg.vocab_padded == jcfg.vocab  # no pad column: the argmaxes agree
     prompts = _prompts(5, jcfg.vocab)
     jsrv, jreqs = _serve(JServer, JRequest, jcfg, params, prompts, 2)
     tsrv, treqs = _serve(BatchedServer, Request, model.cfg, model, prompts, 2)
@@ -81,11 +90,14 @@ def test_greedy_tokens_equal_the_reference_server(arch, bcsr):
     assert all(r.latency_s >= 0 for r in treqs)
 
 
-@pytest.mark.parametrize("bcsr", [False, True], ids=["dense", "bcsr"])
-def test_two_slots_give_the_tokens_of_two_one_slot_servers(bcsr):
-    sff = SparseFFNConfig(kind="bcsr", block=(32, 32)) if bcsr else None
-    cfg = dataclasses.replace(get_reduced("h2o-danube-3-4b"), dtype=torch.float32,
-                              sparse_ffn=sff)
+@pytest.mark.parametrize("ffn", ["dense", "bcsr", "rwkv6"])
+def test_two_slots_give_the_tokens_of_two_one_slot_servers(ffn):
+    """h2o-danube (its window wraps), dense and bcsr, and rwkv6, whose
+    recurrent state ``_merge_slot`` copies into the slot (the ``rwkv``
+    group) as it copies KV caches (the ``kv`` group)."""
+    sff = SparseFFNConfig(kind="bcsr", block=(32, 32)) if ffn == "bcsr" else None
+    arch = "rwkv6-7b" if ffn == "rwkv6" else "h2o-danube-3-4b"
+    cfg = dataclasses.replace(get_reduced(arch), dtype=torch.float32, sparse_ffn=sff)
     model = tlm.init_model(cfg, 1, device="cpu")
     prompts = _prompts(2, cfg.vocab, seed=4, lens=(20, 6))  # 20 > the window
     _, both = _serve(BatchedServer, Request, cfg, model, prompts, 2, max_new=8)
@@ -140,7 +152,9 @@ def test_auto_impl_routes_through_the_tuner_at_the_slot_count():
     assert got == [r.out for r in ref]
 
 
-@pytest.mark.parametrize("arch", ["qwen1.5-4b", "h2o-danube-3-4b"])
+@pytest.mark.parametrize("arch", ["qwen1.5-4b", "h2o-danube-3-4b",
+                                  "granite-moe-1b-a400m", "llama4-scout-17b-a16e",
+                                  "rwkv6-7b"])
 def test_cli_serves_every_request_on_the_cpu(arch, tmp_path, capsys):
     stats = tmp_path / "lm.json"
     serve_cli.main(["--arch", arch, "--reduced", "--device", "cpu", "--requests", "6",
@@ -153,3 +167,32 @@ def test_cli_serves_every_request_on_the_cpu(arch, tmp_path, capsys):
     assert summary["device"] == "cpu" and summary["latency_p99_s"] > 0
     with pytest.raises(SystemExit):
         serve_cli.main(["--arch", "qwen1.5-4b", "--sparse", "cant"])
+
+
+def test_pad_columns_never_win_the_greedy_argmax():
+    """ROADMAP C.18.  A reduced qwen1.5-4b with vocab 500 (512 columns)
+    whose final norm keeps one channel and whose pad columns 500 and 501
+    weigh it +-100: a pad column wins every argmax over the padded logits,
+    so the reference's server emits pad ids only.  The port's server emits
+    real tokens, each the argmax of the reference's logits sliced to
+    ``vocab`` at its position (``forward`` over the served sequence)."""
+    jcfg = dataclasses.replace(j_get_reduced("qwen1.5-4b"), vocab=500,
+                               dtype=jnp.float32)
+    assert jcfg.vocab_padded == 512
+    params, _ = jlm.init_model(jcfg, 0)
+    params = jax.tree.map(np.array, params)
+    params["ln_f"]["g"][:] = 0.0
+    params["ln_f"]["g"][0] = 1.0
+    params["unembed"][:, 500:] = 0.0
+    params["unembed"][0, 500], params["unembed"][0, 501] = 100.0, -100.0
+    model = lm_params_from_numpy(jcfg, params)
+    prompts = _prompts(2, jcfg.vocab, seed=5)
+    _, jreqs = _serve(JServer, JRequest, jcfg, params, prompts, 2, max_new=4)
+    assert all(t >= jcfg.vocab for r in jreqs for t in r.out)
+    _, treqs = _serve(BatchedServer, Request, model.cfg, model, prompts, 2, max_new=4)
+    for p, r in zip(prompts, treqs):
+        assert r.done and all(t < jcfg.vocab for t in [r._first, *r.out])
+        seq = np.concatenate([p, np.asarray([r._first, *r.out[:-1]], np.int32)])
+        logits, _ = jlm.forward(jcfg, params, {"tokens": jnp.asarray(seq[None])})
+        want = np.argmax(np.asarray(logits)[0, len(p) - 1:, :jcfg.vocab], axis=-1)
+        assert [r._first, *r.out] == want.tolist()
