@@ -230,7 +230,7 @@ scipy; imports nothing of JAX or of the JAX package.  Phases:
    ``moe_apply_spmspv(impl="cuda")`` at capacity_factor E / top_k (nothing
    drops) against ``moe_apply_dense_ref`` and at 1.25 against
    ``moe_apply``, each output within 1e-5 (|A| |x|)_i of the products
-   behind it (``moe.combine_scale``: A the experts' wo, x the gate-weighted
+   behind it (``moe._combine_scale``: A the experts' wo, x the gate-weighted
    h and, to first order, what the gate and up products' reordering can
    move it by), with exactly one
    ``spmspv_scatter`` launch per token that keeps a slot (one per
@@ -243,13 +243,12 @@ scipy; imports nothing of JAX or of the JAX package.  Phases:
    ``BF16_CHECK_LAYERS`` layers (held): each prompt's deviation (held to
    ``LM_BF16_LIMIT`` where its routing agrees, reported where it does
    not), the share of (token, layer) routing decisions that pick the same
-   experts, the float32 copy on the bf16 model's routing (held on every
-   prompt), and the float32 copy's own move when only its norm inputs are
-   rounded to bf16 (the model's sensitivity to rounding, which these
-   random inits amplify with depth);
+   experts, and the float32 copy on the bf16 model's routing (held on
+   every prompt; these random inits amplify bf16 rounding with depth, in
+   the JAX package too, so full depth is reported only);
    (d) llama4-scout-17b-a16e at full width, cut to ``SCOUT_LAYERS`` of 48
-   layers (reckoned before it is built): ``serve --arch ... --layers``,
-   the server and the times as in (a); (e) rwkv6-7b in bf16 at full width
+   layers in this script (reckoned before it is built): the server and
+   the times as in (a); (e) rwkv6-7b in bf16 at full width
    and depth (32 layers): as (a), then its float32 copy at full depth as in
    (b) (decode against forward, graph against eager) and (f); last, one
    eager and one graphed decode step of granite and rwkv6 under
@@ -1841,11 +1840,12 @@ MOE_ARCH, SCOUT_ARCH, RWKV_ARCH = ("granite-moe-1b-a400m", "llama4-scout-17b-a16
 # ~54 GB of the 80, which leaves room for the KV cache and the graphs.
 SCOUT_LAYERS = 12
 # 12f: the depth at which bf16 is held to its float32 copy.  These random
-# inits amplify a bf16 rounding of the residual stream with depth: the
-# float32 copy's own move with its norm inputs rounded to bf16 is ~0.01 x
-# max|logits| at 2 layers and 0.5-0.7 at rwkv6-7b's 32 (0.02-0.04 for
-# granite's 24 on fixed routing), so 5e-2 can tell a wrong path from
-# rounding only at a few layers (PERF.md §2)
+# inits amplify bf16 rounding with depth, in the JAX package as in the port:
+# at the reduced width bf16 deviates 0.007-0.03 x max|logits| from float32
+# at 2 layers and 0.45-1.3 at the full configs' 24 and 32, in both packages
+# (tests/test_torch_models.py::
+# test_bf16_deviation_from_float32_grows_with_depth_in_both_packages), so
+# 5e-2 can tell a wrong path from rounding only at a few layers (PERF.md §2)
 BF16_CHECK_LAYERS = 2
 COMBINE_ROWS = 4  # 12c: x of 4 rows x LM_PROMPT tokens through one granite layer
 
@@ -1854,15 +1854,19 @@ COMBINE_ROWS = 4  # 12c: x of 4 rows x LM_PROMPT tokens through one granite laye
 def forcing_routes(ids_seq):
     """Every MoE layer call routes to the next ids of ``ids_seq`` (in call
     order), its gate weights the softmax of its own router logits there:
-    a float32 copy run on the routing a bf16 model chose."""
+    a float32 copy run on the routing a bf16 model chose.  Fails unless
+    exactly ``len(ids_seq)`` calls went through ``moe._route``."""
     import torch
 
     from repro_torch.models import moe as moe_mod
 
-    it, orig = iter(ids_seq), moe_mod._route
+    it, orig, used = iter(ids_seq), moe_mod._route, [0]
 
     def forced(p, x, cfg, aux=True):
-        ids = next(it)
+        ids = next(it, None)
+        if ids is None:
+            fail(f"forcing_routes: more MoE layer calls than the {len(ids_seq)} recorded")
+        used[0] += 1
         logits = x.float() @ p.router.float()
         return torch.softmax(logits.gather(-1, ids), dim=-1), ids, 0.0, 0.0
 
@@ -1871,34 +1875,14 @@ def forcing_routes(ids_seq):
         yield
     finally:
         moe_mod._route = orig
+    if used[0] != len(ids_seq):
+        fail(f"forcing_routes: {used[0]} MoE layer calls routed, expected {len(ids_seq)}")
 
 
 @contextlib.contextmanager
-def bf16_rounded_norm_inputs():
-    """Every RMSNorm's input rounded to bf16 first (the blocks' pre-norms,
-    RWKV-6's ``ln_x`` and the final norm): run on a float32 copy, the
-    logits' move is the model's own sensitivity to bf16 rounding of its
-    residual stream, with no bf16 product anywhere."""
-    import torch
-
-    from repro_torch.models import lm
-    from repro_torch.models import rwkv6
-
-    orig = lm.rms_norm
-
-    def rounded(x, gamma, eps: float = 1e-6):
-        return orig(x.to(torch.bfloat16).to(x.dtype), gamma, eps)
-
-    lm.rms_norm = rwkv6.rms_norm = rounded
-    try:
-        yield
-    finally:
-        lm.rms_norm = rwkv6.rms_norm = orig
-
-
-@contextlib.contextmanager
-def recording_routes():
-    """Every MoE layer call's routing ids (b, s, k), in call order."""
+def recording_routes(calls: int):
+    """Every MoE layer call's routing ids (b, s, k), in call order.  Fails
+    unless exactly ``calls`` calls went through ``moe._route``."""
     from repro_torch.models import moe as moe_mod
 
     seen, orig = [], moe_mod._route
@@ -1913,6 +1897,8 @@ def recording_routes():
         yield seen
     finally:
         moe_mod._route = orig
+    if len(seen) != calls:
+        fail(f"recording_routes: {len(seen)} MoE layer calls recorded, expected {calls}")
 
 
 def moe_ssm_phase(dev, record: dict, *, reduced: bool = False) -> dict:
@@ -1949,15 +1935,13 @@ def moe_ssm_phase(dev, record: dict, *, reduced: bool = False) -> dict:
         print(f"  [{name}: {time.perf_counter() - t0:.1f}s, allocator peak "
               f"{peak:.2f} GB]", flush=True)
 
-    def cli(cfg_, layers: int = 0) -> dict:
+    def cli(cfg_) -> dict:
         """``serve --arch``: 8/8 served, decode and prefill graphed on a
         card, no kernel launched (the path is plain torch)."""
         args = ["--arch", cfg_.arch_id.split("/")[0], "--requests", str(LM_REQUESTS),
                 "--slots", str(LM_SLOTS), "--prompt-len", str(LM_PROMPT),
                 "--max-new", str(LM_NEW), "--max-seq", str(LM_MAX_SEQ),
                 "--device", dev.type] + (["--reduced"] if reduced else [])
-        if layers:
-            args += ["--layers", str(layers)]
         print(f"  serve {' '.join(args)}", flush=True)
         with tempfile.TemporaryDirectory(prefix="chip_smoke_moe_") as td:
             stats = Path(td) / "lm.json"
@@ -2059,10 +2043,8 @@ def moe_ssm_phase(dev, record: dict, *, reduced: bool = False) -> dict:
         """12f over the first ``layers`` layers of the served bf16 model and
         its float32 copy ``model_f`` (cut copies of both below full
         depth): first-token logits as a share of max|logits| per prompt;
-        ``floor``, the float32 copy's own move when its norm inputs are
-        rounded to bf16 (no bf16 product: the model's sensitivity); for a
-        MoE, the share of (token, layer) routing decisions that pick the
-        same experts and the float32 copy on the bf16 model's routing.
+        for a MoE, the share of (token, layer) routing decisions that pick
+        the same experts and the float32 copy on the bf16 model's routing.
         ``held``: LM_BF16_LIMIT holds on every prompt whose routing agrees
         and, on the bf16 routing, on every prompt; a broken limit is
         recorded in ``failures``, which fail the phase at its end."""
@@ -2071,15 +2053,17 @@ def moe_ssm_phase(dev, record: dict, *, reduced: bool = False) -> dict:
         cut_f = dataclasses.replace(cut, dtype=torch.float32)
         if layers != cfg_b.n_layers:
             model_b, model_f = copy_as(model_b, cut), copy_as(model_b, cut_f)
-        with recording_routes() as rb:
+        moe = cut.moe is not None
+        calls = layers * len(prompts)  # one prefill a prompt, one route a layer
+        with recording_routes(calls) if moe else contextlib.nullcontext() as rb:
             bf = first_logits(cut, model_b, prompts)
-        with recording_routes() as rf:
+        with recording_routes(calls) if moe else contextlib.nullcontext() as rf:
             f32 = first_logits(cut_f, model_f, prompts)
-        out = {"layers": layers, "dev_rel": rel_dev(bf, f32), "limit": LM_BF16_LIMIT,
-               "held": held,
+        dv = rel_dev(bf, f32)
+        out = {"layers": layers, "dev_rel": dv, "limit": LM_BF16_LIMIT, "held": held,
                "equal_first_tokens": float((bf.argmax(-1) == f32.argmax(-1)).float().mean())}
-        base, flips = f32, [0] * len(prompts)
-        if cut.moe is not None:
+        flips = [0] * len(prompts)
+        if moe:
             for i, (a_, b_) in enumerate(zip(rb, rf)):  # prompt i // layers
                 flips[i // layers] += int((a_.sort(-1).values != b_.sort(-1).values)
                                           .any(-1).sum())
@@ -2087,16 +2071,8 @@ def moe_ssm_phase(dev, record: dict, *, reduced: bool = False) -> dict:
             out["routing_agree_share"] = 1 - sum(flips) / total
             out["flipped_decisions_per_prompt"] = flips
             with forcing_routes(rb):
-                base = first_logits(cut_f, model_f, prompts)
-            out["dev_rel_on_bf16_routing"] = rel_dev(bf, base)
-        with forcing_routes(rb) if cut.moe is not None else contextlib.nullcontext(), \
-                bf16_rounded_norm_inputs():
-            out["floor_rel"] = rel_dev(first_logits(cut_f, model_f, prompts), base)
-        fl, dv = out["floor_rel"], out["dev_rel"]
-        print(f"  {name}: the float32 copy's own move with its norm inputs rounded to "
-              f"bf16 {min(fl):.4e}-{max(fl):.4e} x max|logits|", flush=True)
-        if cut.moe is not None:
-            on = out["dev_rel_on_bf16_routing"]
+                on = rel_dev(bf, first_logits(cut_f, model_f, prompts))
+            out["dev_rel_on_bf16_routing"] = on
             print(f"  {name}: bf16 and float32 pick the same experts at "
                   f"{out['routing_agree_share'] * 100:.2f} % of (token, layer) decisions "
                   f"({sum(f > 0 for f in flips)}/{len(flips)} prompts with a flip); on the "
@@ -2106,16 +2082,18 @@ def moe_ssm_phase(dev, record: dict, *, reduced: bool = False) -> dict:
             print(f"    prompt {i}: bf16 deviates {d_:.4e} x max|logits|"
                   + (f" (its routing differs at {f_} decisions: reported, not held)"
                      if f_ else ""))
+        agreeing = [d_ for d_, f_ in zip(dv, flips) if not f_]
         print(f"  {name}: largest deviation {max(dv):.4e} x max|logits|, equal first "
               f"tokens {out['equal_first_tokens'] * 100:.1f} %; "
-              + (f"held to {LM_BF16_LIMIT:g}" if held else "reported, not held"),
-              flush=True)
+              + ("reported, not held" if not held
+                 else f"held to {LM_BF16_LIMIT:g} on every prompt" if not moe
+                 else f"held to {LM_BF16_LIMIT:g} on the {len(agreeing)}/{len(dv)} prompts "
+                 "whose routing agrees and on the bf16 routing"), flush=True)
         if held:
-            agreeing = [d_ for d_, f_ in zip(dv, flips) if not f_]
             if agreeing and not max(agreeing) <= LM_BF16_LIMIT:
                 failures.append(f"12f {name}: bf16 deviates {max(agreeing):.3e} x "
                                 "max|logits| from float32 on a prompt whose routing agrees")
-            if cut.moe is not None and not max(out["dev_rel_on_bf16_routing"]) <= LM_BF16_LIMIT:
+            if moe and not max(out["dev_rel_on_bf16_routing"]) <= LM_BF16_LIMIT:
                 failures.append(f"12f {name}: on the bf16 routing, bf16 deviates "
                                 f"{max(out['dev_rel_on_bf16_routing']):.3e} x max|logits|")
         return out
@@ -2156,7 +2134,7 @@ def moe_ssm_phase(dev, record: dict, *, reduced: bool = False) -> dict:
         # (|A| |x|)_i of the products behind each output: the experts' wo
         # against the gate-weighted h (and what reordering the gate and up
         # products' sums can move h by)
-        scale = moe_mod.combine_scale(p32, x, mcfg)
+        scale = moe_mod._combine_scale(p32, x, mcfg)
         nonempty = int((dest.reshape(b, s_, k) < E * C).any(-1).sum())
         dropped = int((dest == E * C).sum())
         bench.sync()
@@ -2253,8 +2231,6 @@ def moe_ssm_phase(dev, record: dict, *, reduced: bool = False) -> dict:
     prompts_s = [rng.integers(0, cfg_s.vocab, LM_PROMPT).astype(np.int32)
                  for _ in range(LM_REQUESTS)]
     bench_s = LMBench(dev, prompts_s)
-    rec["cli/" + SCOUT_ARCH] = cli(cfg_s, layers=0 if reduced else layers)
-    bench_s.free()
     model = lm.init_model(cfg_s, 0, device=dev)
     rec["scout"] = {"layers": layers, "of": full.n_layers,
                     "reckoned_gb": (layers * layer_bytes + table_bytes) / 1e9,

@@ -52,9 +52,7 @@ tokens each through ``repro_torch.runtime.server.BatchedServer`` with
 or ``--reduced``, with weights drawn from seed 0.  The architectures are
 ``repro_torch.configs.ARCH_IDS``: qwen1.5-4b and h2o-danube-3-4b (dense),
 granite-moe-1b-a400m and llama4-scout-17b-a16e (MoE) and rwkv6-7b
-(RWKV-6).  ``--layers N`` serves the first N layers at full width, for a
-model one card does not hold at full depth (llama4-scout's 48 layers take
-≈ 200 GB in bf16; 12 take ≈ 54 GB).  On a card the decode
+(RWKV-6).  On a card the decode
 step and each prompt length's prefill run as CUDA graphs; the report and
 ``--stats-json`` give the graphs captured and the seconds spent capturing:
 
@@ -66,7 +64,6 @@ Exactly one of ``--sparse``, ``--fleet`` and ``--arch`` is required.
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import json
 import time
 from pathlib import Path
@@ -326,8 +323,6 @@ def serve_lm(args) -> dict:
     from repro_torch.runtime.server import BatchedServer, Request
 
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
-    if args.layers:
-        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     model = init_model(cfg, 0, device=args.device)
     srv = BatchedServer(cfg, model, batch_slots=args.slots, max_seq=args.max_seq)
     rng = np.random.default_rng(0)
@@ -356,8 +351,7 @@ def serve_lm(args) -> dict:
           f"batch occupancy {srv.occupancy * args.slots:.2f}/{args.slots}"
           f"{lat_txt}; {srv.graphs} CUDA graphs captured in {srv.capture_s:.2f}s)")
     summary = {
-        "arch": cfg.arch_id, "layers": cfg.n_layers, "device": str(srv.device),
-        "requests": len(reqs),
+        "arch": cfg.arch_id, "device": str(srv.device), "requests": len(reqs),
         "served": done, "tokens": toks, "elapsed_s": dt, "tok_per_s": toks / dt,
         "decode_steps": srv.steps, "prefills": srv.prefills,
         "occupancy": srv.occupancy, "latency_p50_s": p50, "latency_p99_s": p99,
@@ -430,9 +424,6 @@ def main(argv=None):
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--reduced", action="store_true",
                     help="--arch: the reduced configuration (a few narrow layers)")
-    ap.add_argument("--layers", type=int, default=0,
-                    help="--arch: serve only the first N layers (a depth cut; "
-                         "0 = the configuration's depth)")
     ap.add_argument("--slots", type=int, default=4, help="--arch: decode slots")
     ap.add_argument("--prompt-len", type=int, default=4)
     ap.add_argument("--max-new", type=int, default=16)

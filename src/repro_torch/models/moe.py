@@ -46,7 +46,6 @@ __all__ = [
     "moe_apply",
     "moe_apply_dense_ref",
     "moe_apply_spmspv",
-    "combine_scale",
 ]
 
 PARTITIONS = ("ep", "tp")
@@ -182,7 +181,7 @@ def moe_apply_dense_ref(p: MoE, x: torch.Tensor, cfg: MoEConfig) -> torch.Tensor
     return (sel * weights[..., None].to(sel.dtype)).sum(dim=2)
 
 
-def combine_scale(p: MoE, x: torch.Tensor, cfg: MoEConfig) -> torch.Tensor:
+def _combine_scale(p: MoE, x: torch.Tensor, cfg: MoEConfig) -> torch.Tensor:
     """(b, s, d) float64: the magnitudes behind each output entry of
     :func:`moe_apply`, for holding two evaluations of it (the dispatch, the
     dense oracle, the combine through the sparse stack) to 1e-5 of them.

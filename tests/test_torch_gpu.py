@@ -1359,7 +1359,7 @@ def test_gpu_moe_combine_through_the_spmspv_kernel(cuda_device, top_k, n_experts
     """The port's ``moe_apply_spmspv(impl="cuda")`` launches the fused
     SpMSpV kernel once per token that keeps a slot, and at capacity_factor
     E / top_k (nothing drops) agrees with ``moe_apply_dense_ref`` within
-    1e-5 of ``moe.combine_scale`` (the (|A| |x|)_i of the products behind
+    1e-5 of ``moe._combine_scale`` (the (|A| |x|)_i of the products behind
     each output, float32); at 1.25 it agrees with ``moe_apply`` the same
     way."""
     from repro_torch.models import moe
@@ -1371,7 +1371,7 @@ def test_gpu_moe_combine_through_the_spmspv_kernel(cuda_device, top_k, n_experts
         gen = torch.Generator(device=cuda_device).manual_seed(0)
         p = moe.moe_init(gen, 128, cfg)
         x = torch.randn(2, 12, 128, generator=gen, device=cuda_device)
-        scale = moe.combine_scale(p, x, cfg)
+        scale = moe._combine_scale(p, x, cfg)
         dest = moe._dispatch_expert_outputs(p, x, cfg, aux=False)[1]
         _build.reset_launches()
         y = moe.moe_apply_spmspv(p, x, cfg, impl="cuda")
