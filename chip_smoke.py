@@ -255,6 +255,31 @@ scipy; imports nothing of JAX or of the JAX package.  Phases:
    ``torch.profiler`` in a fresh process (device busy time, idle share,
    kernel count).  Each kernel row gains ``moe_launches`` (c's counts).
 
+13. Hybrid serving (``models.mamba2`` and the hybrid branch of ``models.lm``;
+   plain torch but for the shared FFN's kernel), zamba2-2.7b in bf16 at full
+   width and depth (54 Mamba-2 layers in 9 super-blocks, each one
+   application of the shared attention block with its LoRA), weights from
+   seed 0 made live by ``perturb_hybrid`` (at init the Mamba-2 layers are
+   the identity and the LoRA zero, in the JAX package too: ROADMAP C.23):
+   (a) ``serve --arch zamba2-2.7b`` serves 8/8 through 2 graphs with no
+   kernel launched; (b) a 4-slot ``BatchedServer``, dense shared FFN, as
+   phase 12a, with the step's bound two ways (``hybrid_bounds``: the shared
+   block charged once or at each application, the float32 Mamba-2 state
+   read and written); (e) bf16 first-token logits against the float32 copy
+   over the first super-block (held to ``LM_BF16_LIMIT``) and at full
+   depth (reported); (d) the float32 copy, TF32 off: decode against
+   ``forward`` within 1e-3 max|logits| and one graphed step against its
+   eager twin bit for bit; (c) the bcsr shared FFN ((128, 128) blocks):
+   W1 and W2 through ``bcsr_spmm_bf16`` at k = 4 and 32 against the plain
+   version (1e-5 (|A| |x|)_i, the same bits on a second launch), the
+   4-slot server with both counters held to 2 x 9 x (prefills + steps +
+   warm-ups), the kernel timed at both widths as phase 11g times it, and
+   (d) on its float32 copy; last, one eager and one graphed decode step of
+   each variant under ``torch.profiler`` in a fresh process; (f) the
+   phase's wall time.  Each kernel row gains ``hybrid_launches`` (c's
+   counts), and the table gains the kernel's rows at the shared FFN's
+   shapes.
+
 Any failed check exits non-zero.  The last lines are the card's name and
 power limit, one JSON object with the kernel table, and the JSON status
 line.  The full record also goes to ``chiprun_out/chip_smoke.json``.
@@ -1411,6 +1436,8 @@ def lm_profile(labels: list[str]) -> None:
             cfg = dataclasses.replace(cfg, sparse_ffn=SparseFFNConfig(
                 kind="bcsr", block=(128, 128)))
         model = lm.init_model(cfg, 0, device=dev)
+        if cfg.family == "hybrid":
+            perturb_hybrid(model, 0)
         rng = np.random.default_rng(0)
         prompts = [rng.integers(0, cfg.vocab, LM_PROMPT).astype(np.int32)
                    for _ in range(LM_SLOTS)]
@@ -1472,6 +1499,121 @@ def run_lm_profile(labels: list[str]) -> dict:
                   f"share {p_['idle_share']:.4f}, {p_['kernels']} kernels, "
                   f"{p_['device_ops']} device operations", flush=True)
     return prof
+
+
+def ffn_weights(ffn, cfg) -> dict:
+    """{"w1"|"w2": ((blocks, cols, indptr), n_cb)} of a bcsr FFN: the
+    kernel's operands per weight and X's column-block count."""
+    bm, bk = cfg.sparse_ffn.block
+    return {which: ((ffn[f"{which}_blocks"], ffn[f"{which}_cols"],
+                     ffn[f"{which}_indptr"]), n_cb)
+            for which, n_cb in (("w1", cfg.d_model // bk), ("w2", cfg.d_ff // bm))}
+
+
+def check_bf16_products(label: str, args, n_cb: int, ks, rng, dev, path: str,
+                        key: str) -> dict:
+    """``bcsr_spmm`` on one bf16 weight at each width in ``ks`` against its
+    plain version, every output within TOL (|A| |x|)_i, and a second launch
+    bit for bit; fails otherwise.  Returns {f"{key}/k{k}": max_abs_err}."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.bcsr_spmm import bcsr_spmm, bcsr_spmm_plain
+
+    errs = {}
+    # k_i, the terms of each output row: its block row's stored blocks x bk
+    terms = (args[2][1:] - args[2][:-1]).long() * args[0].shape[2]
+    for k in ks:
+        xb = torch.as_tensor(rng.standard_normal((n_cb, args[0].shape[2], k))
+                             .astype(np.float32), device=dev).to(torch.bfloat16)
+        y = bcsr_spmm(*args, xb)
+        if not torch.equal(y, bcsr_spmm(*args, xb)):
+            fail(f"bcsr_spmm_bf16 {label} k={k}: two launches differ")
+        yp = bcsr_spmm_plain(*args, xb)
+        scale = bcsr_spmm_plain(args[0].abs(), *args[1:], xb.abs()).double()
+        err = (y.double() - yp.double()).abs()
+        bad = err > TOL * scale
+        if y.dtype != torch.float32 or bool(bad.any()):
+            for r, i in bad.any(-1).nonzero()[:8].tolist():
+                j = int((err[r, i] / scale[r, i]).argmax())
+                print(f"  row {r * args[0].shape[1] + i}: k_i {int(terms[r])}, "
+                      f"|err| {float(err[r, i, j]):.3e} = "
+                      f"{float(err[r, i, j] / scale[r, i, j]):.3e} (|A| |x|)_i")
+            fail(f"bcsr_spmm_bf16 {label} k={k}: {int(bad.sum())} entries over "
+                 f"{TOL:g} (|A| |x|)_i, max_abs_err {float(err.max()):.3e}")
+        errs[f"{key}/k{k}"] = float(err.max())
+        print(f"  ok bcsr_spmm_bf16 ({path}) {label} k={k}: max_abs_err "
+              f"{errs[f'{key}/k{k}']:.3e}, the same bits on a second launch")
+    return errs
+
+
+def densify(args, n_cb: int):
+    """The dense bf16 matrix of a bcsr weight (the library call's operand)."""
+    import torch
+
+    blocks, cols, indptr = args
+    gm = indptr.shape[0] - 1
+    brows = torch.repeat_interleave(
+        torch.arange(gm, device=blocks.device), (indptr[1:] - indptr[:-1]).long())
+    r, c = blocks.shape[1:]
+    dense = torch.zeros((gm, n_cb, r, c), dtype=torch.bfloat16, device=blocks.device)
+    dense[brows, cols.long()] = blocks
+    return dense.permute(0, 2, 1, 3).reshape(gm * r, n_cb * c)
+
+
+def bf16_time_rows(label: str, args, n_cb: int, dense, ks, rng, median_ms, path: str,
+                   *, launches: int, max_abs_err: float) -> list:
+    """Kernel table rows of ``bcsr_spmm`` on one bf16 weight at each width
+    in ``ks`` (medians of REPS, L2 flushed): the kernel, its plain version,
+    a dense bf16 matmul of ``dense`` (``library_ms``), the bound (bf16
+    blocks and X read, float32 Y written, over 3.35 TB/s, against 2 nnz k
+    over 989 TFLOP/s) and the same launch on an empty matrix of the same
+    shapes (``empty_ms``: the launch and a zero Y, the floor of this
+    timing)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.bcsr_spmm import bcsr_spmm, bcsr_spmm_plain
+
+    blocks, cols, indptr = args
+    gm = indptr.shape[0] - 1
+    r, c = blocks.shape[1:]
+    empty = torch.zeros_like(indptr)  # the same shapes, no stored block
+    rows = []
+    for k in ks:
+        xb = torch.as_tensor(rng.standard_normal((n_cb, c, k)).astype(np.float32),
+                             device=blocks.device).to(torch.bfloat16)
+        x2 = xb.view(-1, k)
+        fn_bytes = blocks.numel() * 2 + xb.numel() * 2 + gm * r * k * 4
+        flops = 2 * blocks.numel() * k
+        b_s, f_s = fn_bytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+        row = {
+            "name": "bcsr_spmm_bf16",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/bcsr_spmm.cu",
+            "replaces": "src/repro/kernels/bcsr_spmm.py:56",
+            "shape": f"{label} {tuple(dense.shape)} {blocks.shape[0]} blocks "
+                     f"{(r, c)} bf16 k={k}",
+            "path": path,
+            "launches": launches,
+            "max_abs_err": max_abs_err,
+            "ms": median_ms(lambda: bcsr_spmm(*args, xb), True),
+            "plain_ms": median_ms(lambda: bcsr_spmm_plain(*args, xb), True),
+            "bound_ms": max(b_s, f_s) * 1e3,
+            "bound_by": "bytes" if b_s >= f_s else "operations",
+            "bytes": int(fn_bytes),
+            "flops": int(flops),
+            "library_ms": median_ms(lambda: dense @ x2, True),
+            "empty_ms": median_ms(lambda: bcsr_spmm(blocks, cols, empty, xb), True),
+        }
+        rows.append(row)
+        print(f"  bcsr_spmm_bf16 [{row['shape']}]: {row['ms']:.4f} ms, plain "
+              f"{row['plain_ms']:.4f}, dense bf16 matmul {row['library_ms']:.4f}, "
+              f"bound {row['bound_ms']:.4f} ({row['bound_by']}, "
+              f"{fn_bytes / 1e6:.2f} MB), share "
+              f"{row['bound_ms'] / row['ms'] * 100:.1f} %; on an empty matrix "
+              f"{row['empty_ms']:.4f}", flush=True)
+    return rows
 
 
 def lm_phase(dev, record: dict, *, reduced: bool = False) -> tuple[dict, list]:
@@ -1551,35 +1693,12 @@ def lm_phase(dev, record: dict, *, reduced: bool = False) -> tuple[dict, list]:
           f"W1 {ffn0.w1_blocks.shape[0]} blocks, W2 {ffn0.w2_blocks.shape[0]} blocks; "
           f"{rec['bcsr_params'] / 1e9:.3f} G parameters (dense "
           f"{rec['dense_params'] / 1e9:.3f} G)", flush=True)
-    weights = {}
+    weights = ffn_weights(ffn0, cfg_b)
     errs = {}
     path = "tensor cores" if bf16_tensor_core_path(bm, bk) else "CUDA cores"
-    for which, n_cb in (("w1", cfg.d_model // bk), ("w2", cfg.d_ff // bm)):
-        args = (ffn0[f"{which}_blocks"], ffn0[f"{which}_cols"], ffn0[f"{which}_indptr"])
-        weights[which] = (args, n_cb)
-        # k_i, the terms of each output row: its block row's stored blocks x bk
-        terms = (args[2][1:] - args[2][:-1]).long() * args[0].shape[2]
-        for k in LM_CHECK_KS:
-            xb = torch.as_tensor(rng.standard_normal((n_cb, args[0].shape[2], k))
-                                 .astype(np.float32), device=dev).to(torch.bfloat16)
-            y = bcsr_spmm(*args, xb)
-            if not torch.equal(y, bcsr_spmm(*args, xb)):
-                fail(f"bcsr_spmm_bf16 {which} k={k}: two launches differ")
-            yp = bcsr_spmm_plain(*args, xb)
-            scale = bcsr_spmm_plain(args[0].abs(), *args[1:], xb.abs()).double()
-            err = (y.double() - yp.double()).abs()
-            bad = err > TOL * scale
-            if y.dtype != torch.float32 or bool(bad.any()):
-                for r, i in bad.any(-1).nonzero()[:8].tolist():
-                    j = int((err[r, i] / scale[r, i]).argmax())
-                    print(f"  row {r * args[0].shape[1] + i}: k_i {int(terms[r])}, "
-                          f"|err| {float(err[r, i, j]):.3e} = "
-                          f"{float(err[r, i, j] / scale[r, i, j]):.3e} (|A| |x|)_i")
-                fail(f"bcsr_spmm_bf16 {which} k={k}: {int(bad.sum())} entries over "
-                     f"{TOL:g} (|A| |x|)_i, max_abs_err {float(err.max()):.3e}")
-            errs[f"{which}/k{k}"] = float(err.max())
-            print(f"  ok bcsr_spmm_bf16 ({path}) layer-0 {which} k={k}: max_abs_err "
-                  f"{errs[f'{which}/k{k}']:.3e}, the same bits on a second launch")
+    for which, (args, n_cb) in weights.items():
+        errs.update(check_bf16_products(f"layer-0 {which}", args, n_cb, LM_CHECK_KS,
+                                        rng, dev, path, key=which))
     rec["kernel_checks"] = errs
 
     # (c) serving the variant: the main path, launches counted
@@ -1669,49 +1788,11 @@ def lm_phase(dev, record: dict, *, reduced: bool = False) -> tuple[dict, list]:
             f"{LM_ARCHES[0]}/bcsr"]
     rows = []
     for which, (args, n_cb) in weights.items():
-        blocks, cols, indptr = args
-        gm = indptr.shape[0] - 1
-        brows = torch.repeat_interleave(
-            torch.arange(gm, device=dev), (indptr[1:] - indptr[:-1]).long())
-        r, c = blocks.shape[1:]
-        dense = torch.zeros((gm, n_cb, r, c), dtype=torch.bfloat16, device=dev)
-        dense[brows, cols.long()] = blocks
-        dense = dense.permute(0, 2, 1, 3).reshape(gm * r, n_cb * c)
-        empty = torch.zeros_like(indptr)  # the same shapes, no stored block
-        for k in LM_TIMED_KS:
-            xb = torch.as_tensor(rng.standard_normal((n_cb, c, k)).astype(np.float32),
-                                 device=dev).to(torch.bfloat16)
-            x2 = xb.view(-1, k)
-            fn_bytes = blocks.numel() * 2 + xb.numel() * 2 + gm * r * k * 4
-            flops = 2 * blocks.numel() * k
-            b_s, f_s = fn_bytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
-            row = {
-                "name": "bcsr_spmm_bf16",
-                "route": "cuda",
-                "source": "src/repro_torch/kernels/csrc/bcsr_spmm.cu",
-                "replaces": "src/repro/kernels/bcsr_spmm.py:56",
-                "shape": f"{cfg.arch_id} FFN {which} {tuple(dense.shape)} "
-                         f"{blocks.shape[0]} blocks {block} bf16 k={k}",
-                "path": path,
-                "launches": int(launches.get("bcsr_spmm_bf16_mma", 0)),
-                "max_abs_err": max(errs.values()),
-                "ms": median_ms(lambda: bcsr_spmm(*args, xb), True),
-                "plain_ms": median_ms(lambda: bcsr_spmm_plain(*args, xb), True),
-                "bound_ms": max(b_s, f_s) * 1e3,
-                "bound_by": "bytes" if b_s >= f_s else "operations",
-                "bytes": int(fn_bytes),
-                "flops": int(flops),
-                "library_ms": median_ms(lambda: dense @ x2, True),
-                # the launch and a zero Y alone: the floor of this timing
-                "empty_ms": median_ms(lambda: bcsr_spmm(blocks, cols, empty, xb), True),
-            }
-            rows.append(row)
-            print(f"  bcsr_spmm_bf16 [{row['shape']}]: {row['ms']:.4f} ms, plain "
-                  f"{row['plain_ms']:.4f}, dense bf16 matmul {row['library_ms']:.4f}, "
-                  f"bound {row['bound_ms']:.4f} ({row['bound_by']}, "
-                  f"{fn_bytes / 1e6:.2f} MB), share "
-                  f"{row['bound_ms'] / row['ms'] * 100:.1f} %; on an empty matrix "
-                  f"{row['empty_ms']:.4f}", flush=True)
+        dense = densify(args, n_cb)
+        rows += bf16_time_rows(f"{cfg.arch_id} FFN {which}", args, n_cb, dense,
+                               LM_TIMED_KS, rng, median_ms, path,
+                               launches=int(launches.get("bcsr_spmm_bf16_mma", 0)),
+                               max_abs_err=max(errs.values()))
         if which == "w1":
             rec["cuda_core_rows"] = core_rows(args, n_cb, dense)
         del dense
@@ -1901,47 +1982,53 @@ def recording_routes(calls: int):
         fail(f"recording_routes: {len(seen)} MoE layer calls recorded, expected {calls}")
 
 
-def moe_ssm_phase(dev, record: dict, *, reduced: bool = False) -> dict:
-    """Phase 12: MoE and RWKV-6 serving (``reduced``: the reduced configs,
-    a CPU rehearsal with no times or launch checks).  Returns 12c's launch
-    counts, the kernel rows' ``moe_launches``."""
-    import numpy as np
-    import torch
+def rel_dev(a, b) -> list:
+    """Each row's largest |a - b| as a share of its largest |b|."""
+    return ((a - b).abs().amax(-1) / b.abs().amax(-1)).tolist()
 
-    from repro_torch.configs import get_config, get_reduced
-    from repro_torch.kernels import _build
-    from repro_torch.launch import serve as serve_cli
-    from repro_torch.models import lm
-    from repro_torch.models import moe as moe_mod
-    from repro_torch.runtime.server import BatchedServer, _merge_slot
 
-    rec = record.setdefault("moe_ssm", {})
-    t_phase = time.perf_counter()
-    cuda = dev.type == "cuda"
-    get = get_reduced if reduced else get_config
-    moe_launches: collections.Counter = collections.Counter()
-    failures: list[str] = []  # 12f's limits, checked at the phase's end
+class ServingChecks:
+    """The checks phases 12 and 13 share, on one device, into one record
+    ``rec``: each sub-phase's wall time and allocator peak (``begin``,
+    ``end``), ``serve --arch`` (``cli``), a 4-slot server and its step
+    times (``served``), float32 decode against ``forward`` and graph
+    against eager (``consistency``), bf16 against its float32 copy
+    (``bf16_vs_f32``; a broken limit goes to ``failures``, which the phase
+    fails on at its end).  ``reduced``: a CPU rehearsal."""
 
-    def begin(name: str, text: str) -> float:
-        if cuda:
+    def __init__(self, dev, rec: dict, reduced: bool = False):
+        self.dev, self.rec, self.reduced = dev, rec, reduced
+        self.cuda = dev.type == "cuda"
+        self.failures: list[str] = []
+
+
+    def begin(self, name: str, text: str) -> float:
+        import torch
+
+        if self.cuda:
             torch.cuda.reset_peak_memory_stats()
         print(f"phase {name}: {text}", flush=True)
         return time.perf_counter()
 
-    def end(name: str, t0: float) -> None:
-        peak = torch.cuda.max_memory_allocated() / 1e9 if cuda else float("nan")
-        rec.setdefault("wall_s", {})[name] = time.perf_counter() - t0
-        rec.setdefault("peak_gb", {})[name] = peak
+    def end(self, name: str, t0: float) -> None:
+        import torch
+
+        peak = torch.cuda.max_memory_allocated() / 1e9 if self.cuda else float("nan")
+        self.rec.setdefault("wall_s", {})[name] = time.perf_counter() - t0
+        self.rec.setdefault("peak_gb", {})[name] = peak
         print(f"  [{name}: {time.perf_counter() - t0:.1f}s, allocator peak "
               f"{peak:.2f} GB]", flush=True)
 
-    def cli(cfg_) -> dict:
+    def cli(self, cfg_) -> dict:
         """``serve --arch``: 8/8 served, decode and prefill graphed on a
         card, no kernel launched (the path is plain torch)."""
+        from repro_torch.kernels import _build
+        from repro_torch.launch import serve as serve_cli
+
         args = ["--arch", cfg_.arch_id.split("/")[0], "--requests", str(LM_REQUESTS),
                 "--slots", str(LM_SLOTS), "--prompt-len", str(LM_PROMPT),
                 "--max-new", str(LM_NEW), "--max-seq", str(LM_MAX_SEQ),
-                "--device", dev.type] + (["--reduced"] if reduced else [])
+                "--device", self.dev.type] + (["--reduced"] if self.reduced else [])
         print(f"  serve {' '.join(args)}", flush=True)
         with tempfile.TemporaryDirectory(prefix="chip_smoke_moe_") as td:
             stats = Path(td) / "lm.json"
@@ -1950,46 +2037,71 @@ def moe_ssm_phase(dev, record: dict, *, reduced: bool = False) -> dict:
             summary = json.loads(stats.read_text())
         if summary["served"] != LM_REQUESTS:
             fail(f"serve --arch {cfg_.arch_id} served {summary['served']}/{LM_REQUESTS}")
-        if cuda and (dict(_build.LAUNCHES) or summary["graphs"] != 2):
+        if self.cuda and (dict(_build.LAUNCHES) or summary["graphs"] != 2):
             fail(f"serve --arch {cfg_.arch_id}: launches {dict(_build.LAUNCHES)}, "
                  f"{summary['graphs']} graphs (expected none, and 2)")
         return summary
 
-    def served(cfg_, model, bench) -> dict:
+    def served(self, cfg_, model, bench, per_pass: dict | None = None) -> dict:
         """A 4-slot server over the 8 prompts (graphed on a card), then the
-        step times and the bound."""
+        step times and the bound.  ``per_pass``: the launches each prefill,
+        decode step and warm-up pass must make, counted over the serving
+        run alone (none when None)."""
+        from repro_torch.kernels import _build
+
         _build.reset_launches()
         srv, _, stats = bench.serve(cfg_, model, LM_SLOTS)
-        if cuda and (srv.graphs != 2 or srv.warmups != 2 or dict(_build.LAUNCHES)):
+        launches = dict(_build.LAUNCHES)
+        passes = srv.prefills + srv.steps + srv.warmups
+        expect = {k: v * passes for k, v in (per_pass or {}).items()}
+        if self.cuda and (srv.graphs != 2 or srv.warmups != 2 or launches != expect):
             fail(f"{cfg_.arch_id}: {srv.graphs} graphs, {srv.warmups} warm-ups, launches "
-                 f"{dict(_build.LAUNCHES)} (expected the decode graph and one prefill "
-                 "graph, and no kernel)")
+                 f"{launches} (expected the decode graph and one prefill graph, and "
+                 f"launches {expect or 'none'})")
         print(f"  {cfg_.arch_id}: served {LM_REQUESTS}/{LM_REQUESTS} in "
               f"{stats['seconds']:.2f}s ({stats['tok_per_s']:.1f} tok/s, latency p50 "
               f"{stats['latency_p50_s']:.2f}s p99 {stats['latency_p99_s']:.2f}s), "
               f"every token < vocab {cfg_.vocab}; {srv.graphs} CUDA graphs captured in "
-              f"{srv.capture_s:.2f}s", flush=True)
+              f"{srv.capture_s:.2f}s; launches {launches} over {srv.prefills} prefills, "
+              f"{srv.steps} decode steps and {srv.warmups} warm-ups", flush=True)
+        stats.update(launches=launches, passes=passes)
         del srv
         bench.free()
         return {"serve": stats, "times": bench.step_times(cfg_, model)}
 
-    def first_logits(cfg_, model, prompts) -> torch.Tensor:
+    def first_logits(self, cfg_, model, prompts):
+        import torch
+
+        from repro_torch.models import lm
+
         return torch.stack([lm.prefill(cfg_, model, {"tokens": p[None]}, LM_MAX_SEQ)[1][0]
                             .float() for p in prompts])
 
-    def copy_as(model, cfg_to):
-        """``model``'s weights in ``cfg_to``'s dtype, at its first n_layers."""
-        copy = lm.LM(cfg_to, dev)
-        copy.load_state_dict({k: v for k, v in model.state_dict().items()
-                              if not k.startswith("blocks.")
-                              or int(k.split(".")[1]) < cfg_to.n_layers})
+    def copy_as(self, model, cfg_to):
+        """``model``'s weights in ``cfg_to``'s dtype, at its first n_layers
+        (a hybrid: its first n_layers // hybrid_period super-blocks and
+        their LoRA)."""
+        from repro_torch.models import lm
+
+        hybrid = cfg_to.family == "hybrid"
+        n = cfg_to.n_layers // cfg_to.hybrid_period if hybrid else cfg_to.n_layers
+        copy = lm.LM(cfg_to, self.dev)
+        copy.load_state_dict({k: v[:n] if k in ("lora_a", "lora_b") else v
+                              for k, v in model.state_dict().items()
+                              if not k.startswith("blocks.") or int(k.split(".")[1]) < n})
         return copy
 
-    def consistency(cfg_f, model_f, prompts, name: str) -> dict:
+    def consistency(self, cfg_f, model_f, prompts, name: str) -> dict:
         """float32, TF32 off: prefill + LM_NEW - 1 greedy decode steps
         against ``forward`` at every position (LM_CONSISTENCY), and one
         replay of a 4-slot server's decode graph against eager
         ``decode_step`` on a copy of its state, bit for bit."""
+        import numpy as np
+        import torch
+
+        from repro_torch.models import lm
+        from repro_torch.runtime.server import BatchedServer, _merge_slot
+
         torch.backends.cuda.matmul.allow_tf32 = False
         state, lg = lm.prefill(cfg_f, model_f, {"tokens": prompts[0][None]}, LM_MAX_SEQ)
         logits, toks = [lg[0]], [int(torch.argmax(lg[0, :cfg_f.vocab]))]
@@ -2017,7 +2129,7 @@ def moe_ssm_phase(dev, record: dict, *, reduced: bool = False) -> dict:
             _merge_slot(srv.state, one, i)
         twin = {g: {k: t.clone() for k, t in leaves.items()}
                 for g, leaves in srv.state.items()}
-        toks = torch.as_tensor([[int(p[-1])] for p in prompts[:LM_SLOTS]], device=dev)
+        toks = torch.as_tensor([[int(p[-1])] for p in prompts[:LM_SLOTS]], device=self.dev)
         _, eager = lm.decode_step(cfg_f, model_f, twin, toks)
         bitwise = None
         if srv._decode is not None:
@@ -2036,29 +2148,29 @@ def moe_ssm_phase(dev, record: dict, *, reduced: bool = False) -> dict:
         del srv, twin
         return {"worst": worst, "limit": LM_CONSISTENCY, "graph_bitwise": bitwise}
 
-    def rel_dev(a, b) -> list:
-        return ((a - b).abs().amax(-1) / b.abs().amax(-1)).tolist()
-
-    def bf16_vs_f32(cfg_b, model_b, model_f, prompts, layers: int, held: bool) -> dict:
-        """12f over the first ``layers`` layers of the served bf16 model and
+    def bf16_vs_f32(self, cfg_b, model_b, model_f, prompts, layers: int, held: bool,
+                    label: str = "12f") -> dict:
+        """Phase ``label`` over the first ``layers`` layers of the served bf16 model and
         its float32 copy ``model_f`` (cut copies of both below full
         depth): first-token logits as a share of max|logits| per prompt;
         for a MoE, the share of (token, layer) routing decisions that pick
         the same experts and the float32 copy on the bf16 model's routing.
         ``held``: LM_BF16_LIMIT holds on every prompt whose routing agrees
         and, on the bf16 routing, on every prompt; a broken limit is
-        recorded in ``failures``, which fail the phase at its end."""
+        recorded in ``self.failures``, which fail the phase at its end."""
+        import torch
+
         name = f"{cfg_b.arch_id}, {layers} of {cfg_b.n_layers} layers"
         cut = dataclasses.replace(cfg_b, n_layers=layers)
         cut_f = dataclasses.replace(cut, dtype=torch.float32)
         if layers != cfg_b.n_layers:
-            model_b, model_f = copy_as(model_b, cut), copy_as(model_b, cut_f)
+            model_b, model_f = self.copy_as(model_b, cut), self.copy_as(model_b, cut_f)
         moe = cut.moe is not None
         calls = layers * len(prompts)  # one prefill a prompt, one route a layer
         with recording_routes(calls) if moe else contextlib.nullcontext() as rb:
-            bf = first_logits(cut, model_b, prompts)
+            bf = self.first_logits(cut, model_b, prompts)
         with recording_routes(calls) if moe else contextlib.nullcontext() as rf:
-            f32 = first_logits(cut_f, model_f, prompts)
+            f32 = self.first_logits(cut_f, model_f, prompts)
         dv = rel_dev(bf, f32)
         out = {"layers": layers, "dev_rel": dv, "limit": LM_BF16_LIMIT, "held": held,
                "equal_first_tokens": float((bf.argmax(-1) == f32.argmax(-1)).float().mean())}
@@ -2071,7 +2183,7 @@ def moe_ssm_phase(dev, record: dict, *, reduced: bool = False) -> dict:
             out["routing_agree_share"] = 1 - sum(flips) / total
             out["flipped_decisions_per_prompt"] = flips
             with forcing_routes(rb):
-                on = rel_dev(bf, first_logits(cut_f, model_f, prompts))
+                on = rel_dev(bf, self.first_logits(cut_f, model_f, prompts))
             out["dev_rel_on_bf16_routing"] = on
             print(f"  {name}: bf16 and float32 pick the same experts at "
                   f"{out['routing_agree_share'] * 100:.2f} % of (token, layer) decisions "
@@ -2091,12 +2203,31 @@ def moe_ssm_phase(dev, record: dict, *, reduced: bool = False) -> dict:
                  "whose routing agrees and on the bf16 routing"), flush=True)
         if held:
             if agreeing and not max(agreeing) <= LM_BF16_LIMIT:
-                failures.append(f"12f {name}: bf16 deviates {max(agreeing):.3e} x "
+                self.failures.append(f"{label} {name}: bf16 deviates {max(agreeing):.3e} x "
                                 "max|logits| from float32 on a prompt whose routing agrees")
             if moe and not max(out["dev_rel_on_bf16_routing"]) <= LM_BF16_LIMIT:
-                failures.append(f"12f {name}: on the bf16 routing, bf16 deviates "
+                self.failures.append(f"{label} {name}: on the bf16 routing, bf16 deviates "
                                 f"{max(out['dev_rel_on_bf16_routing']):.3e} x max|logits|")
         return out
+
+def moe_ssm_phase(dev, record: dict, *, reduced: bool = False) -> dict:
+    """Phase 12: MoE and RWKV-6 serving (``reduced``: the reduced configs,
+    a CPU rehearsal with no times or launch checks).  Returns 12c's launch
+    counts, the kernel rows' ``moe_launches``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config, get_reduced
+    from repro_torch.kernels import _build
+    from repro_torch.models import lm
+    from repro_torch.models import moe as moe_mod
+
+    rec = record.setdefault("moe_ssm", {})
+    t_phase = time.perf_counter()
+    cuda = dev.type == "cuda"
+    get = get_reduced if reduced else get_config
+    moe_launches: collections.Counter = collections.Counter()
+    chk = ServingChecks(dev, rec, reduced)
 
     # -- granite-moe-1b-a400m ------------------------------------------------
     cfg = get(MOE_ARCH)
@@ -2104,20 +2235,20 @@ def moe_ssm_phase(dev, record: dict, *, reduced: bool = False) -> dict:
     prompts = [rng.integers(0, cfg.vocab, LM_PROMPT).astype(np.int32)
                for _ in range(LM_REQUESTS)]
     bench = LMBench(dev, prompts)
-    t0 = begin("12a", f"{cfg.arch_id} bf16, {cfg.n_layers} layers, d {cfg.d_model}, "
+    t0 = chk.begin("12a", f"{cfg.arch_id} bf16, {cfg.n_layers} layers, d {cfg.d_model}, "
                       f"{cfg.moe.n_experts} experts top-{cfg.moe.top_k} of d_ff "
                       f"{cfg.moe.d_ff}")
-    rec["cli/" + MOE_ARCH] = cli(cfg)
+    rec["cli/" + MOE_ARCH] = chk.cli(cfg)
     bench.free()
     model = lm.init_model(cfg, 0, device=dev)
     rec["granite_params"] = lm.param_count(model)
     print(f"  {rec['granite_params'] / 1e9:.3f} G parameters "
           f"({sum(t.numel() * t.element_size() for t in model.parameters()) / 1e9:.2f} GB)")
-    rec["granite"] = served(cfg, model, bench)
-    end("12a", t0)
+    rec["granite"] = chk.served(cfg, model, bench)
+    chk.end("12a", t0)
 
     # 12c: the MoE combine through kernel 4, one layer at full width, float32
-    t0 = begin("12c", f"moe_apply_spmspv(impl='cuda') on layer 0's experts (float32 copy), "
+    t0 = chk.begin("12c", f"moe_apply_spmspv(impl='cuda') on layer 0's experts (float32 copy), "
                       f"x {COMBINE_ROWS} rows x {LM_PROMPT} tokens")
     src = model.blocks[0].ffn
     p32 = moe_mod.MoE(cfg.d_model, cfg.moe, torch.float32, dev)
@@ -2176,31 +2307,31 @@ def moe_ssm_phase(dev, record: dict, *, reduced: bool = False) -> dict:
               f"{wall:.2f}s against moe_apply's {wall_apply * 1e3:.2f} ms", flush=True)
         del y, ref, err, scale
     del p32, x, src
-    end("12c", t0)
+    chk.end("12c", t0)
 
     # 12f: bf16 against its float32 copy, at full depth and at BF16_CHECK_LAYERS
     cfg_f = dataclasses.replace(cfg, dtype=torch.float32)
-    model_f = copy_as(model, cfg_f)
-    t0 = begin("12f", f"{cfg.arch_id}: bf16 first-token logits against the float32 copy "
+    model_f = chk.copy_as(model, cfg_f)
+    t0 = chk.begin("12f", f"{cfg.arch_id}: bf16 first-token logits against the float32 copy "
                       f"(capacity_factor {cfg.moe.capacity_factor:g})")
-    rec["bf16_vs_f32/granite"] = bf16_vs_f32(cfg, model, model_f, prompts,
+    rec["bf16_vs_f32/granite"] = chk.bf16_vs_f32(cfg, model, model_f, prompts,
                                              cfg.n_layers, held=False)
-    rec["bf16_vs_f32/granite/cut"] = bf16_vs_f32(cfg, model, model_f, prompts,
+    rec["bf16_vs_f32/granite/cut"] = chk.bf16_vs_f32(cfg, model, model_f, prompts,
                                                  min(BF16_CHECK_LAYERS, cfg.n_layers),
                                                  held=True)
     del model
     bench.free()
-    end("12f", t0)
+    chk.end("12f", t0)
 
     # 12b: the float32 copy's consistency
     nodrop = dataclasses.replace(cfg_f, moe=dataclasses.replace(
         cfg.moe, capacity_factor=E / k))
-    t0 = begin("12b", f"float32 copy ({lm.param_count(model_f) * 4 / 1e9:.2f} GB, all "
+    t0 = chk.begin("12b", f"float32 copy ({lm.param_count(model_f) * 4 / 1e9:.2f} GB, all "
                       f"{cfg_f.n_layers} layers) at capacity_factor E / top_k = "
                       f"{E / k:g}, where nothing drops (at {cfg.moe.capacity_factor:g} "
                       "forward's capacity grows with the sequence, a decode step's is "
                       "one slot)")
-    rec["consistency/granite"] = consistency(nodrop, model_f, prompts, "12b")
+    rec["consistency/granite"] = chk.consistency(nodrop, model_f, prompts, "12b")
     _, reqs4, _ = bench.serve(nodrop, model_f, LM_SLOTS)
     for p_, r in zip(prompts, reqs4):
         _, (alone,), _ = bench.serve(nodrop, model_f, 1, [p_])
@@ -2211,7 +2342,7 @@ def moe_ssm_phase(dev, record: dict, *, reduced: bool = False) -> dict:
           "server's", flush=True)
     del model_f
     bench.free()
-    end("12b", t0)
+    chk.end("12b", t0)
 
     # -- llama4-scout-17b-a16e, cut in depth ------------------------------
     full = get(SCOUT_ARCH)
@@ -2222,7 +2353,7 @@ def moe_ssm_phase(dev, record: dict, *, reduced: bool = False) -> dict:
                        + 2 * cfg_s.d_model * (qd + kvd) + 2 * cfg_s.d_model) \
         + 4 * cfg_s.d_model * ms.n_experts
     table_bytes = 2 * 2 * cfg_s.vocab_padded * cfg_s.d_model
-    t0 = begin("12d", f"{SCOUT_ARCH} at full width (d {cfg_s.d_model}, {ms.n_experts} "
+    t0 = chk.begin("12d", f"{SCOUT_ARCH} at full width (d {cfg_s.d_model}, {ms.n_experts} "
                       f"experts top-{ms.top_k} of d_ff {ms.d_ff}), cut to {layers} of "
                       f"{full.n_layers} layers: reckoned {layer_bytes / 1e9:.2f} GB a "
                       f"layer + {table_bytes / 1e9:.2f} GB embed/unembed = "
@@ -2234,10 +2365,10 @@ def moe_ssm_phase(dev, record: dict, *, reduced: bool = False) -> dict:
     model = lm.init_model(cfg_s, 0, device=dev)
     rec["scout"] = {"layers": layers, "of": full.n_layers,
                     "reckoned_gb": (layers * layer_bytes + table_bytes) / 1e9,
-                    **served(cfg_s, model, bench_s)}
+                    **chk.served(cfg_s, model, bench_s)}
     del model
     bench_s.free()
-    end("12d", t0)
+    chk.end("12d", t0)
 
     # -- rwkv6-7b ------------------------------------------------------------
     cfg_r = get(RWKV_ARCH)
@@ -2245,44 +2376,237 @@ def moe_ssm_phase(dev, record: dict, *, reduced: bool = False) -> dict:
     prompts_r = [rng.integers(0, cfg_r.vocab, LM_PROMPT).astype(np.int32)
                  for _ in range(LM_REQUESTS)]
     bench_r = LMBench(dev, prompts_r)
-    t0 = begin("12e", f"{cfg_r.arch_id} bf16, {cfg_r.n_layers} layers, d {cfg_r.d_model}, "
+    t0 = chk.begin("12e", f"{cfg_r.arch_id} bf16, {cfg_r.n_layers} layers, d {cfg_r.d_model}, "
                       f"d_ff {cfg_r.d_ff}, vocab {cfg_r.vocab}")
-    rec["cli/" + RWKV_ARCH] = cli(cfg_r)
+    rec["cli/" + RWKV_ARCH] = chk.cli(cfg_r)
     bench_r.free()
     model = lm.init_model(cfg_r, 0, device=dev)
     rec["rwkv_params"] = lm.param_count(model)
     print(f"  {rec['rwkv_params'] / 1e9:.3f} G parameters "
           f"({sum(t.numel() * t.element_size() for t in model.parameters()) / 1e9:.2f} GB)")
-    rec["rwkv"] = served(cfg_r, model, bench_r)
+    rec["rwkv"] = chk.served(cfg_r, model, bench_r)
     cfg_rf = dataclasses.replace(cfg_r, dtype=torch.float32)
-    model_f = copy_as(model, cfg_rf)
+    model_f = chk.copy_as(model, cfg_rf)
     print(f"  float32 copy ({lm.param_count(model_f) * 4 / 1e9:.2f} GB, all "
           f"{cfg_rf.n_layers} layers)", flush=True)
-    end("12e", t0)
-    t0 = begin("12f", f"{cfg_r.arch_id}: bf16 first-token logits against the float32 copy")
-    rec["bf16_vs_f32/rwkv"] = bf16_vs_f32(cfg_r, model, model_f, prompts_r,
+    chk.end("12e", t0)
+    t0 = chk.begin("12f", f"{cfg_r.arch_id}: bf16 first-token logits against the float32 copy")
+    rec["bf16_vs_f32/rwkv"] = chk.bf16_vs_f32(cfg_r, model, model_f, prompts_r,
                                           cfg_r.n_layers, held=False)
-    rec["bf16_vs_f32/rwkv/cut"] = bf16_vs_f32(cfg_r, model, model_f, prompts_r,
+    rec["bf16_vs_f32/rwkv/cut"] = chk.bf16_vs_f32(cfg_r, model, model_f, prompts_r,
                                               min(BF16_CHECK_LAYERS, cfg_r.n_layers),
                                               held=True)
     del model
     bench_r.free()
-    end("12f/rwkv", t0)
-    t0 = begin("12e", f"{cfg_r.arch_id} float32 copy: decode against forward, graph "
+    chk.end("12f/rwkv", t0)
+    t0 = chk.begin("12e", f"{cfg_r.arch_id} float32 copy: decode against forward, graph "
                       "against eager")
-    rec["consistency/rwkv"] = consistency(cfg_rf, model_f, prompts_r, "12e")
+    rec["consistency/rwkv"] = chk.consistency(cfg_rf, model_f, prompts_r, "12e")
     del model_f
     bench_r.free()
-    end("12e/float32", t0)
+    chk.end("12e/float32", t0)
 
     if cuda and not reduced:  # the device's idle share in one decode step
         rec["decode_profile"] = run_lm_profile([MOE_ARCH, RWKV_ARCH])
     rec["moe_launches"] = dict(moe_launches)
     rec["total_s"] = time.perf_counter() - t_phase
     print(f"  phase 12 wall time {rec['total_s']:.1f}s", flush=True)
-    if failures:
-        fail("phase " + "; ".join(failures))
+    if chk.failures:
+        fail("phase " + "; ".join(chk.failures))
     return dict(moe_launches)
+
+
+# -- phase 13: hybrid serving (zamba2) ---------------------------------------
+HYBRID_ARCH = "zamba2-2.7b"
+HYBRID_KS = (4, 32)  # 13c: the shared FFN's widths, decode at 4 slots and the prefill
+
+
+def perturb_hybrid(model, seed: int = 0) -> None:
+    """A hybrid's Mamba-2 layers and LoRA made live in place, drawn from
+    ``torch.Generator(model.device).manual_seed(seed)``: ``conv_w``
+    0.2·N(0, 1), ``conv_b`` 0.1·N(0, 1), ``A_log`` log U(1, 16), ``dt_bias``
+    softplus⁻¹(U(0.001, 0.1)) (Mamba-2's published ranges), ``lora_b``
+    0.02·N(0, 1).  At init the Mamba-2 layers are the identity and the
+    LoRA zero, as in the JAX package (ROADMAP C.23), so a check on those
+    weights would pass with a wrong SSD."""
+    import torch
+
+    gen = torch.Generator(device=model.device).manual_seed(seed)
+
+    def draw(t, fn):
+        t.copy_(fn(torch.empty(t.shape, dtype=torch.float32, device=t.device)))
+
+    for group in model.blocks:
+        for layer in group:
+            m = layer.mamba
+            draw(m.conv_w, lambda e: e.normal_(generator=gen).mul_(0.2))
+            draw(m.conv_b, lambda e: e.normal_(generator=gen).mul_(0.1))
+            draw(m.A_log, lambda e: e.uniform_(1.0, 16.0, generator=gen).log_())
+            draw(m.dt_bias, lambda e: e.uniform_(0.001, 0.1, generator=gen).expm1_().log_())
+    draw(model.lora_b, lambda e: e.normal_(generator=gen).mul_(0.02))
+
+
+def hybrid_bounds(cfg, model, times: dict) -> dict:
+    """The decode step's bytes bound (4 slots) two ways, and the prefill's.
+    ``bound_ms`` charges every weight once (the shared block's ~210 MB
+    read once a step, as if the 50 MB L2 kept it across its n_super
+    applications), the decode state read once and its Mamba-2 part
+    (conv and SSD, float32) written once; ``bound_per_application_ms``
+    charges the shared block at each application.  The prefill (32
+    tokens, one slot) reads every weight once and writes a one-slot
+    state."""
+    from repro_torch.models.mamba2 import CONV_K
+
+    n_super, period = cfg.n_layers // cfg.hybrid_period, cfg.hybrid_period
+    d_inner = 2 * cfg.d_model
+    H = d_inner // cfg.ssm_head_dim
+    ch = d_inner + 2 * cfg.ssm_state
+    mamba = n_super * period * LM_SLOTS * 4 * (
+        (CONV_K - 1) * ch + H * cfg.ssm_head_dim * cfg.ssm_state)
+    shared = sum(t.numel() * t.element_size() for t in model.shared.parameters())
+    shared += sum(t.numel() * t.element_size() for name, t in model.shared.named_buffers()
+                  if name.endswith(("_cols", "_indptr")))
+    once = times["decode_weight_bytes"] + times["state_bytes"] + mamba
+    per_app = once + (n_super - 1) * shared
+    prefill = times["decode_weight_bytes"] + times["state_bytes"] / LM_SLOTS
+    out = {"bytes": once, "bound_ms": once / HBM_BYTES_PER_S * 1e3,
+           "bytes_per_application": per_app,
+           "bound_per_application_ms": per_app / HBM_BYTES_PER_S * 1e3,
+           "shared_block_bytes": shared, "mamba_state_bytes": mamba,
+           "prefill_bytes": prefill, "prefill_bound_ms": prefill / HBM_BYTES_PER_S * 1e3}
+    print(f"  the step's bound {out['bound_ms']:.3f} ms ({once / 1e9:.3f} GB: weights "
+          f"once, the state read and its float32 Mamba-2 part ({mamba / 1e6:.1f} MB) "
+          f"written); the shared block ({shared / 1e6:.1f} MB) charged at each of its "
+          f"{n_super} applications {out['bound_per_application_ms']:.3f} ms "
+          f"({per_app / 1e9:.3f} GB); the prefill's {out['prefill_bound_ms']:.3f} ms",
+          flush=True)
+    return out
+
+
+def hybrid_phase(dev, record: dict, *, reduced: bool = False) -> tuple[dict, list]:
+    """Phase 13: zamba2-2.7b serving at full width and depth in bf16, its
+    weights from seed 0 perturbed (``perturb_hybrid``); ``reduced``: the
+    reduced config, a CPU rehearsal with no times or launch checks.
+    Returns 13c's launch counts (the kernel rows' ``hybrid_launches``) and
+    the ``bcsr_spmm_bf16`` rows at the shared FFN's shapes."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config, get_reduced
+    from repro_torch.kernels.bcsr_spmm import bf16_tensor_core_path
+    from repro_torch.models import lm
+    from repro_torch.models.ffn import SparseFFNConfig
+
+    rec = record.setdefault("hybrid", {})
+    t_phase = time.perf_counter()
+    cuda = dev.type == "cuda"
+    chk = ServingChecks(dev, rec, reduced)
+    cfg = (get_reduced if reduced else get_config)(HYBRID_ARCH)
+    n_super = cfg.n_layers // cfg.hybrid_period
+    block = (32, 32) if reduced else (128, 128)
+    rng = np.random.default_rng(0)  # the CLI's prompts, drawn the same way
+    prompts = [rng.integers(0, cfg.vocab, LM_PROMPT).astype(np.int32)
+               for _ in range(LM_REQUESTS)]
+    bench = LMBench(dev, prompts)
+
+    def build(cfg_):
+        model = lm.init_model(cfg_, 0, device=dev)
+        perturb_hybrid(model, 0)
+        return model
+
+    # 13a: the CLI (its own weights, from seed 0 unperturbed: it serves)
+    t0 = chk.begin("13a", f"{cfg.arch_id} bf16, {cfg.n_layers} Mamba-2 layers in {n_super} "
+                          f"super-blocks of {cfg.hybrid_period}, d {cfg.d_model}, "
+                          f"{cfg.n_heads} heads of {cfg.hd}, d_ff {cfg.d_ff}, ssm_state "
+                          f"{cfg.ssm_state}, ssm_head_dim {cfg.ssm_head_dim}, LoRA rank "
+                          f"{cfg.lora_rank}")
+    rec["cli"] = chk.cli(cfg)
+    bench.free()
+    chk.end("13a", t0)
+
+    # 13b: dense shared FFN
+    t0 = chk.begin("13b", f"{LM_SLOTS}-slot BatchedServer, dense shared FFN, perturbed "
+                          "weights")
+    model = build(cfg)
+    rec["params"] = lm.param_count(model)
+    print(f"  {rec['params'] / 1e9:.3f} G parameters "
+          f"({sum(t.numel() * t.element_size() for t in model.parameters()) / 1e9:.2f} GB)")
+    rec["dense"] = chk.served(cfg, model, bench)
+    rec["dense"]["bounds"] = hybrid_bounds(cfg, model, rec["dense"]["times"])
+    chk.end("13b", t0)
+
+    # 13e: bf16 against its float32 copy, over the first super-block (held)
+    # and at full depth (reported)
+    cfg_f = dataclasses.replace(cfg, dtype=torch.float32)
+    model_f = chk.copy_as(model, cfg_f)
+    t0 = chk.begin("13e", f"{cfg.arch_id}: bf16 first-token logits against the float32 "
+                          "copy")
+    rec["bf16_vs_f32"] = chk.bf16_vs_f32(cfg, model, model_f, prompts, cfg.n_layers,
+                                         held=False, label="13e")
+    rec["bf16_vs_f32/cut"] = chk.bf16_vs_f32(cfg, model, model_f, prompts,
+                                             cfg.hybrid_period, held=True, label="13e")
+    del model
+    bench.free()
+    chk.end("13e", t0)
+
+    # 13d: the float32 copy, TF32 off: decode against forward, graph against eager
+    t0 = chk.begin("13d", f"float32 copy ({lm.param_count(model_f) * 4 / 1e9:.2f} GB, all "
+                          f"{cfg.n_layers} layers), dense shared FFN")
+    rec["consistency/dense"] = chk.consistency(cfg_f, model_f, prompts, "13d")
+    del model_f
+    bench.free()
+    chk.end("13d", t0)
+
+    # 13c: the bcsr shared FFN on the bf16 kernel
+    sff = SparseFFNConfig(kind="bcsr", block=block)
+    cfg_b = dataclasses.replace(cfg, sparse_ffn=sff)
+    model_b = build(cfg_b)
+    ffn = model_b.shared.ffn
+    t0 = chk.begin("13c", f"bcsr shared FFN {block}, density {sff.density}: W1 "
+                          f"{ffn.w1_blocks.shape[0]} blocks, W2 {ffn.w2_blocks.shape[0]} "
+                          f"blocks; {lm.param_count(model_b) / 1e9:.3f} G parameters")
+    bm, bk = block
+    path = "tensor cores" if bf16_tensor_core_path(bm, bk) else "CUDA cores"
+    weights = ffn_weights(ffn, cfg_b)
+    errs = {}
+    for which, (args, n_cb) in weights.items():
+        errs.update(check_bf16_products(f"shared {which}", args, n_cb, HYBRID_KS, rng,
+                                        dev, path, key=which))
+    rec["kernel_checks"] = errs
+    per_pass = 2 * n_super  # W1 and W2 at each application of the shared block
+    served_b = chk.served(cfg_b, model_b, bench, per_pass={
+        "bcsr_spmm_bf16": per_pass, "bcsr_spmm_bf16_mma": per_pass} if cuda else None)
+    served_b["bounds"] = hybrid_bounds(cfg_b, model_b, served_b["times"])
+    launches = served_b["serve"]["launches"]
+    rec["bcsr"] = served_b
+    rows = []
+    for which, (args, n_cb) in weights.items():
+        dense = densify(args, n_cb)
+        rows += bf16_time_rows(f"{cfg.arch_id} shared FFN {which}", args, n_cb, dense,
+                               HYBRID_KS, rng, bench.median_ms, path,
+                               launches=int(launches.get("bcsr_spmm_bf16_mma", 0)),
+                               max_abs_err=max(errs.values()))
+        del dense
+    cfg_bf = dataclasses.replace(cfg_b, dtype=torch.float32)
+    model_bf = chk.copy_as(model_b, cfg_bf)
+    del model_b, ffn, weights
+    bench.free()
+    chk.end("13c", t0)
+    t0 = chk.begin("13d", f"float32 copy of the bcsr variant ({lm.param_count(model_bf) * 4 / 1e9:.2f} "
+                          "GB; float32 kernel)")
+    rec["consistency/bcsr"] = chk.consistency(cfg_bf, model_bf, prompts, "13d")
+    del model_bf
+    bench.free()
+    chk.end("13d/bcsr", t0)
+
+    if cuda and not reduced:  # the device's idle share in one decode step
+        rec["decode_profile"] = run_lm_profile([HYBRID_ARCH, f"{HYBRID_ARCH}/bcsr"])
+    rec["launches"] = launches
+    rec["total_s"] = time.perf_counter() - t_phase
+    print(f"phase 13f: phase 13 wall time {rec['total_s']:.1f}s", flush=True)
+    if chk.failures:
+        fail("phase " + "; ".join(chk.failures))
+    return launches, rows
 
 
 def main() -> None:
@@ -4096,6 +4420,21 @@ def main() -> None:
     for row in kernels:
         row["moe_launches"] = int(launches12.get(row["name"], 0))
     phase_done("moe_ssm", t0)
+
+    # -- phase 13: hybrid serving, 13c's launches counted ------------------
+    t0 = time.perf_counter()
+    launches13, hybrid_rows = hybrid_phase(dev, record)
+    record["hybrid_launches"] = launches13
+    if launches13.get("bcsr_spmm_bf16_mma", 0) <= 0:
+        fail("kernel bcsr_spmm_bf16 was never launched by the hybrid's shared FFN")
+    for row in hybrid_rows:  # rows at the shared FFN's shapes, new in this phase
+        for key in ("solver_launches", "fleet_launches", "mesh_launches", "lm_launches",
+                    "moe_launches"):
+            row[key] = int(record[key].get(row["name"], 0))
+    kernels.extend(hybrid_rows)
+    for row in kernels:
+        row["hybrid_launches"] = int(launches13.get(row["name"], 0))
+    phase_done("hybrid", t0)
 
     record["kernels"] = kernels
     record["card"] = smi

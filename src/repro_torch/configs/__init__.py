@@ -2,9 +2,9 @@
 
 The language models of the families the port runs are registered
 (``repro_torch.models.lm``): dense (qwen1.5-4b, h2o-danube-3-4b), moe
-(granite-moe-1b-a400m, llama4-scout-17b-a16e) and ssm (rwkv6-7b).  The
-hybrid, audio and VLM families of the JAX package's registry wait for their
-slices, and so do its shape grid and dry-run input specs.  Each
+(granite-moe-1b-a400m, llama4-scout-17b-a16e), ssm (rwkv6-7b) and hybrid
+(zamba2-2.7b).  The audio and VLM families of the JAX package's registry
+wait for their slices, and so do its shape grid and dry-run input specs.  Each
 configuration file is the JAX package's own, copied unchanged but for its
 imports.
 """
@@ -22,6 +22,7 @@ _MODULES = {
     "granite-moe-1b-a400m": "granite_moe_1b_a400m",
     "llama4-scout-17b-a16e": "llama4_scout_17b_a16e",
     "rwkv6-7b": "rwkv6_7b",
+    "zamba2-2.7b": "zamba2_2_7b",
 }
 ARCH_IDS = list(_MODULES)
 

@@ -87,7 +87,8 @@ def port_config(cfg):
     the same name, its ``MoEConfig`` the port's, and a bcsr FFN's
     ``"pallas"`` tier the kernel's ``"cuda"``."""
     fields = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
-    fields["dtype"] = getattr(torch, np.dtype(fields["dtype"]).name)
+    if not isinstance(fields["dtype"], torch.dtype):
+        fields["dtype"] = getattr(torch, np.dtype(fields["dtype"]).name)
     if fields["moe"] is not None:
         fields["moe"] = MoEConfig(**dataclasses.asdict(fields["moe"]))
     sff = fields["sparse_ffn"]
@@ -100,21 +101,30 @@ def port_config(cfg):
     return ModelConfig(**fields)
 
 
-def lm_params_from_numpy(cfg, params: dict, device="cpu"):
-    """The port's model for ``cfg`` holding the weights of ``params``.
+def lm_params_from_numpy(cfg, params: dict, device="cuda"):
+    """The port's model for ``cfg`` holding the weights of ``params``, on
+    ``device`` (``"cuda"`` by default; raises without a card).
 
     ``params`` is the JAX package's ``init_model(cfg)[0]`` tree with numpy
     leaves: ``embed``, ``unembed``, ``ln_f`` and ``blocks`` stacked on a
     leading layers axis (a bcsr FFN as ``w*_blocks`` / ``w*_rows`` /
     ``w*_cols``; a MoE FFN as ``ffn.router`` / ``wi_gate`` / ``wi_up`` /
     ``wo``; an RWKV-6 block's leaves, ``mu_base`` to ``ln2``, directly under
-    ``blocks``).  ``cfg`` may be either package's configuration
+    ``blocks``).  A hybrid's ``blocks`` (``ln``, ``mamba.*``) are stacked on
+    two leading axes (n_super, period) and become ``blocks.{i}.{j}.*``; its
+    ``shared`` block, ``lora_a`` and ``lora_b`` carry across as they are.
+    Every leaf takes the dtype of the port's own parameter, so ``A_log``,
+    ``D`` and ``dt_bias`` stay float32 in a bf16 model, as in the JAX
+    package.  ``cfg`` may be either package's configuration
     (:func:`port_config`).  The bcsr block positions must be the port's own
     seeded pattern, which they are for the same ``SparseFFNConfig``.
     """
     cfg = port_config(cfg)
     model = LM(cfg, resolve(device))
-    L = cfg.n_layers
+    if cfg.family == "hybrid":
+        lead = (cfg.n_layers // cfg.hybrid_period, cfg.hybrid_period)
+    else:
+        lead = (cfg.n_layers,)
 
     def flat(tree, prefix=""):
         for key, value in tree.items():
@@ -126,10 +136,12 @@ def lm_params_from_numpy(cfg, params: dict, device="cpu"):
     state = {}
     for name, value in flat(params):
         if name.startswith("blocks."):
-            if value.shape[0] != L:
-                raise ValueError(f"{name}: {value.shape[0]} layers, config has {L}")
-            for i in range(L):
-                state[f"blocks.{i}.{name[len('blocks.'):]}"] = value[i]
+            if value.shape[:len(lead)] != lead:
+                raise ValueError(f"{name}: leading axes {value.shape[:len(lead)]}, "
+                                 f"the config has {lead}")
+            for index in np.ndindex(*lead):
+                key = ".".join(map(str, index))
+                state[f"blocks.{key}.{name[len('blocks.'):]}"] = value[index]
         else:
             state[name] = value
     own = model.state_dict()

@@ -51,8 +51,9 @@ tokens each through ``repro_torch.runtime.server.BatchedServer`` with
 ``--slots`` decode slots, over the registered configuration at full width
 or ``--reduced``, with weights drawn from seed 0.  The architectures are
 ``repro_torch.configs.ARCH_IDS``: qwen1.5-4b and h2o-danube-3-4b (dense),
-granite-moe-1b-a400m and llama4-scout-17b-a16e (MoE) and rwkv6-7b
-(RWKV-6).  On a card the decode
+granite-moe-1b-a400m and llama4-scout-17b-a16e (MoE), rwkv6-7b
+(RWKV-6) and zamba2-2.7b (hybrid: Mamba-2 and a shared attention block).
+On a card the decode
 step and each prompt length's prefill run as CUDA graphs; the report and
 ``--stats-json`` give the graphs captured and the seconds spent capturing:
 

@@ -1,4 +1,5 @@
-"""The language model of the port: the dense, MoE and RWKV-6 families.
+"""The language model of the port: the dense, MoE, RWKV-6 and hybrid
+families.
 
 A transformer decoder (dense and moe families) is ``n_layers`` blocks of
 RMSNorm → attention with RoPE, GQA, QKV bias and sliding windows →
@@ -6,9 +7,17 @@ RMSNorm → FFN.  The FFN is dense SwiGLU, GELU, the block-sparse FFN through
 the BCSR kernel (``cfg.sparse_ffn``), or, when ``cfg.moe`` is set, the
 capacity-dropped mixture of experts (``models.moe``).  The ssm family
 (``ssm_kind="rwkv6"``) is ``n_layers`` RWKV-6 blocks (``models.rwkv6``).
-Layers are an ``nn.ModuleList``; the JAX package scans a stacked parameter
-tree instead.  The hybrid, audio and VLM families raise
-``NotImplementedError`` naming their ROADMAP item.
+The hybrid family (zamba2, ``ssm_kind="mamba2"``) is ``n_layers //
+hybrid_period`` super-blocks, each one application of a single **shared**
+transformer block (whose q projection adds that super-block's LoRA,
+``x @ lora_a[i] @ lora_b[i]``) followed by ``hybrid_period`` Mamba-2
+layers (``models.mamba2``) with pre-norms and residuals; the shared
+block's FFN is the block-sparse one when ``cfg.sparse_ffn`` is set.
+Layers are an ``nn.ModuleList`` (a hybrid's ``blocks`` one per
+super-block); the JAX package scans a stacked parameter tree instead.  The
+audio and VLM families, and ``family="ssm"`` with ``ssm_kind="mamba2"``
+(which the JAX package refuses too), raise ``NotImplementedError`` naming
+their ROADMAP item.
 
 Entry points mirror the JAX package's: :func:`init_model`, :func:`forward`,
 :func:`prefill`, :func:`decode_step`, :func:`init_decode_state` and
@@ -18,8 +27,11 @@ FFN (``impl="auto"``) without touching its weights.  The decode state keeps
 the JAX package's stacked layout, every leaf with the layers axis first and
 the batch axis second: ``{"kv": {"k", "v": (L, B, S, kvh, hd), "positions":
 (L, B, S), "pos": (L, B)}}`` for the transformers, ``{"rwkv": {"tm_shift",
-"cm_shift": (L, B, d), "wkv": (L, B, H, hd, hd)}}`` (float32) for RWKV-6.
-:func:`decode_step` updates it in place.  Models serve under
+"cm_shift": (L, B, d), "wkv": (L, B, H, hd, hd)}}`` (float32) for RWKV-6,
+and for the hybrid the shared block's caches with L = n_super beside
+``{"mamba": {"conv": (n_super, period, B, CONV_K - 1, ch), "ssd":
+(n_super, period, B, H, P, N)}}`` (float32), whose batch axis is the
+third.  :func:`decode_step` updates it in place.  Models serve under
 ``torch.no_grad``; their parameters do not require gradients (``loss_fn``
 waits for training).
 """
@@ -34,6 +46,7 @@ from torch import nn
 from repro_torch.core.device import resolve
 
 from . import attention as attn
+from . import mamba2 as m2
 from . import moe as moe_mod
 from . import rwkv6 as rw
 from .common import apply_rope, embed_init, frozen, layer_norm, rms_norm, rope, weight
@@ -109,7 +122,6 @@ class ModelConfig:
 
 
 _WAITS = {
-    "hybrid": "ROADMAP A.5.3 (hybrid, zamba2/mamba2)",
     "audio": "ROADMAP A.5.4 (audio, whisper)",
     "vlm": "ROADMAP A.5.5 (VLM, M-RoPE)",
 }
@@ -119,11 +131,20 @@ def _transformer(cfg: ModelConfig) -> bool:
     return cfg.family in ("dense", "moe")
 
 
+def _hybrid(cfg: ModelConfig) -> bool:
+    return cfg.family == "hybrid"
+
+
 def _check_supported(cfg: ModelConfig) -> None:
     if cfg.mrope_sections:
         fam = "vlm"
-    elif _transformer(cfg) or (cfg.family == "ssm" and cfg.ssm_kind == "rwkv6"):
+    elif (_transformer(cfg) or (cfg.family == "ssm" and cfg.ssm_kind == "rwkv6")
+          or (_hybrid(cfg) and cfg.ssm_kind == "mamba2")):
         return
+    elif cfg.family in ("ssm", "hybrid"):
+        raise NotImplementedError(
+            f"{cfg.arch_id}: the JAX package has no {cfg.family} family with "
+            f"ssm_kind={cfg.ssm_kind!r}, and neither has the port")
     else:
         fam = cfg.family
     kind = f" ({cfg.ssm_kind})" if fam == "ssm" else ""
@@ -160,8 +181,12 @@ class Attention(nn.Module):
                 setattr(self, name, frozen(torch.zeros((n,), dtype=cfg.dtype,
                                                        device=device)))
 
-    def project(self, cfg: ModelConfig, x):
+    def project(self, cfg: ModelConfig, x, lora=None):
+        """(q, k, v) of x (b, s, d); ``lora=(a, b)`` adds ``x @ a @ b`` to q
+        (zamba2's per-invocation LoRA)."""
         q, k, v = x @ self.wq, x @ self.wk, x @ self.wv
+        if lora is not None:
+            q = q + x @ lora[0] @ lora[1]
         if self.bias:
             q, k, v = q + self.bq, k + self.bk, v + self.bv
         b, s, _ = x.shape
@@ -188,10 +213,24 @@ class Block(nn.Module):
             self.ffn = SwiGLU(cfg.d_model, cfg.d_ff, cfg.dtype, device, gen)
 
 
+class HybridLayer(nn.Module):
+    """One Mamba-2 layer of a hybrid: its pre-norm ``ln`` and ``mamba``."""
+
+    def __init__(self, cfg: ModelConfig, device, gen=None):
+        super().__init__()
+        self.ln = Norm(cfg, cfg.d_model, device)
+        self.mamba = m2.Mamba2(cfg.d_model, cfg.ssm_state, cfg.ssm_head_dim,
+                               dtype=cfg.dtype, device=device, gen=gen)
+
+
 class LM(nn.Module):
     """Weights of a model: ``embed`` (V, d), ``unembed`` (d, V) with V the
     padded vocabulary, ``ln_f`` and ``blocks`` (transformer blocks, or
-    RWKV-6 blocks for the ssm family)."""
+    RWKV-6 blocks for the ssm family).  A hybrid's ``blocks`` holds
+    ``n_super`` groups of ``hybrid_period`` :class:`HybridLayer`; it also
+    has ``shared`` (one :class:`Block`) and, with ``lora_rank``, ``lora_a``
+    (n_super, d, r) and ``lora_b`` (n_super, r, qd; zeros at init, as the
+    JAX package makes it)."""
 
     def __init__(self, cfg: ModelConfig, device, gen: torch.Generator | None = None):
         super().__init__()
@@ -204,6 +243,17 @@ class LM(nn.Module):
         if _transformer(cfg):
             self.blocks = nn.ModuleList(Block(cfg, device, gen)
                                         for _ in range(cfg.n_layers))
+        elif _hybrid(cfg):
+            n_super = _n_super(cfg)
+            self.blocks = nn.ModuleList(
+                nn.ModuleList(HybridLayer(cfg, device, gen)
+                              for _ in range(cfg.hybrid_period))
+                for _ in range(n_super))
+            self.shared = Block(cfg, device, gen)
+            if cfg.lora_rank:
+                self.lora_a = weight(gen, (n_super, d, cfg.lora_rank), cfg.dtype, device)
+                self.lora_b = frozen(torch.zeros((n_super, cfg.lora_rank, cfg.qkv_dims[0]),
+                                                 dtype=cfg.dtype, device=device))
         else:
             self.blocks = nn.ModuleList(
                 rw.RWKV6(d, cfg.d_ff, cfg.ssm_head_dim, cfg.dtype, device, gen)
@@ -212,6 +262,36 @@ class LM(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.embed.device
+
+
+def _n_super(cfg: ModelConfig) -> int:
+    return cfg.n_layers // cfg.hybrid_period
+
+
+def _attention_layers(cfg: ModelConfig, model: LM) -> list:
+    """(block, lora, Mamba-2 layers) for each application of attention: a
+    transformer's blocks, with no LoRA and no Mamba-2 layer, or a hybrid's
+    shared block once per super-block, with that super-block's LoRA and
+    followed by its Mamba-2 layers.  Empty for RWKV-6."""
+    if _transformer(cfg):
+        return [(blk, None, ()) for blk in model.blocks]
+    if not _hybrid(cfg):
+        return []
+    return [(model.shared,
+             (model.lora_a[i], model.lora_b[i]) if cfg.lora_rank else None, group)
+            for i, group in enumerate(model.blocks)]
+
+
+def _mamba(cfg: ModelConfig, layer: HybridLayer, h, st, step: bool = False):
+    """h plus one Mamba-2 layer's output on its normed input from state
+    ``st``; returns (h, new state)."""
+    if step:
+        y, new = m2.mamba2_apply_step(layer.mamba, layer.ln(h), st, cfg.ssm_state,
+                                      cfg.ssm_head_dim)
+    else:
+        y, new = m2.mamba2_apply_seq(layer.mamba, layer.ln(h), st, cfg.ssm_state,
+                                     cfg.ssm_head_dim, chunk=cfg.ssm_chunk)
+    return h + y, new
 
 
 def init_model(cfg: ModelConfig, seed: int = 0, device="cuda") -> LM:
@@ -257,10 +337,10 @@ def _tokens(batch, device) -> torch.Tensor:
     return torch.as_tensor(batch["tokens"], device=device).long()
 
 
-def _attn_seq(cfg: ModelConfig, p: Attention, x, cos, sin):
+def _attn_seq(cfg: ModelConfig, p: Attention, x, cos, sin, lora=None):
     """Full-sequence causal attention at the rotary angles (cos, sin) of
-    its positions; returns (y, k, v)."""
-    q, k, v = p.project(cfg, x)
+    its positions, with ``lora`` on q; returns (y, k, v)."""
+    q, k, v = p.project(cfg, x, lora)
     q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
     s = x.shape[1]
     out = attn.flash_attention(
@@ -276,24 +356,28 @@ def _attn_seq(cfg: ModelConfig, p: Attention, x, cos, sin):
 def forward(cfg: ModelConfig, model: LM, batch) -> tuple[torch.Tensor, Any]:
     """Token logits (b, s, V) for ``batch["tokens"]`` (b, s), and the
     auxiliary loss summed over the layers (a float32 scalar tensor for a
-    MoE model, 0.0 otherwise)."""
+    MoE model, 0.0 otherwise).  A hybrid's Mamba-2 layers each start from
+    a zero state."""
     _check_supported(cfg)
     tokens = _tokens(batch, model.device)
     b, s = tokens.shape
     h = _embed(cfg, model, tokens)
     aux = 0.0
-    if not _transformer(cfg):
+    if cfg.family == "ssm":
         st = rw.rwkv6_init_state(b, cfg.d_model, cfg.ssm_head_dim, model.device)
         for blk in model.blocks:
             h, _ = rw.rwkv6_apply_seq(blk, h, st, cfg.ssm_head_dim)
         return _logits(model, h), aux
     cos, sin = rope(torch.arange(s, device=model.device).expand(b, s), cfg.hd,
                     cfg.rope_theta)
-    for blk in model.blocks:
-        y, _, _ = _attn_seq(cfg, blk.attn, blk.ln1(h), cos, sin)
+    st = _mamba_state0(cfg, b, model.device)
+    for blk, lora, group in _attention_layers(cfg, model):
+        y, _, _ = _attn_seq(cfg, blk.attn, blk.ln1(h), cos, sin, lora)
         h = h + y
         f, a = _ffn(cfg, blk.ffn, blk.ln2(h))
         h, aux = h + f, aux + a
+        for layer in group:
+            h, _ = _mamba(cfg, layer, h, st)
     return _logits(model, h), aux
 
 
@@ -304,57 +388,79 @@ def _slots(cfg: ModelConfig, max_seq: int) -> int:
     return min(max_seq, cfg.sliding_window) if cfg.sliding_window else max_seq
 
 
+def _mamba_state0(cfg: ModelConfig, batch: int, device) -> dict | None:
+    """A hybrid's zero Mamba-2 state for one layer (None for the others)."""
+    if not _hybrid(cfg):
+        return None
+    return m2.mamba2_init_state(batch, cfg.d_model, cfg.ssm_state, cfg.ssm_head_dim,
+                                device=device)
+
+
 def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int,
                       device="cuda") -> dict:
     """Every layer's decode state, stacked: the KV caches of a transformer
-    (slots = max_seq, or the window for a sliding-window model: a ring), or
-    RWKV-6's float32 recurrent state (``max_seq`` unused)."""
+    (slots = max_seq, or the window for a sliding-window model: a ring),
+    RWKV-6's float32 recurrent state (``max_seq`` unused), or a hybrid's
+    shared-block caches (one per super-block) and its float32 Mamba-2
+    states (n_super, period, batch, ...)."""
     _check_supported(cfg)
     dev = resolve(device)
-    L = cfg.n_layers
-    if not _transformer(cfg):
+    if cfg.family == "ssm":
+        L = cfg.n_layers
         st = rw.rwkv6_init_state(batch, cfg.d_model, cfg.ssm_head_dim, dev)
         return {"rwkv": {key: t.expand(L, *t.shape).clone() for key, t in st.items()}}
+    L = _n_super(cfg) if _hybrid(cfg) else cfg.n_layers
     S = _slots(cfg, max_seq)
     shape = (L, batch, S, cfg.n_kv_heads, cfg.hd)
-    return {"kv": {
+    state = {"kv": {
         "k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
         "v": torch.zeros(shape, dtype=cfg.dtype, device=dev),
         "positions": torch.full((L, batch, S), -1, dtype=torch.int32, device=dev),
         "pos": torch.zeros((L, batch), dtype=torch.int32, device=dev),
     }}
+    if _hybrid(cfg):
+        state["mamba"] = {key: t.expand(L, cfg.hybrid_period, *t.shape).clone()
+                          for key, t in _mamba_state0(cfg, batch, dev).items()}
+    return state
 
 
-def _layer_state(state: dict, group: str, i: int) -> dict:
-    return {key: t[i] for key, t in state[group].items()}
+def _layer_state(state: dict, group: str, *index: int) -> dict:
+    """Views of one layer's leaves of a state group (``index``: the layer,
+    or a hybrid's super-block and layer), which ``copy_`` writes through."""
+    return {key: t[index] for key, t in state[group].items()}
+
+
+def _set(st: dict, new: dict) -> None:
+    for key, t in st.items():
+        t.copy_(new[key])
 
 
 @torch.no_grad()
 def prefill(cfg: ModelConfig, model: LM, batch, max_seq: int):
     """Run the whole prompt once: (decode state at position s, last-token
-    logits (b, V)).  A transformer puts each layer's last ``slots`` keys and
-    values into its cache at slot = position mod slots; RWKV-6 keeps each
-    layer's state after the last token."""
+    logits (b, V)).  Each attention puts its last ``slots`` keys and values
+    into its cache at slot = position mod slots; RWKV-6 and Mamba-2 keep
+    each layer's state after the last token."""
     _check_supported(cfg)
     tokens = _tokens(batch, model.device)
     b, s = tokens.shape
     dev = model.device
     state = init_decode_state(cfg, b, max_seq, dev)
     h = _embed(cfg, model, tokens)
-    if not _transformer(cfg):
+    if cfg.family == "ssm":
         st0 = rw.rwkv6_init_state(b, cfg.d_model, cfg.ssm_head_dim, dev)
         for i, blk in enumerate(model.blocks):
             h, st = rw.rwkv6_apply_seq(blk, h, st0, cfg.ssm_head_dim)
-            for key, t in _layer_state(state, "rwkv", i).items():
-                t.copy_(st[key])
+            _set(_layer_state(state, "rwkv", i), st)
         return state, _logits(model, h[:, -1:])[:, -1]
     slots = _slots(cfg, max_seq)
     take = min(slots, s)
     pos_ids = torch.arange(s - take, s, device=dev)
     slot_ids = pos_ids % slots
     cos, sin = rope(torch.arange(s, device=dev).expand(b, s), cfg.hd, cfg.rope_theta)
-    for i, blk in enumerate(model.blocks):
-        y, k, v = _attn_seq(cfg, blk.attn, blk.ln1(h), cos, sin)
+    st0 = _mamba_state0(cfg, b, dev)
+    for i, (blk, lora, group) in enumerate(_attention_layers(cfg, model)):
+        y, k, v = _attn_seq(cfg, blk.attn, blk.ln1(h), cos, sin, lora)
         cache = _layer_state(state, "kv", i)
         cache["k"][:, slot_ids] = k[:, -take:].to(cfg.dtype)
         cache["v"][:, slot_ids] = v[:, -take:].to(cfg.dtype)
@@ -362,34 +468,40 @@ def prefill(cfg: ModelConfig, model: LM, batch, max_seq: int):
         cache["pos"].fill_(s)
         h = h + y
         h = h + _ffn(cfg, blk.ffn, blk.ln2(h), aux=False)[0]
+        for j, layer in enumerate(group):
+            h, st = _mamba(cfg, layer, h, st0)
+            _set(_layer_state(state, "mamba", i, j), st)
     return state, _logits(model, h[:, -1:])[:, -1]
 
 
 @torch.no_grad()
 def decode_step(cfg: ModelConfig, model: LM, state: dict, tokens):
     """One new token for every sequence: ``tokens`` (b, 1).  Appends each
-    layer's key and value to ``state``, or advances each layer's recurrent
-    state, in place; returns (state, logits (b, 1, V))."""
+    attention's key and value to ``state``, and advances each layer's
+    recurrent state, in place; returns (state, logits (b, 1, V))."""
     _check_supported(cfg)
     tokens = _tokens({"tokens": tokens}, model.device)
     b = tokens.shape[0]
     h = _embed(cfg, model, tokens)
-    if not _transformer(cfg):
+    if cfg.family == "ssm":
         for i, blk in enumerate(model.blocks):
             st = _layer_state(state, "rwkv", i)
             h, new = rw.rwkv6_apply_step(blk, h, st, cfg.ssm_head_dim)
-            for key, t in st.items():
-                t.copy_(new[key])
+            _set(st, new)
         return state, _logits(model, h)
     # every layer's cache sits at the same positions: one set of angles
     cos, sin = rope(state["kv"]["pos"][0][:, None], cfg.hd, cfg.rope_theta)
-    for i, blk in enumerate(model.blocks):
+    for i, (blk, lora, group) in enumerate(_attention_layers(cfg, model)):
         cache = _layer_state(state, "kv", i)
         p = blk.attn
-        q, k, v = p.project(cfg, blk.ln1(h))
+        q, k, v = p.project(cfg, blk.ln1(h), lora)
         q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
         attn.update_kv_cache(cache, k, v)
         out = attn.decode_attention(q, cache, window=cfg.sliding_window)
         h = h + out.reshape(b, 1, -1) @ p.wo
         h = h + _ffn(cfg, blk.ffn, blk.ln2(h), aux=False)[0]
+        for j, layer in enumerate(group):
+            st = _layer_state(state, "mamba", i, j)
+            h, new = _mamba(cfg, layer, h, st, step=True)
+            _set(st, new)
     return state, _logits(model, h)

@@ -4,8 +4,8 @@ A request queue, B decode slots, and per-slot free/assign/evict
 bookkeeping.  A new request is prefilled with one ``prefill`` pass (batch
 1) and its KV cache copied into the freed slot while the other slots keep
 decoding; the cache tracks positions per slot, so sequences at different
-depths share one B-wide ``decode_step``; an RWKV-6 model's recurrent state
-is copied into the slot the same way.  Greedy sampling: the argmax over the
+depths share one B-wide ``decode_step``; an RWKV-6 or Mamba-2 model's
+recurrent state is copied into the slot the same way.  Greedy sampling: the argmax over the
 ``vocab`` real columns of the logits.  The JAX package takes it over the
 padded vocabulary, so a pad id can win there; the port masks the pad
 columns out (ROADMAP C.18, a recorded deviation).
@@ -63,13 +63,19 @@ class Request:
         return self.t_done - self.t_submit
 
 
+# the batch axis of each decode-state group: after the layers axis, or for
+# a hybrid's Mamba-2 states after the super-block and layer axes
+_BATCH_AXIS = {"kv": 1, "rwkv": 1, "mamba": 2}
+
+
 def _merge_slot(state: dict, state1: dict, i: int) -> None:
-    """Copy a batch-1 decode state into slot ``i`` of ``state``: every leaf
-    of every group (``kv``, ``rwkv``) has the layers axis first and the
-    batch axis second."""
+    """Copy a batch-1 decode state into slot ``i`` of ``state``, group by
+    group at the group's batch axis (``_BATCH_AXIS``: ``kv``, ``rwkv``
+    (L, B, ...); ``mamba`` (n_super, period, B, ...))."""
     for group, leaves in state.items():
+        ax = _BATCH_AXIS[group]
         for key, t in leaves.items():
-            t[:, i] = state1[group][key][:, 0]
+            t.select(ax, i).copy_(state1[group][key].select(ax, 0))
 
 
 class BatchedServer:
@@ -88,8 +94,11 @@ class BatchedServer:
         if sff is not None and sff.kind == "bcsr" and sff.impl == "auto":
             from repro_torch.models.ffn import tune_sparse_ffn
 
+            # a hybrid's FFN is its shared block's (the JAX package means to
+            # tune that one too, but reads its Mamba-2 tree: ROADMAP C.24)
+            blk = model.shared if cfg.family == "hybrid" else model.blocks[0]
             cfg = dataclasses.replace(cfg, sparse_ffn=tune_sparse_ffn(
-                sff, model.blocks[0].ffn, cfg.d_model, cfg.d_ff, k=batch_slots,
+                sff, blk.ffn, cfg.d_model, cfg.d_ff, k=batch_slots,
                 cache=plan_cache))
         self.cfg = cfg
         self.model = model

@@ -1432,3 +1432,108 @@ def test_gpu_moe_and_rwkv6_decode_graphs_equal_eager_bitwise(cuda_device, arch):
         outs[captured] = [r.out for r in reqs]
         assert all(t < cfg.vocab for o in outs[captured] for t in o)
     assert outs[True] == outs[False]
+
+
+def _perturb_hybrid(model, seed: int = 0) -> None:
+    """A hybrid's Mamba-2 layers and LoRA made live in place (at init its
+    Mamba-2 layers are the identity and its LoRA zero: ROADMAP C.23):
+    ``conv_w`` 0.2·N(0, 1), ``conv_b`` 0.1·N(0, 1), ``A_log`` log U(1, 16),
+    ``dt_bias`` softplus⁻¹(U(0.001, 0.1)), ``lora_b`` 0.02·N(0, 1)."""
+    gen = torch.Generator(device=model.device).manual_seed(seed)
+
+    def draw(t, fn):
+        t.copy_(fn(torch.empty(t.shape, dtype=torch.float32, device=t.device)))
+
+    for group in model.blocks:
+        for layer in group:
+            m = layer.mamba
+            draw(m.conv_w, lambda e: e.normal_(generator=gen).mul_(0.2))
+            draw(m.conv_b, lambda e: e.normal_(generator=gen).mul_(0.1))
+            draw(m.A_log, lambda e: e.uniform_(1.0, 16.0, generator=gen).log_())
+            draw(m.dt_bias, lambda e: e.uniform_(0.001, 0.1, generator=gen).expm1_().log_())
+    draw(model.lora_b, lambda e: e.normal_(generator=gen).mul_(0.02))
+
+
+@pytest.mark.gpu
+def test_gpu_zamba2_decode_graph_equals_eager_bitwise(cuda_device):
+    """The reduced zamba2 in float32 on perturbed weights (its Mamba-2
+    states, (n_super, period, B, ...), updated in place): one replay of the
+    server's decode graph gives eager ``decode_step``'s logits and state
+    bit for bit, and captured and eager servers give every request the same
+    tokens."""
+    import dataclasses
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import lm
+    from repro_torch.runtime.server import BatchedServer, Request, _merge_slot
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_reduced("zamba2-2.7b"), dtype=torch.float32)
+    model = lm.init_model(cfg, 0, device=cuda_device)
+    _perturb_hybrid(model)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32) for n in (5, 9, 5)]
+    srv = BatchedServer(cfg, model, batch_slots=2, max_seq=32)
+    assert srv.graphs == 1
+    for i, p in enumerate(prompts[:2]):
+        one, _ = lm.prefill(cfg, model, {"tokens": p[None]}, 32)
+        _merge_slot(srv.state, one, i)
+    state = {g: {k: t.clone() for k, t in leaves.items()}
+             for g, leaves in srv.state.items()}
+    assert set(state) == {"kv", "mamba"}
+    toks = torch.as_tensor([[3], [7]], device=cuda_device)
+    _, ref = lm.decode_step(cfg, model, state, toks)
+    graph, tokens, _, logits = srv._decode
+    tokens.copy_(toks)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(logits, ref)
+    for g, leaves in state.items():
+        for key, t in leaves.items():
+            assert torch.equal(srv.state[g][key], t), (g, key)
+    outs = {}
+    for captured in (True, False):
+        s = BatchedServer(cfg, model, batch_slots=2, max_seq=32, captured=captured)
+        reqs = [Request(rid=i, prompt=p, max_new=6) for i, p in enumerate(prompts)]
+        for r in reqs:
+            s.submit(r)
+        s.run_until_drained()
+        outs[captured] = [r.out for r in reqs]
+        assert all(t < cfg.vocab for o in outs[captured] for t in o)
+    assert outs[True] == outs[False]
+
+
+@pytest.mark.gpu
+def test_gpu_zamba2_bcsr_shared_ffn_launches_twice_per_super_block(cuda_device):
+    """The reduced zamba2 in bf16 with a (32, 32) bcsr shared FFN on the
+    kernel (tensor cores): an eager decode step and each replay of the
+    server's decode graph launch exactly 2 x n_super kernels (W1 and W2 at
+    each application of the shared block), each counted under both
+    ``bcsr_spmm_bf16`` and ``bcsr_spmm_bf16_mma``."""
+    import dataclasses
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import lm
+    from repro_torch.models.ffn import SparseFFNConfig
+    from repro_torch.runtime.server import BatchedServer
+
+    cfg = dataclasses.replace(get_reduced("zamba2-2.7b"),
+                              sparse_ffn=SparseFFNConfig(kind="bcsr", block=(32, 32)))
+    model = lm.init_model(cfg, 0, device=cuda_device)
+    _perturb_hybrid(model)
+    per_step = 2 * (cfg.n_layers // cfg.hybrid_period)
+    want = {"bcsr_spmm_bf16": per_step, "bcsr_spmm_bf16_mma": per_step}
+    state = lm.init_decode_state(cfg, 2, 32, cuda_device)
+    toks = torch.as_tensor([[3], [7]], device=cuda_device)
+    _build.reset_launches()
+    lm.decode_step(cfg, model, state, toks)
+    assert dict(_build.LAUNCHES) == want
+    srv = BatchedServer(cfg, model, batch_slots=2, max_seq=32)
+    graph, tokens, _, logits = srv._decode
+    for replays in (1, 2, 3):
+        _build.reset_launches()
+        for _ in range(replays):
+            graph.replay()
+        torch.cuda.synchronize()
+        assert dict(_build.LAUNCHES) == {k: v * replays for k, v in want.items()}
+    assert bool(torch.isfinite(logits.float()).all())

@@ -38,6 +38,7 @@ from repro_torch.runtime import executable
 from repro_torch.runtime.engine import SparseEngine
 from repro_torch.runtime.server import BatchedServer, Request
 from repro_torch.runtime.solver import SparseSolver
+from test_torch_hybrid import perturbed
 
 TOL = 1e-5
 
@@ -259,15 +260,18 @@ def _serve(server_cls, request_cls, cfg, params, prompts, slots, **kw):
 
 
 @pytest.mark.parametrize("bcsr", [False, True], ids=["dense", "bcsr-ref"])
-@pytest.mark.parametrize("arch", ["qwen1.5-4b", "h2o-danube-3-4b"])
+@pytest.mark.parametrize("arch", ["qwen1.5-4b", "h2o-danube-3-4b", "zamba2-2.7b"])
 def test_captured_server_tokens_equal_the_reference_server(arch, bcsr):
     """``BatchedServer(..., captured=True)`` on the CPU (its explicit eager
     path: no graph, no warm-up) gives ``repro``'s jitted server's greedy
-    tokens, float32, five requests through 2 slots."""
+    tokens, float32, five requests through 2 slots.  zamba2 runs on
+    perturbed weights (``tests/test_torch_hybrid.py::perturbed``)."""
     sff = JSparseFFNConfig(kind="bcsr", block=(32, 32), impl="ref") if bcsr else None
     jcfg = dataclasses.replace(j_get_reduced(arch), dtype=jnp.float32, sparse_ffn=sff)
     params, _ = jlm.init_model(jcfg, 0)
-    model = lm_params_from_numpy(jcfg, jax.tree.map(np.asarray, params))
+    params = (perturbed(params) if jcfg.family == "hybrid"
+              else jax.tree.map(np.asarray, params))
+    model = lm_params_from_numpy(jcfg, params, device="cpu")
     prompts = _prompts(5, jcfg.vocab)
     jsrv, jreqs = _serve(JServer, JRequest, jcfg, params, prompts, 2)
     tsrv, treqs = _serve(BatchedServer, Request, model.cfg, model, prompts, 2,

@@ -388,13 +388,13 @@ def _models(arch, bcsr, dtype, j_impl="pallas", seed=0):
     sff = jffn.SparseFFNConfig(kind="bcsr", block=(32, 32), impl=j_impl) if bcsr else None
     jcfg = dataclasses.replace(j_get_reduced(arch), dtype=dtype, sparse_ffn=sff)
     params, _ = jlm.init_model(jcfg, seed)
-    model = lm_params_from_numpy(jcfg, jax.tree.map(np.asarray, params))
+    model = lm_params_from_numpy(jcfg, jax.tree.map(np.asarray, params), device="cpu")
     return jcfg, params, model.cfg, model
 
 
 def test_ported_configs_are_the_references():
     assert set(ARCH_IDS) == {"qwen1.5-4b", "h2o-danube-3-4b", "granite-moe-1b-a400m",
-                             "llama4-scout-17b-a16e", "rwkv6-7b"}
+                             "llama4-scout-17b-a16e", "rwkv6-7b", "zamba2-2.7b"}
     from repro.configs import get_config as j_get_config
 
     for arch in ARCH_IDS:
@@ -415,8 +415,13 @@ def test_ported_configs_are_the_references():
     rwkv = get_config("rwkv6-7b")
     assert (rwkv.family, rwkv.ssm_kind, rwkv.n_layers, rwkv.d_model, rwkv.d_ff,
             rwkv.vocab_padded) == ("ssm", "rwkv6", 32, 4096, 14336, 65536)
+    zamba = get_config("zamba2-2.7b")
+    assert (zamba.family, zamba.ssm_kind, zamba.n_layers, zamba.d_model, zamba.n_heads,
+            zamba.hd, zamba.d_ff, zamba.ssm_state, zamba.ssm_head_dim,
+            zamba.hybrid_period, zamba.lora_rank, zamba.vocab_padded) == \
+        ("hybrid", "mamba2", 54, 2560, 32, 80, 10240, 64, 64, 6, 128, 32000)
     with pytest.raises(KeyError, match="serves"):
-        get_config("zamba2-2.7b")
+        get_config("whisper-tiny")
 
 
 DENSE_ARCHES = ("qwen1.5-4b", "h2o-danube-3-4b")
@@ -559,7 +564,7 @@ def test_bf16_deviation_from_float32_grows_with_depth_in_both_packages(arch, dep
         if package == "ref":
             return np.asarray(jlm.forward(cfg, p, {"tokens": jnp.asarray(toks)})[0][:, -1],
                               np.float64)
-        model = lm_params_from_numpy(cfg, jax.tree.map(np.asarray, p))
+        model = lm_params_from_numpy(cfg, jax.tree.map(np.asarray, p), device="cpu")
         return tlm.forward(model.cfg, model, {"tokens": toks})[0][:, -1].double().numpy()
 
     devs = {}
@@ -612,7 +617,7 @@ def test_reference_pallas_ffn_refuses_a_bf16_model():
     toks = jnp.zeros((1, 4), jnp.int32)
     with pytest.raises(TypeError, match="carry"):
         jlm.forward(jcfg, params, {"tokens": toks})
-    model = lm_params_from_numpy(jcfg, jax.tree.map(np.asarray, params))
+    model = lm_params_from_numpy(jcfg, jax.tree.map(np.asarray, params), device="cpu")
     assert model.cfg.sparse_ffn.impl == "cuda"
     logits, _ = tlm.forward(model.cfg, model, {"tokens": np.zeros((1, 4), np.int32)})
     assert logits.dtype == torch.bfloat16 and bool(torch.isfinite(logits.float()).all())
@@ -620,32 +625,39 @@ def test_reference_pallas_ffn_refuses_a_bf16_model():
 
 def test_models_need_a_device_and_refuse_unported_families(monkeypatch):
     cfg = get_reduced("qwen1.5-4b")
+    params = jax.tree.map(np.asarray, jlm.init_model(j_get_reduced("qwen1.5-4b"), 0)[0])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tlm.init_model(cfg)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tlm.init_decode_state(cfg, 2, 16)
+    with pytest.raises(RuntimeError, match="device='cpu'"):  # the weight carrier
+        lm_params_from_numpy(cfg, params)
     model = tlm.init_model(cfg, device="cpu")
     assert model.device.type == "cpu"
     assert not any(p.requires_grad for p in model.parameters())
-    for fam, kw in (("hybrid", dict(ssm_kind="mamba2")), ("audio", {}), ("vlm", {}),
-                    ("ssm", dict(ssm_kind="mamba2"))):
-        bad = dataclasses.replace(cfg, family=fam, **kw)
+    for fam in ("audio", "vlm"):
+        bad = dataclasses.replace(cfg, family=fam)
         with pytest.raises(NotImplementedError, match="ROADMAP A.5"):
             tlm.init_model(bad, device="cpu")
+    # refused by the JAX package too (``repro/models/lm.py:241``)
+    with pytest.raises(NotImplementedError, match="JAX package"):
+        tlm.init_model(dataclasses.replace(cfg, family="ssm", ssm_kind="mamba2"),
+                       device="cpu")
     with pytest.raises(NotImplementedError, match="vlm"):
         tlm.init_model(dataclasses.replace(cfg, mrope_sections=(16, 24, 24)),
                        device="cpu")
-    # the moe and ssm (rwkv6) families build on the CPU, and still need a
-    # device to be named
-    for arch in ("granite-moe-1b-a400m", "rwkv6-7b"):
+    # the moe, ssm (rwkv6) and hybrid (zamba2) families build on the CPU,
+    # and still need a device to be named
+    for arch in ("granite-moe-1b-a400m", "rwkv6-7b", "zamba2-2.7b"):
         red = get_reduced(arch)
         with pytest.raises(RuntimeError, match="device='cpu'"):
             tlm.init_model(red)
         with pytest.raises(RuntimeError, match="device='cpu'"):
             tlm.init_decode_state(red, 2, 16)
         m = tlm.init_model(red, device="cpu")
-        assert m.device.type == "cpu" and len(m.blocks) == red.n_layers
+        n = red.n_layers // red.hybrid_period if red.family == "hybrid" else red.n_layers
+        assert m.device.type == "cpu" and len(m.blocks) == n
         assert not any(p.requires_grad for p in m.parameters())
     assert isinstance(tlm.init_model(get_reduced("granite-moe-1b-a400m"),
                                      device="cpu").blocks[0].ffn, tmoe.MoE)

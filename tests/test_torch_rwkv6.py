@@ -168,7 +168,7 @@ def test_bf16_shift_state_stays_float32_where_the_reference_changes_dtype():
     held to both at ``RWKV6_BF16_TOL``."""
     jcfg = dataclasses.replace(j_get_reduced("rwkv6-7b"), dtype=jnp.bfloat16)
     params, _ = jlm.init_model(jcfg, 0)
-    model = lm_params_from_numpy(jcfg, jax.tree.map(np.asarray, params))
+    model = lm_params_from_numpy(jcfg, jax.tree.map(np.asarray, params), device="cpu")
     cfg = model.cfg
     toks = np.random.default_rng(1).integers(0, cfg.vocab, (2, 16)).astype(np.int32)
     assert jlm.init_decode_state(jcfg, 2, 32)["rwkv"]["tm_shift"].dtype == jnp.float32

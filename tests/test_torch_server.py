@@ -8,7 +8,9 @@ reference server's; in bf16 tokens are not compared.  The port's greedy
 argmax skips the pad columns of the logits (ROADMAP C.18), where the
 reference's takes the padded vocabulary; the reduced configs have none
 (vocab 512), and the pad-column case is held against the reference's
-logits sliced to ``vocab``.
+logits sliced to ``vocab``.  The hybrid (zamba2) runs on perturbed weights
+(``tests/test_torch_hybrid.py::perturbed``): at the reference's init its
+Mamba-2 layers are the identity (ROADMAP C.23).
 """
 import dataclasses
 import json
@@ -31,6 +33,7 @@ from repro_torch.launch import serve as serve_cli
 from repro_torch.models import lm as tlm
 from repro_torch.models.ffn import SparseFFNConfig
 from repro_torch.runtime.server import BatchedServer, Request, _merge_slot
+from test_torch_hybrid import perturbed
 
 
 
@@ -60,24 +63,28 @@ def _serve(server_cls, request_cls, cfg, params, prompts, slots, max_new=6,
     return srv, reqs
 
 
-def _pair(arch, bcsr, dtype=jnp.float32):
-    sff = JSparseFFNConfig(kind="bcsr", block=(32, 32), impl="pallas") if bcsr else None
+def _pair(arch, bcsr, dtype=jnp.float32, impl="pallas"):
+    sff = JSparseFFNConfig(kind="bcsr", block=(32, 32), impl=impl) if bcsr else None
     jcfg = dataclasses.replace(j_get_reduced(arch), dtype=dtype, sparse_ffn=sff)
     params, _ = jlm.init_model(jcfg, 0)
-    model = lm_params_from_numpy(jcfg, jax.tree.map(np.asarray, params))
+    params = (perturbed(params) if jcfg.family == "hybrid"
+              else jax.tree.map(np.asarray, params))
+    model = lm_params_from_numpy(jcfg, params, device="cpu")
     return jcfg, params, model
 
 
 @pytest.mark.parametrize("arch,bcsr", [("qwen1.5-4b", False), ("qwen1.5-4b", True),
                                        ("h2o-danube-3-4b", False),
                                        ("granite-moe-1b-a400m", False),
-                                       ("rwkv6-7b", False)])
+                                       ("rwkv6-7b", False), ("zamba2-2.7b", False),
+                                       ("zamba2-2.7b", True)])
 def test_greedy_tokens_equal_the_reference_server(arch, bcsr):
     """Five requests of mixed prompt lengths through 2 slots (continuous
     batching: slots refill mid-run), float32: the same tokens, one prefill
     per request, and the same step and occupancy counts.  The MoE routes at
     its configured capacity factor; RWKV-6 merges its recurrent state into
-    the slots."""
+    the slots, and zamba2 its shared block's caches and its Mamba-2 states
+    (at their batch axis, the third)."""
     jcfg, params, model = _pair(arch, bcsr)
     assert jcfg.vocab_padded == jcfg.vocab  # no pad column: the argmaxes agree
     prompts = _prompts(5, jcfg.vocab)
@@ -90,13 +97,13 @@ def test_greedy_tokens_equal_the_reference_server(arch, bcsr):
     assert all(r.latency_s >= 0 for r in treqs)
 
 
-@pytest.mark.parametrize("ffn", ["dense", "bcsr", "rwkv6"])
+@pytest.mark.parametrize("ffn", ["dense", "bcsr", "rwkv6", "zamba2"])
 def test_two_slots_give_the_tokens_of_two_one_slot_servers(ffn):
-    """h2o-danube (its window wraps), dense and bcsr, and rwkv6, whose
-    recurrent state ``_merge_slot`` copies into the slot (the ``rwkv``
-    group) as it copies KV caches (the ``kv`` group)."""
+    """h2o-danube (its window wraps), dense and bcsr, rwkv6 and zamba2, whose
+    recurrent states ``_merge_slot`` copies into the slot (the ``rwkv`` and
+    ``mamba`` groups) as it copies KV caches (the ``kv`` group)."""
     sff = SparseFFNConfig(kind="bcsr", block=(32, 32)) if ffn == "bcsr" else None
-    arch = "rwkv6-7b" if ffn == "rwkv6" else "h2o-danube-3-4b"
+    arch = {"rwkv6": "rwkv6-7b", "zamba2": "zamba2-2.7b"}.get(ffn, "h2o-danube-3-4b")
     cfg = dataclasses.replace(get_reduced(arch), dtype=torch.float32, sparse_ffn=sff)
     model = tlm.init_model(cfg, 1, device="cpu")
     prompts = _prompts(2, cfg.vocab, seed=4, lens=(20, 6))  # 20 > the window
@@ -111,20 +118,30 @@ def test_bf16_server_serves_and_merges_slots_by_layout():
     merge writes slot i of every layer and nothing else, also where the
     slot count equals the layer count (2) or the kv-head count (4): the
     port merges on the state's known batch axis, where the reference
-    searches for the axis by shape."""
-    cfg = get_reduced("qwen1.5-4b")  # 2 layers, 4 kv heads
-    model = tlm.init_model(cfg, 0, device="cpu")
-    srv, reqs = _serve(BatchedServer, Request, cfg, model, _prompts(3, cfg.vocab), 4)
-    assert all(r.done for r in reqs) and srv.prefills == 3
-    for slots in (2, 4):
-        state = tlm.init_decode_state(cfg, slots, 16, "cpu")
-        one, _ = tlm.prefill(cfg, model, {"tokens": np.arange(5)[None]}, 16)
-        before = {k: v.clone() for k, v in state["kv"].items()}
-        _merge_slot(state, one, 1)
-        for key, t in state["kv"].items():
-            assert torch.equal(t[:, 1], one["kv"][key][:, 0]), key
-            others = [i for i in range(slots) if i != 1]
-            assert torch.equal(t[:, others], before[key][:, others]), key
+    searches for the axis by shape.  A hybrid's Mamba-2 states (n_super,
+    period, B, ...) are merged at their third axis."""
+    for arch, slots_ in (("qwen1.5-4b", (2, 4)),  # 2 layers, 4 kv heads
+                         ("zamba2-2.7b", (2, 3))):  # 2 super-blocks of 2 layers
+        cfg = get_reduced(arch)
+        model = tlm.init_model(cfg, 0, device="cpu")
+        srv, reqs = _serve(BatchedServer, Request, cfg, model, _prompts(3, cfg.vocab), 4)
+        assert all(r.done for r in reqs) and srv.prefills == 3
+        for slots in slots_:
+            state = tlm.init_decode_state(cfg, slots, 16, "cpu")
+            for leaves in state.values():
+                for t in leaves.values():
+                    t.copy_(torch.rand(t.shape) * 8)
+            one, _ = tlm.prefill(cfg, model, {"tokens": np.arange(5)[None]}, 16)
+            for group, leaves in state.items():
+                ax = 2 if group == "mamba" else 1
+                before = {k: v.clone() for k, v in leaves.items()}
+                _merge_slot({group: leaves}, {group: one[group]}, 1)
+                others = [i for i in range(slots) if i != 1]
+                for key, t in leaves.items():
+                    assert torch.equal(t.select(ax, 1), one[group][key].select(ax, 0)), key
+                    assert torch.equal(t.index_select(ax, torch.tensor(others)),
+                                       before[key].index_select(ax, torch.tensor(others))
+                                       ), key
 
 
 def test_auto_impl_routes_through_the_tuner_at_the_slot_count():
@@ -152,9 +169,40 @@ def test_auto_impl_routes_through_the_tuner_at_the_slot_count():
     assert got == [r.out for r in ref]
 
 
+def test_auto_impl_tunes_a_hybrids_shared_ffn_where_the_reference_raises():
+    """ROADMAP C.24.  The reduced zamba2 with a bcsr shared FFN at
+    ``impl="auto"``, perturbed weights: ``repro``'s server reads the FFN
+    from ``params["blocks"]`` (the Mamba-2 tree, since a hybrid's has
+    ``blocks``) and raises ``KeyError``; the port's resolves W1 and W2 of
+    the shared block through the search at k = slots and serves the tokens
+    of ``repro``'s server run at the tiers it picked."""
+    from repro_torch.tune import PlanCache
+
+    jcfg, params, model = _pair("zamba2-2.7b", True, impl="auto")
+    with pytest.raises(KeyError, match="ffn"):
+        JServer(jcfg, params, batch_slots=2, max_seq=32)
+    cache = PlanCache()
+    srv = BatchedServer(model.cfg, model, batch_slots=2, max_seq=32, plan_cache=cache)
+    tuned = srv.cfg.sparse_ffn
+    assert tuned.impl in ("cuda", "ref") and tuned.impl_w2 in ("cuda", "ref")
+    d, f = jcfg.d_model, jcfg.d_ff
+    assert sorted(tuple(p.scale[:2]) for p in cache.plans()) == [(d, f), (f, d)]
+    assert {p.k for p in cache.plans()} == {2}
+    prompts = _prompts(5, jcfg.vocab)
+    reqs = [Request(rid=i, prompt=p, max_new=6) for i, p in enumerate(prompts)]
+    for r in reqs:
+        srv.submit(r)
+    srv.run_until_drained()
+    tier = {"cuda": "pallas", "ref": "ref"}
+    at_tiers = dataclasses.replace(jcfg, sparse_ffn=dataclasses.replace(
+        jcfg.sparse_ffn, impl=tier[tuned.impl], impl_w2=tier[tuned.impl_w2]))
+    _, jreqs = _serve(JServer, JRequest, at_tiers, params, prompts, 2)
+    assert [r.out for r in reqs] == [r.out for r in jreqs]
+
+
 @pytest.mark.parametrize("arch", ["qwen1.5-4b", "h2o-danube-3-4b",
                                   "granite-moe-1b-a400m", "llama4-scout-17b-a16e",
-                                  "rwkv6-7b"])
+                                  "rwkv6-7b", "zamba2-2.7b"])
 def test_cli_serves_every_request_on_the_cpu(arch, tmp_path, capsys):
     stats = tmp_path / "lm.json"
     serve_cli.main(["--arch", arch, "--reduced", "--device", "cpu", "--requests", "6",
@@ -185,7 +233,7 @@ def test_pad_columns_never_win_the_greedy_argmax():
     params["ln_f"]["g"][0] = 1.0
     params["unembed"][:, 500:] = 0.0
     params["unembed"][0, 500], params["unembed"][0, 501] = 100.0, -100.0
-    model = lm_params_from_numpy(jcfg, params)
+    model = lm_params_from_numpy(jcfg, params, device="cpu")
     prompts = _prompts(2, jcfg.vocab, seed=5)
     _, jreqs = _serve(JServer, JRequest, jcfg, params, prompts, 2, max_new=4)
     assert all(t >= jcfg.vocab for r in jreqs for t in r.out)
