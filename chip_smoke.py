@@ -280,6 +280,42 @@ scipy; imports nothing of JAX or of the JAX package.  Phases:
    counts), and the table gains the kernel's rows at the shared FFN's
    shapes.
 
+14. Audio and VLM serving (the audio and vlm branches of ``models.lm``;
+   plain torch but for the bcsr FFN's kernel), in bf16, weights from seed
+   0, every request carrying its own seeded modality inputs
+   (``repro_torch.data.modality``, drawn as ``serve --arch`` draws them),
+   each sub-phase's wall time and allocator peak printed: (a) whisper-tiny
+   at full width and depth (4 encoder + 4 decoder layers, d 384, 1500
+   frames): ``serve --arch whisper-tiny`` and a 4-slot ``BatchedServer``
+   serve 8/8 (a 4-token prompt and 1500 frames each, 32 new tokens)
+   through the decode graph and one prefill graph with no kernel launched;
+   prefill and decode step ms, eager and graphed, beside the bytes bound
+   (``av_bounds``: the decode step reads the decoder's weights and the
+   cross keys and values, not the encoder), tok/s; (b) qwen2-vl-72b at full
+   width, cut to ``vl_layers`` of its 80 layers (the depth whose bf16
+   weights fit ``VL_WEIGHT_BUDGET``, reckoned before it is built): the
+   same with prompts of 256 vision slots + 32 text tokens at
+   Qwen2-VL-layout M-RoPE positions, 16 new tokens, max_seq 320, and the
+   CLI on the reduced config; (c) a float32 copy (TF32 off; qwen2-vl's at
+   ``BF16_CHECK_LAYERS``): prefill + the new tokens' decode steps equal
+   ``forward`` within 1e-3 max|logits| (a VLM's forward at the positions
+   decode gives them), one decode-graph replay equals eager
+   ``decode_step`` and the prefill graph's replay of the fourth request
+   equals eager ``prefill`` on it, bit for bit; (d) bf16 first-token logits
+   against the float32 copy within ``LM_BF16_LIMIT`` (whisper at full
+   depth, qwen2-vl at ``BF16_CHECK_LAYERS``); (e) the bcsr variants
+   ((128, 128) blocks): kernel 3 on W1 and W2 at k = 4 and 1500 (whisper's
+   decode and encoder) and k = 4 and 288 (qwen2-vl's decode and prefill)
+   against its plain version (1e-5 (|A| |x|)_i, the same bits on a second
+   launch), the 4-slot servers with both counters held to 2 x (4 + 4) a
+   whisper prefill and 2 x 4 a decode step, 2 x ``vl_layers`` a qwen2-vl
+   pass (each warm-up as its pass), the kernel timed as phase 11g times it,
+   and whisper's bcsr float32 copy as in (c); last, one eager and one
+   graphed decode step of each model under ``torch.profiler`` in a fresh
+   process; (f) the phase's wall time.  Each kernel row gains
+   ``av_launches`` ((e)'s counts), and the table gains the kernel's rows
+   at these shapes.
+
 Any failed check exits non-zero.  The last lines are the card's name and
 power limit, one JSON object with the kernel table, and the JSON status
 line.  The full record also goes to ``chiprun_out/chip_smoke.json``.
@@ -1261,14 +1297,18 @@ BF16_FLOPS = 989e12  # H100 SXM, bf16 tensor cores, dense
 
 
 class LMBench:
-    """The LM phases' tools on one device, over the prompts they serve:
-    ``sync``, ``free``, ``median_ms`` (CUDA events; the host clock on the
-    CPU, for a rehearsal only), ``serve`` and ``step_times``."""
+    """The LM phases' tools on one device, over the prompts they serve
+    (with each prompt's modality inputs ``extras``, ``new`` tokens each, at
+    ``max_seq``): ``sync``, ``free``, ``median_ms`` (CUDA events; the host
+    clock on the CPU, for a rehearsal only), ``serve`` and ``step_times``."""
 
-    def __init__(self, dev, prompts):
+    def __init__(self, dev, prompts, extras=None, new: int = LM_NEW,
+                 max_seq: int = LM_MAX_SEQ):
         import torch
 
         self.dev, self.prompts = dev, prompts
+        self.extras = extras or [{} for _ in prompts]
+        self.new, self.max_seq = new, max_seq
         self.cuda = dev.type == "cuda"
         self.flush = torch.empty(64 * 2**20 if self.cuda else 1, dtype=torch.int32,
                                  device=dev)
@@ -1317,33 +1357,35 @@ class LMBench:
 
     def serve(self, cfg_, model, slots, ps=None):
         """A ``BatchedServer`` with ``slots`` slots serves ``ps`` (the
-        prompts), LM_NEW tokens each; fails unless every request is served
-        with tokens below ``vocab``."""
+        prompts, or (prompt, extras) pairs), ``new`` tokens each; fails
+        unless every request is served with tokens below ``vocab``."""
         from repro_torch.runtime.server import BatchedServer, Request
 
-        ps = self.prompts if ps is None else ps
-        srv = BatchedServer(cfg_, model, batch_slots=slots, max_seq=LM_MAX_SEQ)
-        reqs = [Request(rid=i, prompt=p, max_new=LM_NEW) for i, p in enumerate(ps)]
+        ps = list(zip(self.prompts, self.extras)) if ps is None else [
+            p if isinstance(p, tuple) else (p, {}) for p in ps]
+        srv = BatchedServer(cfg_, model, batch_slots=slots, max_seq=self.max_seq)
+        reqs = [Request(rid=i, prompt=p, max_new=self.new, **x)
+                for i, (p, x) in enumerate(ps)]
         t0 = time.perf_counter()
         for r in reqs:
             srv.submit(r)
         srv.run_until_drained()
         self.sync()
         dt = time.perf_counter() - t0
-        if not all(r.done and len(r.out) == LM_NEW for r in reqs):
+        if not all(r.done and len(r.out) == self.new for r in reqs):
             fail(f"{cfg_.arch_id}: served {sum(r.done for r in reqs)}/{len(reqs)}")
         if any(t >= cfg_.vocab for r in reqs for t in [r._first, *r.out]):
             fail(f"{cfg_.arch_id}: a served token is a pad id (>= {cfg_.vocab})")
         lats = sorted(r.latency_s for r in reqs)
         return srv, reqs, {
-            "served": len(reqs), "seconds": dt, "tok_per_s": LM_NEW * len(reqs) / dt,
+            "served": len(reqs), "seconds": dt, "tok_per_s": self.new * len(reqs) / dt,
             "latency_p50_s": lats[len(lats) // 2],
             "latency_p99_s": lats[int(len(lats) * 0.99)],
             "decode_steps": srv.steps, "prefills": srv.prefills,
             "graphs": srv.graphs, "warmups": srv.warmups, "capture_s": srv.capture_s}
 
     def step_times(self, cfg_, model) -> dict:
-        """Prefill ms at LM_PROMPT tokens (batch 1) and decode step ms at
+        """Prefill ms of the first prompt (batch 1) and decode step ms at
         LM_SLOTS slots, each through a server's own path: a
         ``captured=False`` server's eager passes and (on a card) a default
         server's graphs (``_prefill_one``: the pinned copy and the prompt
@@ -1358,18 +1400,19 @@ class LMBench:
 
         from repro_torch.runtime.server import BatchedServer, _merge_slot
 
-        prompts, median_ms = self.prompts, self.median_ms
+        prompts, extras, median_ms = self.prompts, self.extras, self.median_ms
         toks = np.zeros((LM_SLOTS, 1), np.int64)
         times = {"prefill_graph_ms": None, "decode_step_graph_ms": None}
         for captured in (False, True) if self.cuda else (False,):
-            srv = BatchedServer(cfg_, model, batch_slots=LM_SLOTS, max_seq=LM_MAX_SEQ,
+            srv = BatchedServer(cfg_, model, batch_slots=LM_SLOTS, max_seq=self.max_seq,
                                 captured=captured)
             for i in range(LM_SLOTS):  # fill the slots as the server does
-                one, _ = srv._prefill_one(prompts[i])
+                one, _ = srv._prefill_one(prompts[i], **extras[i])
                 _merge_slot(srv.state, one, i)
                 self.sync()
             tag = "_graph" if captured else ""
-            times[f"prefill{tag}_ms"] = median_ms(lambda: srv._prefill_one(prompts[0]))
+            times[f"prefill{tag}_ms"] = median_ms(
+                lambda: srv._prefill_one(prompts[0], **extras[0]))
             times[f"decode_step{tag}_ms"] = median_ms(lambda: srv._decode_once(toks))
             if captured:  # the replay alone, without the pinned token copy
                 times["decode_replay_ms"] = median_ms(srv._decode[0].replay)
@@ -1395,7 +1438,7 @@ class LMBench:
         kind = ("bcsr" if cfg_.sparse_ffn else "moe" if cfg_.moe else
                 cfg_.ssm_kind or "dense")
         print(f"  {cfg_.arch_id} {str(cfg_.dtype)[6:]} {kind}: eager prefill "
-              f"{prefill_ms:.3f} ms ({LM_PROMPT} tokens), decode step {decode_ms:.3f} ms "
+              f"{prefill_ms:.3f} ms ({len(prompts[0])} tokens), decode step {decode_ms:.3f} ms "
               f"({LM_SLOTS} slots){g_txt}; the step's bound {out['decode_bound_ms']:.3f} "
               f"ms ({weights / 1e9:.3f} GB of weights; decode state "
               f"{state_bytes / 1e6:.1f} MB)", flush=True)
@@ -1408,7 +1451,8 @@ def lm_profile(labels: list[str]) -> None:
     process (see ``mesh_device_ops``).  A label is an architecture id at
     its full configuration in bf16, or ``<arch>/bcsr`` for its bcsr-FFN
     variant ((128, 128) blocks, phase 11g's); weights from seed 0, LM_SLOTS
-    slots after LM_PROMPT-token prefills.  Each step is a server's own:
+    slots after LM_PROMPT-token prefills (whisper-tiny and qwen2-vl-72b:
+    phase 14's requests, qwen2-vl at ``vl_layers``).  Each step is a server's own:
     ``_decode_once`` of a ``captured=False`` server (eager) and of a
     default server (the pinned token copy and its decode graph's replay).
     Each runs inside a ``record_function`` range that ends after a
@@ -1435,18 +1479,25 @@ def lm_profile(labels: list[str]) -> None:
         if variant == "bcsr":
             cfg = dataclasses.replace(cfg, sparse_ffn=SparseFFNConfig(
                 kind="bcsr", block=(128, 128)))
+        max_seq = LM_MAX_SEQ
+        if cfg.family in ("audio", "vlm"):  # phase 14's traffic and depth
+            cfg = dataclasses.replace(cfg, n_layers=vl_layers(cfg)[0])
+            prompts, extras = av_traffic(cfg, LM_SLOTS)
+            max_seq = VL_MAX_SEQ if cfg.family == "vlm" else LM_MAX_SEQ
+        else:
+            rng = np.random.default_rng(0)
+            prompts = [rng.integers(0, cfg.vocab, LM_PROMPT).astype(np.int32)
+                       for _ in range(LM_SLOTS)]
+            extras = [{} for _ in prompts]
         model = lm.init_model(cfg, 0, device=dev)
         if cfg.family == "hybrid":
             perturb_hybrid(model, 0)
-        rng = np.random.default_rng(0)
-        prompts = [rng.integers(0, cfg.vocab, LM_PROMPT).astype(np.int32)
-                   for _ in range(LM_SLOTS)]
         toks = np.zeros((LM_SLOTS, 1), np.int64)
         for name, captured in (("eager", False), ("graph", True)):
-            srv = BatchedServer(cfg, model, batch_slots=LM_SLOTS, max_seq=LM_MAX_SEQ,
+            srv = BatchedServer(cfg, model, batch_slots=LM_SLOTS, max_seq=max_seq,
                                 captured=captured)
             for i, p in enumerate(prompts):  # fill the slots as the server does
-                one, _ = srv._prefill_one(p)
+                one, _ = srv._prefill_one(p, **extras[i])
                 _merge_slot(srv.state, one, i)
                 torch.cuda.synchronize()
             steps[f"{label}:{name}"] = functools.partial(srv._decode_once, toks)
@@ -2019,16 +2070,19 @@ class ServingChecks:
         print(f"  [{name}: {time.perf_counter() - t0:.1f}s, allocator peak "
               f"{peak:.2f} GB]", flush=True)
 
-    def cli(self, cfg_) -> dict:
+    def cli(self, cfg_, prompt_len: int = LM_PROMPT, new: int = LM_NEW,
+            max_seq: int = LM_MAX_SEQ, reduced: bool | None = None) -> dict:
         """``serve --arch``: 8/8 served, decode and prefill graphed on a
-        card, no kernel launched (the path is plain torch)."""
+        card, no kernel launched (the path is plain torch).  ``reduced``:
+        the reduced config (default: a rehearsal's)."""
         from repro_torch.kernels import _build
         from repro_torch.launch import serve as serve_cli
 
+        reduced = self.reduced if reduced is None else reduced
         args = ["--arch", cfg_.arch_id.split("/")[0], "--requests", str(LM_REQUESTS),
-                "--slots", str(LM_SLOTS), "--prompt-len", str(LM_PROMPT),
-                "--max-new", str(LM_NEW), "--max-seq", str(LM_MAX_SEQ),
-                "--device", self.dev.type] + (["--reduced"] if self.reduced else [])
+                "--slots", str(LM_SLOTS), "--prompt-len", str(prompt_len),
+                "--max-new", str(new), "--max-seq", str(max_seq),
+                "--device", self.dev.type] + (["--reduced"] if reduced else [])
         print(f"  serve {' '.join(args)}", flush=True)
         with tempfile.TemporaryDirectory(prefix="chip_smoke_moe_") as td:
             stats = Path(td) / "lm.json"
@@ -2042,18 +2096,25 @@ class ServingChecks:
                  f"{summary['graphs']} graphs (expected none, and 2)")
         return summary
 
-    def served(self, cfg_, model, bench, per_pass: dict | None = None) -> dict:
+    def served(self, cfg_, model, bench, per_pass: dict | None = None,
+               per_prefill: dict | None = None) -> dict:
         """A 4-slot server over the 8 prompts (graphed on a card), then the
         step times and the bound.  ``per_pass``: the launches each prefill,
         decode step and warm-up pass must make, counted over the serving
-        run alone (none when None)."""
+        run alone (none when None); ``per_prefill``: a prefill's and its
+        warm-up's where they differ from a decode step's."""
         from repro_torch.kernels import _build
 
         _build.reset_launches()
         srv, _, stats = bench.serve(cfg_, model, LM_SLOTS)
         launches = dict(_build.LAUNCHES)
         passes = srv.prefills + srv.steps + srv.warmups
-        expect = {k: v * passes for k, v in (per_pass or {}).items()}
+        decode_warmups = int(srv._decode is not None)
+        steps = srv.steps + decode_warmups
+        prefills = srv.prefills + srv.warmups - decode_warmups
+        per_prefill = per_pass if per_prefill is None else per_prefill
+        expect = {k: v * steps + (per_prefill or {}).get(k, 0) * prefills
+                  for k, v in (per_pass or {}).items()}
         if self.cuda and (srv.graphs != 2 or srv.warmups != 2 or launches != expect):
             fail(f"{cfg_.arch_id}: {srv.graphs} graphs, {srv.warmups} warm-ups, launches "
                  f"{launches} (expected the decode graph and one prefill graph, and "
@@ -2069,13 +2130,24 @@ class ServingChecks:
         bench.free()
         return {"serve": stats, "times": bench.step_times(cfg_, model)}
 
-    def first_logits(self, cfg_, model, prompts):
+    def first_logits(self, cfg_, model, prompts, extras=None):
         import torch
 
         from repro_torch.models import lm
 
-        return torch.stack([lm.prefill(cfg_, model, {"tokens": p[None]}, LM_MAX_SEQ)[1][0]
-                            .float() for p in prompts])
+        extras = extras or [{} for _ in prompts]
+        return torch.stack([lm.prefill(cfg_, model, self.batch(p, x), LM_MAX_SEQ)[1][0]
+                            .float() for p, x in zip(prompts, extras)])
+
+    def batch(self, prompt, extras) -> dict:
+        """The batch-1 model inputs of a prompt and its modality inputs, on
+        the device."""
+        import torch
+
+        from repro_torch.runtime.server import prompt_batch
+
+        return {k: torch.as_tensor(v, device=self.dev)
+                for k, v in prompt_batch(prompt, **extras).items()}
 
     def copy_as(self, model, cfg_to):
         """``model``'s weights in ``cfg_to``'s dtype, at its first n_layers
@@ -2091,11 +2163,15 @@ class ServingChecks:
                               if not k.startswith("blocks.") or int(k.split(".")[1]) < n})
         return copy
 
-    def consistency(self, cfg_f, model_f, prompts, name: str) -> dict:
-        """float32, TF32 off: prefill + LM_NEW - 1 greedy decode steps
-        against ``forward`` at every position (LM_CONSISTENCY), and one
-        replay of a 4-slot server's decode graph against eager
-        ``decode_step`` on a copy of its state, bit for bit."""
+    def consistency(self, cfg_f, model_f, prompts, name: str, extras=None,
+                    new: int = LM_NEW, max_seq: int = LM_MAX_SEQ) -> dict:
+        """float32, TF32 off: prefill + ``new`` - 1 greedy decode steps
+        against ``forward`` at every position (LM_CONSISTENCY; a VLM's
+        forward at the positions decode gives the new tokens: s, s + 1, ...
+        on all three streams), and one replay of a 4-slot server's decode
+        graph against eager ``decode_step`` on a copy of its state, bit for
+        bit; with modality inputs (``extras``) also the prefill graph's
+        last replay against eager ``prefill`` on the same request."""
         import numpy as np
         import torch
 
@@ -2103,30 +2179,50 @@ class ServingChecks:
         from repro_torch.runtime.server import BatchedServer, _merge_slot
 
         torch.backends.cuda.matmul.allow_tf32 = False
-        state, lg = lm.prefill(cfg_f, model_f, {"tokens": prompts[0][None]}, LM_MAX_SEQ)
+        extras = extras or [{} for _ in prompts]
+        state, lg = lm.prefill(cfg_f, model_f, self.batch(prompts[0], extras[0]), max_seq)
         logits, toks = [lg[0]], [int(torch.argmax(lg[0, :cfg_f.vocab]))]
-        for _ in range(LM_NEW - 1):
+        for _ in range(new - 1):
             state, lg = lm.decode_step(cfg_f, model_f, state, [[toks[-1]]])
             logits.append(lg[0, 0])
             toks.append(int(torch.argmax(lg[0, 0, :cfg_f.vocab])))
+        s0 = len(prompts[0])
         seq = np.concatenate([prompts[0], np.asarray(toks[:-1], np.int32)])
-        full, _ = lm.forward(cfg_f, model_f, {"tokens": seq[None]})
+        x0 = dict(extras[0])
+        if "positions" in x0:
+            x0["positions"] = np.concatenate([x0["positions"], np.broadcast_to(
+                np.arange(s0, len(seq), dtype=np.int32), (3, len(seq) - s0))], axis=1)
+        full, _ = lm.forward(cfg_f, model_f, self.batch(seq, x0))
         worst = 0.0
         for j, got in enumerate(logits):
-            ref = full[0, LM_PROMPT - 1 + j]
+            ref = full[0, s0 - 1 + j]
             rel = float((got - ref).abs().max() / ref.abs().max())
             worst = max(worst, rel)
             if not rel <= LM_CONSISTENCY:
-                fail(f"phase {name}: position {LM_PROMPT - 1 + j}: decode differs from "
+                fail(f"phase {name}: position {s0 - 1 + j}: decode differs from "
                      f"forward by {rel:.3e} x max|logits| (limit {LM_CONSISTENCY:g})")
         print(f"  ok {cfg_f.arch_id} float32 decode == forward at {len(logits)} "
               f"positions: worst {worst:.3e} x max|logits| (limit {LM_CONSISTENCY:g})",
               flush=True)
         del state, full
-        srv = BatchedServer(cfg_f, model_f, batch_slots=LM_SLOTS, max_seq=LM_MAX_SEQ)
+        srv = BatchedServer(cfg_f, model_f, batch_slots=LM_SLOTS, max_seq=max_seq)
         for i in range(LM_SLOTS):
-            one, _ = srv._prefill_one(prompts[i])
+            one, lg1 = srv._prefill_one(prompts[i], **extras[i])
             _merge_slot(srv.state, one, i)
+        prefill_bitwise = None
+        if srv._prefill and any(extras):  # the last replay's state and logits
+            st_e, lg_e = lm.prefill(cfg_f, model_f, self.batch(prompts[LM_SLOTS - 1],
+                                                               extras[LM_SLOTS - 1]), max_seq)
+            prefill_bitwise = bool(torch.equal(lg1, lg_e)) and all(
+                torch.equal(one[g][k], t) for g, leaves in st_e.items()
+                for k, t in leaves.items())
+            if not prefill_bitwise:
+                fail(f"phase {name}: the prefill graph's replay differs from eager prefill "
+                     "on the same request (logits or state)")
+            print(f"  ok the prefill graph's replay of request {LM_SLOTS - 1} (its own "
+                  "inputs copied in) == eager prefill bit for bit (logits and every "
+                  "state leaf)", flush=True)
+            del st_e, lg_e
         twin = {g: {k: t.clone() for k, t in leaves.items()}
                 for g, leaves in srv.state.items()}
         toks = torch.as_tensor([[int(p[-1])] for p in prompts[:LM_SLOTS]], device=self.dev)
@@ -2146,10 +2242,11 @@ class ServingChecks:
             print("  ok one graphed decode step == its eager twin bit for bit "
                   "(logits and every state leaf)", flush=True)
         del srv, twin
-        return {"worst": worst, "limit": LM_CONSISTENCY, "graph_bitwise": bitwise}
+        return {"worst": worst, "limit": LM_CONSISTENCY, "graph_bitwise": bitwise,
+                "prefill_graph_bitwise": prefill_bitwise}
 
     def bf16_vs_f32(self, cfg_b, model_b, model_f, prompts, layers: int, held: bool,
-                    label: str = "12f") -> dict:
+                    label: str = "12f", extras=None) -> dict:
         """Phase ``label`` over the first ``layers`` layers of the served bf16 model and
         its float32 copy ``model_f`` (cut copies of both below full
         depth): first-token logits as a share of max|logits| per prompt;
@@ -2168,9 +2265,9 @@ class ServingChecks:
         moe = cut.moe is not None
         calls = layers * len(prompts)  # one prefill a prompt, one route a layer
         with recording_routes(calls) if moe else contextlib.nullcontext() as rb:
-            bf = self.first_logits(cut, model_b, prompts)
+            bf = self.first_logits(cut, model_b, prompts, extras)
         with recording_routes(calls) if moe else contextlib.nullcontext() as rf:
-            f32 = self.first_logits(cut_f, model_f, prompts)
+            f32 = self.first_logits(cut_f, model_f, prompts, extras)
         dv = rel_dev(bf, f32)
         out = {"layers": layers, "dev_rel": dv, "limit": LM_BF16_LIMIT, "held": held,
                "equal_first_tokens": float((bf.argmax(-1) == f32.argmax(-1)).float().mean())}
@@ -2607,6 +2704,244 @@ def hybrid_phase(dev, record: dict, *, reduced: bool = False) -> tuple[dict, lis
     if chk.failures:
         fail("phase " + "; ".join(chk.failures))
     return launches, rows
+
+
+# -- phase 14: audio and VLM serving (whisper-tiny, qwen2-vl-72b) ------------
+AV_ARCH, VL_ARCH = "whisper-tiny", "qwen2-vl-72b"
+AV_PROMPT, AV_NEW = 4, 32  # (a): 1500 frames and a 4-token prompt, 32 new tokens
+VL_TEXT, VL_NEW, VL_MAX_SEQ = 32, 16, 320  # (b): 256 vision slots + 32 text tokens
+# (b): qwen2-vl-72b's 80 layers (145 GB in bf16) do not fit one card: the
+# depth whose bf16 weights fit this budget, which leaves room for the caches,
+# the graphs and (e)'s check copies
+VL_WEIGHT_BUDGET = 48e9
+
+
+def vl_layers(cfg) -> tuple[int, float]:
+    """(the depth phase 14 serves ``cfg`` at, its bf16 weight bytes): a
+    VLM's deepest cut whose weights fit VL_WEIGHT_BUDGET (a layer: q, k, v,
+    o, SwiGLU and two norms; embed and unembed beside), every other
+    family's full depth."""
+    d, f, (qd, kvd) = cfg.d_model, cfg.d_ff, cfg.qkv_dims
+    layer = 2 * (2 * d * qd + 2 * d * kvd + 3 * d * f + 2 * d)
+    table = 2 * 2 * cfg.vocab_padded * d
+    layers = cfg.n_layers
+    if cfg.family == "vlm":
+        layers = max(1, min(layers, int((VL_WEIGHT_BUDGET - table) // layer)))
+    return layers, layers * layer + table
+
+
+def av_traffic(cfg, n: int) -> tuple[list, list]:
+    """Phase 14's n requests to ``cfg`` (prompts, modality inputs), drawn
+    as ``serve --arch`` draws them from ``default_rng(0)``: whisper a
+    AV_PROMPT-token prompt and its frames; a VLM n_vision_tokens vision
+    slots + VL_TEXT text tokens, the vision embeddings and Qwen2-VL-layout
+    positions."""
+    import numpy as np
+
+    from repro_torch.data.modality import request_inputs
+
+    rng = np.random.default_rng(0)
+    length = (cfg.n_vision_tokens + VL_TEXT if cfg.family == "vlm" else AV_PROMPT)
+    prompts, extras = [], []
+    for _ in range(n):
+        prompts.append(rng.integers(0, cfg.vocab, length).astype(np.int32))
+        extras.append(request_inputs(cfg, length, rng))
+    return prompts, extras
+
+
+def av_bounds(cfg, model, times: dict, extras: dict) -> dict:
+    """The decode step's bytes bound (LM_SLOTS slots): the weights a step
+    reads (every parameter but the embedding table, of which it reads
+    LM_SLOTS rows, and an audio model's encoder, which only prefill runs)
+    and the decode state read (the self-attention caches and whisper's
+    cross keys and values); and the prefill's (one request): every weight
+    once, its modality inputs read and one slot's state written."""
+    enc = sum(t.numel() * t.element_size() for name, t in model.named_parameters()
+              if name.startswith(("enc_blocks.", "ln_enc.")))
+    enc += sum(t.numel() * t.element_size() for name, t in model.named_buffers()
+               if name.startswith("enc_blocks.") and name.endswith(("_cols", "_indptr")))
+    step = times["decode_weight_bytes"] - enc + times["state_bytes"]
+    inputs = sum(v.nbytes for v in extras.values())
+    prefill = times["decode_weight_bytes"] + inputs + times["state_bytes"] / LM_SLOTS
+    out = {"bytes": step, "bound_ms": step / HBM_BYTES_PER_S * 1e3,
+           "encoder_bytes": enc, "state_bytes": times["state_bytes"],
+           "prefill_bytes": prefill, "prefill_bound_ms": prefill / HBM_BYTES_PER_S * 1e3}
+    print(f"  the step's bound {out['bound_ms']:.4f} ms ({step / 1e9:.4f} GB: weights "
+          f"but the encoder's ({enc / 1e6:.1f} MB) and the table, the decode state "
+          f"({times['state_bytes'] / 1e6:.1f} MB) read); the prefill's "
+          f"{out['prefill_bound_ms']:.4f} ms", flush=True)
+    return out
+
+
+def av_phase(dev, record: dict, *, reduced: bool = False) -> tuple[dict, list]:
+    """Phase 14: whisper-tiny at full width and depth and qwen2-vl-72b at
+    full width and ``vl_layers`` depth, in bf16, weights from seed 0, each
+    request with its seeded frames or vision embeddings and M-RoPE
+    positions (``reduced``: the reduced configs, a CPU rehearsal with no
+    times or launch checks).  Returns (e)'s launch counts (the kernel rows'
+    ``av_launches``) and the ``bcsr_spmm_bf16`` rows at the new shapes."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config, get_reduced
+    from repro_torch.kernels.bcsr_spmm import bf16_tensor_core_path
+    from repro_torch.models import lm
+    from repro_torch.models.ffn import SparseFFNConfig
+
+    rec = record.setdefault("av", {})
+    t_phase = time.perf_counter()
+    cuda = dev.type == "cuda"
+    chk = ServingChecks(dev, rec, reduced)
+    get = get_reduced if reduced else get_config
+    block = (32, 32) if reduced else (128, 128)
+    bm, bk = block
+    path = "tensor cores" if bf16_tensor_core_path(bm, bk) else "CUDA cores"
+    sff = SparseFFNConfig(kind="bcsr", block=block)
+    rng = np.random.default_rng(14)
+    launches: collections.Counter = collections.Counter()
+    rows: list = []
+
+    def bcsr_variant(cfg_, model_, bench_, ffn, ks, label, per_step, per_prefill):
+        """(e): the bcsr variant's W1 and W2 (``ffn``) through kernel 3 at
+        ``ks`` against the plain version; the 4-slot server with both
+        counters held to ``per_step`` a decode step and ``per_prefill`` a
+        prefill (each warm-up as its pass); the kernel's time rows."""
+        weights = ffn_weights(ffn, cfg_)
+        errs = {}
+        for which, (args, n_cb) in weights.items():
+            errs.update(check_bf16_products(f"{label} {which}", args, n_cb, ks, rng, dev,
+                                            path, key=f"{label}/{which}"))
+        counters = ("bcsr_spmm_bf16", "bcsr_spmm_bf16_mma")
+        served = chk.served(cfg_, model_, bench_,
+                            per_pass={c: per_step for c in counters} if cuda else None,
+                            per_prefill={c: per_prefill for c in counters} if cuda else None)
+        got = served["serve"]["launches"]
+        launches.update(got)
+        for which, (args, n_cb) in weights.items():
+            dense = densify(args, n_cb)
+            rows.extend(bf16_time_rows(f"{label} FFN {which}", args, n_cb, dense, ks, rng,
+                                       bench_.median_ms, path,
+                                       launches=int(got.get("bcsr_spmm_bf16_mma", 0)),
+                                       max_abs_err=max(errs.values())))
+            del dense
+        served["kernel_checks"] = errs
+        return served
+
+    # -- (a) whisper-tiny ---------------------------------------------------
+    cfg = get(AV_ARCH)
+    prompts, extras = av_traffic(cfg, LM_REQUESTS)
+    bench = LMBench(dev, prompts, extras, new=AV_NEW)
+    t0 = chk.begin("14a", f"{cfg.arch_id} bf16, {cfg.enc_layers} encoder + {cfg.n_layers} "
+                          f"decoder layers, d {cfg.d_model}, {cfg.n_heads} heads, d_ff "
+                          f"{cfg.d_ff}, {cfg.enc_frames} frames, vocab {cfg.vocab}; "
+                          f"prompts of {AV_PROMPT} tokens, {AV_NEW} new")
+    rec["cli/" + AV_ARCH] = chk.cli(cfg, prompt_len=AV_PROMPT, new=AV_NEW)
+    bench.free()
+    model = lm.init_model(cfg, 0, device=dev)
+    rec["whisper_params"] = lm.param_count(model)
+    print(f"  {rec['whisper_params'] / 1e6:.2f} M parameters; cross keys and values "
+          f"{2 * cfg.n_layers * cfg.enc_frames * cfg.n_kv_heads * cfg.hd * 2 / 1e6:.2f} "
+          "MB a slot", flush=True)
+    rec["whisper"] = chk.served(cfg, model, bench)
+    rec["whisper"]["bounds"] = av_bounds(cfg, model, rec["whisper"]["times"], extras[0])
+    chk.end("14a", t0)
+    cfg_f = dataclasses.replace(cfg, dtype=torch.float32)
+    model_f = chk.copy_as(model, cfg_f)
+    t0 = chk.begin("14d", f"{cfg.arch_id}: bf16 first-token logits against the float32 "
+                          "copy at full depth")
+    rec["bf16_vs_f32/whisper"] = chk.bf16_vs_f32(cfg, model, model_f, prompts, cfg.n_layers,
+                                                 held=True, label="14d", extras=extras)
+    del model
+    bench.free()
+    chk.end("14d", t0)
+    t0 = chk.begin("14c", f"{cfg.arch_id} float32 copy, TF32 off: decode against forward, "
+                          "graphs against eager")
+    rec["consistency/whisper"] = chk.consistency(cfg_f, model_f, prompts, "14c", extras,
+                                                 new=AV_NEW)
+    del model_f
+    bench.free()
+    chk.end("14c", t0)
+    t0 = chk.begin("14e", f"{cfg.arch_id} with the bcsr FFN {block}, density {sff.density}")
+    cfg_b = dataclasses.replace(cfg, sparse_ffn=sff)
+    model_b = lm.init_model(cfg_b, 0, device=dev)
+    # kernel 3's widths: a 4-slot decode step and a 4-token decoder prefill
+    # (k = 4), the encoder's frames (k = enc_frames)
+    rec["whisper_bcsr"] = bcsr_variant(
+        cfg_b, model_b, bench, model_b.dec_blocks[0].ffn, (LM_SLOTS, cfg.enc_frames),
+        AV_ARCH, 2 * cfg.n_layers, 2 * (cfg.enc_layers + cfg.n_layers))
+    cfg_bf = dataclasses.replace(cfg_b, dtype=torch.float32)
+    model_bf = chk.copy_as(model_b, cfg_bf)
+    del model_b
+    rec["consistency/whisper_bcsr"] = chk.consistency(cfg_bf, model_bf, prompts, "14e",
+                                                      extras, new=AV_NEW)
+    del model_bf
+    bench.free()
+    chk.end("14e", t0)
+
+    # -- (b) qwen2-vl-72b at the depth one card holds ----------------------
+    full = get(VL_ARCH)
+    layers, reckoned = vl_layers(full)
+    cfg_v = dataclasses.replace(full, n_layers=layers)
+    prompts_v, extras_v = av_traffic(cfg_v, LM_REQUESTS)
+    bench_v = LMBench(dev, prompts_v, extras_v, new=VL_NEW, max_seq=VL_MAX_SEQ)
+    t0 = chk.begin("14b", f"{VL_ARCH} bf16 at full width (d {cfg_v.d_model}, {cfg_v.n_heads} "
+                          f"heads over {cfg_v.n_kv_heads} kv heads, d_ff {cfg_v.d_ff}, "
+                          f"M-RoPE {cfg_v.mrope_sections}, {cfg_v.n_vision_tokens} vision "
+                          f"slots), cut to {layers} of {full.n_layers} layers: reckoned "
+                          f"{reckoned / 1e9:.2f} GB of weights; prompts of "
+                          f"{len(prompts_v[0])} tokens, {VL_NEW} new, max_seq {VL_MAX_SEQ}")
+    rec["cli/" + VL_ARCH] = chk.cli(full, prompt_len=VL_TEXT, new=VL_NEW,
+                                    max_seq=VL_MAX_SEQ, reduced=True)
+    bench_v.free()
+    model = lm.init_model(cfg_v, 0, device=dev)
+    rec["qwen2_vl"] = {"layers": layers, "of": full.n_layers, "reckoned_gb": reckoned / 1e9,
+                       "params": lm.param_count(model),
+                       **chk.served(cfg_v, model, bench_v)}
+    rec["qwen2_vl"]["bounds"] = av_bounds(cfg_v, model, rec["qwen2_vl"]["times"],
+                                          extras_v[0])
+    chk.end("14b", t0)
+    # (c), (d) at BF16_CHECK_LAYERS: a float32 copy of the full depth would
+    # not fit beside it
+    t0 = chk.begin("14d", f"{VL_ARCH}: bf16 first-token logits against the float32 copy "
+                          f"over the first {min(BF16_CHECK_LAYERS, layers)} layers")
+    cut = dataclasses.replace(cfg_v, n_layers=min(BF16_CHECK_LAYERS, layers))
+    model_cut = chk.copy_as(model, cut)
+    del model
+    bench_v.free()
+    cut_f = dataclasses.replace(cut, dtype=torch.float32)
+    model_cut_f = chk.copy_as(model_cut, cut_f)
+    rec["bf16_vs_f32/qwen2_vl"] = chk.bf16_vs_f32(cut, model_cut, model_cut_f, prompts_v,
+                                                  cut.n_layers, held=True, label="14d",
+                                                  extras=extras_v)
+    del model_cut
+    bench_v.free()
+    chk.end("14d/qwen2_vl", t0)
+    t0 = chk.begin("14c", f"{VL_ARCH} float32 copy at {cut.n_layers} layers, TF32 off")
+    rec["consistency/qwen2_vl"] = chk.consistency(cut_f, model_cut_f, prompts_v, "14c",
+                                                  extras_v, new=VL_NEW, max_seq=VL_MAX_SEQ)
+    del model_cut_f
+    bench_v.free()
+    chk.end("14c/qwen2_vl", t0)
+    t0 = chk.begin("14e", f"{VL_ARCH} at {layers} layers with the bcsr FFN {block}, "
+                          f"density {sff.density}")
+    cfg_vb = dataclasses.replace(cfg_v, sparse_ffn=sff)
+    model_vb = lm.init_model(cfg_vb, 0, device=dev)
+    # kernel 3's widths: a 4-slot decode step, a prompt's prefill
+    rec["qwen2_vl_bcsr"] = bcsr_variant(
+        cfg_vb, model_vb, bench_v, model_vb.blocks[0].ffn, (LM_SLOTS, len(prompts_v[0])),
+        VL_ARCH, 2 * layers, 2 * layers)
+    del model_vb
+    bench_v.free()
+    chk.end("14e/qwen2_vl", t0)
+
+    if cuda and not reduced:  # the device's idle share in one decode step
+        rec["decode_profile"] = run_lm_profile([AV_ARCH, VL_ARCH])
+    rec["launches"] = dict(launches)
+    rec["total_s"] = time.perf_counter() - t_phase
+    print(f"phase 14f: phase 14 wall time {rec['total_s']:.1f}s", flush=True)
+    if chk.failures:
+        fail("phase " + "; ".join(chk.failures))
+    return dict(launches), rows
 
 
 def main() -> None:
@@ -4435,6 +4770,21 @@ def main() -> None:
     for row in kernels:
         row["hybrid_launches"] = int(launches13.get(row["name"], 0))
     phase_done("hybrid", t0)
+
+    # -- phase 14: audio and VLM serving, 14e's launches counted -----------
+    t0 = time.perf_counter()
+    launches14, av_rows = av_phase(dev, record)
+    record["av_launches"] = launches14
+    if launches14.get("bcsr_spmm_bf16_mma", 0) <= 0:
+        fail("kernel bcsr_spmm_bf16 was never launched by the audio and VLM FFNs")
+    for row in av_rows:  # rows at whisper's and qwen2-vl's FFN shapes, new here
+        for key in ("solver_launches", "fleet_launches", "mesh_launches", "lm_launches",
+                    "moe_launches", "hybrid_launches"):
+            row[key] = int(record[key].get(row["name"], 0))
+    kernels.extend(av_rows)
+    for row in kernels:
+        row["av_launches"] = int(launches14.get(row["name"], 0))
+    phase_done("av", t0)
 
     record["kernels"] = kernels
     record["card"] = smi

@@ -113,6 +113,9 @@ def lm_params_from_numpy(cfg, params: dict, device="cuda"):
     ``blocks``).  A hybrid's ``blocks`` (``ln``, ``mamba.*``) are stacked on
     two leading axes (n_super, period) and become ``blocks.{i}.{j}.*``; its
     ``shared`` block, ``lora_a`` and ``lora_b`` carry across as they are.
+    An audio model's ``enc_blocks`` (leading axis ``enc_layers``) and
+    ``dec_blocks`` (``n_layers``; ``ln1``, ``attn``, ``lnx``, ``xattn``,
+    ``ln2``, ``ffn``) are unstacked the same way, beside ``ln_enc``.
     Every leaf takes the dtype of the port's own parameter, so ``A_log``,
     ``D`` and ``dt_bias`` stay float32 in a bf16 model, as in the JAX
     package.  ``cfg`` may be either package's configuration
@@ -121,10 +124,13 @@ def lm_params_from_numpy(cfg, params: dict, device="cuda"):
     """
     cfg = port_config(cfg)
     model = LM(cfg, resolve(device))
+    # the stacked trees and their leading (layer) axes
     if cfg.family == "hybrid":
-        lead = (cfg.n_layers // cfg.hybrid_period, cfg.hybrid_period)
+        stacked = {"blocks": (cfg.n_layers // cfg.hybrid_period, cfg.hybrid_period)}
+    elif cfg.family == "audio":
+        stacked = {"enc_blocks": (cfg.enc_layers,), "dec_blocks": (cfg.n_layers,)}
     else:
-        lead = (cfg.n_layers,)
+        stacked = {"blocks": (cfg.n_layers,)}
 
     def flat(tree, prefix=""):
         for key, value in tree.items():
@@ -135,15 +141,16 @@ def lm_params_from_numpy(cfg, params: dict, device="cuda"):
 
     state = {}
     for name, value in flat(params):
-        if name.startswith("blocks."):
-            if value.shape[:len(lead)] != lead:
-                raise ValueError(f"{name}: leading axes {value.shape[:len(lead)]}, "
-                                 f"the config has {lead}")
-            for index in np.ndindex(*lead):
-                key = ".".join(map(str, index))
-                state[f"blocks.{key}.{name[len('blocks.'):]}"] = value[index]
-        else:
+        top, _, rest = name.partition(".")
+        lead = stacked.get(top)
+        if lead is None:
             state[name] = value
+            continue
+        if value.shape[:len(lead)] != lead:
+            raise ValueError(f"{name}: leading axes {value.shape[:len(lead)]}, "
+                             f"the config has {lead}")
+        for index in np.ndindex(*lead):
+            state[f"{top}.{'.'.join(map(str, index))}.{rest}"] = value[index]
     own = model.state_dict()
     if set(state) != set(own):
         raise ValueError(f"parameter trees differ: only in params "

@@ -50,9 +50,15 @@ A language model: ``--arch`` serves ``--requests`` greedy requests of
 tokens each through ``repro_torch.runtime.server.BatchedServer`` with
 ``--slots`` decode slots, over the registered configuration at full width
 or ``--reduced``, with weights drawn from seed 0.  The architectures are
-``repro_torch.configs.ARCH_IDS``: qwen1.5-4b and h2o-danube-3-4b (dense),
-granite-moe-1b-a400m and llama4-scout-17b-a16e (MoE), rwkv6-7b
-(RWKV-6) and zamba2-2.7b (hybrid: Mamba-2 and a shared attention block).
+``repro_torch.configs.ARCH_IDS``: qwen1.5-4b, h2o-danube-3-4b,
+deepseek-67b and llama3-405b (dense), granite-moe-1b-a400m and
+llama4-scout-17b-a16e (MoE), rwkv6-7b (RWKV-6), zamba2-2.7b (hybrid:
+Mamba-2 and a shared attention block), whisper-tiny (audio: each request
+carries seeded frame embeddings) and qwen2-vl-72b (VLM: each request's
+prompt holds ``n_vision_tokens`` vision slots, whose seeded embeddings it
+carries, before its ``--prompt-len`` text tokens, with M-RoPE positions in
+Qwen2-VL's layout; ``repro_torch.data.modality``).  deepseek-67b,
+llama3-405b and qwen2-vl-72b fit one card only ``--reduced``.
 On a card the decode
 step and each prompt length's prefill run as CUDA graphs; the report and
 ``--stats-json`` give the graphs captured and the seconds spent capturing:
@@ -320,6 +326,7 @@ def serve_fleet(args) -> None:
 
 def serve_lm(args) -> dict:
     from repro_torch.configs import get_config, get_reduced
+    from repro_torch.data.modality import request_inputs
     from repro_torch.models.lm import init_model
     from repro_torch.runtime.server import BatchedServer, Request
 
@@ -327,12 +334,12 @@ def serve_lm(args) -> dict:
     model = init_model(cfg, 0, device=args.device)
     srv = BatchedServer(cfg, model, batch_slots=args.slots, max_seq=args.max_seq)
     rng = np.random.default_rng(0)
-    reqs = [
-        Request(rid=i,
-                prompt=rng.integers(0, cfg.vocab, args.prompt_len).astype(np.int32),
-                max_new=args.max_new)
-        for i in range(args.requests)
-    ]
+    n = args.prompt_len + (cfg.n_vision_tokens if cfg.family == "vlm" else 0)
+    reqs = []
+    for i in range(args.requests):
+        prompt = rng.integers(0, cfg.vocab, n).astype(np.int32)
+        reqs.append(Request(rid=i, prompt=prompt, max_new=args.max_new,
+                            **request_inputs(cfg, n, rng)))
     for r in reqs:
         srv.submit(r)
     t0 = time.perf_counter()
@@ -372,8 +379,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     mode = ap.add_mutually_exclusive_group(required=True)
     mode.add_argument("--arch", choices=ARCH_IDS, default=None,
-                      help="serve greedy LM requests over this architecture "
-                           "(dense, MoE or RWKV-6)")
+                      help="serve greedy LM requests over this architecture")
     mode.add_argument("--sparse", default=None, metavar="MATRIX",
                       help="serve autotuned SpMV over this suite matrix")
     mode.add_argument("--fleet", default=None, metavar="M1,M2,...",
@@ -426,7 +432,9 @@ def main(argv=None):
     ap.add_argument("--reduced", action="store_true",
                     help="--arch: the reduced configuration (a few narrow layers)")
     ap.add_argument("--slots", type=int, default=4, help="--arch: decode slots")
-    ap.add_argument("--prompt-len", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=4,
+                    help="--arch: prompt tokens (a VLM's text tokens, after its "
+                         "vision slots)")
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--max-seq", type=int, default=128)
     args = ap.parse_args(argv)

@@ -2,9 +2,8 @@
 
 The JAX package's ``models.common`` also holds its parameter-with-logical-
 axes leaves, mesh rules and sharding constraints; on one card the port
-needs none of them (its parameters are ``nn.Module`` attributes), and
-M-RoPE waits for the VLM slice.  Norms and RoPE compute in float32 and cast
-back, as the JAX package does.
+needs none of them (its parameters are ``nn.Module`` attributes).  Norms,
+RoPE and M-RoPE compute in float32 and cast back, as the JAX package does.
 
 Initialisers draw from a seeded ``torch.Generator`` on the target device.
 They give other numbers than ``jax.random`` for the same seed, so parity
@@ -27,6 +26,9 @@ __all__ = [
     "layer_norm",
     "rope",
     "apply_rope",
+    "mrope",
+    "apply_mrope",
+    "sinusoid",
     "sinusoidal_positions",
 ]
 
@@ -95,11 +97,43 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
 
 
-def sinusoidal_positions(seq: int, dim: int, device=None) -> torch.Tensor:
-    """Whisper-style fixed sinusoidal embeddings (seq, dim) float32."""
+def mrope(positions: torch.Tensor, head_dim: int, sections, theta: float = 10000.0):
+    """Multimodal RoPE angles (Qwen2-VL): positions (3, b, s) int, the t, h
+    and w streams -> (cos, sin) each (b, s, head_dim // 2) float32, where
+    the rotary pairs of section i (``sections`` splits head_dim // 2, e.g.
+    (16, 24, 24)) turn at stream i's positions."""
+    half = head_dim // 2
+    if sum(sections) != half:
+        raise ValueError(f"mrope sections {tuple(sections)} must sum to head_dim // 2 "
+                         f"= {half}")
+    freqs = float(theta) ** (
+        -torch.arange(0, half, dtype=torch.float32, device=positions.device) / half)
+    pos = positions.float()
+    starts = [sum(sections[:i]) for i in range(len(sections))]
+    angles = torch.cat([pos[i][..., None] * freqs[a:a + w]
+                        for i, (a, w) in enumerate(zip(starts, sections))], dim=-1)
+    return torch.cos(angles), torch.sin(angles)
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, sections,
+                theta: float = 10000.0) -> torch.Tensor:
+    """x (b, s, h, d) rotated at the M-RoPE angles of positions (3, b, s)."""
+    return apply_rope(x, *mrope(positions, x.shape[-1], sections, theta))
+
+
+def sinusoid(positions: torch.Tensor, dim: int) -> torch.Tensor:
+    """Whisper-style fixed sinusoidal embeddings of positions (...,) ->
+    (..., dim) float32.  The frequencies are exp(-ln(10000) i / (half - 1))
+    in float32; the Python float of ln(10000) rounds to the float32 that
+    the JAX package's ``jnp.log(10000.0)`` gives."""
     half = dim // 2
     freqs = torch.exp(-math.log(10000.0)
-                      * torch.arange(half, dtype=torch.float32, device=device)
+                      * torch.arange(half, dtype=torch.float32, device=positions.device)
                       / max(half - 1, 1))
-    angles = torch.arange(seq, dtype=torch.float32, device=device)[:, None] * freqs[None, :]
+    angles = positions.float()[..., None] * freqs
     return torch.cat([torch.sin(angles), torch.cos(angles)], dim=-1)
+
+
+def sinusoidal_positions(seq: int, dim: int, device=None) -> torch.Tensor:
+    """Whisper-style fixed sinusoidal embeddings (seq, dim) float32."""
+    return sinusoid(torch.arange(seq, device=device), dim)

@@ -1,8 +1,8 @@
-"""The language model of the port: the dense, MoE, RWKV-6 and hybrid
-families.
+"""The language model of the port: the dense, MoE, RWKV-6, hybrid, audio
+and VLM families.
 
-A transformer decoder (dense and moe families) is ``n_layers`` blocks of
-RMSNorm → attention with RoPE, GQA, QKV bias and sliding windows →
+A transformer decoder (dense, moe and vlm families) is ``n_layers`` blocks
+of RMSNorm → attention with RoPE, GQA, QKV bias and sliding windows →
 RMSNorm → FFN.  The FFN is dense SwiGLU, GELU, the block-sparse FFN through
 the BCSR kernel (``cfg.sparse_ffn``), or, when ``cfg.moe`` is set, the
 capacity-dropped mixture of experts (``models.moe``).  The ssm family
@@ -13,11 +13,23 @@ transformer block (whose q projection adds that super-block's LoRA,
 ``x @ lora_a[i] @ lora_b[i]``) followed by ``hybrid_period`` Mamba-2
 layers (``models.mamba2``) with pre-norms and residuals; the shared
 block's FFN is the block-sparse one when ``cfg.sparse_ffn`` is set.
-Layers are an ``nn.ModuleList`` (a hybrid's ``blocks`` one per
-super-block); the JAX package scans a stacked parameter tree instead.  The
-audio and VLM families, and ``family="ssm"`` with ``ssm_kind="mamba2"``
-(which the JAX package refuses too), raise ``NotImplementedError`` naming
-their ROADMAP item.
+The audio family (whisper) is an encoder of ``enc_layers`` blocks with
+non-causal attention over ``batch["frames"]`` (b, enc_frames, d_model),
+precomputed frame embeddings (the conv front end is a stub, as in the JAX
+package) plus sinusoids, and a decoder of ``n_layers`` blocks of causal
+self-attention, cross-attention over the encoder's output (keys and
+values projected without bias) and the FFN; both add sinusoidal
+positions and rotate nothing.  The vlm family (Qwen2-VL) is the
+transformer decoder whose first ``n_vision_tokens`` slots take
+``batch["vision_embeds"]`` (b, n_vision_tokens, d_model) in place of the
+token embeddings (the vision tower is a stub) and whose attention rotates
+by M-RoPE at ``batch["positions"]`` (3, b, s), the t, h and w streams
+(``arange`` on all three when the batch has none).  A decode step
+continues every stream at the cache's position s, as the JAX package
+does (ROADMAP C.26).  Layers are an ``nn.ModuleList`` (a hybrid's
+``blocks`` one per super-block); the JAX package scans a stacked
+parameter tree instead.  ``family="ssm"`` with ``ssm_kind="mamba2"``,
+which the JAX package refuses, raises ``NotImplementedError``.
 
 Entry points mirror the JAX package's: :func:`init_model`, :func:`forward`,
 :func:`prefill`, :func:`decode_step`, :func:`init_decode_state` and
@@ -26,10 +38,12 @@ the execution tier of the sparse FFN, so a server can re-route a model's
 FFN (``impl="auto"``) without touching its weights.  The decode state keeps
 the JAX package's stacked layout, every leaf with the layers axis first and
 the batch axis second: ``{"kv": {"k", "v": (L, B, S, kvh, hd), "positions":
-(L, B, S), "pos": (L, B)}}`` for the transformers, ``{"rwkv": {"tm_shift",
-"cm_shift": (L, B, d), "wkv": (L, B, H, hd, hd)}}`` (float32) for RWKV-6,
-and for the hybrid the shared block's caches with L = n_super beside
-``{"mamba": {"conv": (n_super, period, B, CONV_K - 1, ch), "ssd":
+(L, B, S), "pos": (L, B)}}`` for the transformers, plus ``{"cross": {"k",
+"v": (L, B, enc_frames, kvh, hd)}}`` (the encoder's keys and values for
+each decoder layer, written by :func:`prefill`) for audio, ``{"rwkv":
+{"tm_shift", "cm_shift": (L, B, d), "wkv": (L, B, H, hd, hd)}}`` (float32)
+for RWKV-6, and for the hybrid the shared block's caches with L = n_super
+beside ``{"mamba": {"conv": (n_super, period, B, CONV_K - 1, ch), "ssd":
 (n_super, period, B, H, P, N)}}`` (float32), whose batch axis is the
 third.  :func:`decode_step` updates it in place.  Models serve under
 ``torch.no_grad``; their parameters do not require gradients (``loss_fn``
@@ -49,7 +63,17 @@ from . import attention as attn
 from . import mamba2 as m2
 from . import moe as moe_mod
 from . import rwkv6 as rw
-from .common import apply_rope, embed_init, frozen, layer_norm, rms_norm, rope, weight
+from .common import (
+    apply_rope,
+    embed_init,
+    frozen,
+    layer_norm,
+    mrope,
+    rms_norm,
+    rope,
+    sinusoid,
+    weight,
+)
 from .ffn import GeluFFN, SparseFFN, SparseFFNConfig, SwiGLU, sparse_ffn_apply
 
 __all__ = ["ModelConfig", "LM", "init_model", "forward", "prefill",
@@ -62,8 +86,7 @@ class ModelConfig:
     file copies across unchanged.  On one card the sharding and
     rematerialisation fields (``remat``, ``moe_partition``,
     ``attn_dp_only``, ``fsdp_gather_weights``) are accepted and have no
-    effect; the fields of unported families are read only to refuse them.
-    ``moe`` is a :class:`~repro_torch.models.moe.MoEConfig`."""
+    effect.  ``moe`` is a :class:`~repro_torch.models.moe.MoEConfig`."""
 
     arch_id: str
     family: str  # dense | ssm | moe | hybrid | audio | vlm
@@ -121,36 +144,29 @@ class ModelConfig:
         return self.n_heads * self.hd, self.n_kv_heads * self.hd
 
 
-_WAITS = {
-    "audio": "ROADMAP A.5.4 (audio, whisper)",
-    "vlm": "ROADMAP A.5.5 (VLM, M-RoPE)",
-}
-
-
 def _transformer(cfg: ModelConfig) -> bool:
-    return cfg.family in ("dense", "moe")
+    return cfg.family in ("dense", "moe", "vlm")
 
 
 def _hybrid(cfg: ModelConfig) -> bool:
     return cfg.family == "hybrid"
 
 
+def _audio(cfg: ModelConfig) -> bool:
+    return cfg.family == "audio"
+
+
 def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.mrope_sections:
-        fam = "vlm"
-    elif (_transformer(cfg) or (cfg.family == "ssm" and cfg.ssm_kind == "rwkv6")
-          or (_hybrid(cfg) and cfg.ssm_kind == "mamba2")):
-        return
-    elif cfg.family in ("ssm", "hybrid"):
+    if cfg.family in ("ssm", "hybrid") and cfg.ssm_kind != (
+            "rwkv6" if cfg.family == "ssm" else "mamba2"):
         raise NotImplementedError(
             f"{cfg.arch_id}: the JAX package has no {cfg.family} family with "
             f"ssm_kind={cfg.ssm_kind!r}, and neither has the port")
-    else:
-        fam = cfg.family
-    kind = f" ({cfg.ssm_kind})" if fam == "ssm" else ""
-    raise NotImplementedError(
-        f"{cfg.arch_id}: the {fam}{kind} family is not ported yet; it waits for "
-        f"{_WAITS.get(fam, 'ROADMAP A.5')}")
+    if not (_transformer(cfg) or _audio(cfg) or cfg.family in ("ssm", "hybrid")):
+        raise ValueError(f"{cfg.arch_id}: unknown family {cfg.family!r}")
+    if cfg.mrope_sections is not None and sum(cfg.mrope_sections) != cfg.hd // 2:
+        raise ValueError(f"{cfg.arch_id}: mrope sections {cfg.mrope_sections} must sum "
+                         f"to head_dim // 2 = {cfg.hd // 2}")
 
 
 # ---------------------------------------------------------------------------
@@ -194,6 +210,25 @@ class Attention(nn.Module):
                 k.reshape(b, s, cfg.n_kv_heads, cfg.hd),
                 v.reshape(b, s, cfg.n_kv_heads, cfg.hd))
 
+    def query(self, cfg: ModelConfig, x):
+        """q of x (b, s, d) alone (cross-attention's)."""
+        q = x @ self.wq
+        if self.bias:
+            q = q + self.bq
+        b, s, _ = x.shape
+        return q.reshape(b, s, cfg.n_heads, cfg.hd)
+
+
+def _ffn_module(cfg: ModelConfig, device, gen=None) -> nn.Module:
+    if cfg.moe is not None:
+        return moe_mod.MoE(cfg.d_model, cfg.moe, cfg.dtype, device, gen,
+                           partition=cfg.moe_partition)
+    if cfg.sparse_ffn is not None:
+        return SparseFFN(cfg.d_model, cfg.d_ff, cfg.sparse_ffn, cfg.dtype, device, gen)
+    if cfg.act == "gelu":
+        return GeluFFN(cfg.d_model, cfg.d_ff, cfg.dtype, device, gen)
+    return SwiGLU(cfg.d_model, cfg.d_ff, cfg.dtype, device, gen)
+
 
 class Block(nn.Module):
     def __init__(self, cfg: ModelConfig, device, gen=None):
@@ -201,16 +236,22 @@ class Block(nn.Module):
         self.ln1 = Norm(cfg, cfg.d_model, device)
         self.attn = Attention(cfg, device, gen)
         self.ln2 = Norm(cfg, cfg.d_model, device)
-        if cfg.moe is not None:
-            self.ffn = moe_mod.MoE(cfg.d_model, cfg.moe, cfg.dtype, device, gen,
-                                   partition=cfg.moe_partition)
-        elif cfg.sparse_ffn is not None:
-            self.ffn = SparseFFN(cfg.d_model, cfg.d_ff, cfg.sparse_ffn, cfg.dtype,
-                                 device, gen)
-        elif cfg.act == "gelu":
-            self.ffn = GeluFFN(cfg.d_model, cfg.d_ff, cfg.dtype, device, gen)
-        else:
-            self.ffn = SwiGLU(cfg.d_model, cfg.d_ff, cfg.dtype, device, gen)
+        self.ffn = _ffn_module(cfg, device, gen)
+
+
+class DecoderBlock(nn.Module):
+    """One decoder layer of the audio family: ``ln1`` and ``attn`` (causal
+    self-attention), ``lnx`` and ``xattn`` (cross-attention over the
+    encoder), ``ln2`` and ``ffn``."""
+
+    def __init__(self, cfg: ModelConfig, device, gen=None):
+        super().__init__()
+        self.ln1 = Norm(cfg, cfg.d_model, device)
+        self.attn = Attention(cfg, device, gen)
+        self.lnx = Norm(cfg, cfg.d_model, device)
+        self.xattn = Attention(cfg, device, gen)
+        self.ln2 = Norm(cfg, cfg.d_model, device)
+        self.ffn = _ffn_module(cfg, device, gen)
 
 
 class HybridLayer(nn.Module):
@@ -230,7 +271,9 @@ class LM(nn.Module):
     ``n_super`` groups of ``hybrid_period`` :class:`HybridLayer`; it also
     has ``shared`` (one :class:`Block`) and, with ``lora_rank``, ``lora_a``
     (n_super, d, r) and ``lora_b`` (n_super, r, qd; zeros at init, as the
-    JAX package makes it)."""
+    JAX package makes it).  An audio model has ``enc_blocks`` (``enc_layers``
+    :class:`Block`), ``dec_blocks`` (``n_layers`` :class:`DecoderBlock`) and
+    ``ln_enc`` in place of ``blocks``."""
 
     def __init__(self, cfg: ModelConfig, device, gen: torch.Generator | None = None):
         super().__init__()
@@ -254,6 +297,12 @@ class LM(nn.Module):
                 self.lora_a = weight(gen, (n_super, d, cfg.lora_rank), cfg.dtype, device)
                 self.lora_b = frozen(torch.zeros((n_super, cfg.lora_rank, cfg.qkv_dims[0]),
                                                  dtype=cfg.dtype, device=device))
+        elif _audio(cfg):
+            self.enc_blocks = nn.ModuleList(Block(cfg, device, gen)
+                                            for _ in range(cfg.enc_layers))
+            self.dec_blocks = nn.ModuleList(DecoderBlock(cfg, device, gen)
+                                            for _ in range(cfg.n_layers))
+            self.ln_enc = Norm(cfg, d, device)
         else:
             self.blocks = nn.ModuleList(
                 rw.RWKV6(d, cfg.d_ff, cfg.ssm_head_dim, cfg.dtype, device, gen)
@@ -270,11 +319,14 @@ def _n_super(cfg: ModelConfig) -> int:
 
 def _attention_layers(cfg: ModelConfig, model: LM) -> list:
     """(block, lora, Mamba-2 layers) for each application of attention: a
-    transformer's blocks, with no LoRA and no Mamba-2 layer, or a hybrid's
-    shared block once per super-block, with that super-block's LoRA and
-    followed by its Mamba-2 layers.  Empty for RWKV-6."""
+    transformer's blocks or an audio model's decoder blocks, with no LoRA
+    and no Mamba-2 layer, or a hybrid's shared block once per super-block,
+    with that super-block's LoRA and followed by its Mamba-2 layers.  Empty
+    for RWKV-6."""
     if _transformer(cfg):
         return [(blk, None, ()) for blk in model.blocks]
+    if _audio(cfg):
+        return [(blk, None, ()) for blk in model.dec_blocks]
     if not _hybrid(cfg):
         return []
     return [(model.shared,
@@ -296,8 +348,13 @@ def _mamba(cfg: ModelConfig, layer: HybridLayer, h, st, step: bool = False):
 
 def init_model(cfg: ModelConfig, seed: int = 0, device="cuda") -> LM:
     """A model with weights drawn from ``torch.Generator(device).manual_seed(seed)``
-    on ``device`` (``"cuda"`` by default; raises without a card)."""
+    on ``device`` (``"cuda"`` by default; raises without a card).
+    ``device="meta"`` builds the module tree with no storage: the shapes
+    and parameter count of a model too large for the host, as the JAX
+    package's ``abstract_model`` gives them."""
     dev = resolve(device)
+    if dev.type == "meta":
+        return LM(cfg, dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     return LM(cfg, dev, gen)
@@ -337,14 +394,59 @@ def _tokens(batch, device) -> torch.Tensor:
     return torch.as_tensor(batch["tokens"], device=device).long()
 
 
-def _attn_seq(cfg: ModelConfig, p: Attention, x, cos, sin, lora=None):
-    """Full-sequence causal attention at the rotary angles (cos, sin) of
-    its positions, with ``lora`` on q; returns (y, k, v)."""
+def _splice_vision(cfg: ModelConfig, h: torch.Tensor, batch) -> torch.Tensor:
+    """A VLM's early fusion: ``batch["vision_embeds"]`` (b, n_vision_tokens,
+    d) in place of the first n_vision_tokens token embeddings of h."""
+    n = cfg.n_vision_tokens
+    if cfg.family != "vlm" or not n:
+        return h
+    if h.shape[1] < n:
+        raise ValueError(f"{cfg.arch_id}: a prompt of {h.shape[1]} tokens is shorter "
+                         f"than its {n} vision slots")
+    if batch.get("vision_embeds") is None:
+        raise ValueError(f"{cfg.arch_id}: the batch has no vision_embeds (b, {n}, "
+                         f"{cfg.d_model})")
+    vis = torch.as_tensor(batch["vision_embeds"], device=h.device).to(h.dtype)
+    return torch.cat([vis, h[:, n:]], dim=1)
+
+
+def _positions(batch, b: int, s: int, device) -> torch.Tensor:
+    """``batch["positions"]`` ((b, s), or (3, b, s) for M-RoPE), or arange."""
+    pos = batch.get("positions")
+    if pos is None:
+        return torch.arange(s, device=device).expand(b, s)
+    return torch.as_tensor(pos, device=device)
+
+
+def _rotary(cfg: ModelConfig, positions: torch.Tensor):
+    """(cos, sin) of the rotary angles at ``positions`` (b, s): M-RoPE's
+    where the config has sections (a (b, s) positions array on all three
+    streams), RoPE's otherwise; None for the audio family, which adds
+    sinusoids instead."""
+    if _audio(cfg):
+        return None
+    if cfg.mrope_sections is not None:
+        if positions.dim() == 2:
+            positions = positions.expand(3, *positions.shape)
+        return mrope(positions, cfg.hd, cfg.mrope_sections, cfg.rope_theta)
+    return rope(positions, cfg.hd, cfg.rope_theta)
+
+
+def _rotate(angles, q, k):
+    if angles is None:
+        return q, k
+    cos, sin = angles
+    return apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+
+
+def _attn_seq(cfg: ModelConfig, p: Attention, x, angles, lora=None, causal: bool = True):
+    """Full-sequence attention at the rotary ``angles`` of its positions
+    (None: no rotation), with ``lora`` on q; returns (y, k, v)."""
     q, k, v = p.project(cfg, x, lora)
-    q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+    q, k = _rotate(angles, q, k)
     s = x.shape[1]
     out = attn.flash_attention(
-        q, k, v, causal=True, window=cfg.sliding_window,
+        q, k, v, causal=causal, window=cfg.sliding_window,
         q_chunk=min(cfg.attn_chunk, s), kv_chunk=min(cfg.attn_chunk, s),
         skip_masked_blocks=cfg.skip_masked_blocks,
         p_dtype=torch.bfloat16 if cfg.attn_p_bf16 else None,
@@ -352,28 +454,81 @@ def _attn_seq(cfg: ModelConfig, p: Attention, x, cos, sin, lora=None):
     return out.reshape(x.shape[0], s, -1) @ p.wo, k, v
 
 
+def _cross_kv(cfg: ModelConfig, p: Attention, h_enc):
+    """Cross-attention keys and values of the encoder output (no bias, as
+    the JAX package projects them)."""
+    b, f, _ = h_enc.shape
+    return ((h_enc @ p.wk).reshape(b, f, cfg.n_kv_heads, cfg.hd),
+            (h_enc @ p.wv).reshape(b, f, cfg.n_kv_heads, cfg.hd))
+
+
+def _cross_attn(cfg: ModelConfig, blk: DecoderBlock, h, k, v, step: bool = False):
+    """A decoder block's cross-attention of h (b, s, d) over the encoder's
+    keys and values (b, F, kvh, hd), non-causal.  A decode step attends at
+    q chunks of 1 with no window, as the JAX package's does."""
+    q = blk.xattn.query(cfg, blk.lnx(h))
+    b, s = h.shape[:2]
+    out = attn.flash_attention(
+        q, k, v, causal=False, window=None if step else cfg.sliding_window,
+        q_chunk=1 if step else min(cfg.attn_chunk, s),
+        kv_chunk=min(cfg.attn_chunk, k.shape[1]),
+        p_dtype=torch.bfloat16 if cfg.attn_p_bf16 and not step else None,
+    )
+    return out.reshape(b, s, -1) @ blk.xattn.wo
+
+
+def _add_sinusoids(cfg: ModelConfig, h, positions) -> torch.Tensor:
+    """The audio decoder's absolute positions: h plus the sinusoids of
+    ``positions`` (broadcastable to h's leading axes)."""
+    return h + sinusoid(positions, cfg.d_model).to(h.dtype)
+
+
+def _encode_audio(cfg: ModelConfig, model: LM, batch) -> torch.Tensor:
+    """The whisper encoder over ``batch["frames"]`` (b, F, d_model), the
+    precomputed frame embeddings, plus sinusoids: non-causal blocks, then
+    ``ln_enc``."""
+    frames = batch.get("frames")
+    if frames is None:
+        raise ValueError(f"{cfg.arch_id}: the batch has no frames (b, {cfg.enc_frames}, "
+                         f"{cfg.d_model})")
+    frames = torch.as_tensor(frames, device=model.device).to(cfg.dtype)
+    h = _add_sinusoids(cfg, frames, torch.arange(frames.shape[1], device=model.device)[None])
+    for blk in model.enc_blocks:
+        y, _, _ = _attn_seq(cfg, blk.attn, blk.ln1(h), None, causal=False)
+        h = h + y
+        h = h + _ffn(cfg, blk.ffn, blk.ln2(h), aux=False)[0]
+    return model.ln_enc(h)
+
+
 @torch.no_grad()
 def forward(cfg: ModelConfig, model: LM, batch) -> tuple[torch.Tensor, Any]:
     """Token logits (b, s, V) for ``batch["tokens"]`` (b, s), and the
     auxiliary loss summed over the layers (a float32 scalar tensor for a
-    MoE model, 0.0 otherwise).  A hybrid's Mamba-2 layers each start from
-    a zero state."""
+    MoE model, 0.0 otherwise).  An audio batch adds ``frames`` (b, F, d),
+    a VLM batch ``vision_embeds`` (b, n_vision_tokens, d) and, optionally,
+    ``positions`` (3, b, s).  A hybrid's Mamba-2 layers each start from a
+    zero state."""
     _check_supported(cfg)
-    tokens = _tokens(batch, model.device)
+    dev = model.device
+    tokens = _tokens(batch, dev)
     b, s = tokens.shape
-    h = _embed(cfg, model, tokens)
+    h = _splice_vision(cfg, _embed(cfg, model, tokens), batch)
     aux = 0.0
     if cfg.family == "ssm":
-        st = rw.rwkv6_init_state(b, cfg.d_model, cfg.ssm_head_dim, model.device)
+        st = rw.rwkv6_init_state(b, cfg.d_model, cfg.ssm_head_dim, dev)
         for blk in model.blocks:
             h, _ = rw.rwkv6_apply_seq(blk, h, st, cfg.ssm_head_dim)
         return _logits(model, h), aux
-    cos, sin = rope(torch.arange(s, device=model.device).expand(b, s), cfg.hd,
-                    cfg.rope_theta)
-    st = _mamba_state0(cfg, b, model.device)
+    angles = _rotary(cfg, _positions(batch, b, s, dev))
+    if _audio(cfg):
+        h_enc = _encode_audio(cfg, model, batch)
+        h = _add_sinusoids(cfg, h, torch.arange(s, device=dev)[None])
+    st = _mamba_state0(cfg, b, dev)
     for blk, lora, group in _attention_layers(cfg, model):
-        y, _, _ = _attn_seq(cfg, blk.attn, blk.ln1(h), cos, sin, lora)
+        y, _, _ = _attn_seq(cfg, blk.attn, blk.ln1(h), angles, lora)
         h = h + y
+        if _audio(cfg):
+            h = h + _cross_attn(cfg, blk, h, *_cross_kv(cfg, blk.xattn, h_enc))
         f, a = _ffn(cfg, blk.ffn, blk.ln2(h))
         h, aux = h + f, aux + a
         for layer in group:
@@ -400,9 +555,11 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int,
                       device="cuda") -> dict:
     """Every layer's decode state, stacked: the KV caches of a transformer
     (slots = max_seq, or the window for a sliding-window model: a ring),
-    RWKV-6's float32 recurrent state (``max_seq`` unused), or a hybrid's
-    shared-block caches (one per super-block) and its float32 Mamba-2
-    states (n_super, period, batch, ...)."""
+    with an audio model's cross-attention keys and values (zeros until
+    :func:`prefill` writes them), RWKV-6's float32 recurrent state
+    (``max_seq`` unused), or a hybrid's shared-block caches (one per
+    super-block) and its float32 Mamba-2 states (n_super, period, batch,
+    ...)."""
     _check_supported(cfg)
     dev = resolve(device)
     if cfg.family == "ssm":
@@ -421,6 +578,10 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int,
     if _hybrid(cfg):
         state["mamba"] = {key: t.expand(L, cfg.hybrid_period, *t.shape).clone()
                           for key, t in _mamba_state0(cfg, batch, dev).items()}
+    if _audio(cfg):
+        cross = (L, batch, cfg.enc_frames, cfg.n_kv_heads, cfg.hd)
+        state["cross"] = {key: torch.zeros(cross, dtype=cfg.dtype, device=dev)
+                          for key in ("k", "v")}
     return state
 
 
@@ -440,13 +601,16 @@ def prefill(cfg: ModelConfig, model: LM, batch, max_seq: int):
     """Run the whole prompt once: (decode state at position s, last-token
     logits (b, V)).  Each attention puts its last ``slots`` keys and values
     into its cache at slot = position mod slots; RWKV-6 and Mamba-2 keep
-    each layer's state after the last token."""
+    each layer's state after the last token; an audio model runs its
+    encoder over ``batch["frames"]`` and keeps each decoder layer's
+    cross-attention keys and values.  The batch keys are
+    :func:`forward`'s."""
     _check_supported(cfg)
-    tokens = _tokens(batch, model.device)
-    b, s = tokens.shape
     dev = model.device
+    tokens = _tokens(batch, dev)
+    b, s = tokens.shape
     state = init_decode_state(cfg, b, max_seq, dev)
-    h = _embed(cfg, model, tokens)
+    h = _splice_vision(cfg, _embed(cfg, model, tokens), batch)
     if cfg.family == "ssm":
         st0 = rw.rwkv6_init_state(b, cfg.d_model, cfg.ssm_head_dim, dev)
         for i, blk in enumerate(model.blocks):
@@ -457,16 +621,23 @@ def prefill(cfg: ModelConfig, model: LM, batch, max_seq: int):
     take = min(slots, s)
     pos_ids = torch.arange(s - take, s, device=dev)
     slot_ids = pos_ids % slots
-    cos, sin = rope(torch.arange(s, device=dev).expand(b, s), cfg.hd, cfg.rope_theta)
+    angles = _rotary(cfg, _positions(batch, b, s, dev))
+    if _audio(cfg):
+        h_enc = _encode_audio(cfg, model, batch)
+        h = _add_sinusoids(cfg, h, torch.arange(s, device=dev)[None])
     st0 = _mamba_state0(cfg, b, dev)
     for i, (blk, lora, group) in enumerate(_attention_layers(cfg, model)):
-        y, k, v = _attn_seq(cfg, blk.attn, blk.ln1(h), cos, sin, lora)
+        y, k, v = _attn_seq(cfg, blk.attn, blk.ln1(h), angles, lora)
         cache = _layer_state(state, "kv", i)
         cache["k"][:, slot_ids] = k[:, -take:].to(cfg.dtype)
         cache["v"][:, slot_ids] = v[:, -take:].to(cfg.dtype)
         cache["positions"][:, slot_ids] = pos_ids.to(torch.int32)
         cache["pos"].fill_(s)
         h = h + y
+        if _audio(cfg):
+            cross = _layer_state(state, "cross", i)
+            _set(cross, dict(zip(("k", "v"), _cross_kv(cfg, blk.xattn, h_enc))))
+            h = h + _cross_attn(cfg, blk, h, cross["k"], cross["v"])
         h = h + _ffn(cfg, blk.ffn, blk.ln2(h), aux=False)[0]
         for j, layer in enumerate(group):
             h, st = _mamba(cfg, layer, h, st0)
@@ -478,7 +649,10 @@ def prefill(cfg: ModelConfig, model: LM, batch, max_seq: int):
 def decode_step(cfg: ModelConfig, model: LM, state: dict, tokens):
     """One new token for every sequence: ``tokens`` (b, 1).  Appends each
     attention's key and value to ``state``, and advances each layer's
-    recurrent state, in place; returns (state, logits (b, 1, V))."""
+    recurrent state, in place; returns (state, logits (b, 1, V)).  An
+    audio model adds the sinusoid of each sequence's position and attends
+    over its stored cross keys and values; a VLM rotates every M-RoPE
+    stream by the cache's position."""
     _check_supported(cfg)
     tokens = _tokens({"tokens": tokens}, model.device)
     b = tokens.shape[0]
@@ -490,15 +664,21 @@ def decode_step(cfg: ModelConfig, model: LM, state: dict, tokens):
             _set(st, new)
         return state, _logits(model, h)
     # every layer's cache sits at the same positions: one set of angles
-    cos, sin = rope(state["kv"]["pos"][0][:, None], cfg.hd, cfg.rope_theta)
+    pos = state["kv"]["pos"][0][:, None]
+    angles = _rotary(cfg, pos)
+    if _audio(cfg):
+        h = _add_sinusoids(cfg, h, pos)
     for i, (blk, lora, group) in enumerate(_attention_layers(cfg, model)):
         cache = _layer_state(state, "kv", i)
         p = blk.attn
         q, k, v = p.project(cfg, blk.ln1(h), lora)
-        q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+        q, k = _rotate(angles, q, k)
         attn.update_kv_cache(cache, k, v)
         out = attn.decode_attention(q, cache, window=cfg.sliding_window)
         h = h + out.reshape(b, 1, -1) @ p.wo
+        if _audio(cfg):
+            h = h + _cross_attn(cfg, blk, h, state["cross"]["k"][i],
+                                state["cross"]["v"][i], step=True)
         h = h + _ffn(cfg, blk.ffn, blk.ln2(h), aux=False)[0]
         for j, layer in enumerate(group):
             st = _layer_state(state, "mamba", i, j)

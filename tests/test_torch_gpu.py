@@ -1537,3 +1537,88 @@ def test_gpu_zamba2_bcsr_shared_ffn_launches_twice_per_super_block(cuda_device):
         torch.cuda.synchronize()
         assert dict(_build.LAUNCHES) == {k: v * replays for k, v in want.items()}
     assert bool(torch.isfinite(logits.float()).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["whisper-tiny", "qwen2-vl-72b"])
+def test_gpu_audio_and_vlm_graphs_equal_eager(cuda_device, arch):
+    """The reduced whisper-tiny and qwen2-vl in float32, requests with their
+    own seeded frames or vision embeddings and M-RoPE positions: each
+    replay of a prefill graph (its static inputs refilled per request)
+    gives eager ``prefill``'s logits and state bit for bit, and captured
+    and eager servers give every request the same tokens."""
+    import dataclasses
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.data.modality import request_inputs
+    from repro_torch.models import lm
+    from repro_torch.runtime.server import BatchedServer, Request, prompt_batch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_reduced(arch), dtype=torch.float32)
+    model = lm.init_model(cfg, 0, device=cuda_device)
+    rng = np.random.default_rng(1)
+    n = 6 + (cfg.n_vision_tokens if cfg.family == "vlm" else 0)
+    reqs = [(p, request_inputs(cfg, n, rng))
+            for p in (rng.integers(0, cfg.vocab, n).astype(np.int32) for _ in range(3))]
+    srv = BatchedServer(cfg, model, batch_slots=2, max_seq=32)
+    for p, x in reqs:
+        st, lg = srv._prefill_one(p, **x)
+        torch.cuda.synchronize()
+        batch = {k: torch.as_tensor(v, device=cuda_device)
+                 for k, v in prompt_batch(p, **x).items()}
+        st_e, lg_e = lm.prefill(cfg, model, batch, 32)
+        assert torch.equal(lg, lg_e)
+        for g, leaves in st_e.items():
+            for key, t in leaves.items():
+                assert torch.equal(st[g][key], t), (g, key)
+    assert srv.graphs == 2
+    outs = {}
+    for captured in (True, False):
+        s = BatchedServer(cfg, model, batch_slots=2, max_seq=32, captured=captured)
+        rs = [Request(rid=i, prompt=p, max_new=6, **x) for i, (p, x) in enumerate(reqs)]
+        for r in rs:
+            s.submit(r)
+        s.run_until_drained()
+        outs[captured] = [[r._first, *r.out] for r in rs]
+    assert outs[True] == outs[False]
+
+
+@pytest.mark.gpu
+def test_gpu_whisper_bcsr_ffn_launches_per_encoder_and_decoder_layer(cuda_device):
+    """The reduced whisper-tiny in bf16 with a (32, 32) bcsr FFN on the
+    kernel (tensor cores): a prefill launches 2 x (enc_layers + n_layers)
+    kernels (W1 and W2 of every encoder and decoder layer) and a decode
+    step 2 x n_layers, eager and at each graph replay, each counted under
+    both ``bcsr_spmm_bf16`` and ``bcsr_spmm_bf16_mma``."""
+    import dataclasses
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.data.modality import request_inputs
+    from repro_torch.models import lm
+    from repro_torch.models.ffn import SparseFFNConfig
+    from repro_torch.runtime.server import BatchedServer
+
+    cfg = dataclasses.replace(get_reduced("whisper-tiny"),
+                              sparse_ffn=SparseFFNConfig(kind="bcsr", block=(32, 32)))
+    model = lm.init_model(cfg, 0, device=cuda_device)
+    rng = np.random.default_rng(2)
+    prompt = rng.integers(0, cfg.vocab, 4).astype(np.int32)
+    x = request_inputs(cfg, 4, rng)
+    counters = ("bcsr_spmm_bf16", "bcsr_spmm_bf16_mma")
+    per_prefill = {c: 2 * (cfg.enc_layers + cfg.n_layers) for c in counters}
+    per_step = {c: 2 * cfg.n_layers for c in counters}
+    srv = BatchedServer(cfg, model, batch_slots=2, max_seq=32)
+    srv._prefill_one(prompt, **x)  # warm-up and capture
+    for replays in (1, 2):
+        _build.reset_launches()
+        for _ in range(replays):
+            srv._prefill_one(prompt, **x)
+            srv._decode_once(np.zeros((2, 1), np.int64))
+        torch.cuda.synchronize()
+        assert dict(_build.LAUNCHES) == {c: (per_prefill[c] + per_step[c]) * replays
+                                         for c in counters}
+    _build.reset_launches()
+    lm.decode_step(cfg, model, srv.state, torch.zeros((2, 1), dtype=torch.long,
+                                                      device=cuda_device))
+    assert dict(_build.LAUNCHES) == per_step

@@ -265,7 +265,10 @@ def test_bcsr_block_pattern_is_the_references_bit_for_bit(d_model, d_ff, block,
                                                    (64, 128, (16, 32), 5),
                                                    (256, 384, (128, 128), 3),
                                                    (128, 256, (32, 32), 128),
-                                                   (128, 256, (32, 32), 200)])
+                                                   (128, 256, (32, 32), 200),
+                                                   (384, 1536, (128, 128), 4),
+                                                   (384, 1536, (128, 128), 1500),
+                                                   (128, 256, (32, 32), 288)])
 def test_bcsr_ffn_products_and_layer_match_reference(d_model, d_ff, block, T):
     """Each weight product through the port's ``bcsr_spmm`` (its plain
     version on the CPU) against ``bcsr_spmm_pallas`` in interpret mode at
@@ -273,7 +276,10 @@ def test_bcsr_ffn_products_and_layer_match_reference(d_model, d_ff, block, T):
     T = 128 as the rest; the Pallas kernel refuses T = 200 (it asserts
     k % 128 == 0 or k < 128, ROADMAP C.19), so there the products are held
     against ``repro``'s plain ``spmm_bcsr_dense`` and the layer against its
-    ``impl="ref"`` only."""
+    ``impl="ref"`` only.  whisper-tiny's FFN at full width (1536 x 384 in
+    (128, 128) blocks) at a 4-slot decode step and at its encoder's 1500
+    frames, and a VLM prefill of 256 vision slots + 32 text tokens (288),
+    which the Pallas kernel refuses too."""
     pallas = T < 128 or T % 128 == 0
     jcfg, tcfg, jp, tp = _bcsr_pair(d_model, d_ff, block)
     _carry(tp, jp)
@@ -393,9 +399,10 @@ def _models(arch, bcsr, dtype, j_impl="pallas", seed=0):
 
 
 def test_ported_configs_are_the_references():
-    assert set(ARCH_IDS) == {"qwen1.5-4b", "h2o-danube-3-4b", "granite-moe-1b-a400m",
-                             "llama4-scout-17b-a16e", "rwkv6-7b", "zamba2-2.7b"}
+    from repro.configs import ARCH_IDS as J_ARCH_IDS
     from repro.configs import get_config as j_get_config
+
+    assert set(ARCH_IDS) == set(J_ARCH_IDS) and len(ARCH_IDS) == 10
 
     for arch in ARCH_IDS:
         for mine, theirs in ((get_config(arch), j_get_config(arch)),
@@ -420,11 +427,24 @@ def test_ported_configs_are_the_references():
             zamba.hd, zamba.d_ff, zamba.ssm_state, zamba.ssm_head_dim,
             zamba.hybrid_period, zamba.lora_rank, zamba.vocab_padded) == \
         ("hybrid", "mamba2", 54, 2560, 32, 80, 10240, 64, 64, 6, 128, 32000)
+    whisper = get_config("whisper-tiny")
+    assert (whisper.family, whisper.enc_layers, whisper.n_layers, whisper.d_model,
+            whisper.n_heads, whisper.d_ff, whisper.enc_frames, whisper.norm, whisper.act,
+            whisper.vocab_padded) == ("audio", 4, 4, 384, 6, 1536, 1500, "layernorm",
+                                      "gelu", 51968)
+    vl = get_config("qwen2-vl-72b")
+    assert (vl.family, vl.n_layers, vl.d_model, vl.n_heads, vl.n_kv_heads, vl.d_ff,
+            vl.mrope_sections, vl.n_vision_tokens, vl.vocab_padded) == \
+        ("vlm", 80, 8192, 64, 8, 29568, (16, 24, 24), 256, 152064)
+    for arch, dims in (("deepseek-67b", (95, 8192, 22016, 102400)),
+                       ("llama3-405b", (126, 16384, 53248, 128256))):
+        c = get_config(arch)
+        assert (c.family, c.n_layers, c.d_model, c.d_ff, c.vocab_padded) == ("dense", *dims)
     with pytest.raises(KeyError, match="serves"):
-        get_config("whisper-tiny")
+        get_config("whisper-base")
 
 
-DENSE_ARCHES = ("qwen1.5-4b", "h2o-danube-3-4b")
+DENSE_ARCHES = ("qwen1.5-4b", "h2o-danube-3-4b", "deepseek-67b", "llama3-405b")
 OTHER_ARCHES = {"granite-moe-1b-a400m": "moe", "llama4-scout-17b-a16e": "moe",
                 "rwkv6-7b": "ssm"}
 # (dtype, bcsr, arch), named dtype-ffn-arch
@@ -636,20 +656,21 @@ def test_models_need_a_device_and_refuse_unported_families(monkeypatch):
     model = tlm.init_model(cfg, device="cpu")
     assert model.device.type == "cpu"
     assert not any(p.requires_grad for p in model.parameters())
-    for fam in ("audio", "vlm"):
-        bad = dataclasses.replace(cfg, family=fam)
-        with pytest.raises(NotImplementedError, match="ROADMAP A.5"):
-            tlm.init_model(bad, device="cpu")
     # refused by the JAX package too (``repro/models/lm.py:241``)
     with pytest.raises(NotImplementedError, match="JAX package"):
         tlm.init_model(dataclasses.replace(cfg, family="ssm", ssm_kind="mamba2"),
                        device="cpu")
-    with pytest.raises(NotImplementedError, match="vlm"):
+    with pytest.raises(ValueError, match="unknown family"):
+        tlm.init_model(dataclasses.replace(cfg, family="conv"), device="cpu")
+    with pytest.raises(ValueError, match="sections"):  # 16 + 24 + 24 != 32 // 2
         tlm.init_model(dataclasses.replace(cfg, mrope_sections=(16, 24, 24)),
                        device="cpu")
-    # the moe, ssm (rwkv6) and hybrid (zamba2) families build on the CPU,
-    # and still need a device to be named
-    for arch in ("granite-moe-1b-a400m", "rwkv6-7b", "zamba2-2.7b"):
+    # the moe, ssm (rwkv6), hybrid (zamba2), audio (whisper) and vlm
+    # (qwen2-vl) families build on the CPU, and still need a device to be
+    # named; the full audio and VLM configs build too (qwen2-vl-72b on the
+    # meta device: 145 GB in bf16)
+    for arch in ("granite-moe-1b-a400m", "rwkv6-7b", "zamba2-2.7b", "whisper-tiny",
+                 "qwen2-vl-72b"):
         red = get_reduced(arch)
         with pytest.raises(RuntimeError, match="device='cpu'"):
             tlm.init_model(red)
@@ -657,7 +678,12 @@ def test_models_need_a_device_and_refuse_unported_families(monkeypatch):
             tlm.init_decode_state(red, 2, 16)
         m = tlm.init_model(red, device="cpu")
         n = red.n_layers // red.hybrid_period if red.family == "hybrid" else red.n_layers
-        assert m.device.type == "cpu" and len(m.blocks) == n
+        layers = m.dec_blocks if red.family == "audio" else m.blocks
+        assert m.device.type == "cpu" and len(layers) == n
         assert not any(p.requires_grad for p in m.parameters())
+    for arch, dev, count in (("whisper-tiny", "cpu", 56_458_752),
+                             ("qwen2-vl-72b", "meta", 72_705_384_448)):
+        full = tlm.init_model(get_config(arch), device=dev)
+        assert full.device.type == dev and tlm.param_count(full) == count, arch
     assert isinstance(tlm.init_model(get_reduced("granite-moe-1b-a400m"),
                                      device="cpu").blocks[0].ffn, tmoe.MoE)

@@ -10,7 +10,13 @@ reference's takes the padded vocabulary; the reduced configs have none
 (vocab 512), and the pad-column case is held against the reference's
 logits sliced to ``vocab``.  The hybrid (zamba2) runs on perturbed weights
 (``tests/test_torch_hybrid.py::perturbed``): at the reference's init its
-Mamba-2 layers are the identity (ROADMAP C.23).
+Mamba-2 layers are the identity (ROADMAP C.23).  The reference's server
+cannot serve the audio and VLM families (it prefills with the tokens
+alone, ROADMAP C.25), so their requests, which carry frames or vision
+embeddings and M-RoPE positions, are held against a hand loop over the
+reference's ``prefill``, ``decode_step`` and ``_merge_slot`` that
+schedules as the server does, on perturbed norms
+(``tests/test_torch_audio.py::perturb_affine``).
 """
 import dataclasses
 import json
@@ -26,13 +32,16 @@ from repro.models import lm as jlm
 from repro.models.ffn import SparseFFNConfig as JSparseFFNConfig
 from repro.runtime.server import BatchedServer as JServer
 from repro.runtime.server import Request as JRequest
+from repro.runtime.server import _merge_slot as j_merge_slot
 
 from repro_torch.configs import get_reduced
+from repro_torch.data.modality import request_inputs
 from repro_torch.interop import lm_params_from_numpy
 from repro_torch.launch import serve as serve_cli
 from repro_torch.models import lm as tlm
 from repro_torch.models.ffn import SparseFFNConfig
 from repro_torch.runtime.server import BatchedServer, Request, _merge_slot
+from test_torch_audio import perturb_affine
 from test_torch_hybrid import perturbed
 
 
@@ -200,9 +209,10 @@ def test_auto_impl_tunes_a_hybrids_shared_ffn_where_the_reference_raises():
     assert [r.out for r in reqs] == [r.out for r in jreqs]
 
 
-@pytest.mark.parametrize("arch", ["qwen1.5-4b", "h2o-danube-3-4b",
-                                  "granite-moe-1b-a400m", "llama4-scout-17b-a16e",
-                                  "rwkv6-7b", "zamba2-2.7b"])
+@pytest.mark.parametrize("arch", ["qwen1.5-4b", "h2o-danube-3-4b", "deepseek-67b",
+                                  "llama3-405b", "granite-moe-1b-a400m",
+                                  "llama4-scout-17b-a16e", "rwkv6-7b", "zamba2-2.7b",
+                                  "whisper-tiny", "qwen2-vl-72b"])
 def test_cli_serves_every_request_on_the_cpu(arch, tmp_path, capsys):
     stats = tmp_path / "lm.json"
     serve_cli.main(["--arch", arch, "--reduced", "--device", "cpu", "--requests", "6",
@@ -244,3 +254,137 @@ def test_pad_columns_never_win_the_greedy_argmax():
         logits, _ = jlm.forward(jcfg, params, {"tokens": jnp.asarray(seq[None])})
         want = np.argmax(np.asarray(logits)[0, len(p) - 1:, :jcfg.vocab], axis=-1)
         assert [r._first, *r.out] == want.tolist()
+
+
+# ---------------------------------------------------------------------------
+# audio and VLM: requests that carry their own inputs
+# ---------------------------------------------------------------------------
+AV_ARCHES = ("whisper-tiny", "qwen2-vl-72b")
+
+
+def _av_requests(cfg, n, seed=0, lens=(5, 9, 3, 12, 7)):
+    """n requests of mixed prompt lengths (a VLM's after its vision
+    slots), each with its seeded modality inputs."""
+    rng = np.random.default_rng(seed)
+    extra = cfg.n_vision_tokens if cfg.family == "vlm" else 0
+    reqs = []
+    for i in range(n):
+        prompt = rng.integers(0, cfg.vocab, extra + lens[i % len(lens)]).astype(np.int32)
+        reqs.append(Request(rid=i, prompt=prompt, max_new=6,
+                            **request_inputs(cfg, len(prompt), rng)))
+    return reqs
+
+
+def _reference_loop(jcfg, params, reqs, slots, max_seq=32):
+    """The port server's schedule run by hand on the reference: each free
+    slot takes the next request, whose batch-1 ``prefill`` (tokens and its
+    modality inputs) is merged into the slot by ``_merge_slot``; each step
+    decodes every active slot; greedy argmax over ``vocab``.  Returns
+    {rid: [first token, *new tokens]}."""
+    state = jlm.init_decode_state(jcfg, slots, max_seq)
+    queue, slot_req, out = list(reqs), [None] * slots, {r.rid: [] for r in reqs}
+    while queue or any(r is not None for r in slot_req):
+        for i in range(slots):
+            if slot_req[i] is None and queue:
+                r = slot_req[i] = queue.pop(0)
+                batch = {"tokens": jnp.asarray(r.prompt[None])}
+                for key, value in r.inputs().items():
+                    batch[key] = jnp.asarray(value[:, None] if key == "positions"
+                                             else value[None])
+                st1, lg = jlm.prefill(jcfg, params, batch, max_seq)
+                state = j_merge_slot(state, st1, i)
+                out[r.rid].append(int(np.argmax(np.asarray(lg)[0, :jcfg.vocab])))
+        toks = np.zeros((slots, 1), np.int32)
+        active = [i for i, r in enumerate(slot_req) if r is not None]
+        for i in active:
+            toks[i, 0] = out[slot_req[i].rid][-1]
+        state, logits = jlm.decode_step(jcfg, params, state, jnp.asarray(toks))
+        logits = np.asarray(logits)[:, 0, :jcfg.vocab]
+        for i in active:
+            r = slot_req[i]
+            out[r.rid].append(int(np.argmax(logits[i])))
+            if len(out[r.rid]) > r.max_new:
+                slot_req[i] = None
+    return out
+
+
+def _av_pair(arch, bcsr):
+    sff = JSparseFFNConfig(kind="bcsr", block=(32, 32), impl="pallas") if bcsr else None
+    jcfg = dataclasses.replace(j_get_reduced(arch), dtype=jnp.float32, sparse_ffn=sff)
+    params = perturb_affine(jlm.init_model(jcfg, 0)[0], 7)
+    return jcfg, params, lm_params_from_numpy(jcfg, params, device="cpu")
+
+
+@pytest.mark.parametrize("bcsr", [False, True], ids=["dense", "bcsr"])
+@pytest.mark.parametrize("arch", AV_ARCHES)
+def test_audio_and_vlm_tokens_equal_a_reference_hand_loop(arch, bcsr):
+    """Five requests with frames (whisper) or vision embeddings and
+    Qwen2-VL-layout positions (qwen2-vl), through 2 slots (slots refill
+    mid-run), float32: every request's first and new tokens equal the
+    reference hand loop's, so the cross keys and values (at their batch
+    axis, the second) and the caches were merged into the right slot; a
+    1-slot server gives each request the same tokens."""
+    jcfg, params, model = _av_pair(arch, bcsr)
+    reqs = _av_requests(model.cfg, 5)
+    want = _reference_loop(jcfg, params, reqs, 2)
+    srv = BatchedServer(model.cfg, model, batch_slots=2, max_seq=32)
+    for r in reqs:
+        srv.submit(r)
+    srv.run_until_drained()
+    assert srv.prefills == 5 and all(r.done and len(r.out) == 6 for r in reqs)
+    assert {r.rid: [r._first, *r.out] for r in reqs} == want
+    for r in _av_requests(model.cfg, 2):
+        srv1 = BatchedServer(model.cfg, model, batch_slots=1, max_seq=32)
+        srv1.submit(r)
+        srv1.run_until_drained()
+        assert [r._first, *r.out] == want[r.rid]
+
+
+@pytest.mark.parametrize("arch", AV_ARCHES)
+def test_reference_server_raises_where_the_port_serves(arch):
+    """ROADMAP C.25.  The reference's server prefills with the tokens
+    alone, so its audio and VLM prefills raise ``KeyError`` (``frames``,
+    ``vision_embeds``) on the first step; the port's server serves the same
+    prompts with their inputs."""
+    jcfg, params, model = _av_pair(arch, False)
+    reqs = _av_requests(model.cfg, 2)
+    jsrv = JServer(jcfg, params, batch_slots=2, max_seq=32)
+    for r in reqs:
+        jsrv.submit(JRequest(rid=r.rid, prompt=r.prompt, max_new=r.max_new))
+    with pytest.raises(KeyError, match="frames" if arch == "whisper-tiny"
+                       else "vision_embeds"):
+        jsrv.run_until_drained()
+    srv = BatchedServer(model.cfg, model, batch_slots=2, max_seq=32)
+    for r in reqs:
+        srv.submit(r)
+    assert len(srv.run_until_drained()) == 2 and all(r.done for r in reqs)
+
+
+def test_requests_without_their_inputs_are_refused():
+    """``submit`` refuses, with a ``ValueError`` that names the input: an
+    audio request without frames or with frames of another shape, a VLM
+    request without vision embeddings, a VLM prompt shorter than its
+    vision slots, positions of the wrong shape, and inputs a family does
+    not read (frames to a dense model, positions to whisper)."""
+    whisper, vl, dense = (get_reduced(a) for a in ("whisper-tiny", "qwen2-vl-72b",
+                                                   "qwen1.5-4b"))
+    f = np.zeros((whisper.enc_frames, whisper.d_model), np.float32)
+    v = np.zeros((vl.n_vision_tokens, vl.d_model), np.float32)
+    long_ = np.zeros(vl.n_vision_tokens + 2, np.int32)
+    cases = [
+        (whisper, Request(0, np.zeros(3, np.int32), 4), "frames of shape"),
+        (whisper, Request(0, np.zeros(3, np.int32), 4, frames=f[:-1]), r"got \(23, 64\)"),
+        (whisper, Request(0, np.zeros(3, np.int32), 4, frames=f,
+                          positions=np.zeros((3, 3), np.int32)), "takes no positions"),
+        (vl, Request(0, long_, 4), "vision_embeds of shape"),
+        (vl, Request(0, long_[:5], 4, vision_embeds=v), "shorter than"),
+        (vl, Request(0, long_, 4, vision_embeds=v, positions=np.zeros((3, 4))),
+         r"expected \(3, 10\)"),
+        (dense, Request(0, np.zeros(3, np.int32), 4, frames=f), "reads no frames"),
+    ]
+    for cfg, req, match in cases:
+        srv = BatchedServer(cfg, tlm.init_model(cfg, 0, device="cpu"), batch_slots=1,
+                            max_seq=16)
+        with pytest.raises(ValueError, match=match):
+            srv.submit(req)
+        assert not srv.queue
