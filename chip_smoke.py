@@ -316,6 +316,39 @@ scipy; imports nothing of JAX or of the JAX package.  Phases:
    ``av_launches`` ((e)'s counts), and the table gains the kernel's rows
    at these shapes.
 
+15. Training (``runtime.trainer``, ``optim``, ``checkpoint``,
+   ``launch.train``; plain torch: the path launches no kernel), in a fresh
+   process after this one frees its cached blocks, TF32 off: (a)
+   qwen1.5-4b in bf16 at full width and depth, 6 ``make_train_step`` steps
+   of 8 x 128 ``MarkovTokens`` with AdamW as the train CLI builds it (lr
+   3e-4, float32 moments): the bytes reckoned before the run (bf16
+   parameters and gradients, float32 m and v, each float32 copy of the
+   logits) beside the allocator's peak, step 0's ce within 1.5 of
+   log(vocab), every metric finite, grad_norm > 0, every parameter's shape
+   and dtype kept, the embedding's step-0 rows and every projection
+   changed (norm gains counted, not held), the step ms (median of steps
+   2-6, the host read of the metrics included), tokens/s, MFU (6 N T over
+   989 TFLOP/s) and, under ``torch.profiler``, one more step's forward and
+   backward and its AdamW update (busy time, idle share, kernels); (b) at
+   2 layers, full width: float32 loss within 1e-5 relative of a float64
+   copy's (the same weights) and each gradient leaf within 1e-4 max|g64|,
+   bf16 reported; (c) float32, 2 layers, lr 1e-3: n_micro = 2 against 1,
+   loss within 1e-4, parameters within 2e-5; (d) one step of every
+   ARCH_ID's reduced config (the hybrid perturbed): finite, grad_norm > 0,
+   shapes and dtypes kept; (e) ``train_loop`` on a 2-layer d 64 model:
+   a fault at step 15 of 30 (checkpoints every 10) gives the reference's
+   step list and each step's loss within 1e-5 relative of an uninterrupted
+   run's, learning on the Markov chain (the loss falls by 1.0 and below
+   log 64 - 1 in 50 steps) and with the structured sparse FFN (by 0.8 in
+   40), ``python -m repro_torch.launch.train --reduced --steps 20`` in a
+   fresh process, a bf16 checkpoint restored bit for bit; (f) a 2-layer
+   qwen1.5-4b-shaped bcsr model: at ``impl="cuda"`` its backward raises
+   ``NotImplementedError``, at ``"ref"`` it trains (every FFN block's
+   gradient nonzero), each of the four kernel wrappers refuses an operand
+   that requires grad; no kernel launched in the whole phase.  Each kernel
+   row gains ``train_launches`` (0).  Rehearse on the CPU with
+   ``train_phase(torch.device("cpu"), {}, reduced=True)``.
+
 Any failed check exits non-zero.  The last lines are the card's name and
 power limit, one JSON object with the kernel table, and the JSON status
 line.  The full record also goes to ``chiprun_out/chip_smoke.json``.
@@ -326,6 +359,7 @@ import collections
 import contextlib
 import dataclasses
 import functools
+import gc
 import json
 import os
 import subprocess
@@ -1513,25 +1547,8 @@ def lm_profile(labels: list[str]) -> None:
     events = prof.events()
     out: dict = {}
     for key in steps:
-        rng_ = [e for e in events if e.name == f"decode_step/{key}"
-                and e.device_type == torch.autograd.DeviceType.CPU][0].time_range
-        ops = sorted((e.time_range.start, e.time_range.end, e.name) for e in events
-                     if e.device_type == torch.autograd.DeviceType.CUDA
-                     and rng_.start <= e.time_range.start <= rng_.end
-                     and not e.name.startswith("decode_step/"))
-        busy, end = 0.0, float("-inf")
-        for a_, b_, _ in ops:  # the union of the device operations' intervals
-            if b_ > end:
-                busy += b_ - max(a_, end)
-                end = b_
-        wall = rng_.end - rng_.start
-        kernels = [o for o in ops if "memcpy" not in o[2].lower()
-                   and "memset" not in o[2].lower()]
         label, name = key.rsplit(":", 1)
-        out.setdefault(label, {})[name] = {
-            "wall_ms": wall / 1e3, "busy_ms": busy / 1e3,
-            "idle_share": 1.0 - busy / wall if wall > 0 else None,
-            "kernels": len(kernels), "device_ops": len(ops)}
+        out.setdefault(label, {})[name] = profile_window(events, f"decode_step/{key}")
     print(json.dumps(out))
 
 
@@ -2942,6 +2959,566 @@ def av_phase(dev, record: dict, *, reduced: bool = False) -> tuple[dict, list]:
     if chk.failures:
         fail("phase " + "; ".join(chk.failures))
     return dict(launches), rows
+
+
+TRAIN_ARCH = "qwen1.5-4b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 128, 6  # 15a: the train CLI's defaults
+TRAIN_CHECK_LAYERS = 2  # 15b, 15c, 15f: full width, 2 layers
+BF16_PEAK_FLOPS = 989e12  # H100 SXM data sheet, dense bf16
+F64_LOSS_REL, F64_GRAD_REL = 1e-5, 1e-4  # 15b: float32 against float64
+MICRO_LOSS_ABS, MICRO_PARAM_ABS = 1e-4, 2e-5  # 15c: the reference's own limits
+
+
+def profile_window(events, name: str) -> dict:
+    """The device's work inside the host range ``name`` ("<family>/<label>",
+    a ``record_function`` range) of a profiler's events: the range's wall
+    time, the union of its device operations' intervals (busy), the idle
+    share, and its kernels (copies and fills left out) and device
+    operations counted.  The device-side marks of the family's ranges are
+    not operations."""
+    import torch
+
+    family = name.split("/", 1)[0] + "/"
+    rng_ = [e for e in events if e.name == name
+            and e.device_type == torch.autograd.DeviceType.CPU][0].time_range
+    ops = sorted((e.time_range.start, e.time_range.end, e.name) for e in events
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and rng_.start <= e.time_range.start <= rng_.end
+                 and not e.name.startswith(family))
+    busy, end = 0.0, float("-inf")
+    for a_, b_, _ in ops:
+        if b_ > end:
+            busy += b_ - max(a_, end)
+            end = b_
+    wall = rng_.end - rng_.start
+    kernels = [o for o in ops if "memcpy" not in o[2].lower()
+               and "memset" not in o[2].lower()]
+    return {"wall_ms": wall / 1e3, "busy_ms": busy / 1e3,
+            "idle_share": 1.0 - busy / wall if wall > 0 else None,
+            "kernels": len(kernels), "device_ops": len(ops)}
+
+
+def train_phase(dev, record: dict, *, reduced: bool = False) -> dict:
+    """Phase 15: training on the card (``runtime.trainer``, ``optim``,
+    ``checkpoint``, ``launch.train``; plain torch, no kernel on the path).
+    ``reduced``: the reduced qwen1.5-4b in 15a-15c and 15f, a CPU rehearsal
+    with no times, profile or allocator figures.  Returns the launch counts
+    over the whole phase, which must all be 0."""
+    import math
+    import tempfile as tmp_mod
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import ARCH_IDS, get_config, get_reduced
+    from repro_torch.core.formats import bcsr_from_csr, csr_from_dense, sell_from_csr
+    from repro_torch.data.pipeline import MarkovTokens, SyntheticTokens, make_batch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.spmspv import spmspv_prepare, spmspv_scatter, stage_sparse
+    from repro_torch.models import lm
+    from repro_torch.models.ffn import SparseFFNConfig
+    from repro_torch.optim.adamw import (
+        OptimConfig,
+        adamw_init,
+        adamw_update,
+        global_norm,
+        lr_schedule,
+    )
+    from repro_torch.runtime import trainer
+
+    rec = record.setdefault("train", {})
+    cuda = dev.type == "cuda"
+    smi = smi_line() if cuda else "cpu rehearsal"
+    failures: list[str] = []
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False  # every float32 check
+    torch.backends.cudnn.allow_tf32 = False
+    _build.reset_launches()
+
+    def check(ok: bool, what: str) -> None:
+        if not ok:
+            failures.append(what)
+            print(f"  FAILED: {what}", flush=True)
+
+    def sync() -> None:
+        if cuda:
+            torch.cuda.synchronize()
+
+    def gb(n: float) -> str:
+        return f"{n / 1e9:.2f} GB"
+
+    def free() -> None:
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+
+    def floats(metrics: dict) -> dict:
+        return {k: float(v) for k, v in metrics.items()}
+
+    def begin(label: str, what: str) -> float:
+        print(f"phase {label}: {what} [{smi}]", flush=True)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+        return time.perf_counter()
+
+    def end(label: str, t0: float) -> None:
+        peak = torch.cuda.max_memory_allocated(dev) if cuda else None
+        rec.setdefault("seconds", {})[label] = time.perf_counter() - t0
+        rec.setdefault("peak_bytes", {})[label] = peak
+        print(f"  [{label}: {time.perf_counter() - t0:.1f}s"
+              + (f", allocator peak {gb(peak)}" if cuda else "") + "]", flush=True)
+
+    full = get_reduced(TRAIN_ARCH) if reduced else get_config(TRAIN_ARCH)
+    cli_opt = OptimConfig(lr_peak=3e-4, warmup_steps=max(TRAIN_STEPS // 20, 1),
+                          total_steps=TRAIN_STEPS)  # as launch.train builds it
+    data = MarkovTokens(full.vocab, batch=TRAIN_BATCH, seq=TRAIN_SEQ, seed=0)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+
+    # -- 15a: the full model, six steps -------------------------------------
+    free()
+    t0 = begin("15a", f"{TRAIN_ARCH} bf16 at full width and depth ({full.n_layers} layers, "
+                      f"d {full.d_model}, d_ff {full.d_ff}, vocab {full.vocab} padded to "
+                      f"{full.vocab_padded}), {TRAIN_STEPS} steps of {TRAIN_BATCH} x "
+                      f"{TRAIN_SEQ} Markov tokens, AdamW lr 3e-4, float32 moments")
+    model = lm.init_model(full, 0, device=dev)
+    params = lm.trainable(model)
+    n_params = sum(p.numel() for p in params.values())
+    p_bytes = sum(p.numel() * p.element_size() for p in params.values())
+    moments = 2 * n_params * 4
+    logits_copy = tokens * full.vocab_padded * 4
+    reckoned = 2 * p_bytes + moments
+    flops = 6 * n_params * tokens
+    # the optimizer's bytes: parameters and moments read and written,
+    # gradients written and read once each
+    step_bytes = 2 * p_bytes + 2 * p_bytes + 2 * moments
+    bound_ms = max(flops / BF16_PEAK_FLOPS, step_bytes / HBM_BYTES_PER_S) * 1e3
+    rec["a"] = a = {
+        "params": n_params, "param_bytes": p_bytes, "grad_bytes": p_bytes,
+        "moment_bytes": moments, "logits_float32_bytes": logits_copy,
+        "reckoned_bytes": reckoned, "flops": flops,
+        "flops_ms": flops / BF16_PEAK_FLOPS * 1e3,
+        "bytes_ms": step_bytes / HBM_BYTES_PER_S * 1e3, "card": smi}
+    print(f"  reckoned: {n_params / 1e9:.3f} G parameters; bf16 parameters "
+          f"{gb(p_bytes)}, bf16 gradients {gb(p_bytes)}, float32 m and v {gb(moments)}: "
+          f"{gb(reckoned)} before activations, plus {gb(logits_copy)} for each live "
+          f"float32 copy of the logits; 6 N T = {flops / 1e12:.1f} TFLOP "
+          f"({a['flops_ms']:.1f} ms at 989 TFLOP/s), the update's "
+          f"{step_bytes / 1e9:.1f} GB ({a['bytes_ms']:.1f} ms at 3.35 TB/s) [{smi}]",
+          flush=True)
+    opt = adamw_init(params, cli_opt)
+    step_fn = trainer.make_train_step(full, cli_opt)
+    layout = {n: (tuple(p.shape), p.dtype) for n, p in params.items()}
+    first = data.batch_at(0)
+    used_rows = torch.as_tensor(np.unique(first["tokens"]), device=dev)
+
+    def probe(name, p):  # a sample of each leaf (the embedding: rows step 0 reads)
+        if name == "embed":
+            return p.detach()[used_rows].clone()
+        flat = p.detach().reshape(-1)
+        return flat[:: max(1, flat.numel() // 4096)][:4096].clone()
+
+    before = {n: probe(n, p) for n, p in params.items()}
+    steps = []
+    for i in range(TRAIN_STEPS):
+        batch = data.batch_at(i)
+        sync()
+        t_ = time.perf_counter()
+        model, opt, metrics = step_fn(model, opt, batch)
+        metrics = floats(metrics)  # the host read of the metrics, inside the time
+        steps.append({"step": i, "ms": (time.perf_counter() - t_) * 1e3, **metrics})
+        print(f"  step {i}: loss {metrics['loss']:.4f} ce {metrics['ce']:.4f} gnorm "
+              f"{metrics['grad_norm']:.4f} lr {metrics['lr']:.3e} "
+              f"{steps[-1]['ms']:.1f} ms [{smi}]", flush=True)
+        if i == 0:
+            changed = {n: int((probe(n, p) != before[n]).sum()) for n, p in params.items()}
+    a["steps"] = steps
+    check(abs(steps[0]["ce"] - math.log(full.vocab)) <= 1.5,
+          f"15a step 0 ce {steps[0]['ce']:.4f} not within 1.5 of log(vocab) "
+          f"{math.log(full.vocab):.4f}")
+    check(all(np.isfinite(v) for s in steps for v in s.values()), "15a: a metric is not finite")
+    check(all(s["grad_norm"] > 0 for s in steps), "15a: a zero gradient norm")
+    check({n: (tuple(p.shape), p.dtype) for n, p in params.items()} == layout,
+          "15a: a parameter changed its shape or dtype")
+    held = [n for n in params if n == "embed" or n == "unembed"
+            or n.rsplit(".", 1)[-1] in ("wq", "wk", "wv", "wo", "wi_gate", "wi_up",
+                                         "bq", "bk", "bv")]
+    unchanged = [n for n in held if changed[n] == 0]
+    check(not unchanged, f"15a: step 0 left {unchanged[:4]} unchanged")
+    gains = {n: (changed[n], before[n].numel()) for n in params if n not in held}
+    a["changed_sampled"] = changed
+    print(f"  step 0 changed the embedding's sampled rows and every sampled one of the "
+          f"{len(held) - 1} other projection leaves (weights, biases, the unembedding): "
+          f"{not unchanged}; norm gains (not held), elements changed of "
+          f"those sampled: {sum(c for c, _ in gains.values())} of "
+          f"{sum(t for _, t in gains.values())}", flush=True)
+    if cuda:
+        times = [s["ms"] for s in steps[1:]]
+        step_ms = float(np.median(times))
+        peak = torch.cuda.max_memory_allocated(dev)
+        a.update(step_ms=step_ms, step_ms_range=[min(times), max(times)],
+                 tokens_per_s=tokens / (step_ms / 1e3),
+                 mfu=flops / (step_ms / 1e3) / BF16_PEAK_FLOPS,
+                 bound_ms=bound_ms, peak_allocated_bytes=peak)
+        print(f"  step {step_ms:.1f} ms (median of steps 2-{TRAIN_STEPS}; "
+              f"{min(times):.1f}-{max(times):.1f}), {a['tokens_per_s']:.0f} tokens/s, MFU "
+              f"{a['mfu']:.4f} (6 N T over 989 TFLOP/s); bound {bound_ms:.1f} ms; "
+              f"allocator peak {gb(peak)} against {gb(reckoned)} reckoned before "
+              f"activations [{smi}]", flush=True)
+        # one more step under the profiler, its two halves in their own ranges
+        batch = trainer._on(data.batch_at(TRAIN_STEPS), dev)
+        sync()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            with record_function("train/step"):
+                with record_function("train/forward_backward"):
+                    loss, _ = lm.loss_fn(full, model, batch)
+                    grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+                    sync()
+                with record_function("train/adamw"):
+                    adamw_update(grads, opt, params, cli_opt)
+                    sync()
+        del grads, loss
+        events = prof.events()
+        a["profile"] = {name: profile_window(events, f"train/{name}")
+                        for name in ("step", "forward_backward", "adamw")}
+        for name, p_ in a["profile"].items():
+            print(f"  one step's {name} by torch.profiler: wall {p_['wall_ms']:.1f} ms, "
+                  f"device busy {p_['busy_ms']:.1f} ms, idle share {p_['idle_share']:.4f}, "
+                  f"{p_['kernels']} kernels [{smi}]", flush=True)
+    del model, opt, params, step_fn, before
+    end("15a", t0)
+
+    # -- 15b: autograd against float64 --------------------------------------
+    free()
+    cut = dataclasses.replace(full, n_layers=min(TRAIN_CHECK_LAYERS, full.n_layers))
+    t0 = begin("15b", f"{TRAIN_ARCH} at full width, {cut.n_layers} layers: float32 loss and "
+                      "gradients against a float64 copy (the same weights), bf16 reported")
+    batch = data.batch_at(0)
+    runs = {}
+    for dtype in (torch.float64, torch.float32, torch.bfloat16):
+        c = dataclasses.replace(cut, dtype=dtype)
+        m_ = lm.init_model(c, 0, device=dev)  # float32 draws: equal in float64
+        ps = lm.trainable(m_)
+        loss, _ = lm.loss_fn(c, m_, batch)
+        gs = torch.autograd.grad(loss, list(ps.values()))
+        runs[dtype] = (float(loss.detach()), {n: g.detach().double() for n, g in zip(ps, gs)})
+        del m_, ps, gs, loss
+        free()
+    (l64, g64), (l32, g32), (l16, g16) = (runs[d] for d in (torch.float64, torch.float32,
+                                                           torch.bfloat16))
+    ratios = {n: float((g32[n] - g).abs().max() / (F64_GRAD_REL * g.abs().max()))
+              for n, g in g64.items()}
+    bf16_dev = {n: float((g16[n] - g32[n]).abs().max() / g32[n].abs().max())
+                for n in g32}
+    rec["b"] = {"loss64": l64, "loss32": l32, "loss_bf16": l16,
+                "loss_rel": abs(l32 - l64) / abs(l64), "grad_ratio_to_limit": ratios,
+                "bf16_loss_rel": abs(l16 - l32) / abs(l32), "bf16_grad_rel": bf16_dev,
+                "card": smi}
+    print(f"  loss float64 {l64:.10f}, float32 {l32:.10f} (relative "
+          f"{rec['b']['loss_rel']:.3e}, limit {F64_LOSS_REL}); gradient leaves' largest "
+          f"deviation over 1e-4 max|g64|: " + ", ".join(
+              f"{n} {r:.3f}" for n, r in sorted(ratios.items(), key=lambda t: -t[1])[:6])
+          + f" ... (largest of {len(ratios)}) [{smi}]", flush=True)
+    print(f"  bf16 against float32 (reported): loss relative {rec['b']['bf16_loss_rel']:.3e}, "
+          f"gradients max|d| / max|g32| {min(bf16_dev.values()):.3e}-"
+          f"{max(bf16_dev.values()):.3e}", flush=True)
+    check(rec["b"]["loss_rel"] <= F64_LOSS_REL, f"15b: float32 loss {rec['b']['loss_rel']:.3e} "
+                                               f"from float64")
+    check(max(ratios.values()) <= 1.0, f"15b: a float32 gradient leaf past 1e-4 max|g64|: "
+                                       f"{max(ratios, key=ratios.get)}")
+    del runs, g64, g32, g16
+    end("15b", t0)
+
+    # -- 15c: gradient accumulation -----------------------------------------
+    free()
+    cut32 = dataclasses.replace(cut, dtype=torch.float32)
+    t0 = begin("15c", f"{TRAIN_ARCH} float32 at full width, {cut.n_layers} layers, lr 1e-3: "
+                      "n_micro = 2 against n_micro = 1")
+    acc_opt = OptimConfig(lr_peak=1e-3, warmup_steps=1, total_steps=10)
+    lr1 = float(lr_schedule(acc_opt, 1))
+    out = {}
+    for n_micro in (1, 2):
+        m_ = lm.init_model(cut32, 0, device=dev)
+        ps = lm.trainable(m_)
+        # the step's gradient as make_train_step forms it, clipped as AdamW
+        # clips it, and the first step's direction g / (|g| + eps) from it
+        micro = trainer._split_micro(trainer._on(batch, dev), n_micro)
+        g_ = {n: torch.zeros_like(p) for n, p in ps.items()}
+        for i in range(n_micro):
+            l_, _ = lm.loss_fn(cut32, m_, {k: v[i] for k, v in micro.items()})
+            for n, g in zip(ps, torch.autograd.grad(l_, list(ps.values()))):
+                g_[n].add_(g)
+        for g in g_.values():
+            g.div_(n_micro)
+        scale = min(1.0, acc_opt.clip_norm / max(float(global_norm(g_)), 1e-9))
+        o_ = adamw_init(ps, acc_opt)
+        m_, o_, met = trainer.make_train_step(cut32, acc_opt, n_micro)(m_, o_, batch)
+        out[n_micro] = (floats(met), m_, g_, scale)
+        del o_, ps, micro
+    (met1, m1, g1, s1), (met2, m2, g2, s2) = out[1], out[2]
+    leaves = {}
+    for (name, a_), b_ in zip(m1.state_dict().items(), m2.state_dict().values()):
+        d_ = (a_ - b_).abs().double()
+        h1, h2 = g1[name].double() * s1, g2[name].double() * s2
+        # what the first AdamW step makes of the two gradients' rounding
+        amp = lr1 * (h2 / (h2.abs() + acc_opt.eps) - h1 / (h1.abs() + acc_opt.eps)).abs()
+        past = d_ > MICRO_PARAM_ABS
+        leaves[name] = {
+            "param_abs": float(d_.max()), "past_limit": int(past.sum()),
+            "over_bound": float((d_ - MICRO_PARAM_ABS - amp).max()),
+            "grad_rel": float((g1[name] - g2[name]).abs().max()
+                              / g1[name].abs().max().clamp(min=1e-30)),
+            "max_g_past": float(h1.abs()[past].max()) if past.any() else None}
+        del d_, h1, h2, amp, past
+    p_err = max(v["param_abs"] for v in leaves.values())
+    n_past = sum(v["past_limit"] for v in leaves.values())
+    g_past = [v["max_g_past"] for v in leaves.values() if v["max_g_past"] is not None]
+    rec["c"] = {"loss_1": met1["loss"], "loss_2": met2["loss"],
+                "loss_abs": abs(met1["loss"] - met2["loss"]), "param_abs": p_err,
+                "past_limit": n_past, "leaves": leaves, "card": smi}
+    print(f"  loss n_micro 1 {met1['loss']:.8f}, 2 {met2['loss']:.8f} (|d| "
+          f"{rec['c']['loss_abs']:.3e}, limit {MICRO_LOSS_ABS}); gradients max|d| / "
+          f"max|g| per leaf {max(v['grad_rel'] for v in leaves.values()):.3e} (limit "
+          f"{F64_GRAD_REL}); parameters max|d| {p_err:.3e}, {n_past} elements past "
+          f"{MICRO_PARAM_ABS}" + (f" (their clipped |g| at most {max(g_past):.3e}, eps "
+                                  f"{acc_opt.eps})" if g_past else "")
+          + f"; past 2e-5 + the first step's |d(g / (|g| + eps))| x lr: "
+          f"{max(v['over_bound'] for v in leaves.values()):.3e} (must be <= 0) [{smi}]",
+          flush=True)
+    check(rec["c"]["loss_abs"] <= MICRO_LOSS_ABS, "15c: the microbatched loss moved")
+    check(all(v["grad_rel"] <= F64_GRAD_REL for v in leaves.values()),
+          "15c: the accumulated gradient moved")
+    check(all(v["over_bound"] <= 0 for v in leaves.values()),
+          "15c: the microbatched update moved the parameters past 2e-5 beyond what AdamW's "
+          "first step makes of the gradients' rounding")
+    del out, m1, m2, g1, g2
+    end("15c", t0)
+
+    # -- 15d: every architecture's reduced config ---------------------------
+    free()
+    t0 = begin("15d", "one train step of every ARCH_ID's reduced config (the hybrid "
+                      "perturbed, C.23)")
+    rec["d"] = {}
+    for arch in ARCH_IDS:
+        c = get_reduced(arch)
+        m_ = lm.init_model(c, 0, device=dev)
+        if c.family == "hybrid":
+            perturb_hybrid(m_, 0)
+        layout_ = {n: (tuple(t.shape), t.dtype) for n, t in m_.state_dict().items()}
+        o_cfg = OptimConfig(lr_peak=1e-3, warmup_steps=2, total_steps=10)
+        o_ = adamw_init(lm.trainable(m_), o_cfg)
+        m_, o_, met = trainer.make_train_step(c, o_cfg)(m_, o_, make_batch(c, 2, 32, step=0))
+        met = floats(met)
+        rec["d"][arch] = met
+        kept = {n: (tuple(t.shape), t.dtype) for n, t in m_.state_dict().items()} == layout_
+        print(f"  {arch}: loss {met['loss']:.4f} gnorm {met['grad_norm']:.4f} aux "
+              f"{met['aux']:.4f}, shapes and dtypes kept: {kept}", flush=True)
+        check(np.isfinite(met["loss"]) and np.isfinite(met["grad_norm"])
+              and met["grad_norm"] > 0 and kept, f"15d {arch}: {met}, kept {kept}")
+        del m_, o_
+    end("15d", t0)
+
+    # -- 15e: the driver, the CLI and checkpoints ---------------------------
+    free()
+    t0 = begin("15e", "train_loop: a fault at step 15 of 30 (ckpt_every 10), learning, "
+                      "the CLI in a fresh process, a bf16 checkpoint")
+    tiny = lm.ModelConfig(arch_id="tiny", family="dense", n_layers=2, d_model=64,
+                          n_heads=4, n_kv_heads=2, d_ff=128, vocab=64,
+                          dtype=torch.float32, remat="none", attn_chunk=16)
+    e = rec["e"] = {}
+    with tmp_mod.TemporaryDirectory() as d:
+        hist = {}
+        for name in ("uninterrupted", "faulted"):
+            crashed = []
+
+            def fault(step, crashed=crashed, on=name == "faulted"):
+                if on and step == 15 and not crashed:
+                    crashed.append(step)
+                    raise RuntimeError("injected")
+
+            _, _, hist[name] = trainer.train_loop(
+                tiny, OptimConfig(lr_peak=1e-3, warmup_steps=2, total_steps=30),
+                trainer.TrainConfig(steps=30, ckpt_every=10, ckpt_dir=f"{d}/{name}",
+                                    log_every=1000),
+                SyntheticTokens(vocab=64, batch=4, seq=16, seed=2), fault_hook=fault,
+                log=lambda s: None, device=dev)
+        run = [h["step"] for h in hist["faulted"]]
+        ref = {h["step"]: h["loss"] for h in hist["uninterrupted"]}
+        worst = max(abs(h["loss"] - ref[h["step"]]) / abs(ref[h["step"]])
+                    for h in hist["faulted"])
+        bitwise = all(h["loss"] == ref[h["step"]] for h in hist["faulted"])
+        e["fault"] = {"steps": run, "worst_rel": worst, "bit_for_bit": bitwise}
+        print(f"  faulted run: {len(run)} steps, last {run[-1]}, step 15 x{run.count(15)}, "
+              f"step 11 x{run.count(11)}; worst loss deviation from the uninterrupted run "
+              f"{worst:.3e} (limit 1e-5), bit for bit: {bitwise}", flush=True)
+        check(run[-1] == 29 and run.count(15) == 1 and run.count(11) == 2,
+              f"15e: the faulted run's steps {run}")
+        check(worst <= 1e-5, f"15e: a replayed loss moved {worst:.3e}")
+        _, _, h = trainer.train_loop(
+            tiny, OptimConfig(lr_peak=3e-3, warmup_steps=10, total_steps=50),
+            trainer.TrainConfig(steps=50, ckpt_every=0, ckpt_dir=f"{d}/markov", log_every=1000),
+            MarkovTokens(vocab=64, batch=8, seq=32, branch=4, seed=0), log=lambda s: None,
+            device=dev)
+        e["markov"] = [h[0]["loss"], h[-1]["loss"]]
+        sparse = dataclasses.replace(tiny, arch_id="sparse-lm", sparse_ffn=SparseFFNConfig(
+            kind="structured", n_groups=4, band=1))
+        _, _, h2 = trainer.train_loop(
+            sparse, OptimConfig(lr_peak=3e-3, warmup_steps=5, total_steps=40),
+            trainer.TrainConfig(steps=40, ckpt_every=0, ckpt_dir=f"{d}/sparse", log_every=1000),
+            MarkovTokens(vocab=64, batch=8, seq=32, branch=4, seed=0), log=lambda s: None,
+            device=dev)
+        e["sparse_lm"] = [h2[0]["loss"], h2[-1]["loss"]]
+        print(f"  Markov chain: loss {h[0]['loss']:.4f} -> {h[-1]['loss']:.4f} in 50 steps "
+              f"(log 64 - 1 = {math.log(64) - 1:.4f}); structured sparse FFN "
+              f"{h2[0]['loss']:.4f} -> {h2[-1]['loss']:.4f} in 40", flush=True)
+        check(h[-1]["loss"] < h[0]["loss"] - 1.0 and h[-1]["loss"] < math.log(64) - 1.0,
+              "15e: TINY did not learn the Markov chain")
+        check(h2[-1]["loss"] < h2[0]["loss"] - 0.8, "15e: the sparse-FFN LM did not learn")
+        cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", TRAIN_ARCH,
+               "--reduced", "--steps", "20", "--markov", "--ckpt-dir", f"{d}/cli",
+               "--device", "cuda" if cuda else "cpu"]
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300, env=env)
+        check(proc.returncode == 0, f"15e: the train CLI failed: {proc.stderr[-1500:]}")
+        if proc.returncode == 0:
+            summary = json.loads(proc.stdout.strip().splitlines()[-1])
+            e["cli"] = summary
+            print(f"  {' '.join(cmd[1:])}: {json.dumps(summary)} [{smi}]", flush=True)
+            check(summary["steps"] == 20 and np.isfinite(summary["last_loss"]),
+                  f"15e: the CLI's summary {summary}")
+        # a bf16 checkpoint, bf16 moments, restored bit for bit
+        c = get_reduced(TRAIN_ARCH)
+        m_ = lm.init_model(c, 0, device=dev)
+        o_cfg = OptimConfig(lr_peak=1e-3, warmup_steps=1, total_steps=10,
+                            moment_dtype=torch.bfloat16)
+        o_ = adamw_init(lm.trainable(m_), o_cfg)
+        m_, o_, _ = trainer.make_train_step(c, o_cfg)(m_, o_, make_batch(c, 2, 32, step=0))
+        mgr = CheckpointManager(f"{d}/bf16", keep=1)
+        mgr.save(1, trainer._state_tree(c, m_, o_), blocking=True)
+        m2_ = lm.init_model(c, 1, device=dev)
+        o2_ = adamw_init(lm.trainable(m2_), o_cfg)
+        trainer._load_state(c, m2_, o2_, mgr.restore(1, trainer._state_tree(c, m2_, o2_)))
+        same = all(torch.equal(a_.view(torch.int16) if a_.dtype == torch.bfloat16 else a_,
+                               b_.view(torch.int16) if b_.dtype == torch.bfloat16 else b_)
+                   for a_, b_ in zip(m_.state_dict().values(), m2_.state_dict().values()))
+        same &= all(torch.equal(o_[k][n].view(torch.int16), o2_[k][n].view(torch.int16))
+                    for k in ("m", "v") for n in o_[k])
+        e["bf16_checkpoint_bitwise"] = same
+        print(f"  a bf16 checkpoint (bf16 moments) restored bit for bit: {same}", flush=True)
+        check(same, "15e: the bf16 checkpoint did not restore bit for bit")
+        del m_, o_, m2_, o2_
+    end("15e", t0)
+
+    # -- 15f: no silent detach ----------------------------------------------
+    free()
+    cfg_b = dataclasses.replace(cut, sparse_ffn=SparseFFNConfig(
+        kind="bcsr", block=(32, 32) if reduced else (128, 128)))
+    t0 = begin("15f", f"{TRAIN_ARCH}-shaped {cut.n_layers}-layer bcsr model: the kernel tier "
+                      "refuses autograd, the plain tier trains; every wrapper refuses")
+    f = rec["f"] = {}
+    m_ = lm.init_model(cfg_b, 0, device=dev)
+    ps = lm.trainable(m_)
+    try:
+        lm.loss_fn(cfg_b, m_, batch)[0].backward()
+        f["cuda_tier"] = "trained"
+    except NotImplementedError as err:
+        f["cuda_tier"] = f"NotImplementedError: {err}"
+    print(f"  impl='cuda' backward: {f['cuda_tier'][:120]}", flush=True)
+    check(f["cuda_tier"].startswith("NotImplementedError"),
+          "15f: the kernel tier's backward did not raise")
+    cfg_r = dataclasses.replace(cfg_b, sparse_ffn=dataclasses.replace(cfg_b.sparse_ffn,
+                                                                      impl="ref"))
+    ffn_names = [n for n in ps if "_blocks" in n]
+    loss, _ = lm.loss_fn(cfg_r, m_, batch)
+    gs = torch.autograd.grad(loss, [ps[n] for n in ffn_names])
+    f["ffn_grad_norms"] = {n: float(g.float().norm()) for n, g in zip(ffn_names, gs)}
+    del loss, gs
+    o_ = adamw_init(ps, acc_opt)
+    m_, o_, met = trainer.make_train_step(cfg_r, acc_opt)(m_, o_, batch)
+    f["ref_tier"] = floats(met)
+    print(f"  impl='ref': loss {f['ref_tier']['loss']:.4f} gnorm "
+          f"{f['ref_tier']['grad_norm']:.4f}; FFN block gradient norms "
+          f"{min(f['ffn_grad_norms'].values()):.3e}-{max(f['ffn_grad_norms'].values()):.3e}",
+          flush=True)
+    check(f["ref_tier"]["grad_norm"] > 0 and min(f["ffn_grad_norms"].values()) > 0,
+          "15f: the plain tier did not train its FFN blocks")
+    del m_, o_, ps
+    rng = np.random.default_rng(0)
+    dense = ((rng.random((64, 64)) < 0.1) * rng.standard_normal((64, 64))).astype(np.float32)
+    a_ = csr_from_dense(dense)
+    sell = kops.sell_prepare(sell_from_csr(a_, C=8, sigma=16), device=dev)
+    slabs = kops.sell_prepare_blocked_stacked(a_, 2, device=dev)
+    bcsr = kops.bcsr_prepare(bcsr_from_csr(a_, (8, 8)), device=dev)
+    spv = spmspv_prepare(a_, device=dev)
+    st = stage_sparse(spv, np.array([1, 5, 9], np.int32), np.array([1.0, -2.0, 0.5],
+                                                                   np.float32))
+    wrappers = (
+        ("sell_spmv", torch.ones(64, device=dev), lambda x: kops.sell_spmv(sell, x)),
+        ("sell_spmv_blocked", torch.ones(64, device=dev),
+         lambda x: kops.sell_spmv_blocked_stacked(slabs, x)),
+        ("bcsr_spmm", torch.ones(64, 3, device=dev), lambda x: kops.bcsr_spmm(bcsr, x)),
+        ("spmspv_scatter", st["xv"].clone(),
+         lambda x: spmspv_scatter(spv, st["xi"], x, st["offs"], st["first"],
+                                  total=st["total"], tile=st["tile"])),
+    )
+    f["wrappers"] = {}
+    for name, x, call in wrappers:
+        x.requires_grad_(True)
+        try:
+            call(x)
+            f["wrappers"][name] = "ran"
+        except NotImplementedError:
+            f["wrappers"][name] = "refused"
+    print(f"  each wrapper on an operand that requires grad: {f['wrappers']}", flush=True)
+    check(all(v == "refused" for v in f["wrappers"].values()),
+          f"15f: a wrapper took an operand that requires grad: {f['wrappers']}")
+    end("15f", t0)
+
+    launches = dict(_build.LAUNCHES)
+    rec["launches"] = launches
+    rec["total_s"] = time.perf_counter() - t_phase
+    print(f"phase 15: kernel launches over the phase {launches or '{}'} (must be none); "
+          f"wall time {rec['total_s']:.1f}s [{smi}]", flush=True)
+    check(not any(launches.values()), f"15: kernels launched on the training path: {launches}")
+    if failures:
+        fail("phase 15: " + "; ".join(failures))
+    return launches
+
+
+def train_main(out_path: str) -> None:
+    """``python3 chip_smoke.py --train-phase OUT``: phase 15 in a fresh
+    process (a clean allocator for the full model), its record to OUT."""
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: phase 15 needs a card")
+    record: dict = {}
+    launches = train_phase(torch.device("cuda"), record)
+    Path(out_path).write_text(json.dumps({"train": record["train"], "launches": launches}))
+
+
+def run_train_phase(record: dict) -> dict:
+    """Phase 15 in a fresh process after this one's cached blocks are
+    freed; its launches (all 0), with its record under ``record["train"]``."""
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    free_b, total_b = torch.cuda.mem_get_info()
+    print(f"phase 15: this process still holds {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+          f"allocated; {free_b / 1e9:.2f} of {total_b / 1e9:.2f} GB free for phase 15's "
+          "process", flush=True)
+    with tempfile.TemporaryDirectory() as d:
+        out = Path(d) / "train.json"
+        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                               "--train-phase", str(out)], timeout=900)
+        if proc.returncode != 0:
+            fail(f"phase 15's process exited with {proc.returncode}")
+        got = json.loads(out.read_text())
+    record["train"] = got["train"]
+    return got["launches"]
 
 
 def main() -> None:
@@ -4786,6 +5363,14 @@ def main() -> None:
         row["av_launches"] = int(launches14.get(row["name"], 0))
     phase_done("av", t0)
 
+    # -- phase 15: training, in a fresh process; no kernel on its path -----
+    t0 = time.perf_counter()
+    launches15 = run_train_phase(record)
+    record["train_launches"] = launches15
+    for row in kernels:
+        row["train_launches"] = int(launches15.get(row["name"], 0))
+    phase_done("train", t0)
+
     record["kernels"] = kernels
     record["card"] = smi
     record["total_s"] = round(time.perf_counter() - t_start, 3)
@@ -4810,5 +5395,7 @@ if __name__ == "__main__":
         mesh_device_ops(sys.argv[2])
     elif sys.argv[1:2] == ["--lm-profile"]:
         lm_profile(sys.argv[2:])
+    elif sys.argv[1:2] == ["--train-phase"]:
+        train_main(sys.argv[2])
     else:
         main()

@@ -12,7 +12,10 @@ arrays the JAX package prepared.
 package's ``init_model`` tree as numpy arrays becomes the port's
 :class:`~repro_torch.models.lm.LM` for the same configuration, so both
 packages compute the same function (``jax.random`` and
-``torch.Generator`` draw different weights from one seed).
+``torch.Generator`` draw different weights from one seed), and
+:func:`lm_params_to_numpy` goes back.  :func:`stack_params` and
+:func:`unstack_params` map between the port's per-layer names and the JAX
+package's layer-stacked tree, which the checkpoints use.
 """
 from __future__ import annotations
 
@@ -31,7 +34,8 @@ from repro_torch.models.ffn import SparseFFNConfig
 from repro_torch.models.lm import LM, ModelConfig
 from repro_torch.models.moe import MoEConfig
 
-__all__ = ["split", "prep_from_arrays", "port_config", "lm_params_from_numpy"]
+__all__ = ["split", "prep_from_arrays", "port_config", "lm_params_from_numpy",
+           "lm_params_to_numpy", "stack_params", "unstack_params"]
 
 _ARRAY_KEYS = ("cols", "vals", "row_perm", "block_rows", "block_cols", "blocks",
                "bounds", "col_start", "col_len", "rows", "indices", "data",
@@ -101,6 +105,96 @@ def port_config(cfg):
     return ModelConfig(**fields)
 
 
+def _stacked(cfg) -> dict[str, tuple[int, ...]]:
+    """The JAX package's stacked subtrees and their leading (layer) axes."""
+    if cfg.family == "hybrid":
+        return {"blocks": (cfg.n_layers // cfg.hybrid_period, cfg.hybrid_period)}
+    if cfg.family == "audio":
+        return {"enc_blocks": (cfg.enc_layers,), "dec_blocks": (cfg.n_layers,)}
+    return {"blocks": (cfg.n_layers,)}
+
+
+def unstack_params(cfg, tree: dict) -> dict[str, Any]:
+    """The JAX package's parameter tree (nested dicts, layers stacked on
+    leading axes) as the port's flat names: ``blocks.attn.wq`` (L, ...)
+    becomes ``blocks.0.attn.wq`` ... ``blocks.{L-1}.attn.wq``, a hybrid's
+    ``blocks.{i}.{j}.*``.  Leaves are indexed, not copied (numpy or torch)."""
+    stacked = _stacked(cfg)
+
+    def flat(node, prefix=""):
+        for key, value in node.items():
+            if isinstance(value, dict):
+                yield from flat(value, f"{prefix}{key}.")
+            else:
+                yield f"{prefix}{key}", value
+
+    out = {}
+    for name, value in flat(tree):
+        top, _, rest = name.partition(".")
+        lead = stacked.get(top)
+        if lead is None:
+            out[name] = value
+            continue
+        if tuple(value.shape[:len(lead)]) != lead:
+            raise ValueError(f"{name}: leading axes {tuple(value.shape[:len(lead)])}, "
+                             f"the config has {lead}")
+        for index in np.ndindex(*lead):
+            out[f"{top}.{'.'.join(map(str, index))}.{rest}"] = value[index]
+    return out
+
+
+def stack_params(cfg, named: dict[str, Any]) -> dict:
+    """The inverse of :func:`unstack_params`: leaves keyed by the port's
+    names (a ``state_dict``, or optimizer moments keyed by parameter names)
+    as the JAX package's nested tree, each layer-stacked group stacked on
+    its leading axes (``torch.stack`` or ``np.stack``, as the leaves are)."""
+    stacked = _stacked(cfg)
+    groups: dict[tuple[str, str], dict] = {}
+    tree: dict = {}
+
+    def put(path: str, value) -> None:
+        *parents, leaf = path.split(".")
+        node = tree
+        for key in parents:
+            node = node.setdefault(key, {})
+        node[leaf] = value
+
+    for name, value in named.items():
+        top, _, rest = name.partition(".")
+        lead = stacked.get(top)
+        if lead is None:
+            put(name, value)
+            continue
+        parts = rest.split(".")
+        index = tuple(int(i) for i in parts[:len(lead)])
+        groups.setdefault((top, ".".join(parts[len(lead):])), {})[index] = value
+    for (top, rest), leaves in groups.items():
+        lead = stacked[top]
+        order = list(np.ndindex(*lead))
+        if sorted(leaves) != order:
+            raise ValueError(f"{top}.*.{rest}: layers {sorted(leaves)}, the config "
+                             f"has {lead}")
+        items = [leaves[i] for i in order]
+        if isinstance(items[0], torch.Tensor):
+            value = torch.stack(items).reshape(*lead, *items[0].shape)
+        else:
+            value = np.stack(items).reshape(*lead, *items[0].shape)
+        put(f"{top}.{rest}", value)
+    return tree
+
+
+def lm_params_to_numpy(cfg, model) -> dict:
+    """The port's model as the JAX package's ``init_model(cfg)[0]`` tree
+    with numpy leaves (the inverse of :func:`lm_params_from_numpy`; a
+    round trip is bit for bit).  bf16 leaves come out as float32, which
+    holds them exactly (numpy has no bfloat16); indices as int32."""
+    host = {}
+    for name, t in model.state_dict().items():
+        t = t.detach().cpu()
+        host[name] = (t.float() if t.dtype == torch.bfloat16 else t).numpy().copy()
+    return stack_params(port_config(cfg), host)
+
+
 def lm_params_from_numpy(cfg, params: dict, device="cuda"):
     """The port's model for ``cfg`` holding the weights of ``params``, on
     ``device`` (``"cuda"`` by default; raises without a card).
@@ -124,33 +218,7 @@ def lm_params_from_numpy(cfg, params: dict, device="cuda"):
     """
     cfg = port_config(cfg)
     model = LM(cfg, resolve(device))
-    # the stacked trees and their leading (layer) axes
-    if cfg.family == "hybrid":
-        stacked = {"blocks": (cfg.n_layers // cfg.hybrid_period, cfg.hybrid_period)}
-    elif cfg.family == "audio":
-        stacked = {"enc_blocks": (cfg.enc_layers,), "dec_blocks": (cfg.n_layers,)}
-    else:
-        stacked = {"blocks": (cfg.n_layers,)}
-
-    def flat(tree, prefix=""):
-        for key, value in tree.items():
-            if isinstance(value, dict):
-                yield from flat(value, f"{prefix}{key}.")
-            else:
-                yield f"{prefix}{key}", np.asarray(value)
-
-    state = {}
-    for name, value in flat(params):
-        top, _, rest = name.partition(".")
-        lead = stacked.get(top)
-        if lead is None:
-            state[name] = value
-            continue
-        if value.shape[:len(lead)] != lead:
-            raise ValueError(f"{name}: leading axes {value.shape[:len(lead)]}, "
-                             f"the config has {lead}")
-        for index in np.ndindex(*lead):
-            state[f"{top}.{'.'.join(map(str, index))}.{rest}"] = value[index]
+    state = {name: np.asarray(value) for name, value in unstack_params(cfg, params).items()}
     own = model.state_dict()
     if set(state) != set(own):
         raise ValueError(f"parameter trees differ: only in params "

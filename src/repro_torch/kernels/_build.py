@@ -12,10 +12,14 @@ the tuner before a search on the card (so a build error raises instead of
 quietly disqualifying the ``cuda`` candidates) and lazily by every wrapper.
 
 :func:`expect` and :func:`stream` are the wrappers' operand checks and launch
-stream.  ``LAUNCHES`` counts kernel launches by name; each wrapper adds one
-(:func:`count`) where it launches its kernel and nowhere else, so a run can
-show which kernels the main path really went through.  The count takes a
-lock: an engine's repair thread launches beside its serving thread.
+stream.  :func:`refuse_autograd` keeps a kernel's output from reaching
+autograd: no kernel has a backward, and a ctypes launch writes an output
+that autograd would take for a constant, so a gradient through it would
+be silently lost.  ``LAUNCHES`` counts kernel launches by name; each
+wrapper adds one (:func:`count`) where it launches its kernel and nowhere
+else, so a run can show which kernels the main path really went through.
+The count takes a lock: an engine's repair thread launches beside its
+serving thread.
 
 A launch made while the calling thread's current stream captures a CUDA
 graph runs nothing yet: :func:`count` adds it to that thread's capture
@@ -50,6 +54,7 @@ __all__ = [
     "function",
     "check",
     "expect",
+    "refuse_autograd",
     "stream",
 ]
 
@@ -220,6 +225,19 @@ def expect(t: torch.Tensor, name: str, dtype, device, ndim: int,
             f"{name} must start on a {align}-byte boundary (a view at storage "
             f"offset {t.storage_offset()} does not; pass a copy)"
         )
+
+
+def refuse_autograd(kernel: str, *operands: torch.Tensor) -> None:
+    """Raise ``NotImplementedError`` when grad mode is on and a floating
+    operand requires grad.  Every wrapper calls it before it launches or
+    falls back to its plain version, on the CPU too, as the JAX package's
+    ``jax.grad`` through a Pallas kernel raises in interpret mode."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in operands if t.is_floating_point()):
+        raise NotImplementedError(
+            f"{kernel}: the kernel has no backward, so its output would reach "
+            "autograd as a constant and drop the operands' gradients; run it "
+            "under torch.no_grad(), or differentiate its plain version")
 
 
 def stream(device: torch.device) -> int:

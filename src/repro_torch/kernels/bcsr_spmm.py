@@ -25,7 +25,9 @@ counts under ``bcsr_spmm_bf16``, a tensor-core launch under
 any bm.  Both operands must share the dtype.
 
 A wrapper runs the plain version only because its operand lies on the CPU;
-for a CUDA tensor it launches its kernel or raises.
+for a CUDA tensor it launches its kernel or raises.  Under grad, with an
+operand that requires grad, it raises on either device
+(``_build.refuse_autograd``): the kernel has no backward.
 """
 from __future__ import annotations
 
@@ -74,7 +76,10 @@ def bcsr_spmm(
     indptr: torch.Tensor,  # (n_block_rows + 1,) int32 block-row pointer
     x_blocked: torch.Tensor,  # (n_col_blocks, bk, k), the dtype of blocks
 ) -> torch.Tensor:
-    """Y = A @ X for A in BCSR; returns (n_block_rows, bm, k) float32."""
+    """Y = A @ X for A in BCSR; returns (n_block_rows, bm, k) float32.
+    Refuses autograd (``NotImplementedError`` under grad when ``blocks`` or
+    ``x_blocked`` requires grad): train through :func:`bcsr_spmm_plain`."""
+    _build.refuse_autograd("bcsr_spmm", blocks, x_blocked)
     if x_blocked.device.type == "cpu":
         return bcsr_spmm_plain(blocks, block_cols, indptr, x_blocked)
     dev = x_blocked.device

@@ -11,7 +11,9 @@ permutation of the valid rows, so the store needs no atomics), and both
 wrappers take ``row_perm`` and return y in original row order.
 
 A wrapper runs the plain version only because its operand lies on the CPU;
-for a CUDA tensor it launches its kernel or raises.  The source notes in
+for a CUDA tensor it launches its kernel or raises.  Under grad, with an
+operand that requires grad, it raises on either device
+(``_build.refuse_autograd``): no kernel has a backward.  The source notes in
 ``csrc/`` say what bounds each kernel and what its design does about it.
 """
 from __future__ import annotations
@@ -80,6 +82,7 @@ def sell_spmv(
             f"row_perm {tuple(row_perm.shape)} chunk_w {tuple(chunk_w.shape)}: "
             "need C = 8, matching shapes and one width per chunk"
         )
+    _build.refuse_autograd("sell_spmv", vals, x)
     if x.device.type == "cpu":
         return sell_spmv_plain(cols, vals, x, row_perm, n_rows)
     dev = x.device
@@ -160,6 +163,7 @@ def sell_spmv_blocked(
             f"chunk_w has shape {tuple(chunk_w.shape)}, expected "
             f"(n_slabs, n_chunks) = {(n_slabs, n_chunks)}"
         )
+    _build.refuse_autograd("sell_spmv_blocked", vals, x)
     if x.device.type == "cpu":
         return sell_spmv_blocked_plain(cols, vals, x, row_perm, n_rows, slab_n,
                                        chunk_w)

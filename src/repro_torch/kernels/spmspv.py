@@ -263,7 +263,9 @@ def spmspv_scatter(
     ``offs`` and ``first`` come from :func:`touched_offsets` and
     :func:`scatter_plan` on the host, which also give ``total`` and
     ``tile``, so nothing here waits on a device value.  On CPU tensors the
-    plain version runs (it needs only xi, xv and total)."""
+    plain version runs (it needs only xi, xv and total).  Under grad, with
+    ``xv`` or A's values requiring grad, it raises on either device
+    (``_build.refuse_autograd``): the kernel has no backward."""
     B = xi.shape[0]
     n_blocks = -(-int(total) // max(int(tile), 1))
     if xi.dim() != 1 or tuple(xv.shape) != (B,) or tuple(offs.shape) != (B + 1,):
@@ -276,6 +278,7 @@ def spmspv_scatter(
             f"total {total} and tile {tile} give {n_blocks} blocks, so first "
             f"must be ({n_blocks + 1},), got {tuple(first.shape)} (scatter_plan)"
         )
+    _build.refuse_autograd("spmspv_scatter", prep["vals"], xv)
     if xv.device.type == "cpu":
         return spmspv_scatter_plain(prep, xi, xv, total)
     dev = xv.device

@@ -22,6 +22,8 @@ import torch
 
 from repro_torch.core.device import resolve
 
+from .common import upcast
+
 __all__ = [
     "flash_attention",
     "decode_attention",
@@ -53,7 +55,8 @@ def flash_attention(
     skip_masked_blocks: bool = False,
     p_dtype: torch.dtype | None = None,
 ) -> torch.Tensor:
-    """Blockwise softmax(QK^T)V with float32 statistics and accumulators.
+    """Blockwise softmax(QK^T)V with float32 statistics and accumulators
+    (float64 for float64 operands).
 
     ``skip_masked_blocks``: when causal (and no window), skip the kv chunks
     wholly above the diagonal.  ``p_dtype``: the type of the probability
@@ -71,6 +74,7 @@ def flash_attention(
     nq, nkv = sq // q_chunk, skv // kv_chunk
     scale = hd ** -0.5
     dev = q.device
+    acc_dtype = torch.float64 if q.dtype == torch.float64 else torch.float32
 
     qr = q.reshape(b, nq, q_chunk, kvh, g, hd)
     kr = k.reshape(b, nkv, kv_chunk, kvh, hd)
@@ -79,17 +83,17 @@ def flash_attention(
     kv_ar = torch.arange(kv_chunk, device=dev)
     outs = []
     for iq in range(nq):
-        q_blk = qr[:, iq].float()  # (b, q_chunk, kvh, g, hd)
+        q_blk = upcast(qr[:, iq])  # (b, q_chunk, kvh, g, hd)
         q_pos = q_offset + iq * q_chunk + q_ar
-        m = torch.full((b, kvh, g, q_chunk), NEG_INF, dtype=torch.float32, device=dev)
-        l = torch.zeros((b, kvh, g, q_chunk), dtype=torch.float32, device=dev)
-        acc = torch.zeros((b, kvh, g, q_chunk, hd), dtype=torch.float32, device=dev)
+        m = torch.full((b, kvh, g, q_chunk), NEG_INF, dtype=acc_dtype, device=dev)
+        l = torch.zeros((b, kvh, g, q_chunk), dtype=acc_dtype, device=dev)
+        acc = torch.zeros((b, kvh, g, q_chunk, hd), dtype=acc_dtype, device=dev)
         n_steps = nkv
         if skip_masked_blocks and causal and window is None:
             n_steps = min((q_offset + (iq + 1) * q_chunk + kv_chunk - 1) // kv_chunk, nkv)
         for ikv in range(n_steps):
             kv_pos = ikv * kv_chunk + kv_ar
-            s = torch.einsum("bqkgd,bckd->bkgqc", q_blk, kr[:, ikv].float()) * scale
+            s = torch.einsum("bqkgd,bckd->bkgqc", q_blk, upcast(kr[:, ikv])) * scale
             mask = torch.ones((q_chunk, kv_chunk), dtype=torch.bool, device=dev)
             if causal:
                 mask &= kv_pos[None, :] <= q_pos[:, None]
@@ -102,7 +106,7 @@ def flash_attention(
             l = l * corr + p.sum(dim=-1)
             pv = p if p_dtype is None else p.to(p_dtype)
             acc = acc * corr[..., None] + torch.einsum(
-                "bkgqc,bckd->bkgqd", pv, vr[:, ikv].to(pv.dtype)).float()
+                "bkgqc,bckd->bkgqd", pv, vr[:, ikv].to(pv.dtype)).to(acc_dtype)
             m = m_new
         out = acc / torch.clamp(l, min=1e-30)[..., None]
         outs.append(out.permute(0, 3, 1, 2, 4))  # (b, q_chunk, kvh, g, hd)

@@ -18,6 +18,7 @@ import torch
 from torch import nn
 
 __all__ = [
+    "upcast",
     "dense_init",
     "embed_init",
     "frozen",
@@ -52,7 +53,8 @@ def embed_init(gen: torch.Generator, shape, dtype=torch.float32) -> torch.Tensor
 
 
 def frozen(t: torch.Tensor) -> nn.Parameter:
-    """A parameter that takes no gradient (the port serves; training waits)."""
+    """A parameter that takes no gradient until ``lm.trainable`` asks for
+    one: a model is built to serve."""
     return nn.Parameter(t, requires_grad=False)
 
 
@@ -65,18 +67,26 @@ def weight(gen: torch.Generator | None, shape, dtype, device, init=dense_init,
     return frozen(init(gen, shape, dtype, **kw))
 
 
+def upcast(x: torch.Tensor) -> torch.Tensor:
+    """x in float32, the precision the models take norms, rotations,
+    attention statistics and the loss in, or x itself when it is float64:
+    a float64 copy of a model computes in float64 throughout (an oracle
+    for its float32 gradients)."""
+    return x if x.dtype == torch.float64 else x.float()
+
+
 def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    xf = x.float()
+    xf = upcast(x)
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
-    return (xf * torch.rsqrt(var + eps) * gamma.float()).to(x.dtype)
+    return (xf * torch.rsqrt(var + eps) * upcast(gamma)).to(x.dtype)
 
 
 def layer_norm(x, gamma, beta, eps: float = 1e-5) -> torch.Tensor:
-    xf = x.float()
+    xf = upcast(x)
     mu = torch.mean(xf, dim=-1, keepdim=True)
     var = torch.mean((xf - mu) ** 2, dim=-1, keepdim=True)
     out = (xf - mu) * torch.rsqrt(var + eps)
-    return (out * gamma.float() + beta.float()).to(x.dtype)
+    return (out * upcast(gamma) + upcast(beta)).to(x.dtype)
 
 
 def rope(positions: torch.Tensor, head_dim: int, theta: float = 10000.0):
@@ -92,7 +102,7 @@ def rope(positions: torch.Tensor, head_dim: int, theta: float = 10000.0):
 def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
     """x (b, s, h, d); cos/sin (b, s, d // 2) -> x rotated (half-split pairs)."""
     half = x.shape[-1] // 2
-    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    x1, x2 = upcast(x[..., :half]), upcast(x[..., half:])
     cos, sin = cos[:, :, None, :], sin[:, :, None, :]
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
 

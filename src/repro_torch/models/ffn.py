@@ -17,10 +17,12 @@ block-sparse, their block patterns drawn at init from
   :func:`tune_sparse_ffn`.  Each weight's block-row pointer (``indptr``,
   which the kernel walks) is built once at init.
 
-The kernel returns float32; the layer returns the input's dtype, so a bf16
-model's residual stream stays bf16.  (The JAX package's ``"pallas"`` tier
-returns float32 there, which its layer scan refuses for a bf16 model:
-ROADMAP C.17.)
+The kernel has no backward: under grad, a ``"cuda"`` tier whose weight or
+input requires grad raises ``NotImplementedError`` (on the CPU too), and
+``"ref"`` trains.  The kernel returns float32; the layer returns the
+input's dtype, so a bf16 model's residual stream stays bf16.  (The JAX
+package's ``"pallas"`` tier returns float32 there, which its layer scan
+refuses for a bf16 model: ROADMAP C.17.)
 """
 from __future__ import annotations
 
@@ -33,7 +35,7 @@ from torch import nn
 
 from repro_torch.kernels.bcsr_spmm import bcsr_spmm, bcsr_spmm_plain
 
-from .common import frozen, weight
+from .common import frozen, upcast, weight
 
 __all__ = ["swiglu_init", "swiglu_apply", "gelu_ffn_init", "gelu_ffn_apply",
            "SwiGLU", "GeluFFN", "SparseFFN", "SparseFFNConfig",
@@ -54,7 +56,7 @@ class SwiGLU(nn.Module):
     def forward(self, x):
         gate = x @ self.wi_gate
         up = x @ self.wi_up
-        h = F.silu(gate.float()).to(x.dtype) * up
+        h = F.silu(upcast(gate)).to(x.dtype) * up
         return h @ self.wo
 
 
@@ -69,7 +71,7 @@ class GeluFFN(nn.Module):
     def forward(self, x):
         h = x @ self.wi + self.bi
         # jax.nn.gelu defaults to the tanh approximation
-        h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
+        h = F.gelu(upcast(h), approximate="tanh").to(x.dtype)
         return h @ self.wo + self.bo
 
 
@@ -205,8 +207,15 @@ def sparse_ffn_apply(p: SparseFFN, x: torch.Tensor, cfg: SparseFFNConfig,
         if fn is None:
             raise ValueError(f"sparse FFN impl {impl!r} for {which}: resolve "
                              "'auto' with tune_sparse_ffn first")
-        return fn(p[f"{which}_blocks"], p[f"{which}_cols"], p[f"{which}_indptr"],
-                  x_blocked)
+        blocks = p[f"{which}_blocks"]
+        if impl == "cuda" and torch.is_grad_enabled() and (
+                blocks.requires_grad or x_blocked.requires_grad):
+            raise NotImplementedError(
+                f"the bcsr FFN's {which} runs the BCSR kernel (impl='cuda'), which "
+                "has no backward; train the FFN with impl='ref' (the plain "
+                "dense-block product), as the JAX package's jax.grad through its "
+                "Pallas tier raises too")
+        return fn(blocks, p[f"{which}_cols"], p[f"{which}_indptr"], x_blocked)
 
     # the kernel takes A @ X with X (n_col_blocks, bk, T) contiguous
     xt = x.reshape(T, d_model).t().contiguous().view(d_model // bk, bk, T)

@@ -45,17 +45,27 @@ each decoder layer, written by :func:`prefill`) for audio, ``{"rwkv":
 for RWKV-6, and for the hybrid the shared block's caches with L = n_super
 beside ``{"mamba": {"conv": (n_super, period, B, CONV_K - 1, ch), "ssd":
 (n_super, period, B, H, P, N)}}`` (float32), whose batch axis is the
-third.  :func:`decode_step` updates it in place.  Models serve under
-``torch.no_grad``; their parameters do not require gradients (``loss_fn``
-waits for training).
+third.  :func:`decode_step` updates it in place.
+
+Training: :func:`forward` runs under the caller's grad mode, and
+:func:`loss_fn` is the JAX package's (float32 logits, pad columns masked,
+cross-entropy plus z-loss plus the MoE's auxiliary loss).  A model is built
+frozen, as a server wants it; :func:`trainable` makes its floating
+parameters take gradients (the bcsr FFN's block indices are buffers and
+stay out).  ``remat="full"`` recomputes each block in the backward pass
+(``torch.utils.checkpoint``, where the JAX package wraps the same block
+bodies in ``jax.checkpoint``).  :func:`prefill` and :func:`decode_step`
+run under ``torch.no_grad`` and write their state in place.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.device import resolve
 
@@ -72,21 +82,23 @@ from .common import (
     rms_norm,
     rope,
     sinusoid,
+    upcast,
     weight,
 )
 from .ffn import GeluFFN, SparseFFN, SparseFFNConfig, SwiGLU, sparse_ffn_apply
 
-__all__ = ["ModelConfig", "LM", "init_model", "forward", "prefill",
-           "decode_step", "init_decode_state", "param_count"]
+__all__ = ["ModelConfig", "LM", "init_model", "forward", "loss_fn", "prefill",
+           "decode_step", "init_decode_state", "param_count", "trainable"]
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """Every field of the JAX package's ``ModelConfig``, so a configuration
-    file copies across unchanged.  On one card the sharding and
-    rematerialisation fields (``remat``, ``moe_partition``,
-    ``attn_dp_only``, ``fsdp_gather_weights``) are accepted and have no
-    effect.  ``moe`` is a :class:`~repro_torch.models.moe.MoEConfig`."""
+    file copies across unchanged.  On one card the sharding fields
+    (``moe_partition``, ``attn_dp_only``, ``fsdp_gather_weights``) are
+    accepted and have no effect; ``remat`` (``"none"`` or ``"full"``)
+    decides whether a trained forward recomputes its blocks in the
+    backward pass.  ``moe`` is a :class:`~repro_torch.models.moe.MoEConfig`."""
 
     arch_id: str
     family: str  # dense | ssm | moe | hybrid | audio | vlm
@@ -360,6 +372,19 @@ def init_model(cfg: ModelConfig, seed: int = 0, device="cuda") -> LM:
     return LM(cfg, dev, gen)
 
 
+def trainable(model: nn.Module) -> dict[str, nn.Parameter]:
+    """Make every floating parameter of ``model`` require grad and return
+    them by name (``model.named_parameters()`` order): what an optimizer
+    steps.  Serving models stay frozen; the bcsr FFN's index buffers are
+    not parameters."""
+    params = {}
+    for name, p in model.named_parameters():
+        if p.is_floating_point():
+            p.requires_grad_(True)
+            params[name] = p
+    return params
+
+
 def param_count(model: LM) -> int:
     """Entries of the model's state (weights and the block indices of a
     bcsr FFN), as the JAX package counts its parameter tree."""
@@ -500,14 +525,24 @@ def _encode_audio(cfg: ModelConfig, model: LM, batch) -> torch.Tensor:
     return model.ln_enc(h)
 
 
-@torch.no_grad()
+def _remat(cfg: ModelConfig, fn, h: torch.Tensor):
+    """fn(h), recomputed in the backward pass when ``cfg.remat == "full"``
+    and grad mode is on (the JAX package's ``_maybe_remat``)."""
+    if cfg.remat == "full" and torch.is_grad_enabled():
+        return checkpoint(fn, h, use_reentrant=False)
+    return fn(h)
+
+
 def forward(cfg: ModelConfig, model: LM, batch) -> tuple[torch.Tensor, Any]:
     """Token logits (b, s, V) for ``batch["tokens"]`` (b, s), and the
     auxiliary loss summed over the layers (a float32 scalar tensor for a
     MoE model, 0.0 otherwise).  An audio batch adds ``frames`` (b, F, d),
     a VLM batch ``vision_embeds`` (b, n_vision_tokens, d) and, optionally,
     ``positions`` (3, b, s).  A hybrid's Mamba-2 layers each start from a
-    zero state."""
+    zero state.  Runs under the caller's grad mode; the blocks that the
+    JAX package rematerialises (a transformer or decoder block, an RWKV-6
+    block, the hybrid's shared block and each Mamba-2 layer) go through
+    :func:`_remat`."""
     _check_supported(cfg)
     dev = model.device
     tokens = _tokens(batch, dev)
@@ -517,23 +552,55 @@ def forward(cfg: ModelConfig, model: LM, batch) -> tuple[torch.Tensor, Any]:
     if cfg.family == "ssm":
         st = rw.rwkv6_init_state(b, cfg.d_model, cfg.ssm_head_dim, dev)
         for blk in model.blocks:
-            h, _ = rw.rwkv6_apply_seq(blk, h, st, cfg.ssm_head_dim)
+            h = _remat(cfg, lambda x, blk=blk: rw.rwkv6_apply_seq(
+                blk, x, st, cfg.ssm_head_dim)[0], h)
         return _logits(model, h), aux
     angles = _rotary(cfg, _positions(batch, b, s, dev))
+    h_enc = None
     if _audio(cfg):
         h_enc = _encode_audio(cfg, model, batch)
         h = _add_sinusoids(cfg, h, torch.arange(s, device=dev)[None])
     st = _mamba_state0(cfg, b, dev)
+
+    def block(blk, lora, x):
+        y, _, _ = _attn_seq(cfg, blk.attn, blk.ln1(x), angles, lora)
+        x = x + y
+        if h_enc is not None:
+            x = x + _cross_attn(cfg, blk, x, *_cross_kv(cfg, blk.xattn, h_enc))
+        f, a = _ffn(cfg, blk.ffn, blk.ln2(x))
+        return x + f, a
+
     for blk, lora, group in _attention_layers(cfg, model):
-        y, _, _ = _attn_seq(cfg, blk.attn, blk.ln1(h), angles, lora)
-        h = h + y
-        if _audio(cfg):
-            h = h + _cross_attn(cfg, blk, h, *_cross_kv(cfg, blk.xattn, h_enc))
-        f, a = _ffn(cfg, blk.ffn, blk.ln2(h))
-        h, aux = h + f, aux + a
+        h, a = _remat(cfg, functools.partial(block, blk, lora), h)
+        aux = aux + a
         for layer in group:
-            h, _ = _mamba(cfg, layer, h, st)
+            h = _remat(cfg, lambda x, layer=layer: _mamba(cfg, layer, x, st)[0], h)
     return _logits(model, h), aux
+
+
+def loss_fn(cfg: ModelConfig, model: LM, batch, z_loss: float = 1e-4):
+    """The JAX package's training loss: (total, {"ce", "z_loss", "aux",
+    "tokens"}), float32 scalars (float64 for a float64 model).  Logits in
+    float32, pad columns at -1e30,
+    cross-entropy of ``batch["labels"]`` (b, s) over the positions whose
+    label is >= 0 (a negative label is masked; its gold logit is read at
+    id 0), ``z_loss`` times the mean squared log-partition over them, plus
+    the MoE's auxiliary loss."""
+    logits, aux = forward(cfg, model, batch)
+    labels = torch.as_tensor(batch["labels"], device=logits.device).long()
+    logits = upcast(logits)
+    if cfg.vocab_padded != cfg.vocab:
+        pad = torch.arange(cfg.vocab_padded, device=logits.device) >= cfg.vocab
+        logits = logits.masked_fill(pad, -1e30)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.clamp(min=0)[..., None])[..., 0]
+    mask = (labels >= 0).to(logits.dtype)
+    denom = torch.clamp(mask.sum(), min=1.0)
+    ce = ((lse - gold) * mask).sum() / denom
+    zl = z_loss * ((lse * mask) ** 2).sum() / denom
+    total = ce + zl + aux
+    aux = aux if isinstance(aux, torch.Tensor) else torch.zeros_like(ce) + aux
+    return total, {"ce": ce, "z_loss": zl, "aux": aux, "tokens": denom}
 
 
 # ---------------------------------------------------------------------------

@@ -123,8 +123,8 @@ def _dispatch(x: torch.Tensor, ids: torch.Tensor, cfg: MoEConfig, C: int):
     rank_of_slot = ranks.gather(-1, flat_ids[..., None])[..., 0]
     dest = torch.where(rank_of_slot < C, flat_ids * C + rank_of_slot, E * C)
     x_slots = x[:, :, None, :].expand(b, s, k, d).reshape(b, s * k, d)
-    buf = x.new_zeros((b, E * C + 1, d))
-    buf.scatter_add_(1, dest[..., None].expand(b, s * k, d), x_slots)
+    buf = x.new_zeros((b, E * C + 1, d)).scatter_add(
+        1, dest[..., None].expand(b, s * k, d), x_slots)
     # (E, b*C, d): one batched product per expert weight
     return buf[:, :E * C].reshape(b, E, C, d).transpose(0, 1).reshape(E, b * C, d), dest
 

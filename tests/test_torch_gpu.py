@@ -1622,3 +1622,121 @@ def test_gpu_whisper_bcsr_ffn_launches_per_encoder_and_decoder_layer(cuda_device
     lm.decode_step(cfg, model, srv.state, torch.zeros((2, 1), dtype=torch.long,
                                                       device=cuda_device))
     assert dict(_build.LAUNCHES) == per_step
+
+
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+def _tiny_lm_cfg(**kw):
+    from repro_torch.models.lm import ModelConfig
+
+    return ModelConfig(arch_id="tiny", family="dense", n_layers=2, d_model=64, n_heads=4,
+                       n_kv_heads=2, d_ff=128, vocab=64, dtype=torch.float32,
+                       remat="none", attn_chunk=16, **kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_micro", [1, 2])
+def test_gpu_train_step_equals_the_cpu_step(cuda_device, n_micro):
+    """A float32 train step (TF32 off) of the same model on the card and on
+    the CPU, launching no kernel: the metrics within 1e-5 relative, each
+    gradient leaf within 1e-4 max|g|, and the parameters within 2e-5 plus
+    what AdamW's first step, lr g / (|g| + eps), makes of the two devices'
+    gradient rounding (an element whose clipped |g| is near eps moves by up
+    to lr for a rounding-sized change of g: ROADMAP C.30)."""
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.models import lm
+    from repro_torch.optim.adamw import OptimConfig, adamw_init, global_norm
+    from repro_torch.runtime.trainer import _on, _split_micro, make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _tiny_lm_cfg()
+    opt_cfg = OptimConfig(lr_peak=1e-3, warmup_steps=1, total_steps=10)
+    batch = SyntheticTokens(vocab=64, batch=8, seq=16, seed=1).batch_at(0)
+    cpu = lm.init_model(cfg, 0, device="cpu")
+    runs = {}
+    _build.reset_launches()
+    for name, dev in (("cpu", torch.device("cpu")), ("card", cuda_device)):
+        model = lm.init_model(cfg, 0, device=dev)
+        model.load_state_dict(cpu.state_dict())
+        params = lm.trainable(model)
+        # the step's gradient as make_train_step forms it (summed microbatches / n)
+        micro = _split_micro(_on(batch, dev), n_micro)
+        grads = {n: torch.zeros(p.shape) for n, p in params.items()}
+        for i in range(n_micro):
+            loss, _ = lm.loss_fn(cfg, model, {k: v[i] for k, v in micro.items()})
+            for n, g in zip(params, torch.autograd.grad(loss, list(params.values()))):
+                grads[n] += g.cpu()
+        grads = {n: g / n_micro for n, g in grads.items()}
+        scale = min(1.0, opt_cfg.clip_norm / float(global_norm(grads)))
+        opt = adamw_init(params, opt_cfg)
+        model, opt, metrics = make_train_step(cfg, opt_cfg, n_micro)(model, opt, batch)
+        runs[name] = ({k: float(v) for k, v in metrics.items()}, model, grads, scale)
+    assert not _build.LAUNCHES
+    (m_cpu, cpu, g_cpu, s_cpu), (m_card, card, g_card, s_card) = runs["cpu"], runs["card"]
+    for key, value in m_cpu.items():
+        assert abs(m_card[key] - value) <= 1e-5 * max(abs(value), 1e-30), key
+    for (name, a), b in zip(cpu.state_dict().items(), card.state_dict().values()):
+        g1, g2 = g_cpu[name].double(), g_card[name].double()
+        assert float((g2 - g1).abs().max()) <= 1e-4 * float(g1.abs().max()), name
+        h1, h2 = g1 * s_cpu, g2 * s_card
+        amp = 1e-3 * (h2 / (h2.abs() + opt_cfg.eps) - h1 / (h1.abs() + opt_cfg.eps)).abs()
+        assert bool(((b.cpu() - a).abs().double() <= 2e-5 + amp).all()), name
+
+
+@pytest.mark.gpu
+def test_gpu_kernel_wrappers_and_the_cuda_tier_ffn_refuse_autograd(cuda_device):
+    """No kernel output reaches autograd as a constant on the card: each
+    wrapper raises ``NotImplementedError`` on an operand that requires grad
+    and launches nothing; a bcsr model at ``impl="cuda"`` refuses its
+    backward, and at ``impl="ref"`` it trains."""
+    import dataclasses
+
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.models import lm
+    from repro_torch.models.ffn import SparseFFNConfig
+    from repro_torch.optim.adamw import OptimConfig, adamw_init
+    from repro_torch.runtime.trainer import make_train_step
+
+    rng = np.random.default_rng(0)
+    dense = ((rng.random((64, 64)) < 0.1) * rng.standard_normal((64, 64))).astype(np.float32)
+    csr = tf.csr_from_dense(dense)
+    sell = tops.sell_prepare(tf.sell_from_csr(csr, C=8, sigma=16), device=cuda_device)
+    slabs = tops.sell_prepare_blocked_stacked(csr, 2, device=cuda_device)
+    bcsr = tops.bcsr_prepare(tf.bcsr_from_csr(csr, (8, 8)), device=cuda_device)
+    spv = spmspv_prepare(csr, device=cuda_device)
+    st = stage_sparse(spv, np.array([1, 5, 9], np.int32), np.array([1.0, -2.0, 0.5], np.float32))
+    calls = (
+        ("sell_spmv", torch.ones(64, device=cuda_device), lambda x: tops.sell_spmv(sell, x)),
+        ("sell_spmv_blocked", torch.ones(64, device=cuda_device),
+         lambda x: tops.sell_spmv_blocked_stacked(slabs, x)),
+        ("bcsr_spmm", torch.ones(64, 3, device=cuda_device), lambda x: tops.bcsr_spmm(bcsr, x)),
+        ("spmspv_scatter", st["xv"].clone(),
+         lambda x: spmspv_scatter(spv, st["xi"], x, st["offs"], st["first"],
+                                  total=st["total"], tile=st["tile"])),
+    )
+    for name, x, call in calls:
+        _build.reset_launches()
+        y = call(x)
+        assert _build.LAUNCHES[name] == 1, name
+        x.requires_grad_(True)
+        with pytest.raises(NotImplementedError, match=name):
+            call(x)
+        assert _build.LAUNCHES[name] == 1, name  # the refused call launched nothing
+        with torch.no_grad():
+            assert torch.equal(call(x), y), name
+    cfg = dataclasses.replace(_tiny_lm_cfg(), sparse_ffn=SparseFFNConfig(
+        kind="bcsr", block=(16, 16), density=0.5))
+    model = lm.init_model(cfg, 0, device=cuda_device)
+    params = lm.trainable(model)
+    batch = make_batch(cfg, 2, 16, 0)
+    _build.reset_launches()
+    with pytest.raises(NotImplementedError, match="impl='ref'"):
+        lm.loss_fn(cfg, model, batch)[0].backward()
+    assert not _build.LAUNCHES
+    ref = dataclasses.replace(cfg, sparse_ffn=dataclasses.replace(cfg.sparse_ffn, impl="ref"))
+    opt_cfg = OptimConfig(lr_peak=1e-3, warmup_steps=1, total_steps=10)
+    before = model.blocks[0].ffn.w1_blocks.detach().clone()
+    _, _, metrics = make_train_step(ref, opt_cfg)(model, adamw_init(params, opt_cfg), batch)
+    assert float(metrics["grad_norm"]) > 0 and not _build.LAUNCHES
+    assert not torch.equal(model.blocks[0].ffn.w1_blocks, before)
