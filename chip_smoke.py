@@ -2969,18 +2969,18 @@ F64_LOSS_REL, F64_GRAD_REL = 1e-5, 1e-4  # 15b: float32 against float64
 MICRO_LOSS_ABS, MICRO_PARAM_ABS = 1e-4, 2e-5  # 15c: the reference's own limits
 
 
-def profile_window(events, name: str) -> dict:
+def profile_window(events, name: str, index: int = 0) -> dict:
     """The device's work inside the host range ``name`` ("<family>/<label>",
-    a ``record_function`` range) of a profiler's events: the range's wall
-    time, the union of its device operations' intervals (busy), the idle
-    share, and its kernels (copies and fills left out) and device
-    operations counted.  The device-side marks of the family's ranges are
-    not operations."""
+    a ``record_function`` range; its ``index``-th) of a profiler's events:
+    the range's wall time, the union of its device operations' intervals
+    (busy), the idle share, and its kernels (copies and fills left out) and
+    device operations counted.  The device-side marks of the family's
+    ranges are not operations."""
     import torch
 
     family = name.split("/", 1)[0] + "/"
     rng_ = [e for e in events if e.name == name
-            and e.device_type == torch.autograd.DeviceType.CPU][0].time_range
+            and e.device_type == torch.autograd.DeviceType.CPU][index].time_range
     ops = sorted((e.time_range.start, e.time_range.end, e.name) for e in events
                  if e.device_type == torch.autograd.DeviceType.CUDA
                  and rng_.start <= e.time_range.start <= rng_.end
@@ -2996,6 +2996,62 @@ def profile_window(events, name: str) -> dict:
     return {"wall_ms": wall / 1e3, "busy_ms": busy / 1e3,
             "idle_share": 1.0 - busy / wall if wall > 0 else None,
             "kernels": len(kernels), "device_ops": len(ops)}
+
+
+def gb(n: float) -> str:
+    return f"{n / 1e9:.2f} GB"
+
+
+def floats(metrics: dict) -> dict:
+    return {k: float(v) for k, v in metrics.items()}
+
+
+class PhaseLog:
+    """What phases 15 and 16 share: the card's line, failed checks (the
+    phase fails at its end with all of them), synchronisation, freeing the
+    allocator's cache, and each sub-phase's seconds and allocator peak
+    under ``rec``."""
+
+    def __init__(self, dev, rec: dict):
+        self.dev, self.rec = dev, rec
+        self.cuda = dev.type == "cuda"
+        self.smi = smi_line() if self.cuda else "cpu rehearsal"
+        self.failures: list[str] = []
+
+    def check(self, ok: bool, what: str) -> None:
+        if not ok:
+            self.failures.append(what)
+            print(f"  FAILED: {what}", flush=True)
+
+    def sync(self) -> None:
+        if self.cuda:
+            import torch
+
+            torch.cuda.synchronize()
+
+    def free(self) -> None:
+        gc.collect()
+        if self.cuda:
+            import torch
+
+            torch.cuda.empty_cache()
+
+    def begin(self, label: str, what: str) -> float:
+        print(f"phase {label}: {what} [{self.smi}]", flush=True)
+        if self.cuda:
+            import torch
+
+            torch.cuda.reset_peak_memory_stats(self.dev)
+        return time.perf_counter()
+
+    def end(self, label: str, t0: float) -> None:
+        import torch
+
+        peak = torch.cuda.max_memory_allocated(self.dev) if self.cuda else None
+        self.rec.setdefault("seconds", {})[label] = time.perf_counter() - t0
+        self.rec.setdefault("peak_bytes", {})[label] = peak
+        print(f"  [{label}: {time.perf_counter() - t0:.1f}s"
+              + (f", allocator peak {gb(peak)}" if self.cuda else "") + "]", flush=True)
 
 
 def train_phase(dev, record: dict, *, reduced: bool = False) -> dict:
@@ -3030,46 +3086,13 @@ def train_phase(dev, record: dict, *, reduced: bool = False) -> dict:
     from repro_torch.runtime import trainer
 
     rec = record.setdefault("train", {})
-    cuda = dev.type == "cuda"
-    smi = smi_line() if cuda else "cpu rehearsal"
-    failures: list[str] = []
+    log = PhaseLog(dev, rec)
+    cuda, smi, failures = log.cuda, log.smi, log.failures
+    check, sync, free, begin, end = log.check, log.sync, log.free, log.begin, log.end
     t_phase = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False  # every float32 check
     torch.backends.cudnn.allow_tf32 = False
     _build.reset_launches()
-
-    def check(ok: bool, what: str) -> None:
-        if not ok:
-            failures.append(what)
-            print(f"  FAILED: {what}", flush=True)
-
-    def sync() -> None:
-        if cuda:
-            torch.cuda.synchronize()
-
-    def gb(n: float) -> str:
-        return f"{n / 1e9:.2f} GB"
-
-    def free() -> None:
-        gc.collect()
-        if cuda:
-            torch.cuda.empty_cache()
-
-    def floats(metrics: dict) -> dict:
-        return {k: float(v) for k, v in metrics.items()}
-
-    def begin(label: str, what: str) -> float:
-        print(f"phase {label}: {what} [{smi}]", flush=True)
-        if cuda:
-            torch.cuda.reset_peak_memory_stats(dev)
-        return time.perf_counter()
-
-    def end(label: str, t0: float) -> None:
-        peak = torch.cuda.max_memory_allocated(dev) if cuda else None
-        rec.setdefault("seconds", {})[label] = time.perf_counter() - t0
-        rec.setdefault("peak_bytes", {})[label] = peak
-        print(f"  [{label}: {time.perf_counter() - t0:.1f}s"
-              + (f", allocator peak {gb(peak)}" if cuda else "") + "]", flush=True)
 
     full = get_reduced(TRAIN_ARCH) if reduced else get_config(TRAIN_ARCH)
     cli_opt = OptimConfig(lr_peak=3e-4, warmup_steps=max(TRAIN_STEPS // 20, 1),
@@ -3499,25 +3522,478 @@ def train_main(out_path: str) -> None:
     Path(out_path).write_text(json.dumps({"train": record["train"], "launches": launches}))
 
 
-def run_train_phase(record: dict) -> dict:
-    """Phase 15 in a fresh process after this one's cached blocks are
-    freed; its launches (all 0), with its record under ``record["train"]``."""
+MESH_TRAIN_SHAPE = (1, 2, 4)  # 16a-16e: make_mesh(1, 2, 4), data 2 x model 4 on the card
+MESH_RESTORE_SHAPE = (1, 4, 2)  # 16d: the factorization a checkpoint is restored onto
+MESH_KEEP = 16  # 16a: labels kept in each row of the first data half (all in the second)
+EF_LEAVES = ("blocks.0.attn.wq", "blocks.1.ffn.wo", "ln_f.g")  # 16e's gradients
+MESH_FIT = 0.92  # 16c: the share of the card's free bytes the reckoned peak may take
+
+
+def profile_spans(events, name: str) -> dict:
+    """:func:`profile_window` summed over every range called ``name`` (a
+    span that runs once per batch replica)."""
+    import torch
+
+    n = sum(1 for e in events if e.name == name
+            and e.device_type == torch.autograd.DeviceType.CPU)
+    wins = [profile_window(events, name, i) for i in range(n)]
+    out = {k: sum(w[k] for w in wins) for k in ("wall_ms", "busy_ms", "kernels", "device_ops")}
+    out["idle_share"] = 1.0 - out["busy_ms"] / out["wall_ms"] if out["wall_ms"] > 0 else None
+    out["ranges"] = n
+    return out
+
+
+def mesh_train_phase(dev, record: dict, *, reduced: bool = False) -> dict:
+    """Phase 16: the sharded train step on an LM mesh (``launch.mesh.
+    make_mesh``, ``runtime.sharded``, ``runtime.trainer``'s mesh path,
+    ``optim.compress``; plain torch, no kernel on the path).  ``reduced``:
+    the reduced qwen1.5-4b throughout, a CPU rehearsal with no times,
+    profile or allocator figures.  Returns the launch counts over the
+    phase, which must all be 0."""
+    import math
+    import tempfile as tmp_mod
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.checkpoint import CheckpointManager, tree_paths
+    from repro_torch.configs import get_config, get_reduced
+    from repro_torch.data.pipeline import MarkovTokens, SyntheticTokens
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import lm
+    from repro_torch.models.common import default_rules
+    from repro_torch.optim import compress
+    from repro_torch.optim.adamw import OptimConfig, adamw_init, global_norm, lr_schedule
+    from repro_torch.runtime import trainer
+
+    rec = record.setdefault("mesh_train", {})
+    log = PhaseLog(dev, rec)
+    cuda, smi, check = log.cuda, log.smi, log.check
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False  # every float32 check
+    torch.backends.cudnn.allow_tf32 = False
+    _build.reset_launches()
+
+    full = get_reduced(TRAIN_ARCH) if reduced else get_config(TRAIN_ARCH)
+    cut = dataclasses.replace(full, n_layers=min(TRAIN_CHECK_LAYERS, full.n_layers))
+    cut32 = dataclasses.replace(cut, dtype=torch.float32)
+    mesh = make_mesh(*MESH_TRAIN_SHAPE, device=dev)
+    rules = default_rules(False)
+    n_data = mesh.shape["data"]
+    cli_opt = OptimConfig(lr_peak=3e-4, warmup_steps=max(TRAIN_STEPS // 20, 1),
+                          total_steps=TRAIN_STEPS)  # as launch.train builds it
+    acc_opt = OptimConfig(lr_peak=1e-3, warmup_steps=1, total_steps=10)
+    lr1 = float(lr_schedule(acc_opt, 1))
+    data = MarkovTokens(full.vocab, batch=TRAIN_BATCH, seq=TRAIN_SEQ, seed=0)
+    batch0 = data.batch_at(0)
+    uneven = dict(batch0, labels=batch0["labels"].copy())
+    uneven["labels"][: TRAIN_BATCH // n_data, MESH_KEEP:] = -1
+    print(f"phase 16: {mesh} ({MESH_TRAIN_SHAPE}); {TRAIN_ARCH} [{smi}]", flush=True)
+
+    def sharded(cfg, seed=0):
+        sm = trainer.shard_model(cfg, lm.init_model(cfg, seed, device=dev), mesh, rules)
+        return sm
+
+    def step_gradient(cfg, model, batch, n_micro):
+        """The single-device step's gradient as make_train_step forms it."""
+        params = lm.trainable(model)
+        micro = trainer._split_micro(trainer._on(batch, dev), n_micro)
+        g_ = {n: torch.zeros_like(p) for n, p in params.items()}
+        for i in range(n_micro):
+            l_, _ = lm.loss_fn(cfg, model, {k: v[i] for k, v in micro.items()})
+            for n, g in zip(params, torch.autograd.grad(l_, list(params.values()))):
+                g_[n].add_(g)
+        return {n: g.div_(n_micro) for n, g in g_.items()}
+
+    def clip_scale(g_: dict) -> float:
+        return min(1.0, acc_opt.clip_norm / max(float(global_norm(g_)), 1e-9))
+
+    # -- 16a: parity with the single-device step -----------------------------
+    log.free()
+    t0 = log.begin("16a", f"{TRAIN_ARCH} float32 at full width, {cut.n_layers} layers, on "
+                          f"make_mesh{MESH_TRAIN_SHAPE} (8 cells on {mesh.n_devices} "
+                          f"device(s)), lr 1e-3, the first data half's rows keeping "
+                          f"{MESH_KEEP} labels: the sharded step at n_micro 1 and 2 against "
+                          "the single-device step from the same weights")
+    a = rec["a"] = {"card": smi}
+    for n_micro in (1, 2):
+        m1 = lm.init_model(cut32, 0, device=dev)
+        g1 = step_gradient(cut32, m1, uneven, n_micro)
+        o1 = adamw_init(lm.trainable(m1), acc_opt)
+        m1, o1, met1 = trainer.make_train_step(cut32, acc_opt, n_micro)(m1, o1, uneven)
+        del o1
+        sm = sharded(cut32)
+        acc, _, _ = trainer.sharded_grads(cut32, sm, uneven, n_micro)
+        g2 = {n: sm.full(n, acc, device=dev) for n in acc}
+        del acc
+        o2 = trainer.sharded_adamw_init(sm, acc_opt, rules)
+        sm, o2, met2 = trainer.make_sharded_train_step(cut32, acc_opt, n_micro)(sm, o2, uneven)
+        met1, met2 = floats(met1), floats(met2)
+        s1, s2 = clip_scale(g1), clip_scale(g2)
+        on_card = all(t.device.type == dev.type for tree in (sm.blocks, o2["m"], o2["v"])
+                      for stacks in tree.values() for t in stacks.values())
+        leaves = {}
+        for name, p1 in m1.state_dict().items():
+            d_ = (sm.full(name, device=dev) - p1).abs().double()
+            h1, h2 = g1[name].double() * s1, g2[name].double() * s2
+            amp = lr1 * (h2 / (h2.abs() + acc_opt.eps) - h1 / (h1.abs() + acc_opt.eps)).abs()
+            leaves[name] = {
+                "param_abs": float(d_.max()),
+                "over_bound": float((d_ - MICRO_PARAM_ABS - amp).max()),
+                "grad_rel": float((g1[name] - g2[name]).abs().max()
+                                  / g1[name].abs().max().clamp(min=1e-30))}
+            del d_, h1, h2, amp
+        a[n_micro] = {"single": met1, "mesh": met2, "loss_abs": abs(met1["loss"] - met2["loss"]),
+                      "leaves": leaves, "blocks_on_card": on_card,
+                      "grids": {n: list(lay.grid) for n, lay in sm.layouts.items()
+                                if n.startswith("blocks.0.") or "." not in n}}
+        print(f"  n_micro {n_micro}: loss single {met1['loss']:.8f} mesh {met2['loss']:.8f} "
+              f"(|d| {a[n_micro]['loss_abs']:.3e}, limit {MICRO_LOSS_ABS}); grad_norm "
+              f"{met1['grad_norm']:.6f} / {met2['grad_norm']:.6f}; gradients max|d| / max|g| "
+              f"per leaf {max(v['grad_rel'] for v in leaves.values()):.3e} (limit "
+              f"{F64_GRAD_REL}); parameters max|d| "
+              f"{max(v['param_abs'] for v in leaves.values()):.3e}, past 2e-5 + C.30's term "
+              f"{max(v['over_bound'] for v in leaves.values()):.3e} (must be <= 0); every "
+              f"block on the card: {on_card} [{smi}]", flush=True)
+        check(a[n_micro]["loss_abs"] <= MICRO_LOSS_ABS, f"16a n_micro {n_micro}: the loss moved")
+        check(all(v["grad_rel"] <= F64_GRAD_REL for v in leaves.values()),
+              f"16a n_micro {n_micro}: the sharded gradient moved")
+        check(all(v["over_bound"] <= 0 for v in leaves.values()),
+              f"16a n_micro {n_micro}: the sharded update moved the parameters")
+        check(on_card, "16a: a block left the card")
+        del m1, g1, sm, g2, o2
+        log.free()
+    print(f"  layouts (blocks per dimension): {a[1]['grids']}", flush=True)
+    log.end("16a", t0)
+
+    # -- 16b and 16e: float64, and the int8 reduce of the replicas' gradients
+    t0 = log.begin("16b", f"{TRAIN_ARCH} at full width, {cut.n_layers} layers: the sharded "
+                          "float32 loss and gradient against a float64 copy (phase 15b's), "
+                          "with each replica's gradients kept for 16e")
+    c64 = dataclasses.replace(cut, dtype=torch.float64)
+    m64 = lm.init_model(c64, 0, device=dev)  # float32 draws: equal in float64
+    p64 = lm.trainable(m64)
+    loss64, _ = lm.loss_fn(c64, m64, batch0)
+    g64 = {n: g.detach() for n, g in zip(p64, torch.autograd.grad(loss64, list(p64.values())))}
+    l64 = float(loss64.detach())
+    del m64, p64, loss64
+    kept: dict = {}
+
+    def keep(i, r, device, grads):
+        kept[r] = {n: grads[n].detach().clone() for n in EF_LEAVES}
+
+    sm = sharded(cut32)
+    acc, loss32, _ = trainer.sharded_grads(cut32, sm, batch0, 1, on_replica=keep)
+    l32 = float(loss32)
+    ratios = {n: float((sm.full(n, acc, device=dev).double() - g).abs().max()
+                       / (F64_GRAD_REL * g.abs().max())) for n, g in g64.items()}
+    del acc, sm, g64
+    rec["b"] = {"loss64": l64, "loss32_mesh": l32, "loss_rel": abs(l32 - l64) / abs(l64),
+                "grad_ratio_to_limit": ratios, "card": smi}
+    print(f"  loss float64 {l64:.10f}, sharded float32 {l32:.10f} (relative "
+          f"{rec['b']['loss_rel']:.3e}, limit {F64_LOSS_REL}); gradient leaves' largest "
+          f"deviation over 1e-4 max|g64|: {max(ratios.values()):.3f} ({max(ratios, key=ratios.get)}"
+          f", largest of {len(ratios)}) [{smi}]", flush=True)
+    check(rec["b"]["loss_rel"] <= F64_LOSS_REL, "16b: the sharded loss strayed from float64")
+    check(max(ratios.values()) <= 1.0, "16b: a sharded gradient leaf past 1e-4 max|g64|")
+    log.end("16b", t0)
+
+    t0 = log.begin("16e", f"ef_compressed_psum over the data axis ({n_data} shards) of the "
+                          f"replicas' gradients of {list(EF_LEAVES)}, two error-feedback "
+                          "steps: the card against the CPU run bit for bit, the identity, "
+                          "the distance from the exact sum")
+    cpu_mesh = make_mesh(*MESH_TRAIN_SHAPE, device="cpu")
+
+    def ef_check(grads: list) -> dict:
+        """Two error-feedback steps over the data axis, each against the
+        same function's CPU run; the identity and the bound."""
+        errs = [torch.zeros(g.shape, dtype=torch.float32, device=g.device) for g in grads]
+        errs_c = [x.cpu() for x in errs]
+        row = {"bitwise": True, "identity": True, "worst_over_bound": -math.inf}
+        for _ in range(2):
+            gs = [g.float() + x for g, x in zip(grads, errs)]
+            out, errs_new = compress.ef_compressed_psum(grads, errs, mesh, "data")
+            out_c, errs_c = compress.ef_compressed_psum([g.cpu() for g in grads], errs_c,
+                                                        cpu_mesh, "data")
+            row["bitwise"] &= all(torch.equal(x.cpu(), y) for x, y in zip(out + errs_new,
+                                                                            out_c + errs_c))
+            s_max = max(float(compress.quantize_int8(x)[1]) for x in gs)
+            s = torch.tensor(s_max, dtype=torch.float32, device=grads[0].device)
+            for x, en in zip(gs, errs_new):  # g = q scale_max + e_new, exactly
+                q = torch.clamp(torch.round(x / s), -127, 127)
+                row["identity"] &= bool(torch.equal(q.double() * s.double() + en.double(),
+                                                    x.double()))
+            exact = sum(x.double() for x in gs)
+            row["worst_over_bound"] = max(row["worst_over_bound"], float(
+                ((out[0].double() - exact).abs().max() - n_data * s_max / 2)))
+            row["scale_max"] = s_max
+            errs = errs_new
+        return row
+
+    e = rec["e"] = {}
+    for name in EF_LEAVES:
+        row = e[name] = ef_check([kept[r].pop(name) for r in range(n_data)])
+        print(f"  {name}: card == CPU bit for bit {row['bitwise']}; g + e_old == q "
+              f"scale_max + e_new exactly {row['identity']}; |reduced - exact| - D scale_max "
+              f"/ 2 at most {row['worst_over_bound']:.3e} (must be <= 0; scale_max "
+              f"{row['scale_max']:.3e}) [{smi}]", flush=True)
+        check(row["bitwise"] and row["identity"] and row["worst_over_bound"] <= 0,
+              f"16e {name}: {row}")
+    del kept
+    log.end("16e", t0)
+
+    # -- 16c: timing at full width -------------------------------------------
+    log.free()
+    meta = lm.init_model(full, 0, device="meta")
+    n_params = sum(p.numel() for p in lm.trainable(meta).values())
+    per_layer = sum(p.numel() for n, p in lm.trainable(meta).items()
+                    if n.startswith("blocks.0."))
+    del meta
+    el = torch.tensor([], dtype=full.dtype).element_size()
+    rows = TRAIN_BATCH // n_data
+    acts = 4 * rows * TRAIN_SEQ * full.vocab_padded * 4  # float32 logit-sized copies
+
+    def reckon(n_layers: int) -> int:
+        """Blocks, the compute model's weights, one replica's gradients and
+        the accumulators (each in the parameters' dtype), two float32
+        moments, and a replica's logits."""
+        n = n_params - (full.n_layers - n_layers) * per_layer
+        return n * (4 * el + 8) + acts
+
+    free_b = torch.cuda.mem_get_info(dev)[0] if cuda else None
+    depth = full.n_layers
+    while cuda and depth > 1 and reckon(depth) > MESH_FIT * free_b:
+        depth -= 1
+    cfg_c = full if depth == full.n_layers else dataclasses.replace(full, n_layers=depth)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    c = rec["c"] = {"layers": depth, "full_layers": full.n_layers, "reckoned_bytes": reckon(depth),
+                    "free_bytes": free_b, "card": smi}
+    fit = f"{gb(reckon(depth))} against {gb(free_b)} free" if cuda else "no fit on the CPU"
+    t0 = log.begin("16c", f"{TRAIN_ARCH} bf16 at full width, {depth} of {full.n_layers} layers "
+                          f"(reckoned {fit}), "
+                          f"{TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} Markov tokens, "
+                          "the CLI's AdamW: the single-device step, then the sharded step on "
+                          f"make_mesh{MESH_TRAIN_SHAPE}")
+
+    def timed(step_fn, state, opt_state, label):
+        steps = []
+        for i in range(TRAIN_STEPS):
+            log.sync()
+            t_ = time.perf_counter()
+            state, opt_state, metrics = step_fn(state, opt_state, data.batch_at(i))
+            metrics = floats(metrics)  # the host read of the metrics, inside the time
+            steps.append({"step": i, "ms": (time.perf_counter() - t_) * 1e3, **metrics})
+            print(f"  {label} step {i}: loss {metrics['loss']:.4f} gnorm "
+                  f"{metrics['grad_norm']:.4f} {steps[-1]['ms']:.1f} ms [{smi}]", flush=True)
+        return state, opt_state, steps
+
+    def summary(steps, peak):
+        times = [s["ms"] for s in steps[1:]]
+        step_ms = float(np.median(times)) if cuda else None
+        return {"steps": steps, "step_ms": step_ms,
+                "step_ms_range": [min(times), max(times)] if cuda else None,
+                "tokens_per_s": tokens / (step_ms / 1e3) if cuda else None,
+                "peak_allocated_bytes": peak}
+
+    model = lm.init_model(cfg_c, 0, device=dev)
+    opt = adamw_init(lm.trainable(model), cli_opt)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    model, opt, steps1 = timed(trainer.make_train_step(cfg_c, cli_opt), model, opt, "single")
+    c["single"] = summary(steps1, torch.cuda.max_memory_allocated(dev) if cuda else None)
+    del model, opt
+    log.free()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    sm = sharded(cfg_c)
+    opt = trainer.sharded_adamw_init(sm, cli_opt, rules)
+    state_bytes = sm.nbytes() + sum(s.numel() * s.element_size() for k in ("m", "v")
+                                    for b in opt[k].values() for s in b.values())
+    step_fn = trainer.make_sharded_train_step(cfg_c, cli_opt)
+    sm, opt, steps2 = timed(step_fn, sm, opt, "mesh")
+    c["mesh"] = summary(steps2, torch.cuda.max_memory_allocated(dev) if cuda else None)
+    c["mesh"]["state_bytes"] = state_bytes
+    check(all(np.isfinite(v) for s in steps1 + steps2 for v in s.values()),
+          "16c: a metric is not finite")
+    check(abs(steps2[0]["loss"] - steps1[0]["loss"]) <= 1e-2 * abs(steps1[0]["loss"]),
+          "16c: the sharded step's first bf16 loss is not the single-device one's")
+    # the collectives' bytes: each leaf gathered once per compute card, each
+    # replica's gradient added once onto its owners (every element read once
+    # and written once)
+    p_bytes = sum(lay.n_blocks * math.prod(lay.block) for lay in sm.layouts.values()) * el
+    c["gather_bytes"] = 2 * p_bytes * len({trainer.replica_device(mesh, r)
+                                           for r in range(n_data)})
+    c["reduce_bytes"] = 3 * p_bytes * n_data - p_bytes  # the first replica only writes
+    if cuda:
+        @contextlib.contextmanager
+        def synced(name):
+            """The step's own ranges, each ended by a synchronise, so that
+            every device operation falls inside the range that launched it
+            (the profiled step only; the timed steps run as they are)."""
+            with record_function(name):
+                yield
+                torch.cuda.synchronize()
+
+        log.sync()
+        trainer.record_function = synced
+        try:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                with record_function("mesh/step"):
+                    step_fn(sm, opt, data.batch_at(TRAIN_STEPS))
+                    log.sync()
+        finally:
+            trainer.record_function = record_function
+        events = prof.events()
+        c["profile"] = {"step": profile_window(events, "mesh/step")} | {
+            name: profile_spans(events, f"sharded/{name}")
+            for name in ("gather", "forward_backward", "reduce", "adamw")}
+        s1, s2 = c["single"], c["mesh"]
+        print(f"  single device: {s1['step_ms']:.1f} ms (median of steps 2-{TRAIN_STEPS}; "
+              f"{s1['step_ms_range'][0]:.1f}-{s1['step_ms_range'][1]:.1f}), "
+              f"{s1['tokens_per_s']:.0f} tokens/s, peak {gb(s1['peak_allocated_bytes'])}; "
+              f"mesh: {s2['step_ms']:.1f} ms ({s2['step_ms_range'][0]:.1f}-"
+              f"{s2['step_ms_range'][1]:.1f}), {s2['tokens_per_s']:.0f} tokens/s, peak "
+              f"{gb(s2['peak_allocated_bytes'])} against {gb(reckon(depth))} reckoned "
+              f"(state {gb(state_bytes)}) [{smi}]", flush=True)
+        print(f"  copies a step: gathers {gb(c['gather_bytes'])}, reductions "
+              f"{gb(c['reduce_bytes'])} [{smi}]", flush=True)
+        for name, p_ in c["profile"].items():
+            print(f"  one mesh step's {name} by torch.profiler: wall {p_['wall_ms']:.1f} ms, "
+                  f"device busy {p_['busy_ms']:.1f} ms, idle share {p_['idle_share']:.4f}, "
+                  f"{p_['kernels']} kernels, {p_['device_ops']} device ops [{smi}]",
+                  flush=True)
+    del sm, opt, step_fn
+    log.end("16c", t0)
+
+    # -- 16d: train_loop, checkpoints across meshes, the CLI -----------------
+    log.free()
+    t0 = log.begin("16d", "a mesh run's checkpoint restored onto one device and onto "
+                          f"make_mesh{MESH_RESTORE_SHAPE}, a fault in a mesh run, the CLI "
+                          "with --data 2 --model 4")
+    red = get_reduced(TRAIN_ARCH)
+    tiny = lm.ModelConfig(arch_id="tiny", family="dense", n_layers=2, d_model=64,
+                          n_heads=4, n_kv_heads=2, d_ff=128, vocab=64,
+                          dtype=torch.float32, remat="none", attn_chunk=16)
+    d_ = rec["d"] = {}
+    quiet = lambda s: None  # noqa: E731
+    with tmp_mod.TemporaryDirectory() as d:
+        sm, opt, _ = trainer.train_loop(
+            red, acc_opt, trainer.TrainConfig(steps=3, ckpt_every=2, ckpt_dir=f"{d}/mesh"),
+            SyntheticTokens(red.vocab, 4, 32, seed=2), mesh=mesh, rules=rules, log=quiet,
+            device=dev)
+        saved = tree_paths(trainer._state_tree(red, sm, opt))
+        mgr = CheckpointManager(f"{d}/mesh")
+
+        def same(model, opt_state) -> bool:
+            got = tree_paths(trainer._state_tree(red, model, opt_state))
+            return sorted(got) == sorted(saved) and all(torch.equal(got[k], saved[k])
+                                                        for k in saved)
+
+        m1 = lm.init_model(red, 1, device=dev)
+        o1 = adamw_init(lm.trainable(m1), acc_opt)
+        trainer._load_state(red, m1, o1, mgr.restore(2, trainer._state_like(red, m1, o1)))
+        other = make_mesh(*MESH_RESTORE_SHAPE, device=dev)
+        sm2 = trainer.shard_model(red, lm.init_model(red, 1, device=dev), other, rules)
+        o2 = trainer.sharded_adamw_init(sm2, acc_opt, rules)
+        trainer._load_state(red, sm2, o2, mgr.restore(2, trainer._state_like(red, sm2, o2)))
+        d_["one_device_bitwise"], d_["other_mesh_bitwise"] = same(m1, o1), same(sm2, o2)
+        print(f"  step 2's checkpoint ({len(saved)} arrays, bf16 parameters, float32 "
+              f"moments) restored bit for bit onto one device: {d_['one_device_bitwise']}, "
+              f"onto {other}: {d_['other_mesh_bitwise']}", flush=True)
+        check(d_["one_device_bitwise"] and d_["other_mesh_bitwise"],
+              "16d: a mesh checkpoint did not restore bit for bit")
+        del sm, opt, m1, o1, sm2, o2
+        hist = {}
+        for name in ("uninterrupted", "faulted"):
+            crashed = []
+
+            def fault(step, crashed=crashed, on=name == "faulted"):
+                if on and step == 15 and not crashed:
+                    crashed.append(step)
+                    raise RuntimeError("injected")
+
+            _, _, hist[name] = trainer.train_loop(
+                tiny, OptimConfig(lr_peak=1e-3, warmup_steps=2, total_steps=30),
+                trainer.TrainConfig(steps=30, ckpt_every=10, ckpt_dir=f"{d}/{name}",
+                                    log_every=1000),
+                SyntheticTokens(vocab=64, batch=4, seq=16, seed=2), mesh=mesh, rules=rules,
+                fault_hook=fault, log=quiet, device=dev)
+        run = [h["step"] for h in hist["faulted"]]
+        ref = {h["step"]: h["loss"] for h in hist["uninterrupted"]}
+        worst = max(abs(h["loss"] - ref[h["step"]]) / abs(ref[h["step"]])
+                    for h in hist["faulted"])
+        d_["fault"] = {"steps": run, "worst_rel": worst}
+        print(f"  faulted mesh run: {len(run)} steps, last {run[-1]}, step 15 "
+              f"x{run.count(15)}, step 11 x{run.count(11)}; worst loss deviation from the "
+              f"uninterrupted mesh run {worst:.3e} (limit 1e-5)", flush=True)
+        check(run[-1] == 29 and run.count(15) == 1 and run.count(11) == 2,
+              f"16d: the faulted mesh run's steps {run}")
+        check(worst <= 1e-5, f"16d: a replayed loss moved {worst:.3e}")
+        cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", TRAIN_ARCH,
+               "--reduced", "--steps", "20", "--markov", "--ckpt-dir", f"{d}/cli",
+               "--data", str(MESH_TRAIN_SHAPE[1]), "--model", str(MESH_TRAIN_SHAPE[2]),
+               "--device", "cuda" if cuda else "cpu"]
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300, env=env)
+        check(proc.returncode == 0, f"16d: the train CLI failed: {proc.stderr[-1500:]}")
+        if proc.returncode == 0:
+            summary_ = json.loads(proc.stdout.strip().splitlines()[-1])
+            d_["cli"] = summary_
+            print(f"  {' '.join(cmd[1:])}: {json.dumps(summary_)} [{smi}]", flush=True)
+            check(summary_["steps"] == 20 and np.isfinite(summary_["last_loss"])
+                  and summary_["mesh"] == {"data": MESH_TRAIN_SHAPE[1],
+                                           "model": MESH_TRAIN_SHAPE[2]}
+                  and summary_["n_devices"] == mesh.n_devices,
+                  f"16d: the CLI's summary {summary_}")
+    log.end("16d", t0)
+
+    # -- 16f: no kernel -------------------------------------------------------
+    launches = dict(_build.LAUNCHES)
+    rec["launches"] = launches
+    rec["total_s"] = time.perf_counter() - t_phase
+    print(f"phase 16: kernel launches over the phase {launches or '{}'} (must be none); "
+          f"wall time {rec['total_s']:.1f}s [{smi}]", flush=True)
+    check(not any(launches.values()), f"16f: kernels launched on the mesh path: {launches}")
+    if log.failures:
+        fail("phase 16: " + "; ".join(log.failures))
+    return launches
+
+
+def mesh_train_main(out_path: str) -> None:
+    """``python3 chip_smoke.py --mesh-train-phase OUT``: phase 16 in a
+    fresh process, its record to OUT."""
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: phase 16 needs a card")
+    record: dict = {}
+    launches = mesh_train_phase(torch.device("cuda"), record)
+    Path(out_path).write_text(json.dumps({"mesh_train": record["mesh_train"],
+                                          "launches": launches}, default=str))
+
+
+def run_subphase(flag: str, key: str, label: str, record: dict) -> dict:
+    """Phase ``label`` in a fresh process (``chip_smoke.py FLAG OUT``)
+    after this one's cached blocks are freed; its launches (all 0), with
+    its record under ``record[key]``."""
     import torch
 
     gc.collect()
     torch.cuda.empty_cache()
     free_b, total_b = torch.cuda.mem_get_info()
-    print(f"phase 15: this process still holds {torch.cuda.memory_allocated() / 1e9:.2f} GB "
-          f"allocated; {free_b / 1e9:.2f} of {total_b / 1e9:.2f} GB free for phase 15's "
-          "process", flush=True)
+    print(f"phase {label}: this process still holds "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated; {free_b / 1e9:.2f} of "
+          f"{total_b / 1e9:.2f} GB free for phase {label}'s process", flush=True)
     with tempfile.TemporaryDirectory() as d:
-        out = Path(d) / "train.json"
-        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
-                               "--train-phase", str(out)], timeout=900)
+        out = Path(d) / "phase.json"
+        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), flag,
+                               str(out)], timeout=900)
         if proc.returncode != 0:
-            fail(f"phase 15's process exited with {proc.returncode}")
+            fail(f"phase {label}'s process exited with {proc.returncode}")
         got = json.loads(out.read_text())
-    record["train"] = got["train"]
+    record[key] = got[key]
     return got["launches"]
 
 
@@ -3615,6 +4091,15 @@ def main() -> None:
         print(f"built {path.name}: " + ("; ".join(ptxas) or "(cached)"))
     record["build"] = {n: _build.BUILD_LOG.get(n, "") for n in targets}
     phase_done("build", t0)
+
+    # -- phase 16: the sharded train step, in a fresh process; no kernel on
+    # its path.  It runs first, while this process holds no tensor: its
+    # full-depth step needs ≈ 65 GB, which the ≈ 14 GB that phases 1-14
+    # leave allocated (ROADMAP C.31) would not leave free.
+    t0 = time.perf_counter()
+    launches16 = run_subphase("--mesh-train-phase", "mesh_train", "16", record)
+    record["mesh_train_launches"] = launches16
+    phase_done("mesh_train", t0)
 
     # -- shared inputs ----------------------------------------------------
     t0 = time.perf_counter()
@@ -5365,10 +5850,11 @@ def main() -> None:
 
     # -- phase 15: training, in a fresh process; no kernel on its path -----
     t0 = time.perf_counter()
-    launches15 = run_train_phase(record)
+    launches15 = run_subphase("--train-phase", "train", "15", record)
     record["train_launches"] = launches15
     for row in kernels:
         row["train_launches"] = int(launches15.get(row["name"], 0))
+        row["mesh_train_launches"] = int(launches16.get(row["name"], 0))
     phase_done("train", t0)
 
     record["kernels"] = kernels
@@ -5397,5 +5883,7 @@ if __name__ == "__main__":
         lm_profile(sys.argv[2:])
     elif sys.argv[1:2] == ["--train-phase"]:
         train_main(sys.argv[2])
+    elif sys.argv[1:2] == ["--mesh-train-phase"]:
+        mesh_train_main(sys.argv[2])
     else:
         main()

@@ -12,8 +12,8 @@ shard.  Two collective schedules over a 1-D mesh axis:
   shard multiplies the matching column slab of its row slab.
 
 One controller drives the mesh, as ``shard_map`` does in the JAX package:
-:class:`Mesh` holds a tuple of ``torch.device`` (shard p's arrays live on
-``mesh.devices[p]``) and the collectives are explicit copies between them:
+:class:`Mesh` holds a device array (on a 1-D mesh, shard p's arrays live
+on ``mesh.devices[p]``) and the collectives are explicit copies between them:
 allgather concatenates every x slab on each shard's device, the ring moves
 each slab to the next shard's device (``.to(..., non_blocking=True)``),
 psum moves the partial sums to the first device and adds them in shard
@@ -36,12 +36,12 @@ whose arrays equal the JAX package's.
 """
 from __future__ import annotations
 
-from typing import Any, Iterable, Sequence
+from typing import Any, Sequence
 
 import numpy as np
 import torch
 
-__all__ = ["Mesh", "SCHEDULES", "local_spmm", "stacked_spmm", "place_stacked",
+__all__ = ["Mesh", "sparse_axis", "SCHEDULES", "local_spmm", "stacked_spmm", "place_stacked",
            "assemble_rows", "allgather_spmm", "ring_spmm", "build_mesh_operand",
            "place_mesh_operand", "mesh_operand_nbytes", "mesh_spmm_runner",
            "psum_dot_runner"]
@@ -50,27 +50,43 @@ SCHEDULES = ("allgather", "ring")
 
 
 class Mesh:
-    """A 1-D mesh of torch devices: ``devices[p]`` holds shard p's arrays.
+    """A mesh of torch devices driven by one controller.
 
-    ``axis_names`` and ``shape[axis]`` (= P) are what the tuner and the
-    engine read, as they read a ``jax.sharding.Mesh`` in the JAX package.
-    A device may appear more than once (shards sharing one card);
-    ``n_devices`` counts the distinct ones.  CPU and CUDA devices never mix.
+    ``devices`` is a device array of any shape (a flat sequence for a 1-D
+    mesh, nested lists or a numpy object array for more axes), one device
+    per mesh cell; ``axis_names`` names its axes.  ``shape`` is the dict
+    ``{axis: size}`` and ``devices`` the cells flattened in row-major order
+    (for a 1-D mesh, ``devices[p]`` holds shard p's arrays), which the
+    tuner, the engine and the trainer read as they read a
+    ``jax.sharding.Mesh`` in the JAX package.  :meth:`device_at` gives the
+    device of a cell.  A device may appear in more than one cell (cells
+    sharing one card); ``n_devices`` counts the distinct ones.  CPU and
+    CUDA devices never mix.
     """
 
-    def __init__(self, devices: Iterable[torch.device | str], axis_names=("shard",)):
-        self.devices = tuple(torch.device(d) for d in devices)
+    def __init__(self, devices, axis_names=("shard",)):
+        given = np.asarray(devices, dtype=object)
+        grid = np.empty(given.shape, dtype=object)
+        for index, d in np.ndenumerate(given):
+            grid[index] = torch.device(d)
         self.axis_names = tuple(axis_names)
-        if not self.devices:
+        if grid.size == 0:
             raise ValueError("a mesh needs at least one device")
-        if len(self.axis_names) != 1:
-            raise ValueError(f"the mesh is 1-D; got axis names {self.axis_names}")
+        if len(self.axis_names) != grid.ndim or len(set(self.axis_names)) != grid.ndim:
+            raise ValueError(f"a device array of shape {grid.shape} needs {grid.ndim} "
+                             f"distinct axis names; got {self.axis_names}")
+        self.devices = tuple(grid.ravel())
         types = {d.type for d in self.devices}
         if len(types) != 1:
             raise ValueError(f"a mesh never mixes device types; got {sorted(types)}")
         if types == {"cuda"} and any(d.index is None for d in self.devices):
             raise ValueError("a CUDA mesh names each card's index (cuda:<i>)")
-        self.shape = {self.axis_names[0]: len(self.devices)}
+        self._grid = grid
+        self.shape = dict(zip(self.axis_names, grid.shape))
+
+    def device_at(self, coord) -> torch.device:
+        """The device of the cell at ``coord`` (one index per axis)."""
+        return self._grid[tuple(int(i) for i in coord)]
 
     @property
     def n_devices(self) -> int:
@@ -78,8 +94,18 @@ class Mesh:
         return len(set(self.devices))
 
     def __repr__(self) -> str:  # pragma: no cover - cosmetic
-        return (f"Mesh({self.axis_names[0]}={len(self.devices)} shards on "
-                f"{self.n_devices} device(s): {[str(d) for d in self.devices]})")
+        axes = ", ".join(f"{a}={n}" for a, n in self.shape.items())
+        return f"Mesh({axes} on {self.n_devices} device(s): {[str(d) for d in self.devices]})"
+
+
+def sparse_axis(mesh: Mesh, axis: str | None) -> str:
+    """The axis a sparse entry point (engine, solver, operator) shards
+    over: ``axis``, or the mesh's only one.  The sparse lane's schedules
+    are 1-D: a mesh with more axes raises."""
+    if len(mesh.axis_names) != 1:
+        raise ValueError(f"the sparse engine takes a 1-D mesh; this one has axes "
+                         f"{mesh.axis_names}")
+    return axis if axis is not None else mesh.axis_names[0]
 
 
 def _row_sum(prod: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor:

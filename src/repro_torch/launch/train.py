@@ -1,7 +1,7 @@
-"""Training launcher on one device: the JAX package's ``launch.train``.
+"""Mesh-aware training launcher: the JAX package's ``launch.train``.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-4b \\
-      --reduced --steps 20 --markov [--device cpu]
+      --reduced --steps 20 --markov [--device cpu] [--data 2 --model 4]
 
 Trains ``--arch`` (full width, or ``--reduced``) from seed 0 with
 ``train_loop``: AdamW (``--lr`` peak, a warmup of steps // 20, cosine to
@@ -11,11 +11,15 @@ tokens a step (iid, or ``--markov``: a learnable Markov chain), split into
 ``--ckpt-dir`` (a run resumes from the latest one there).  It prints each
 log line and, last, one JSON summary: steps run, the median step ms
 (steps after the first), tokens/s at that median, first and last loss,
-and the allocator's peak bytes on a card (null on the CPU).
+the mesh's shape and distinct device count, and the allocator's peak
+bytes on the (first) card (null on the CPU).
 
 ``--device`` is ``cuda`` (the default; raises without a card) or ``cpu``.
-``--pods`` x ``--data`` x ``--model`` above 1 asks for a mesh, which waits
-for ROADMAP A.5.7 and raises ``NotImplementedError``.
+``--pods`` x ``--data`` x ``--model`` above 1 trains on
+``make_mesh(pods, data, model)`` with ``default_rules(multi_pod=pods >
+1)``: any factorization, its cells round-robin on the visible cards (on
+one card all of them share it; on ``cpu`` all are the CPU).  Checkpoints
+hold the logical layout, so a run resumes on another factorization.
 """
 from __future__ import annotations
 
@@ -30,8 +34,10 @@ import torch
 from repro_torch.configs import ARCH_IDS, get_config, get_reduced
 from repro_torch.core.device import resolve
 from repro_torch.data.pipeline import MarkovTokens, SyntheticTokens
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.models.common import default_rules
 from repro_torch.optim.adamw import OptimConfig
-from repro_torch.runtime.trainer import MESH_ITEM, TrainConfig, train_loop
+from repro_torch.runtime.trainer import TrainConfig, train_loop
 
 
 def main(argv=None) -> dict:
@@ -56,12 +62,11 @@ def main(argv=None) -> dict:
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
-    if args.pods * args.data * args.model > 1:
-        raise NotImplementedError(
-            f"--pods {args.pods} --data {args.data} --model {args.model} asks for a "
-            f"mesh of {args.pods * args.data * args.model} devices; meshes wait for "
-            f"{MESH_ITEM}")
     dev = resolve(args.device)
+    n_cells = args.pods * args.data * args.model
+    mesh = (make_mesh(args.pods, args.data, args.model, device=dev)
+            if n_cells > 1 else None)
+    rules = default_rules(multi_pod=args.pods > 1)
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
     gen_cls = MarkovTokens if args.markov else SyntheticTokens
     data = gen_cls(vocab=cfg.vocab, batch=args.batch, seq=args.seq, seed=0)
@@ -75,13 +80,15 @@ def main(argv=None) -> dict:
                      ckpt_every=args.ckpt_every, ckpt_dir=args.ckpt_dir)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
-    _, _, hist = train_loop(cfg, opt, tc, data, device=dev,
+    _, _, hist = train_loop(cfg, opt, tc, data, mesh=mesh, rules=rules, device=dev,
                             log=lambda line: print(line, flush=True))
     times = [h["time_s"] for h in hist[1:]] or [h["time_s"] for h in hist]
     step_ms = float(np.median(times)) * 1e3 if times else None
     summary = {
         "arch": cfg.arch_id,
         "device": str(dev),
+        "mesh": dict(mesh.shape) if mesh is not None else None,
+        "n_devices": mesh.n_devices if mesh is not None else 1,
         "steps": len(hist),
         "tokens_per_step": args.batch * args.seq,
         "step_ms": step_ms,

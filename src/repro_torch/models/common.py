@@ -1,9 +1,14 @@
-"""Shared model helpers: initialisers, norms, rotary and sinusoidal positions.
+"""Shared model helpers: initialisers, norms, rotary and sinusoidal
+positions, and the mesh rules.
 
-The JAX package's ``models.common`` also holds its parameter-with-logical-
-axes leaves, mesh rules and sharding constraints; on one card the port
-needs none of them (its parameters are ``nn.Module`` attributes).  Norms,
-RoPE and M-RoPE compute in float32 and cast back, as the JAX package does.
+The JAX package's ``models.common`` holds parameter-with-logical-axes
+leaves (``Px``); the port's parameters are ``nn.Module`` attributes, and
+their logical axes come from :func:`repro_torch.models.lm.param_axes`.
+:class:`MeshRules` maps those axes to mesh axes as the JAX package's does,
+with a plain tuple per leaf where the JAX package builds a
+``PartitionSpec``; its activation hint ``shard()`` is a GSPMD constraint
+with no counterpart in the port's sharded step (ROADMAP A).  Norms, RoPE
+and M-RoPE compute in float32 and cast back, as the JAX package does.
 
 Initialisers draw from a seeded ``torch.Generator`` on the target device.
 They give other numbers than ``jax.random`` for the same seed, so parity
@@ -12,12 +17,19 @@ tests carry the JAX package's weights across
 """
 from __future__ import annotations
 
+import dataclasses
 import math
+from typing import Any
 
 import torch
 from torch import nn
 
 __all__ = [
+    "MeshRules",
+    "default_rules",
+    "DEFAULT_RULES",
+    "set_active_rules",
+    "spec_entry",
     "upcast",
     "dense_init",
     "embed_init",
@@ -32,6 +44,60 @@ __all__ = [
     "sinusoid",
     "sinusoidal_positions",
 ]
+
+
+def spec_entry(axes):
+    """A spec entry in ``PartitionSpec``'s normal form: a tuple of one mesh
+    axis is that axis, an empty tuple is None."""
+    if isinstance(axes, tuple):
+        return None if not axes else axes[0] if len(axes) == 1 else axes
+    return axes
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshRules:
+    """Logical axis -> mesh axis (or tuple of mesh axes) mapping."""
+
+    rules: dict[str, Any]
+
+    def spec(self, axes: tuple[str | None, ...]) -> tuple:
+        """One entry per dimension: the mesh axis (or tuple of axes) that
+        shards it, or None."""
+        return tuple(spec_entry(self.rules.get(a)) if a else None for a in axes)
+
+    def tree_specs(self, axes_tree: dict) -> dict:
+        """``{name: logical axes}`` (nested dicts allowed) -> ``{name: spec}``."""
+        return {k: self.tree_specs(v) if isinstance(v, dict) else self.spec(v)
+                for k, v in axes_tree.items()}
+
+
+def default_rules(multi_pod: bool) -> MeshRules:
+    """The JAX package's table: the batch over ``("pod", "data")`` or
+    ``("data",)``, ``embed`` over data (FSDP), the projections' heads,
+    the MLP, the vocabulary and the experts over ``model``."""
+    batch_axes = ("pod", "data") if multi_pod else ("data",)
+    return MeshRules(
+        rules={
+            "batch": batch_axes,
+            "embed": "data",  # fsdp
+            "heads_flat": "model",
+            "kv_flat": "model",
+            "mlp": "model",
+            "vocab": "model",
+            "experts": "model",
+            "act_model": "model",  # activation constraint on tp'd dims
+        }
+    )
+
+
+DEFAULT_RULES = default_rules(multi_pod=False)
+
+# What launch code installs process-wide, as the JAX package's holder.
+_ACTIVE_RULES: list[MeshRules] = [DEFAULT_RULES]
+
+
+def set_active_rules(rules: MeshRules) -> None:
+    _ACTIVE_RULES[0] = rules
 
 
 def dense_init(gen: torch.Generator, shape, dtype=torch.float32,

@@ -47,6 +47,9 @@ __all__ = ["swiglu_init", "swiglu_apply", "gelu_ffn_init", "gelu_ffn_apply",
 # Dense SwiGLU (llama family) and GELU (whisper) FFNs
 # ---------------------------------------------------------------------------
 class SwiGLU(nn.Module):
+    # logical axes of each weight (``lm.param_axes``), the JAX package's
+    AXES = {"wi_gate": ("embed", "mlp"), "wi_up": ("embed", "mlp"), "wo": ("mlp", "embed")}
+
     def __init__(self, d_model: int, d_ff: int, dtype, device, gen=None):
         super().__init__()
         self.wi_gate = weight(gen, (d_model, d_ff), dtype, device)
@@ -61,6 +64,9 @@ class SwiGLU(nn.Module):
 
 
 class GeluFFN(nn.Module):
+    AXES = {"wi": ("embed", "mlp"), "bi": ("mlp",), "wo": ("mlp", "embed"),
+            "bo": ("embed",)}
+
     def __init__(self, d_model: int, d_ff: int, dtype, device, gen=None):
         super().__init__()
         self.wi = weight(gen, (d_model, d_ff), dtype, device)
@@ -133,6 +139,10 @@ class SparseFFN(nn.Module):
     W1 and (n, bk, bm) for W2, ``w*_rows`` / ``w*_cols`` int32 (as the JAX
     package stores them) and ``w*_indptr`` (not part of the state dict;
     derived from the rows)."""
+
+    AXES = {"w1": (None, "embed", "mlp"), "w2": (None, "mlp", "embed"),  # structured
+            "w1_blocks": (None, None, None), "w2_blocks": (None, None, None),
+            "w1_rows": (None,), "w1_cols": (None,), "w2_rows": (None,), "w2_cols": (None,)}
 
     def __init__(self, d_model: int, d_ff: int, cfg: SparseFFNConfig, dtype,
                  device, gen=None):

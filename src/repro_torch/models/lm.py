@@ -88,7 +88,7 @@ from .common import (
 from .ffn import GeluFFN, SparseFFN, SparseFFNConfig, SwiGLU, sparse_ffn_apply
 
 __all__ = ["ModelConfig", "LM", "init_model", "forward", "loss_fn", "prefill",
-           "decode_step", "init_decode_state", "param_count", "trainable"]
+           "decode_step", "init_decode_state", "param_count", "param_axes", "trainable"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -185,6 +185,8 @@ def _check_supported(cfg: ModelConfig) -> None:
 # Modules
 # ---------------------------------------------------------------------------
 class Norm(nn.Module):
+    AXES = {"g": ("embed",), "b": ("embed",)}
+
     def __init__(self, cfg: ModelConfig, dim: int, device):
         super().__init__()
         self.layer = cfg.norm == "layernorm"
@@ -197,6 +199,10 @@ class Norm(nn.Module):
 
 
 class Attention(nn.Module):
+    AXES = {"wq": ("embed", "heads_flat"), "wk": ("embed", "kv_flat"),
+            "wv": ("embed", "kv_flat"), "wo": ("heads_flat", "embed"),
+            "bq": ("heads_flat",), "bk": ("kv_flat",), "bv": ("kv_flat",)}
+
     def __init__(self, cfg: ModelConfig, device, gen=None):
         super().__init__()
         d, (qd, kvd) = cfg.d_model, cfg.qkv_dims
@@ -286,6 +292,9 @@ class LM(nn.Module):
     JAX package makes it).  An audio model has ``enc_blocks`` (``enc_layers``
     :class:`Block`), ``dec_blocks`` (``n_layers`` :class:`DecoderBlock`) and
     ``ln_enc`` in place of ``blocks``."""
+
+    AXES = {"embed": ("vocab", "embed"), "unembed": ("embed", "vocab"),
+            "lora_a": (None, "embed", None), "lora_b": (None, None, "heads_flat")}
 
     def __init__(self, cfg: ModelConfig, device, gen: torch.Generator | None = None):
         super().__init__()
@@ -383,6 +392,21 @@ def trainable(model: nn.Module) -> dict[str, nn.Parameter]:
             p.requires_grad_(True)
             params[name] = p
     return params
+
+
+def param_axes(cfg: ModelConfig, model: LM) -> dict[str, tuple]:
+    """The logical axes of every leaf of ``model.state_dict()``, by name:
+    the JAX package's ``init_model(cfg)[1]`` annotations without the
+    leading ``"layers"`` axes, since the port's leaves are per layer.  Each
+    module class carries its weights' axes (``AXES``), copied from the JAX
+    package's initialisers."""
+    _check_supported(cfg)
+    out = {}
+    for name in model.state_dict():
+        prefix, _, leaf = name.rpartition(".")
+        owner = model.get_submodule(prefix) if prefix else model
+        out[name] = owner.AXES[leaf]
+    return out
 
 
 def param_count(model: LM) -> int:
@@ -578,14 +602,21 @@ def forward(cfg: ModelConfig, model: LM, batch) -> tuple[torch.Tensor, Any]:
     return _logits(model, h), aux
 
 
-def loss_fn(cfg: ModelConfig, model: LM, batch, z_loss: float = 1e-4):
+def loss_fn(cfg: ModelConfig, model: LM, batch, z_loss: float = 1e-4, *,
+            denom: torch.Tensor | None = None, aux_weight: float = 1.0):
     """The JAX package's training loss: (total, {"ce", "z_loss", "aux",
     "tokens"}), float32 scalars (float64 for a float64 model).  Logits in
     float32, pad columns at -1e30,
     cross-entropy of ``batch["labels"]`` (b, s) over the positions whose
     label is >= 0 (a negative label is masked; its gold logit is read at
     id 0), ``z_loss`` times the mean squared log-partition over them, plus
-    the MoE's auxiliary loss."""
+    the MoE's auxiliary loss.
+
+    A shard of a data-split batch passes ``denom``, the whole batch's count
+    of unmasked labels (at least 1; a device scalar), which its masked sums
+    divide by in place of its own count, and ``aux_weight``, its share of
+    the batch's rows, which weights its auxiliary loss (a mean over rows):
+    the shards' totals then add up to the whole batch's."""
     logits, aux = forward(cfg, model, batch)
     labels = torch.as_tensor(batch["labels"], device=logits.device).long()
     logits = upcast(logits)
@@ -595,9 +626,12 @@ def loss_fn(cfg: ModelConfig, model: LM, batch, z_loss: float = 1e-4):
     lse = torch.logsumexp(logits, dim=-1)
     gold = logits.gather(-1, labels.clamp(min=0)[..., None])[..., 0]
     mask = (labels >= 0).to(logits.dtype)
-    denom = torch.clamp(mask.sum(), min=1.0)
+    if denom is None:
+        denom = torch.clamp(mask.sum(), min=1.0)
     ce = ((lse - gold) * mask).sum() / denom
     zl = z_loss * ((lse * mask) ** 2).sum() / denom
+    if aux_weight != 1.0:
+        aux = aux * aux_weight
     total = ce + zl + aux
     aux = aux if isinstance(aux, torch.Tensor) else torch.zeros_like(ce) + aux
     return total, {"ce": ce, "z_loss": zl, "aux": aux, "tokens": denom}

@@ -29,6 +29,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.core.device import resolve
+
 from .common import frozen, rms_norm, weight
 
 __all__ = [
@@ -50,6 +52,10 @@ class Mamba2(nn.Module):
     ``conv_w`` (CONV_K, d_inner + 2N) and ``conv_b`` (zeros at init, as
     the JAX package makes them); ``A_log``, ``D``, ``dt_bias`` (H,)
     float32; ``norm`` (d_inner); ``out_proj`` (d_inner, d)."""
+
+    AXES = {"in_proj": ("embed", "heads_flat"), "conv_w": (None, "heads_flat"),
+            "conv_b": ("heads_flat",), "A_log": (None,), "D": (None,), "dt_bias": (None,),
+            "norm": ("heads_flat",), "out_proj": ("heads_flat", "embed")}
 
     def __init__(self, d_model: int, d_state: int = 64, head_dim: int = 64,
                  expand: int = 2, dtype=torch.float32, device=None, gen=None):
@@ -78,7 +84,10 @@ def mamba2_init(gen: torch.Generator, d_model: int, d_state: int = 64,
 
 
 def mamba2_init_state(batch: int, d_model: int, d_state: int = 64, head_dim: int = 64,
-                      expand: int = 2, device="cpu") -> dict:
+                      expand: int = 2, device="cuda") -> dict:
+    """A zero float32 state for ``batch`` sequences on ``device`` (``"cuda"``
+    by default; raises without a card)."""
+    device = resolve(device)
     d_inner = expand * d_model
     H = d_inner // head_dim
     return {

@@ -63,13 +63,17 @@ class MoEConfig:
 class MoE(nn.Module):
     """``router`` (d, E) in float32 whatever the model's dtype, as the JAX
     package makes it; ``wi_gate``/``wi_up`` (E, d, f) and ``wo`` (E, f, d)
-    in ``dtype``."""
+    in ``dtype``.  ``AXES`` are the weights' logical axes: under ``"ep"``
+    the experts shard, under ``"tp"`` each expert's d_ff does."""
 
     def __init__(self, d_model: int, cfg: MoEConfig, dtype, device, gen=None,
                  partition: str = "ep"):
         super().__init__()
         if partition not in PARTITIONS:
             raise ValueError(f"partition {partition!r}: one of {PARTITIONS}")
+        e_ax, f_ax = ("experts", "expert_mlp") if partition == "ep" else (None, "mlp")
+        self.AXES = {"router": ("embed", None), "wi_gate": (e_ax, "embed", f_ax),
+                     "wi_up": (e_ax, "embed", f_ax), "wo": (e_ax, f_ax, "embed")}
         E, f = cfg.n_experts, cfg.d_ff
         self.router = weight(gen, (d_model, E), torch.float32, device)
         self.wi_gate = weight(gen, (E, d_model, f), dtype, device)

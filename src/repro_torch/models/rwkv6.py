@@ -30,6 +30,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.core.device import resolve
+
 from .common import frozen, rms_norm, weight
 
 __all__ = ["RWKV6", "rwkv6_init", "rwkv6_apply_seq", "rwkv6_apply_step",
@@ -41,6 +43,17 @@ LORA_DECAY = 64
 
 class RWKV6(nn.Module):
     """One block's weights, named as the JAX package's parameter tree."""
+
+    AXES = {
+        "mu_base": (None, "embed"), "mix_w1": ("embed", None),
+        "mix_w2": (None, None, "embed"),
+        **{w: ("embed", "heads_flat") for w in ("wr", "wk", "wv", "wg", "cm_wr")},
+        "wo": ("heads_flat", "embed"),
+        "decay_base": ("embed",), "decay_w1": ("embed", None), "decay_w2": (None, "embed"),
+        "bonus_u": (None, None), "ln_x": ("embed",), "cm_mu": (None, "embed"),
+        "cm_wk": ("embed", "mlp"), "cm_wv": ("mlp", "embed"),
+        "ln1": ("embed",), "ln2": ("embed",),
+    }
 
     def __init__(self, d_model: int, d_ff: int, head_dim: int, dtype, device,
                  gen=None):
@@ -84,7 +97,10 @@ def rwkv6_init(gen: torch.Generator, d_model: int, d_ff: int, head_dim: int = 64
 
 
 def rwkv6_init_state(batch: int, d_model: int, head_dim: int = 64,
-                     device="cpu") -> dict:
+                     device="cuda") -> dict:
+    """A zero float32 state for ``batch`` sequences on ``device`` (``"cuda"``
+    by default; raises without a card)."""
+    device = resolve(device)
     H = d_model // head_dim
     return {
         "tm_shift": torch.zeros((batch, d_model), dtype=torch.float32, device=device),

@@ -24,7 +24,7 @@ from typing import Any, Mapping
 import torch
 
 __all__ = ["OptimConfig", "lr_schedule", "adamw_init", "global_norm",
-           "clip_by_global_norm", "adamw_update"]
+           "clip_by_global_norm", "step_scalars", "update_leaf", "adamw_update"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -103,6 +103,40 @@ def _f32(t: torch.Tensor) -> torch.Tensor:
     return t if t.dtype == torch.float32 else t.float()
 
 
+def step_scalars(count: torch.Tensor, norm: torch.Tensor, cfg: OptimConfig) -> dict:
+    """Advance ``count`` by one in place and return the step's device
+    scalars: the clip ``scale`` from the global ``norm``, ``lr`` and the
+    bias corrections ``b1c`` and ``b2c`` (float32, on ``count``'s device)."""
+    count.add_(1)
+    return {"scale": _clip_scale(norm, cfg.clip_norm), "lr": lr_schedule(cfg, count),
+            "b1c": 1 - cfg.b1 ** count.float(), "b2c": 1 - cfg.b2 ** count.float()}
+
+
+@torch.no_grad()
+def update_leaf(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
+                master: torch.Tensor | None, k: Mapping[str, torch.Tensor],
+                cfg: OptimConfig) -> None:
+    """One leaf's AdamW update in place (``p``, ``m``, ``v`` and ``master``
+    when given) from its gradient ``g`` and :func:`step_scalars` ``k``.
+    The arithmetic is elementwise, so a block of a leaf updated alone gets
+    the bits the whole leaf's update gives it."""
+    # the clipped gradient, rounded to g's dtype as the JAX package does
+    gf = g * k["scale"] if g.dtype == torch.float32 else _clipped(g, k["scale"]).float()
+    m32 = _f32(m).mul_(cfg.b1).add_(gf, alpha=1 - cfg.b1)
+    v32 = _f32(v).mul_(cfg.b2).addcmul_(gf, gf, value=1 - cfg.b2)
+    del gf
+    step = (m32 / k["b1c"]).div_((v32 / k["b2c"]).sqrt_().add_(cfg.eps))
+    base = master if master is not None else _f32(p)
+    step.add_(base, alpha=cfg.weight_decay).mul_(k["lr"])
+    base.sub_(step)  # the master copy, p itself (float32) or p's float32 copy
+    if base is not p:
+        p.copy_(base)
+    if m32 is not m:
+        m.copy_(m32)
+    if v32 is not v:
+        v.copy_(v32)
+
+
 @torch.no_grad()
 def adamw_update(grads: Mapping[str, torch.Tensor], state: dict,
                  params: Mapping[str, torch.Tensor], cfg: OptimConfig):
@@ -111,29 +145,9 @@ def adamw_update(grads: Mapping[str, torch.Tensor], state: dict,
     scalars on the device.  ``grads`` is keyed as ``params``; it is read,
     not written."""
     norm = global_norm(grads)
-    scale = _clip_scale(norm, cfg.clip_norm)
-    count = state["count"]
-    count.add_(1)
-    lr = lr_schedule(cfg, count)
-    b1c = 1 - cfg.b1 ** count.float()
-    b2c = 1 - cfg.b2 ** count.float()
+    k = step_scalars(state["count"], norm, cfg)
     master = state.get("master") if cfg.master_fp32 else None
     for name, p in params.items():
-        m, v = state["m"][name], state["v"][name]
-        g = grads[name]
-        # the clipped gradient, rounded to g's dtype as the JAX package does
-        gf = g * scale if g.dtype == torch.float32 else _clipped(g, scale).float()
-        m32 = _f32(m).mul_(cfg.b1).add_(gf, alpha=1 - cfg.b1)
-        v32 = _f32(v).mul_(cfg.b2).addcmul_(gf, gf, value=1 - cfg.b2)
-        del gf
-        step = (m32 / b1c).div_((v32 / b2c).sqrt_().add_(cfg.eps))
-        base = master[name] if master is not None else _f32(p)
-        step.add_(base, alpha=cfg.weight_decay).mul_(lr)
-        base.sub_(step)  # the master copy, p itself (float32) or p's float32 copy
-        if base is not p:
-            p.copy_(base)
-        if m32 is not m:
-            m.copy_(m32)
-        if v32 is not v:
-            v.copy_(v32)
-    return params, state, {"lr": lr, "grad_norm": norm}
+        update_leaf(p, grads[name], state["m"][name], state["v"][name],
+                    master[name] if master is not None else None, k, cfg)
+    return params, state, {"lr": k["lr"], "grad_norm": norm}

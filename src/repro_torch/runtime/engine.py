@@ -108,7 +108,12 @@ import numpy as np
 import torch
 
 from repro_torch.core.device import resolve_on
-from repro_torch.core.distributed import assemble_rows, place_stacked, stacked_spmm
+from repro_torch.core.distributed import (
+    assemble_rows,
+    place_stacked,
+    sparse_axis,
+    stacked_spmm,
+)
 from repro_torch.core.formats import CSRMatrix
 from repro_torch.core.partition import rows_balanced, stack_csr_shards
 from repro_torch.kernels.spmspv import pad_sparse_rhs, validate_sparse_rhs
@@ -369,8 +374,7 @@ class SparseEngine:
             raise ValueError("mesh= and n_shards= are mutually exclusive")
         self.device = resolve_on(device, mesh)
         self.mesh = mesh
-        self.axis = axis if axis is not None else (
-            mesh.axis_names[0] if mesh is not None else None)
+        self.axis = sparse_axis(mesh, axis) if mesh is not None else axis
         self.n_shards = int(mesh.shape[self.axis]) if mesh is not None else int(n_shards)
         self.a = a
         self.shape = a.shape

@@ -74,7 +74,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.device import resolve, resolve_on
-from repro_torch.core.distributed import psum_dot_runner
+from repro_torch.core.distributed import psum_dot_runner, sparse_axis
 from repro_torch.core.formats import CSRMatrix
 from repro_torch.runtime.executable import Graph, GraphPool, capture
 from repro_torch.runtime.faults import FaultPlan, active_plan
@@ -383,8 +383,7 @@ class SparseSolver:
             raise ValueError(f"block must be >= 1, got {block}")
         self.device = resolve_on(device, mesh)
         self.mesh = mesh
-        self.axis = axis if axis is not None else (
-            mesh.axis_names[0] if mesh is not None else None)
+        self.axis = sparse_axis(mesh, axis) if mesh is not None else axis
         self._dot = psum_dot_runner(mesh, self.axis, n) if mesh is not None else _dot
         self.a = a
         self.shape = a.shape

@@ -705,7 +705,7 @@ class SparseOperator:
         backend = backend_name(device)
         mesh_shape: list[int] = []
         if mesh is not None:
-            axis = axis or mesh.axis_names[0]
+            axis = dist.sparse_axis(mesh, axis)
             mesh_shape = [int(mesh.shape[axis])]
             backend = mesh_backend(backend, mesh.n_devices)
         on_mesh = dict(mesh=mesh, axis=axis, prep_cache=prep_cache)

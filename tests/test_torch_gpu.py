@@ -1685,6 +1685,67 @@ def test_gpu_train_step_equals_the_cpu_step(cuda_device, n_micro):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("n_micro", [1, 2])
+def test_gpu_sharded_step_on_a_2x4_mesh_equals_the_single_device_step(cuda_device, n_micro):
+    """Phase 16a at the reduced size: ``make_mesh(1, 2, 4)`` puts all 8
+    cells on the one card; a float32 sharded step (TF32 off, labels masked
+    unevenly across the two data halves) against the single-device step on
+    the card from the same weights, launching no kernel: the metrics within
+    1e-5 relative, the gradient within 1e-4 of each leaf's max, the
+    parameters within 2e-5 plus C.30's term.  Every block stays on the card."""
+    import dataclasses
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import lm
+    from repro_torch.models.common import default_rules
+    from repro_torch.optim.adamw import OptimConfig, adamw_init
+    from repro_torch.runtime import trainer as tt
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_reduced("qwen1.5-4b"), dtype=torch.float32)
+    opt_cfg = OptimConfig(lr_peak=1e-3, warmup_steps=1, total_steps=10)
+    batch = make_batch(cfg, 4, 32, step=0)
+    batch["labels"][:2, 3:] = -1  # the first data half keeps 6 labels
+    mesh = make_mesh(1, 2, 4, device=cuda_device)
+    assert mesh.n_devices == 1 and mesh.devices[0] == torch.device("cuda", 0)
+    _build.reset_launches()
+    single = lm.init_model(cfg, 0, device=cuda_device)
+    params = lm.trainable(single)
+    micro = tt._split_micro(tt._on(batch, cuda_device), n_micro)
+    g1 = {n: torch.zeros(p.shape, device=cuda_device) for n, p in params.items()}
+    for i in range(n_micro):
+        loss, _ = lm.loss_fn(cfg, single, {k: v[i] for k, v in micro.items()})
+        for n, g in zip(params, torch.autograd.grad(loss, list(params.values()))):
+            g1[n] += g
+    g1 = {n: (g / n_micro).double() for n, g in g1.items()}
+    opt = adamw_init(params, opt_cfg)
+    single, _, m1 = tt.make_train_step(cfg, opt_cfg, n_micro)(single, opt, batch)
+    rules = default_rules(False)
+    sm = tt.shard_model(cfg, lm.init_model(cfg, 0, device=cuda_device), mesh, rules)
+    acc, _, _ = tt.sharded_grads(cfg, sm, batch, n_micro)
+    g2 = {n: sm.full(n, acc, device=cuda_device).double() for n in acc}
+    del acc
+    o2 = tt.sharded_adamw_init(sm, opt_cfg, rules)
+    sm, o2, m2 = tt.make_sharded_train_step(cfg, opt_cfg, n_micro)(sm, o2, batch)
+    assert not _build.LAUNCHES
+    assert all(s.device.type == "cuda" for tree in (sm.blocks, o2["m"], o2["v"])
+               for stacks in tree.values() for s in stacks.values())
+    for key, value in m1.items():
+        assert abs(float(m2[key]) - float(value)) <= 1e-5 * max(abs(float(value)), 1e-30), key
+    s1, s2 = (min(1.0, opt_cfg.clip_norm / float(torch.sqrt(sum((g * g).sum()
+                                                              for g in gs.values()))))
+              for gs in (g1, g2))
+    for name, a in single.state_dict().items():
+        assert float((g2[name] - g1[name]).abs().max()) <= 1e-4 * float(g1[name].abs().max())
+        h1, h2 = g1[name] * s1, g2[name] * s2
+        amp = 1e-3 * (h2 / (h2.abs() + opt_cfg.eps) - h1 / (h1.abs() + opt_cfg.eps)).abs()
+        b = sm.full(name, device=cuda_device)
+        assert bool(((b - a).abs().double() <= 2e-5 + amp).all()), name
+
+
+@pytest.mark.gpu
 def test_gpu_kernel_wrappers_and_the_cuda_tier_ffn_refuse_autograd(cuda_device):
     """No kernel output reaches autograd as a constant on the card: each
     wrapper raises ``NotImplementedError`` on an operand that requires grad

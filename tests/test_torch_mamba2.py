@@ -97,7 +97,7 @@ def test_block_layout_keeps_the_float32_leaves_and_the_zero_init():
     for key in ("conv_w", "conv_b", "A_log", "D", "dt_bias", "norm"):
         assert np.array_equal(getattr(tp, key).float().numpy(),
                               np.asarray(jp[key], np.float32)), key
-    st = tm2.mamba2_init_state(3, D, N, P)
+    st = tm2.mamba2_init_state(3, D, N, P, device="cpu")
     jst = jm2.mamba2_init_state(3, D, N, P)
     for key in ("conv", "ssd"):
         assert tuple(st[key].shape) == jst[key].shape and st[key].dtype == torch.float32
@@ -150,7 +150,7 @@ def test_split_sequence_carries_the_state():
     port and against the reference's whole sequence."""
     jp, tp = _pair()
     jx, tx = _x(6, 48)
-    st0 = tm2.mamba2_init_state(2, D, N, P)
+    st0 = tm2.mamba2_init_state(2, D, N, P, device="cpu")
     full, fst = tm2.mamba2_apply_seq(tp, tx, st0, N, P, chunk=16)
     ya, sa = tm2.mamba2_apply_seq(tp, tx[:, :16], st0, N, P, chunk=16)
     yb, sb = tm2.mamba2_apply_seq(tp, tx[:, 16:], sa, N, P, chunk=16)

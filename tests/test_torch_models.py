@@ -687,3 +687,27 @@ def test_models_need_a_device_and_refuse_unported_families(monkeypatch):
         assert full.device.type == dev and tlm.param_count(full) == count, arch
     assert isinstance(tlm.init_model(get_reduced("granite-moe-1b-a400m"),
                                      device="cpu").blocks[0].ffn, tmoe.MoE)
+
+
+def test_recurrent_init_states_default_to_the_card(monkeypatch):
+    """``mamba2_init_state`` and ``rwkv6_init_state`` are entry points:
+    with no ``device`` they ask for the card and raise without one, and
+    they build on the CPU when asked, equal to the reference's zeros."""
+    from repro.models import mamba2 as jm2
+    from repro.models import rwkv6 as jrw
+    from repro_torch.models import mamba2 as tm2
+    from repro_torch.models import rwkv6 as trw
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tm2.mamba2_init_state(2, 64, 16, 32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        trw.rwkv6_init_state(2, 64, 32)
+    for got, ref in ((tm2.mamba2_init_state(2, 64, 16, 32, device="cpu"),
+                      jm2.mamba2_init_state(2, 64, 16, 32)),
+                     (trw.rwkv6_init_state(2, 64, 32, device="cpu"),
+                      jrw.rwkv6_init_state(2, 64, 32))):
+        assert set(got) == set(ref)
+        for key, t in got.items():
+            assert t.device.type == "cpu" and t.dtype == torch.float32
+            np.testing.assert_array_equal(t.numpy(), np.asarray(ref[key]))

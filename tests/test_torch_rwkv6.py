@@ -132,7 +132,7 @@ def test_split_sequence_carries_the_state():
     """Two halves with the carried state equal the whole sequence."""
     tp = trw.rwkv6_init(torch.Generator().manual_seed(1), D, DFF, HD)
     x = torch.as_tensor(rng_f32(9, (2, 24, D), 0.5))
-    st = trw.rwkv6_init_state(2, D, HD)
+    st = trw.rwkv6_init_state(2, D, HD, device="cpu")
     full, _ = trw.rwkv6_apply_seq(tp, x, st, HD)
     ya, sa = trw.rwkv6_apply_seq(tp, x[:, :10], st, HD)
     yb, _ = trw.rwkv6_apply_seq(tp, x[:, 10:], sa, HD)

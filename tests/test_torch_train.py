@@ -52,10 +52,13 @@ from repro_torch.interop import (
 from repro_torch.kernels import ops
 from repro_torch.kernels.spmspv import spmspv_prepare, spmspv_scatter, stage_sparse
 from repro_torch.launch import train as train_cli
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.models.common import default_rules
 from repro_torch.models import lm as tlm
 from repro_torch.models.ffn import SparseFFNConfig
 from repro_torch.optim import adamw as ta
 from repro_torch.runtime import trainer as tt
+from repro_torch.runtime.sharded import ShardedModel
 
 from test_torch_hybrid import perturbed
 
@@ -301,11 +304,16 @@ def test_train_cli_runs_and_resumes_on_the_cpu(tmp_path, capsys):
     assert out[0].startswith("step     0 loss") and json.loads(out[-1]) == summary
     assert train_cli.main(argv)["steps"] == 0  # resumed after the last step
     assert "[restore] resuming from checkpoint step 2" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="A.5.7"):
-        train_cli.main(argv + ["--data", "2"])
-    with pytest.raises(NotImplementedError, match="A.5.7"):
-        tt.train_loop(TINY, ta.OptimConfig(), tt.TrainConfig(ckpt_dir=str(tmp_path)),
-                      None, mesh=object(), device="cpu")
+    # a mesh trains, resuming the single-device checkpoint in the logical layout
+    on_mesh = train_cli.main(argv + ["--data", "2", "--steps", "5"])
+    assert on_mesh["steps"] == 2 and on_mesh["mesh"] == {"data": 2, "model": 1}
+    assert "[restore] resuming from checkpoint step 2" in capsys.readouterr().out
+    sm, _, hist = tt.train_loop(TINY, ta.OptimConfig(), tt.TrainConfig(
+        steps=2, ckpt_dir=str(tmp_path / "mesh")), SyntheticTokens(64, 4, 16, seed=0),
+        mesh=make_mesh(1, 2, 4, device="cpu"), rules=default_rules(False),
+        log=lambda s: None, device="cpu")
+    assert isinstance(sm, ShardedModel) and [h["step"] for h in hist] == [0, 1]
+    assert all(np.isfinite(h["loss"]) for h in hist)
 
 
 # ---------------------------------------------------------------------------
