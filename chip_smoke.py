@@ -349,6 +349,32 @@ scipy; imports nothing of JAX or of the JAX package.  Phases:
    row gains ``train_launches`` (0).  Rehearse on the CPU with
    ``train_phase(torch.device("cpu"), {}, reduced=True)``.
 
+16. The sharded train step on an LM mesh, in a fresh process (its own
+   docstring, ``mesh_train_phase``).
+
+17. The dry-run tools (``launch.op_analysis``, ``launch.dryrun``,
+   ``launch.roofline``, ``core.traffic``; plain torch, no kernel) against
+   the card, in a fresh process: (a) qwen1.5-4b's train step at full width
+   and depth (15a's cell: 8 x 128, AdamW with float32 moments, one device)
+   analysed on meta and run on the card under ``torch.profiler``
+   (``with_flops``): the analyzer's matmul FLOPs within 0.1 % of the
+   profiler's FLOPs of the ``aten::mm``, ``addmm``, ``bmm`` and ``baddbmm``
+   calls that launched a kernel (``matmul_flops_of``); its
+   FLOPs over 989 TFLOP/s and its bytes over 3.35 TB/s each at most the
+   step's device-busy time; ``argument_size`` within 1 % of the allocator's
+   bytes once the state is built, ``temp_size`` within 15 % of the step's
+   allocator peak less them; the op count beside the profiler's kernels,
+   the update's bytes beside the ≈ 630 GB 15a's kernels moved, the three
+   roofline terms beside the measured step; (b) its dense bf16 decode step
+   at ``LM_SLOTS`` slots: the FLOPs held against an eager step's profile,
+   the bounds against the graphed step's busy time, the bytes at least the
+   weights a step reads (all but the embedding table: 7.124 GB); (c) the
+   production cells qwen1.5-4b train_4k and llama3-405b decode_32k on
+   ``make_production_mesh()`` (meta), their records and seconds; (d) the
+   paper's Fig 6 figures for cant at scale 1.0.  Each
+   kernel row gains ``dryrun_launches`` (0).  Rehearse on the CPU with
+   ``dryrun_phase(torch.device("cpu"), {}, reduced=True)``.
+
 Any failed check exits non-zero.  The last lines are the card's name and
 power limit, one JSON object with the kernel table, and the JSON status
 line.  The full record also goes to ``chiprun_out/chip_smoke.json``.
@@ -3974,6 +4000,297 @@ def mesh_train_main(out_path: str) -> None:
                                           "launches": launches}, default=str))
 
 
+DRY_ARCH = "qwen1.5-4b"  # 17a, 17b: 15a's train cell and 11g's dense decode cell
+MATMUL_EVENTS = ("aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm")
+DRY_FLOPS_REL = 1e-3  # 17a, 17b: analyzer matmul FLOPs against the profiler's
+DRY_ARG_REL, DRY_TEMP_REL = 0.01, 0.15  # 17a: the state and the step's temporaries
+DRY_CELLS = (("qwen1.5-4b", "train_4k"), ("llama3-405b", "decode_32k"))  # 17c, on 16x16
+UPDATE_BYTES_15A = 630e9  # PERF.md §5: what 15a's AdamW update moves, by its kernels
+
+
+def matmul_flops_of(events, ran: bool) -> tuple[float, int]:
+    """The profiler's FLOPs (``with_flops``) of the matmul ops and the count
+    of matmul events left out.  ``ran``: only the events that launched a
+    kernel on the card.  The profiler records an op, and its FLOPs, when
+    it is called, and ``torch.utils.checkpoint``'s early stop raises inside
+    the recomputed block's last matmul before it runs (``remat="full"``:
+    one such call a block), so a call that launched nothing did no work."""
+    mm = [e for e in events if e.name in MATMUL_EVENTS]
+    kept = [e for e in mm if e.kernels] if ran else mm
+    return float(sum(e.flops or 0 for e in kept)), len(mm) - len(kept)
+
+
+def dryrun_phase(dev, record: dict, *, reduced: bool = False) -> dict:
+    """Phase 17: the dry-run tools (``launch.op_analysis``, ``launch.dryrun``,
+    ``launch.roofline``, ``core.traffic``; plain torch, no kernel) held
+    against the card on cells that fit it.  ``reduced``: the reduced
+    qwen1.5-4b in 17a and 17b and a CPU rehearsal: the profiler's CPU
+    FLOPs are held, no time, bound or allocator figure.  Returns the
+    launch counts over the phase, which must all be 0."""
+    import math
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.configs import get_config, get_reduced
+    from repro_torch.core import traffic
+    from repro_torch.core.metrics import spmv_app_bytes
+    from repro_torch.data.pipeline import MarkovTokens
+    from repro_torch.data.suite import generate
+    from repro_torch.kernels import _build
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.launch.op_analysis import OpAnalyzer
+    from repro_torch.models import lm
+    from repro_torch.optim.adamw import OptimConfig, adamw_init, adamw_update
+    from repro_torch.runtime import trainer
+    from repro_torch.runtime.server import BatchedServer, _merge_slot
+
+    rec = record.setdefault("dryrun", {})
+    log = PhaseLog(dev, rec)
+    cuda, smi, check, sync, free, begin, end = (log.cuda, log.smi, log.check, log.sync,
+                                                log.free, log.begin, log.end)
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.reset_launches()
+    cfg = get_reduced(DRY_ARCH) if reduced else get_config(DRY_ARCH)
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+
+    def held(label: str, an: dict, prof_flops: float, busy_ms: float | None) -> dict:
+        """The FLOPs and bound checks of one analysed step against its
+        profile; the figures, printed and returned."""
+        cost = an["cost"]
+        rel = abs(cost.matmul_flops - prof_flops) / max(prof_flops, 1.0)
+        out = {"matmul_flops": cost.matmul_flops, "profiler_matmul_flops": prof_flops,
+               "matmul_rel": rel, "flops": cost.flops, "hbm_bytes": cost.hbm_bytes,
+               "n_ops": an["n_ops"], "n_compute_ops": an["n_compute_ops"],
+               "t_compute_ms": cost.flops / roofline.PEAK_FLOPS * 1e3,
+               "t_memory_ms": cost.hbm_bytes / roofline.HBM_BW * 1e3, "t_collective_ms": 0.0,
+               "busy_ms": busy_ms}
+        print(f"  {label}: analyzer matmul {cost.matmul_flops:.6e} FLOPs, profiler "
+              f"{prof_flops:.6e} (rel {rel:.2e}); all FLOPs {cost.flops:.6e}, HBM bytes "
+              f"{cost.hbm_bytes:.6e}; {an['n_ops']} aten ops ({an['n_compute_ops']} not "
+              f"views); terms compute {out['t_compute_ms']:.3f} ms, memory "
+              f"{out['t_memory_ms']:.3f} ms, collective 0 ms"
+              + (f"; device busy {busy_ms:.3f} ms" if busy_ms is not None else ""), flush=True)
+        check(rel <= DRY_FLOPS_REL, f"{label}: analyzer matmul FLOPs {cost.matmul_flops:.6e} "
+                                    f"against the profiler's {prof_flops:.6e} (rel {rel:.2e})")
+        if busy_ms is not None:
+            check(out["t_compute_ms"] <= busy_ms, f"{label}: FLOPs bound {out['t_compute_ms']:.3f} "
+                                                  f"ms above the busy {busy_ms:.3f} ms")
+            check(out["t_memory_ms"] <= busy_ms, f"{label}: bytes bound {out['t_memory_ms']:.3f} "
+                                                 f"ms above the busy {busy_ms:.3f} ms")
+        return out
+
+    # -- 17a: 15a's train step, analysed on meta and profiled on the card --
+    free()
+    t0 = begin("17a", f"{DRY_ARCH} train step ({cfg.n_layers} layers, {TRAIN_BATCH} x "
+                      f"{TRAIN_SEQ}, AdamW float32 moments, one device): op_analysis on "
+                      f"meta against the card")
+    opt_cfg = OptimConfig(lr_peak=3e-4, warmup_steps=1, total_steps=TRAIN_STEPS)
+    meta_batch = {k: torch.empty((TRAIN_BATCH, TRAIN_SEQ), dtype=torch.int32, device="meta")
+                  for k in ("tokens", "labels")}
+    t_an = time.perf_counter()
+    an = dryrun.analyze_train_step(cfg, meta_batch, opt_cfg)
+    an_s = time.perf_counter() - t_an
+    meta_model = lm.init_model(cfg, device="meta")
+    meta_params = lm.trainable(meta_model)
+    meta_grads = {n: torch.empty_like(p) for n, p in meta_params.items()}
+    meta_opt = adamw_init(meta_params, opt_cfg)
+    with OpAnalyzer() as an_upd:
+        adamw_update(meta_grads, meta_opt, meta_params, opt_cfg)
+    upd = an_upd.cost()
+    mem0 = torch.cuda.memory_allocated(dev) if cuda else 0
+    model = lm.init_model(cfg, 0, device=dev)
+    opt_state = adamw_init(lm.trainable(model), opt_cfg)
+    sync()
+    state_bytes = (torch.cuda.memory_allocated(dev) - mem0) if cuda else None
+    data = MarkovTokens(cfg.vocab, batch=TRAIN_BATCH, seq=TRAIN_SEQ, seed=0)
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in data.batch_at(0).items()}
+    step = trainer.make_train_step(cfg, opt_cfg)
+    model, opt_state, _ = step(model, opt_state, batch)  # warm-up
+    sync()
+    base = torch.cuda.memory_allocated(dev) if cuda else 0
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    with profile(activities=acts, with_flops=True) as prof:
+        with record_function("dryrun/train_step"):
+            model, opt_state, _ = step(model, opt_state, batch)
+            sync()
+    temp_meas = (torch.cuda.max_memory_allocated(dev) - base) if cuda else None
+    step_ms = []
+    for _ in range(3):
+        t1 = time.perf_counter()
+        model, opt_state, m = step(model, opt_state, batch)
+        float(m["loss"])
+        sync()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+    # where the temporaries peak (reported): the forward and backward, then
+    # the update, each on the card and traced on meta
+    with OpAnalyzer() as an_fb:
+        trainer._grads_of(cfg, meta_model, meta_params, meta_batch)
+    pieces = {"fb_traced": an_fb.peak_bytes, "update_traced": an_upd.peak_bytes}
+    if cuda:
+        params = lm.trainable(model)
+        sync()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        _, _, grads = trainer._grads_of(cfg, model, params, batch)
+        sync()
+        pieces["fb_card"] = torch.cuda.max_memory_allocated(dev) - base
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        adamw_update(grads, opt_state, params, opt_cfg)
+        sync()
+        pieces["update_card"] = torch.cuda.max_memory_allocated(dev) - base
+        del grads, params
+    print("  17a: temporaries' peak by part: " + ", ".join(
+        f"{k} {gb(v)}" for k, v in pieces.items()), flush=True)
+    events = prof.events()
+    win = profile_window(events, "dryrun/train_step") if cuda else None
+    mm_flops, mm_idle = matmul_flops_of(events, ran=cuda)
+    a = held("17a", an, mm_flops, win["busy_ms"] if win else None)
+    a.update(temp_by_part=pieces, matmul_calls_without_kernel=mm_idle,
+             profiler_matmul_flops_all_calls=matmul_flops_of(events, ran=False)[0])
+    print(f"  17a: {mm_idle} matmul calls launched no kernel (left out); the profiler's "
+          f"matmul FLOPs over every call {a['profiler_matmul_flops_all_calls']:.6e}",
+          flush=True)
+    a.update(trace_s=an_s, argument_bytes=an["argument_bytes"], temp_bytes=an["temp_bytes"],
+             state_bytes=state_bytes, temp_measured=temp_meas,
+             step_ms=sorted(step_ms)[1], update_bytes=upd.hbm_bytes,
+             update_flops=upd.flops, profile=win)
+    print(f"  17a: traced on meta in {an_s:.1f}s; the update alone (adamw_update traced) "
+          f"{gb(upd.hbm_bytes)} against the ≈ {gb(UPDATE_BYTES_15A)} its kernels moved in "
+          f"15a; step {a['step_ms']:.1f} ms (median of 3)"
+          + (f", kernels {win['kernels']}, idle share {win['idle_share']:.3f}" if win else ""),
+          flush=True)
+    if cuda:
+        arg_rel = abs(an["argument_bytes"] - state_bytes) / state_bytes
+        temp_rel = abs(an["temp_bytes"] - temp_meas) / temp_meas
+        a.update(argument_rel=arg_rel, temp_rel=temp_rel)
+        print(f"  17a: argument_size {gb(an['argument_bytes'])} against allocated "
+              f"{gb(state_bytes)} (rel {arg_rel:.4f}); temp_size {gb(an['temp_bytes'])} "
+              f"against the step's peak less the state {gb(temp_meas)} (rel {temp_rel:.4f})",
+              flush=True)
+        check(arg_rel <= DRY_ARG_REL, f"17a: argument_size off by {arg_rel:.4f}")
+        check(temp_rel <= DRY_TEMP_REL, f"17a: temp_size off by {temp_rel:.4f}")
+    rec["17a"] = a
+    del model, opt_state, batch, prof, events
+    end("17a", t0)
+
+    # -- 17b: the dense bf16 decode step at LM_SLOTS slots --------------------
+    free()
+    t0 = begin("17b", f"{DRY_ARCH} dense bf16 decode step at {LM_SLOTS} slots "
+                      f"(max_seq {LM_MAX_SEQ}): op_analysis on meta against the card")
+    an = dryrun.analyze_decode_step(cfg, LM_SLOTS, LM_MAX_SEQ)
+    model = lm.init_model(cfg, 0, device=dev)
+    state = lm.init_decode_state(cfg, LM_SLOTS, LM_MAX_SEQ, device=dev)
+    toks = torch.zeros((LM_SLOTS, 1), dtype=torch.int32, device=dev)
+    steps = {"eager": lambda: lm.decode_step(cfg, model, state, toks)}
+    if cuda:
+        rng = np.random.default_rng(0)
+        srv = BatchedServer(cfg, model, batch_slots=LM_SLOTS, max_seq=LM_MAX_SEQ)
+        for i in range(LM_SLOTS):
+            one, _ = srv._prefill_one(rng.integers(0, cfg.vocab, LM_PROMPT).astype(np.int32))
+            _merge_slot(srv.state, one, i)
+        host_toks = np.zeros((LM_SLOTS, 1), np.int64)
+        steps["graph"] = lambda: srv._decode_once(host_toks)
+    for _ in range(3):
+        for fn in steps.values():
+            fn()
+    sync()
+    with profile(activities=acts, with_flops=True) as prof:
+        for name, fn in steps.items():
+            with record_function(f"dryrun/decode_{name}"):
+                fn()
+                sync()
+    events = prof.events()
+    flops_eager, _ = matmul_flops_of(events, ran=cuda)
+    wins = ({name: profile_window(events, f"dryrun/decode_{name}") for name in steps}
+            if cuda else {})
+    b = held("17b", an, flops_eager, wins["graph"]["busy_ms"] if cuda else None)
+    b.update(argument_bytes=an["argument_bytes"], profile=wins)
+    # what a step must read: every weight but the embedding table, whose
+    # rows alone are read (7.124 GB at full size, PERF.md §4)
+    weights = sum(t.numel() * t.element_size() for t in model.state_dict().values())
+    must_read = weights - model.embed.numel() * model.embed.element_size()
+    b.update(weight_bytes=weights, must_read_bytes=must_read)
+    print(f"  17b: HBM bytes {gb(an['cost'].hbm_bytes)} against the {gb(must_read)} of "
+          f"weights a step reads ({gb(weights)} with the embedding table)"
+          + "".join(f"; {n}: busy {w['busy_ms']:.3f} ms, {w['kernels']} kernels"
+                    for n, w in wins.items()), flush=True)
+    check(an["cost"].hbm_bytes >= must_read, f"17b: HBM bytes {an['cost'].hbm_bytes:.4e} "
+                                             f"under the weights' {must_read:.4e}")
+    rec["17b"] = b
+    del model, state, steps, prof
+    if cuda:
+        del srv
+    end("17b", t0)
+
+    # -- 17c: production cells on 16x16 logical cards, no card -------------
+    t0 = begin("17c", "dry-run cells on make_production_mesh() (256 logical cards, meta)")
+    rec["17c"] = {}
+    for arch, shape in DRY_CELLS:
+        t1 = time.perf_counter()
+        cell = dryrun.reckon_cell(get_config(arch), shape, make_production_mesh(),
+                                  dict(dryrun.TRAIN_KNOBS.get(arch, {})))
+        secs = time.perf_counter() - t1
+        out = {k: cell[k] for k in ("per_device", "memory", "mesh_totals", "depth",
+                                    "compute_cards", "n_micro", "placement")}
+        out["seconds"] = secs
+        t = roofline.terms({"arch": arch, "shape": shape, "mesh": "16x16", **out})
+        out["terms"] = t
+        rec["17c"][f"{arch}/{shape}"] = out
+        print(f"  17c {arch} {shape} 16x16 in {secs:.1f}s: {json.dumps(out, default=str)}",
+              flush=True)
+        check(all(math.isfinite(v) and v > 0 for v in (
+            out["per_device"]["flops"], out["per_device"]["hbm_bytes"])),
+              f"17c: {arch} {shape} figures not finite and positive")
+    end("17c", t0)
+
+    # -- 17d: the paper's Fig 6 figures for cant through core.traffic ------
+    t0 = begin("17d", "Fig 6 on cant at scale 1.0 (61 cores, 64-row chunks, 8192-line LRU)")
+    a_cant = generate("cant", scale=1.0)
+    m, n = a_cant.shape
+    app = spmv_app_bytes(m, n, a_cant.nnz)
+    inf = traffic.actual_spmv_bytes(a_cant)
+    lru = traffic.actual_spmv_bytes(a_cant, cache_lines=8192)
+    va = traffic.vector_access_multiplier(a_cant)
+    shards = traffic.shard_vector_access(a_cant, 4)
+    rec["17d"] = {"app_bytes": app, "actual_infinite": inf, "actual_lru": lru,
+                  "vector_access": va, "shards4": shards}
+    print(f"  17d: cant application bytes {app}, actual (infinite cache) {inf} "
+          f"({inf / app:.4f}x), actual (LRU 8192 lines) {lru} ({lru / app:.4f}x), vector "
+          f"access {va:.4f}x; over 4 row shards allgather {shards['allgather_bytes']:.0f} B "
+          f"against on-demand {shards['ondemand_bytes']:.0f} B", flush=True)
+    check(lru >= inf >= app - 2 * n * 4, "17d: the traffic counts out of order")
+    end("17d", t0)
+
+    launches = dict(_build.LAUNCHES)
+    rec["launches"] = launches
+    rec["total_s"] = time.perf_counter() - t_phase
+    print(f"phase 17: kernel launches over the phase {launches or '{}'} (must be none); "
+          f"wall time {rec['total_s']:.1f}s [{smi}]", flush=True)
+    check(not any(launches.values()), f"17: kernels launched by the dry-run phase: {launches}")
+    if log.failures:
+        fail("phase 17: " + "; ".join(log.failures))
+    return launches
+
+
+def dryrun_main(out_path: str) -> None:
+    """``python3 chip_smoke.py --dryrun-phase OUT``: phase 17 in a fresh
+    process, its record to OUT."""
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: phase 17 needs a card")
+    record: dict = {}
+    launches = dryrun_phase(torch.device("cuda"), record)
+    Path(out_path).write_text(json.dumps({"dryrun": record["dryrun"],
+                                          "launches": launches}, default=str))
+
+
 def run_subphase(flag: str, key: str, label: str, record: dict) -> dict:
     """Phase ``label`` in a fresh process (``chip_smoke.py FLAG OUT``)
     after this one's cached blocks are freed; its launches (all 0), with
@@ -5857,6 +6174,15 @@ def main() -> None:
         row["mesh_train_launches"] = int(launches16.get(row["name"], 0))
     phase_done("train", t0)
 
+    # -- phase 17: the dry-run tools against the card, in a fresh process; no
+    # kernel on their path
+    t0 = time.perf_counter()
+    launches17 = run_subphase("--dryrun-phase", "dryrun", "17", record)
+    record["dryrun_launches"] = launches17
+    for row in kernels:
+        row["dryrun_launches"] = int(launches17.get(row["name"], 0))
+    phase_done("dryrun", t0)
+
     record["kernels"] = kernels
     record["card"] = smi
     record["total_s"] = round(time.perf_counter() - t_start, 3)
@@ -5885,5 +6211,7 @@ if __name__ == "__main__":
         train_main(sys.argv[2])
     elif sys.argv[1:2] == ["--mesh-train-phase"]:
         mesh_train_main(sys.argv[2])
+    elif sys.argv[1:2] == ["--dryrun-phase"]:
+        dryrun_main(sys.argv[2])
     else:
         main()

@@ -36,17 +36,32 @@ whose arrays equal the JAX package's.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Sequence
 
 import numpy as np
 import torch
 
-__all__ = ["Mesh", "sparse_axis", "SCHEDULES", "local_spmm", "stacked_spmm", "place_stacked",
-           "assemble_rows", "allgather_spmm", "ring_spmm", "build_mesh_operand",
+__all__ = ["Mesh", "LogicalCard", "sparse_axis", "SCHEDULES", "local_spmm", "stacked_spmm",
+           "place_stacked", "assemble_rows", "allgather_spmm", "ring_spmm", "build_mesh_operand",
            "place_mesh_operand", "mesh_operand_nbytes", "mesh_spmm_runner",
            "psum_dot_runner"]
 
 SCHEDULES = ("allgather", "ring")
+
+
+@dataclasses.dataclass(frozen=True)
+class LogicalCard:
+    """A placeholder card of a mesh on ``meta`` (``launch.mesh``): cell
+    ``index`` in row-major order.  It holds no storage; tensors reckoned on
+    it are meta tensors.  ``torch.device`` keeps an 8-bit index, too few
+    for a 512-cell mesh, so the cell carries its own."""
+
+    index: int
+    type = "meta"
+
+    def __str__(self) -> str:
+        return f"meta:{self.index}"
 
 
 class Mesh:
@@ -61,14 +76,15 @@ class Mesh:
     ``jax.sharding.Mesh`` in the JAX package.  :meth:`device_at` gives the
     device of a cell.  A device may appear in more than one cell (cells
     sharing one card); ``n_devices`` counts the distinct ones.  CPU and
-    CUDA devices never mix.
+    CUDA devices never mix.  A cell may also be a :class:`LogicalCard`
+    (the dry run's placeholder meshes).
     """
 
     def __init__(self, devices, axis_names=("shard",)):
         given = np.asarray(devices, dtype=object)
         grid = np.empty(given.shape, dtype=object)
         for index, d in np.ndenumerate(given):
-            grid[index] = torch.device(d)
+            grid[index] = d if isinstance(d, LogicalCard) else torch.device(d)
         self.axis_names = tuple(axis_names)
         if grid.size == 0:
             raise ValueError("a mesh needs at least one device")

@@ -1,4 +1,5 @@
-"""The paper's structural and bandwidth metrics that the tuner reads.
+"""The paper's structural and bandwidth metrics: the tuner's, and the
+bandwidth and intensity models of its figures.
 
 UCLD (useful cacheline density, paper §4.1/Fig 5): per row, the ratio of the
 row's nnz to the number of x-vector *elements* covered by the cachelines that
@@ -9,6 +10,7 @@ UTD (useful tile density): the denominator is a (tile_rows, tile_cols) tile
 instead of the cacheline, evaluated over the 2-D pattern.
 
 Bandwidth models (paper §4.2, Fig 6):
+  naive_bytes  = tau * (val_bytes + idx_bytes)
   app_bytes    = 2*n*val_bytes + (n+1)*idx_bytes + tau*(val_bytes+idx_bytes)
   spmm variants scale the vector terms by k.
 
@@ -18,14 +20,18 @@ from __future__ import annotations
 
 import numpy as np
 
-from .formats import CSRMatrix
+from .formats import BCSRMatrix, CSRMatrix
 
 __all__ = [
     "ucld",
     "ucld_per_row",
     "utd",
+    "block_fill_histogram",
+    "spmv_naive_bytes",
     "spmv_app_bytes",
     "spmm_app_bytes",
+    "flop_to_byte_spmv",
+    "flop_to_byte_spmm",
     "matrix_bandwidth",
     "sorted_unique",
 ]
@@ -80,6 +86,18 @@ def utd(a: CSRMatrix, tile: tuple[int, int] = (8, 128)) -> float:
     return a.nnz / (n_tiles * tr * tc)
 
 
+def block_fill_histogram(a: BCSRMatrix, bins: int = 10) -> np.ndarray:
+    """Histogram of per-block density — drives the paper's Table 2 analysis."""
+    dens = (a.blocks != 0).reshape(a.n_blocks, -1).mean(axis=1)
+    hist, _ = np.histogram(dens, bins=bins, range=(0.0, 1.0))
+    return hist
+
+
+def spmv_naive_bytes(nnz: int, val_bytes: int = 4, idx_bytes: int = 4) -> int:
+    """Paper's naive model: only the nonzeros move (12B/nnz at f64+i32)."""
+    return nnz * (val_bytes + idx_bytes)
+
+
 def spmv_app_bytes(
     n_rows: int, n_cols: int, nnz: int, val_bytes: int = 4, idx_bytes: int = 4
 ) -> int:
@@ -104,6 +122,19 @@ def spmm_app_bytes(
         (n_rows + n_cols) * k * val_bytes
         + (n_rows + 1) * idx_bytes
         + nnz * (val_bytes + idx_bytes)
+    )
+
+
+def flop_to_byte_spmv(val_bytes: int = 4, idx_bytes: int = 4) -> float:
+    """2 flops per nnz over (val+idx) bytes: paper's 2/12 at f64."""
+    return 2.0 / (val_bytes + idx_bytes)
+
+
+def flop_to_byte_spmm(
+    n_rows: int, n_cols: int, nnz: int, k: int, val_bytes: int = 4, idx_bytes: int = 4
+) -> float:
+    return (2.0 * nnz * k) / spmm_app_bytes(
+        n_rows, n_cols, nnz, k, val_bytes, idx_bytes
     )
 
 

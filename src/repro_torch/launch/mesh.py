@@ -15,15 +15,16 @@ import numpy as np
 import torch
 
 from repro_torch.core.device import resolve
-from repro_torch.core.distributed import Mesh
+from repro_torch.core.distributed import LogicalCard, Mesh
 
-__all__ = ["make_spmm_mesh", "make_mesh", "batch_axes"]
+__all__ = ["make_production_mesh", "make_spmm_mesh", "make_mesh", "batch_axes"]
 
 
 def _cells(shape: tuple[int, ...], device) -> np.ndarray:
     """A device array of ``shape``: on ``cuda`` the cell of row-major index
     i on card i mod ``torch.cuda.device_count()``, on ``cpu`` every cell on
-    the CPU.  With no card, a ``cuda`` device raises."""
+    the CPU, on ``meta`` cell i on ``LogicalCard(i)``.  With no
+    card, a ``cuda`` device raises."""
     dev = resolve(device)
     n = int(np.prod(shape))
     if dev.type == "cuda":
@@ -31,11 +32,23 @@ def _cells(shape: tuple[int, ...], device) -> np.ndarray:
         flat = [torch.device("cuda", i % count) for i in range(n)]
     elif dev.type == "cpu":
         flat = [dev] * n
+    elif dev.type == "meta":
+        flat = [LogicalCard(i) for i in range(n)]
     else:
         raise ValueError(f"no mesh on device type {dev.type!r}")
     cells = np.empty(n, dtype=object)
     cells[:] = flat
     return cells.reshape(shape)
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device: str | torch.device = "meta") -> Mesh:
+    """16x16 single pod (256 cells, axes ``("data", "model")``) or 2x16x16
+    (two pods, 512 cells, ``("pod", "data", "model")``).  On ``meta`` (the
+    default) each cell is a logical card and ``mesh.n_devices`` is 256 or
+    512; no card is needed."""
+    return make_mesh(2, 16, 16, device=device) if multi_pod else make_mesh(
+        1, 16, 16, device=device)
 
 
 def make_spmm_mesh(n_shards: int, *, axis: str = "shard",

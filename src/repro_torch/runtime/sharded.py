@@ -46,7 +46,8 @@ from repro_torch.core.distributed import Mesh
 from repro_torch.launch.shardspecs import axis_size
 from repro_torch.models.lm import LM, ModelConfig, param_axes, trainable
 
-__all__ = ["Layout", "leaf_layout", "ShardedModel", "scatter", "gather", "reduce_into"]
+__all__ = ["Layout", "leaf_layout", "ShardedModel", "scatter", "gather", "reduce_into",
+           "owned_parts", "accumulate"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -144,18 +145,25 @@ def load_blocks(layout: Layout, stacks: dict, full: torch.Tensor) -> None:
 
 
 @torch.no_grad()
-def gather(layout: Layout, stacks: dict, out: torch.Tensor) -> torch.Tensor:
+def gather(layout: Layout, stacks: dict, out: torch.Tensor, device=None,
+           tally: dict | None = None) -> torch.Tensor:
     """Assemble a leaf from its ``stacks`` into ``out`` (the whole leaf, on
-    the gathering device) and return it: one permuted copy where that
-    device owns every block, else an index copy per owning device first."""
-    dev = out.device
+    the gathering device ``device``, by default ``out``'s) and return it:
+    one permuted copy where that device owns every block, else an index
+    copy per owning device first.  ``tally``, if given, gains the bytes
+    copied from other devices under ``device``."""
+    dev = out.device if device is None else device
     if layout.sole_owner() == dev:
         full_blocks = _stack_view(layout, stacks[dev])
     else:
-        flat = torch.empty((layout.n_blocks, *layout.block), dtype=out.dtype, device=dev)
+        flat = torch.empty((layout.n_blocks, *layout.block), dtype=out.dtype,
+                           device=out.device)
         for owner, ix in layout.owned.items():
-            rows = torch.as_tensor(ix, device=dev)
-            flat.index_copy_(0, rows, stacks[owner].to(dev, non_blocking=True))
+            rows = torch.as_tensor(ix, device=out.device)
+            part = stacks[owner].to(out.device, non_blocking=True)
+            if tally is not None and owner != dev:
+                tally[dev] = tally.get(dev, 0) + part.numel() * part.element_size()
+            flat.index_copy_(0, rows, part)
         full_blocks = _stack_view(layout, flat)
     out.view(layout.interleaved()).copy_(full_blocks.permute(_inverse(layout)))
     return out
@@ -167,20 +175,45 @@ def _inverse(layout: Layout) -> tuple[int, ...]:
 
 
 @torch.no_grad()
-def reduce_into(layout: Layout, acc: dict, g: torch.Tensor, dtype) -> None:
-    """Add one replica's full gradient ``g`` onto each block's owner:
-    ``acc`` is ``{owner: stack}`` in ``dtype``; a missing stack is made
-    from ``g``'s blocks (the first replica), later replicas add to it."""
-    view = _blocks_view(layout, g)
-    for dev, ix in layout.owned.items():
-        part = view if len(ix) == layout.n_blocks else (
-            view.reshape(layout.n_blocks, *layout.block)[list(ix)])
+def reduce_into(layout: Layout, acc: dict, g: torch.Tensor, dtype, src=None,
+                tally: dict | None = None) -> None:
+    """Add one replica's full gradient ``g`` (computed on ``src``, by
+    default ``g``'s device) onto each block's owner: ``acc`` is ``{owner:
+    stack}`` in ``dtype``; a missing stack is made from ``g``'s blocks (the
+    first replica), later replicas add to it.  ``tally``, if given, gains
+    the bytes copied to each owner other than ``src``."""
+    src = g.device if src is None else src
+    for dev, ix, part in owned_parts(layout, g):
         part = part.to(dev, non_blocking=True)  # the same tensor on g's device
-        if dev not in acc:
-            acc[dev] = torch.empty((len(ix), *layout.block), dtype=dtype, device=dev)
-            _rows(layout, acc[dev], ix).copy_(part)
-        else:
-            _rows(layout, acc[dev], ix).add_(part)
+        if tally is not None and dev != src:
+            tally[dev] = tally.get(dev, 0) + part.numel() * part.element_size()
+        accumulate(layout, acc, dev, ix, part, dtype)
+
+
+def owned_parts(layout: Layout, g: torch.Tensor):
+    """``(owner, block indices, part)`` for each owner of a leaf's blocks,
+    the parts on ``g``'s device (the replica's): the block view of ``g``
+    itself where one owner holds every block, else rows of one contiguous
+    copy of the blocks (one copy a leaf, not one an owner)."""
+    view = _blocks_view(layout, g)
+    flat = None
+    for dev, ix in layout.owned.items():
+        if len(ix) == layout.n_blocks:
+            yield dev, ix, view
+            continue
+        if flat is None:
+            flat = view.reshape(layout.n_blocks, *layout.block)
+        yield dev, ix, flat[list(ix)]
+
+
+def accumulate(layout: Layout, acc: dict, dev, ix, part: torch.Tensor, dtype) -> None:
+    """Owner ``dev``'s half of a reduction: copy ``part`` (its blocks ``ix``,
+    on its card) into a new ``acc[dev]`` in ``dtype``, or add it."""
+    if dev not in acc:
+        acc[dev] = torch.empty((len(ix), *layout.block), dtype=dtype, device=part.device)
+        _rows(layout, acc[dev], ix).copy_(part)
+    else:
+        _rows(layout, acc[dev], ix).add_(part)
 
 
 def _rows(layout: Layout, stack: torch.Tensor, ix) -> torch.Tensor:
@@ -196,7 +229,9 @@ class ShardedModel:
     :class:`Layout` and ``axes[name]`` its logical axes.  :meth:`compute`
     gathers the weights onto a device's compute model; :meth:`state_dict`
     and :meth:`host` give the logical (whole-leaf) state on the host,
-    :meth:`load` writes one back."""
+    :meth:`load` writes one back.  ``copied`` counts the bytes the
+    gathers and reductions have copied between distinct devices, by kind
+    (``"gather"``, ``"reduce"``) and receiving device."""
 
     def __init__(self, cfg: ModelConfig, model: LM, mesh: Mesh, specs: dict):
         self.cfg, self.mesh, self.specs = cfg, mesh, dict(specs)
@@ -212,6 +247,7 @@ class ShardedModel:
         self.dtypes = {n: p.dtype for n, p in params.items()}
         self.blocks = {n: scatter(self.layouts[n], p.detach()) for n, p in params.items()}
         self._compute = {self.device: model}
+        self.copied: dict[str, dict] = {"gather": {}, "reduce": {}}
 
     def compute(self, device: torch.device) -> LM:
         """``device``'s compute model with every trainable leaf gathered
@@ -221,7 +257,8 @@ class ShardedModel:
         if model is None:
             model = self._compute[device] = LM(self.cfg, device)
         for name, p in trainable(model).items():
-            gather(self.layouts[name], self.blocks[name], p.data)
+            gather(self.layouts[name], self.blocks[name], p.data, device,
+                   self.copied["gather"])
         return model
 
     def full(self, name: str, tree: dict | None = None, device="cpu") -> torch.Tensor:

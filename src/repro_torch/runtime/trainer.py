@@ -271,7 +271,8 @@ def sharded_grads(cfg: ModelConfig, sm: ShardedModel, batch: dict, n_micro: int 
             with record_function("sharded/reduce"):
                 for name in list(grads):
                     reduce_into(sm.layouts[name], acc[name], grads.pop(name),
-                                accum_dtype if n_micro > 1 else sm.dtypes[name])
+                                accum_dtype if n_micro > 1 else sm.dtypes[name], dev,
+                                sm.copied["reduce"])
             losses.append(loss)
             for key, vals in parts.items():
                 vals.append(metrics[key].detach())

@@ -1801,3 +1801,72 @@ def test_gpu_kernel_wrappers_and_the_cuda_tier_ffn_refuse_autograd(cuda_device):
     _, _, metrics = make_train_step(ref, opt_cfg)(model, adamw_init(params, opt_cfg), batch)
     assert float(metrics["grad_norm"]) > 0 and not _build.LAUNCHES
     assert not torch.equal(model.blocks[0].ffn.w1_blocks, before)
+
+
+# ---------------------------------------------------------------------------
+# the dry run's analyzer against the card
+# ---------------------------------------------------------------------------
+@pytest.mark.gpu
+def test_gpu_train_step_matches_its_op_analysis(cuda_device):
+    """Phase 17a at 2 layers: qwen1.5-4b's bf16 train step at full width (8
+    x 128, AdamW with float32 moments) analysed on meta
+    (``launch.dryrun.analyze_train_step``) and run on the card under
+    ``torch.profiler`` (``with_flops``), launching no kernel: the analyzer's
+    matmul FLOPs within 0.1 % of the profiler's FLOPs of the ``aten::mm``,
+    ``addmm``, ``bmm`` and ``baddbmm`` calls that launched a kernel (one
+    call a block launches none: the recomputation's early stop); its FLOPs over 989 TFLOP/s and its
+    bytes over 3.35 TB/s each at most the step's device-busy time;
+    ``argument_size`` within 1 % of the allocator's bytes once the state is
+    built."""
+    import dataclasses
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import MarkovTokens
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.models import lm
+    from repro_torch.optim.adamw import OptimConfig, adamw_init
+    from repro_torch.runtime.trainer import make_train_step
+
+    cfg = dataclasses.replace(get_config("qwen1.5-4b"), n_layers=2)
+    opt_cfg = OptimConfig(lr_peak=3e-4, warmup_steps=1, total_steps=6)
+    meta = {k: torch.empty((8, 128), dtype=torch.int32, device="meta")
+            for k in ("tokens", "labels")}
+    an = dryrun.analyze_train_step(cfg, meta, opt_cfg)
+    _build.reset_launches()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    model = lm.init_model(cfg, 0, device=cuda_device)
+    opt = adamw_init(lm.trainable(model), opt_cfg)
+    torch.cuda.synchronize()
+    state = torch.cuda.memory_allocated() - before
+    assert abs(an["argument_bytes"] - state) <= 0.01 * state
+    batch = {k: torch.as_tensor(v, device=cuda_device) for k, v in
+             MarkovTokens(cfg.vocab, batch=8, seq=128, seed=0).batch_at(0).items()}
+    step = make_train_step(cfg, opt_cfg)
+    model, opt, _ = step(model, opt, batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 with_flops=True) as prof:
+        model, opt, _ = step(model, opt, batch)
+        torch.cuda.synchronize()
+    events = prof.events()
+    # the matmul calls that launched a kernel: remat's early stop raises in
+    # each recomputed block's last matmul after the profiler records it
+    mm = [e for e in events if e.name in ("aten::mm", "aten::addmm", "aten::bmm",
+                                          "aten::baddbmm")]
+    flops = sum(e.flops or 0 for e in mm if e.kernels)
+    assert abs(an["cost"].matmul_flops - flops) <= 1e-3 * flops
+    assert sum(1 for e in mm if not e.kernels) == cfg.n_layers
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    busy_s = busy / 1e6
+    assert an["cost"].flops / roofline.PEAK_FLOPS <= busy_s
+    assert an["cost"].hbm_bytes / roofline.HBM_BW <= busy_s
+    assert not _build.LAUNCHES
