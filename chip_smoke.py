@@ -375,6 +375,48 @@ scipy; imports nothing of JAX or of the JAX package.  Phases:
    kernel row gains ``dryrun_launches`` (0).  Rehearse on the CPU with
    ``dryrun_phase(torch.device("cpu"), {}, reduced=True)``.
 
+18. The public surface and the examples' twins (``examples/*_torch.py``),
+   in a fresh process that runs right after phase 16's, while the parent
+   holds no tensor (llama3-405b's check peaks near 61 GB), each twin's ``main`` on the card, launches counted
+   over the twins' runs and (f)'s serving runs: (a) quickstart: kernels 1
+   and 3 launched, the SELL product and the float32 BCSR product ((8, 16)
+   blocks, k = 16) within 1e-5 (|A| |x|)_i of their plain versions and of
+   a float64 oracle, so are the plain tier's, the tuned operator's (a
+   plan-cache hit) and the engine's 9 futures (no supervisor event);
+   (b) serve_decode: the 1-slot
+   tokens equal the 4- and 8-slot tokens, tok/s, the engine's 32 futures
+   at 1e-5; (c) sparse_eigensolver at full size: its own 5 % assertion,
+   then block power run on to 500 iterations, the largest Ritz value
+   within 1e-3 of ``eigsh(which="LA")``; (d) ``train_lm --big --steps
+   300`` with its depth cut to 2 layers, then whole (88 M parameters):
+   every loss finite, the last 20 losses' mean below log(vocab), not below
+   the chain's entropy floor less 0.05, and below the first 5's by 1 nat
+   (the cut) or ``EX_LEARN_NATS`` (12 layers; the JAX package's drops at
+   both depths, ``tests/witness_train_lm.py``), step ms, tokens/s and the
+   allocator peak, then a run resumed from its step-250 checkpoint whose losses
+   equal the first run's within 1e-5; (e) ``train_lm --sparse --steps
+   20``: finite and falling; (f) deepseek-67b and llama3-405b at full
+   width and the depth ``vl_layers`` reckons (32 of 95 and 6 of 126), each
+   freed before the next: ``serve --arch --reduced``, a 4-slot server of
+   the dense model (8/8 through its graphs, no launch) with its step
+   times beside the bound (``av_bounds``), bf16 first-token logits against
+   float32 blocks streamed one at a time at the served depth (reported),
+   then, at ``BF16_CHECK_LAYERS`` (the first layers built afresh from seed
+   0), bf16 against a float32 copy (held to ``LM_BF16_LIMIT``), decode
+   against ``forward`` at 1e-3 and a graphed step against eager bit for
+   bit; the bcsr variant ((128, 128) blocks, density 0.25): kernel 3 in
+   bf16 on W1 and W2 at k = 4 and 32 against its plain version, a 4-slot
+   server with both counters at 2 x layers a pass, the kernel timed beside
+   a dense matmul and its bound; after each model is freed the allocator
+   must be back within 1 % of its bytes before it was built (ROADMAP
+   C.31; the largest live blocks printed with their stacks where not:
+   allocation stacks are recorded over 18f except while it times).
+   Each kernel row gains ``examples_launches``, and the table gains
+   kernel 3's rows at the two models' FFN shapes.
+   Rehearse on the CPU with ``examples_phase(torch.device("cpu"), {},
+   reduced=True)``; alone: ``python3 chip_smoke.py --examples-phase
+   OUT.json``.
+
 Any failed check exits non-zero.  The last lines are the card's name and
 power limit, one JSON object with the kernel table, and the JSON status
 line.  The full record also goes to ``chiprun_out/chip_smoke.json``.
@@ -2753,23 +2795,22 @@ def hybrid_phase(dev, record: dict, *, reduced: bool = False) -> tuple[dict, lis
 AV_ARCH, VL_ARCH = "whisper-tiny", "qwen2-vl-72b"
 AV_PROMPT, AV_NEW = 4, 32  # (a): 1500 frames and a 4-token prompt, 32 new tokens
 VL_TEXT, VL_NEW, VL_MAX_SEQ = 32, 16, 320  # (b): 256 vision slots + 32 text tokens
-# (b): qwen2-vl-72b's 80 layers (145 GB in bf16) do not fit one card: the
-# depth whose bf16 weights fit this budget, which leaves room for the caches,
-# the graphs and (e)'s check copies
+# (b), 18f: qwen2-vl-72b's 80 layers (145 GB in bf16), deepseek-67b's 95 and
+# llama3-405b's 126 do not fit one card: the depth whose bf16 weights fit this
+# budget, which leaves room for the caches, the graphs and the check copies
 VL_WEIGHT_BUDGET = 48e9
 
 
 def vl_layers(cfg) -> tuple[int, float]:
-    """(the depth phase 14 serves ``cfg`` at, its bf16 weight bytes): a
-    VLM's deepest cut whose weights fit VL_WEIGHT_BUDGET (a layer: q, k, v,
-    o, SwiGLU and two norms; embed and unembed beside), every other
-    family's full depth."""
+    """(the depth phases 14 and 18 serve ``cfg`` at, its bf16 weight
+    bytes): the deepest cut whose weights fit VL_WEIGHT_BUDGET, full depth
+    where they fit.  A layer is reckoned as a decoder layer of the dense
+    and VLM families (q, k, v, o, SwiGLU and two norms; embed and unembed
+    beside); phase 12 cuts the MoE llama4-scout itself (SCOUT_LAYERS)."""
     d, f, (qd, kvd) = cfg.d_model, cfg.d_ff, cfg.qkv_dims
     layer = 2 * (2 * d * qd + 2 * d * kvd + 3 * d * f + 2 * d)
     table = 2 * 2 * cfg.vocab_padded * d
-    layers = cfg.n_layers
-    if cfg.family == "vlm":
-        layers = max(1, min(layers, int((VL_WEIGHT_BUDGET - table) // layer)))
+    layers = max(1, min(cfg.n_layers, int((VL_WEIGHT_BUDGET - table) // layer)))
     return layers, layers * layer + table
 
 
@@ -4291,6 +4332,506 @@ def dryrun_main(out_path: str) -> None:
                                           "launches": launches}, default=str))
 
 
+# -- phase 18: the public surface and the examples' twins --------------------
+EXAMPLES = ROOT / "examples"
+SERVE_ARCHES = ("deepseek-67b", "llama3-405b")  # 18f: at the depth vl_layers reckons
+SERVE_KS = (LM_SLOTS, LM_PROMPT)  # 18f: kernel 3's widths, a decode step and a prefill
+EX_TRAIN_STEPS, EX_RESUME_AT = 300, 250  # 18d: train_lm --big, resumed from a checkpoint
+EX_SPARSE_STEPS = 20  # 18e: train_lm --sparse
+# 18d: the learning check.  The example's schedule (lr 6e-4, 20 warmup
+# steps, cosine to 0 over 300) takes --big's width cut to EX_CUT_LAYERS
+# layers 2.76 nat down: its loss sits near the chain's stationary entropy
+# until step ~120, then learns the transitions.  At 12 layers (d 384) it
+# learns the stationary distribution and stalls there to step 300, 0.50 nat
+# down.  The JAX package and the port agree on both, within 6.1e-6 and
+# 2.8e-6 relative at every step on the same weights and data
+# (tests/witness_train_lm.py on the CPU; PERF.md §6).  So the cut is held
+# to the 1-nat drop on the card, and --big to EX_LEARN_NATS: the JAX
+# package's 12-layer drop less 0.1 nat for the width and the initial
+# weights.  Both last-20 means stay below log(vocab), the uniform
+# predictor's loss, and not below the chain's entropy floor less
+# EX_FLOOR_SLACK (a loss under the floor would mean the labels leak).
+EX_CUT_LAYERS, EX_CUT_LEARN_NATS = 2, 1.0
+EX_LEARN_NATS = 0.4
+EX_FLOOR_SLACK = 0.05
+EX_RESUME_REL = 1e-5  # 18d: a resumed run's losses against the first run's
+EX_RITZ_ITERS, EX_RITZ_REL = 500, 1e-3  # 18c: block power run on, held to eigsh's
+EX_MEMORY_SHARE = 0.01  # 18f: allocated bytes back within this share once a model is freed
+
+
+def load_example(name: str):
+    """``examples/<name>_torch.py`` as a module, to call its ``main``."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(f"example_{name}_torch",
+                                                  EXAMPLES / f"{name}_torch.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def row_held(log, what: str, got, ref, scale, quiet: bool = False) -> float:
+    """Every entry of ``got`` within TOL (|A| |x|)_i (``scale``) of ``ref``,
+    finite and of its shape; a miss goes to ``log``'s failures, or ends the
+    run where ``log`` is None.  Returns the largest |got - ref|."""
+    import numpy as np
+    import torch
+
+    def host(t):
+        return np.asarray(t.detach().cpu() if isinstance(t, torch.Tensor) else t,
+                          np.float64)
+
+    got, ref, scale = host(got), host(ref), host(scale)
+    ok = got.shape == ref.shape and bool(np.isfinite(got).all())
+    try:
+        scale = np.broadcast_to(scale, got.shape)
+    except ValueError:
+        ok = False
+    err = np.abs(got - ref) if ok else np.full(1, np.inf)
+    bad = int((err > TOL * scale).sum()) if ok else -1
+    msg = f"{what}: shape {got.shape} against {ref.shape}, {bad} entries over {TOL:g} (|A| |x|)_i"
+    if log is not None:
+        log.check(ok and bad == 0, msg)
+    elif not (ok and bad == 0):
+        fail(msg)
+    m = float(err.max()) if err.size else 0.0
+    if ok and not bad and not quiet:
+        print(f"  ok {what}: max_abs_err {m:.3e}", flush=True)
+    return m
+
+
+def streamed_first_logits(cfg, model, prompts):
+    """The first-token logits of the dense transformer ``model`` (its own
+    dtype) computed in float32 at its full depth, one block widened at a
+    time, since a float32 copy of the whole depth would not fit beside it:
+    each block runs as ``lm.forward`` runs it (``lm._attn_seq``,
+    ``lm._ffn``); the embedding rows and the unembedding (in column chunks)
+    are widened as they are read.  Prompts of one length."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import lm
+
+    dev = model.device
+    cfg_f = dataclasses.replace(cfg, dtype=torch.float32, n_layers=1)
+    blk, norm = lm.Block(cfg_f, dev), lm.Norm(cfg_f, cfg.d_model, dev)
+    norm.load_state_dict(model.ln_f.state_dict())
+    toks = torch.as_tensor(np.stack(prompts), device=dev).long()
+    with torch.no_grad():
+        h = model.embed[toks].float()
+        angles = lm._rotary(cfg_f, lm._positions({}, *toks.shape, dev))
+        for src in model.blocks:
+            blk.load_state_dict(src.state_dict())
+            h = h + lm._attn_seq(cfg_f, blk.attn, blk.ln1(h), angles)[0]
+            h = h + lm._ffn(cfg_f, blk.ffn, blk.ln2(h))[0]
+        last = norm(h[:, -1])
+        step = 16384
+        return torch.cat([last @ model.unembed[:, c:c + step].float()
+                          for c in range(0, model.unembed.shape[1], step)], dim=1)
+
+
+def memory_note(label: str, base: int, log) -> dict:
+    """ROADMAP C.31 on this path: with every server and model of ``label``
+    freed, the allocator's bytes must come back within EX_MEMORY_SHARE of
+    ``base`` (what it held before the model was built).  Where they do not,
+    the largest live blocks are printed with the Python stacks that
+    allocated them (recorded over 18f outside its timings)."""
+    import torch
+
+    log.free()
+    now = torch.cuda.memory_allocated()
+    ok = abs(now - base) <= EX_MEMORY_SHARE * base
+    print(f"  {label} freed: {now / 1e9:.4f} GB allocated against {base / 1e9:.4f} GB "
+          f"before it was built ({'back' if ok else 'NOT back'} within "
+          f"{EX_MEMORY_SHARE:.0%})", flush=True)
+    if not ok:
+        blocks = [b for seg in torch.cuda.memory_snapshot() for b in seg["blocks"]
+                  if b["state"] == "active_allocated"]
+        for b in sorted(blocks, key=lambda b: -b["size"])[:8]:
+            frames = [f"{f['filename'].rsplit('/', 1)[-1]}:{f['line']} {f['name']}"
+                      for f in b.get("frames", []) if f["filename"].endswith(".py")][:6]
+            print(f"    live block {b['size'] / 1e6:.1f} MB: " + " <- ".join(frames))
+    log.check(ok, f"{label}: {now / 1e9:.4f} GB stay allocated after it was freed "
+                  f"(before: {base / 1e9:.4f} GB)")
+    return {"before_bytes": base, "after_bytes": now, "back": ok}
+
+
+def examples_phase(dev, record: dict, *, reduced: bool = False) -> dict:
+    """Phase 18: each example twin's ``main`` on the card, then deepseek-67b
+    and llama3-405b served at the depth ``vl_layers`` reckons (``reduced``:
+    a CPU rehearsal on the reduced configs, the eigensolver's ``--smoke``
+    and a tiny training config; no time, launch or memory check).  Returns
+    the launch counts of the twins' runs and the servers' serving runs."""
+    import shutil
+
+    import numpy as np
+    import scipy.sparse as sp
+    import torch
+    from scipy.sparse.linalg import eigsh
+
+    from repro_torch.configs import get_config, get_reduced
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.bcsr_spmm import bcsr_spmm_plain, bf16_tensor_core_path
+    from repro_torch.kernels.sell_spmv import sell_spmv_plain
+    from repro_torch.models import lm
+    from repro_torch.models.ffn import SparseFFNConfig
+
+    rec = record.setdefault("examples", {})
+    log = PhaseLog(dev, rec)
+    cuda, smi, check, free, begin, end = (log.cuda, log.smi, log.check, log.free,
+                                          log.begin, log.end)
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = ["--device", dev.type]
+    launches: collections.Counter = collections.Counter()
+    rows: list = []
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_examples_")
+    # the eigensolver builds on the default plan cache: keep it in this run
+    os.environ["REPRO_TORCH_TUNE_CACHE"] = str(Path(tmp.name) / "plans.json")
+
+    def counted(fn):
+        _build.reset_launches()
+        out = fn()
+        got = {k: v for k, v in _build.LAUNCHES.items() if v}
+        launches.update(got)
+        return out, got
+
+    def csr64(a):
+        return sp.csr_matrix((a.data.astype(np.float64), a.indices, a.indptr),
+                             shape=a.shape)
+
+    def engine_held(label, A, xs, ys, events, summary):
+        worst = 0.0
+        for xi, yi in zip(xs, ys):
+            xi = np.asarray(xi.cpu() if torch.is_tensor(xi) else xi, np.float64)
+            worst = max(worst, row_held(log, f"{label} request", yi, A @ xi, abs(A) @ abs(xi),
+                                        quiet=True))
+        bad = [e for e in events if e in ("batch_failed", "demote", "batch_abandoned")]
+        check(not bad and not summary["demotions"] and not summary["failed_batches"],
+              f"{label}: supervisor events {bad}, demotions {summary['demotions']}")
+        print(f"  ok {label}: {len(xs)} futures within {TOL:g} (|A| |x|)_i of float64 "
+              f"(max_abs_err {worst:.3e}), no demotion, no failed batch", flush=True)
+
+    # -- 18a: quickstart ----------------------------------------------------
+    t0 = begin("18a", "examples/quickstart_torch.py (cant at 1/64)")
+    q, got = counted(lambda: load_example("quickstart").main(device))
+    print(f"  launches {got}", flush=True)
+    if cuda:
+        check(got.get("sell_spmv", 0) > 0 and got.get("bcsr_spmm", 0) > 0,
+              f"18a: kernels 1 and 3 not both launched: {got}")
+    a, x, X, sell, p = q["a"], q["x"], q["X"], q["sell"], q["bcsr"]
+    m, n = a.shape
+    A = csr64(a)
+    x64, X64 = x.cpu().numpy().astype(np.float64), X.cpu().numpy().astype(np.float64)
+    s1, s16 = abs(A) @ abs(x64), abs(A) @ abs(X64)
+    errs = {"sell": row_held(log, "18a SELL kernel against its plain version", q["y_k"],
+                             sell_spmv_plain(sell["cols"], sell["vals"], x,
+                                             sell["row_perm"], m), s1)}
+    row_held(log, "18a SELL kernel against float64", q["y_k"], A @ x64, s1)
+    (gm, gn), (bm, bk) = p["grid_shape"], p["block_shape"]
+    xb = torch.zeros((gn * bk, X.shape[1]), device=x.device)
+    xb[:n] = X
+    Yp = bcsr_spmm_plain(p["blocks"], p["block_cols"], p["indptr"],
+                         xb.view(gn, bk, -1)).reshape(gm * bm, -1)[:m]
+    errs["bcsr"] = row_held(log, "18a BCSR kernel (8, 16), k = 16 against its plain "
+                                 "version", q["Y_k"], Yp, s16)
+    row_held(log, "18a BCSR kernel against float64", q["Y_k"], A @ X64, s16)
+    for key, want, scale in (("y", A @ x64, s1), ("Y", A @ X64, s16), ("y_t", A @ x64, s1)):
+        row_held(log, f"18a {key} against float64", q[key], want, scale)
+    check(q["from_cache"], "18a: the rebuild was not a plan-cache hit")
+    engine_held("18a engine", A, q["engine_xs"], q["engine_ys"], q["engine_events"],
+                q["engine"])
+    rec["18a"] = {"launches": got, "plan": q["plan"], "engine_plans": q["engine_plans"],
+                  "engine": q["engine"], "max_abs_err": errs}
+    del q, sell, p, xb, Yp
+    free()
+    end("18a", t0)
+
+    # -- 18b: serve_decode --------------------------------------------------
+    t0 = begin("18b", "examples/serve_decode_torch.py (cant at 1/128; a 4-layer d 256 "
+                      "float32 LM at 1, 4 and 8 slots)")
+    sd, got = counted(lambda: load_example("serve_decode").main(device))
+    toks = {s: v["tokens"] for s, v in sd["lm"].items()}
+    check(toks[4] == toks[1] and toks[8] == toks[1],
+          "18b: the 4- and 8-slot servers' tokens differ from the 1-slot server's")
+    print(f"  ok 18b: the 4- and 8-slot tokens equal the 1-slot tokens; tok/s "
+          + ", ".join(f"{s} slots {v['tok_per_s']:.1f}" for s, v in sd["lm"].items())
+          + f" [{smi}]", flush=True)
+    eng = sd["engine"]
+    engine_held("18b engine", csr64(eng["a"]), eng["xs"], eng["ys"], eng["events"],
+                eng["summary"])
+    rec["18b"] = {"launches": got, "tok_per_s": {s: v["tok_per_s"] for s, v in sd["lm"].items()},
+                  "graphs": {s: v["graphs"] for s, v in sd["lm"].items()},
+                  "engine_req_per_s": eng["engine_req_per_s"],
+                  "seq_req_per_s": eng["seq_req_per_s"]}
+    del sd, eng
+    free()
+    end("18b", t0)
+
+    # -- 18c: sparse_eigensolver --------------------------------------------
+    t0 = begin("18c", "examples/sparse_eigensolver_torch.py"
+                      + (" --smoke" if reduced else " (full size)"))
+    es, got = counted(lambda: load_example("sparse_eigensolver").main(
+        device + (["--smoke"] if reduced else [])))  # asserts its 5 % itself
+    A = csr64(es["a"])
+    la = float(eigsh(A, k=1, which="LA")[0][0])
+    res = es["solver"].block_power(8, tol=-1.0, maxiter=EX_RITZ_ITERS, seed=0)
+    rel = abs(float(res.eigenvalues.max()) - la) / abs(la)
+    print(f"  18c: the example's 60 iterations: dominant |eig| rel-err {es['rel_err']:.4%} "
+          f"(limit 5 %); run on to {res.iterations} iterations: largest Ritz value "
+          f"{float(res.eigenvalues.max()):.8f} against eigsh LA {la:.8f}, rel {rel:.3e} "
+          f"(limit {EX_RITZ_REL:g})", flush=True)
+    check(rel <= EX_RITZ_REL, f"18c: largest Ritz value {rel:.3e} from eigsh's")
+    rec["18c"] = {"launches": got, "plan": es["plan"], "rel_err_60": es["rel_err"],
+                  "ritz_rel_to_eigsh": rel, "iterations": res.iterations}
+    del es, res
+    free()
+    end("18c", t0)
+
+    # -- 18d, 18e: train_lm ---------------------------------------------------
+    mod = load_example("train_lm")
+    steps, resume_at = EX_TRAIN_STEPS, EX_RESUME_AT
+    if reduced:  # a tiny model for the rehearsal
+        mod.BIG_DIMS = mod.SMALL_DIMS = dict(n_layers=2, d_model=64, n_heads=4,
+                                             n_kv_heads=2, d_ff=128, vocab=64)
+        mod.SEQ, steps, resume_at = 32, 60, 50
+    t0 = begin("18d", f"examples/train_lm_torch.py --big --steps {steps}, its depth cut to "
+                      f"{EX_CUT_LAYERS} layers, then whole and resumed from its "
+                      f"step-{resume_at} checkpoint")
+
+    def train(argv, ckpt):
+        return mod.main(argv + ["--ckpt-dir", str(ckpt)] + device)
+
+    def learning(label, losses, floor, log_v, nats):
+        """The first 5 and last 20 losses' means, printed with the curve,
+        and whether the last 20 sit below log V, ``nats`` below the first
+        5 and not under the floor less EX_FLOOR_SLACK (held on a card)."""
+        first, last = float(np.mean(losses[:5])), float(np.mean(losses[-20:]))
+        ok = (all(np.isfinite(losses)) and last < log_v and last <= first - nats
+              and last >= floor - EX_FLOOR_SLACK)
+        print(f"  18d {label}: losses " + " ".join(f"{i}:{losses[i]:.4f}" for i in
+                                                  range(0, len(losses), 30))
+              + f"; the last 20 losses' mean {last:.4f} against log(vocab) {log_v:.4f}, "
+              f"the first 5's mean less {nats} ({first - nats:.4f}) and the floor less "
+              f"{EX_FLOOR_SLACK} ({floor - EX_FLOOR_SLACK:.4f}): "
+              + ("learned" if ok else "NOT learned"), flush=True)
+        if not reduced:
+            check(ok, f"18d {label}: the last 20 losses' mean {last:.4f} is not below "
+                      f"log(vocab) {log_v:.4f} and {nats} nat below the first 5's "
+                      f"{first:.4f}, or is under the floor {floor:.4f} - {EX_FLOOR_SLACK}")
+        return first, last, ok
+
+    ck = Path(tmp.name)
+    big = mod.BIG_DIMS
+    mod.BIG_DIMS = dict(big, n_layers=EX_CUT_LAYERS)
+    cut, _ = counted(lambda: train(["--big", "--steps", str(steps)], ck / "cut"))
+    mod.BIG_DIMS = big
+    cut_losses = [h["loss"] for h in cut["history"]]
+    log_v = float(np.log(cut["cfg"].vocab))
+    cut_first, cut_last, cut_ok = learning(f"--big cut to {EX_CUT_LAYERS} layers", cut_losses,
+                                           cut["entropy_floor"], log_v, EX_CUT_LEARN_NATS)
+    rec["18d_cut"] = {"layers": EX_CUT_LAYERS, "losses": cut_losses, "first5": cut_first,
+                      "last20": cut_last, "learned": cut_ok}
+    del cut
+    t_run = time.perf_counter()
+    tr, got = counted(lambda: train(["--big", "--steps", str(steps)], ck / "run"))
+    wall = time.perf_counter() - t_run
+    hist = tr["history"]
+    losses = [h["loss"] for h in hist]
+    floor = tr["entropy_floor"]
+    step_ms = float(np.median([h["time_s"] for h in hist[1:]])) * 1e3
+    tokens = mod.BATCH * mod.SEQ
+    params = sum(t.numel() for t in tr["model"].parameters())
+    peak = torch.cuda.max_memory_allocated() if cuda else None
+    print(f"  18d: {params / 1e6:.1f} M parameters, {len(hist)} steps in {wall:.1f}s: step "
+          f"{step_ms:.2f} ms (median), {tokens / step_ms * 1e3:.0f} tokens/s, allocator "
+          f"peak {gb(peak) if peak else 'n/a'} [{smi}]; loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}, entropy floor {floor:.4f}", flush=True)
+    check(all(np.isfinite(losses)) and len(hist) == steps, "18d: a loss is not finite")
+    first, last, learned = learning("--big", losses, floor, log_v, EX_LEARN_NATS)
+    (ck / "resume").mkdir()
+    shutil.copytree(ck / "run" / f"step_{resume_at:08d}",
+                    ck / "resume" / f"step_{resume_at:08d}")
+    tr2, got2 = counted(lambda: train(["--big", "--steps", str(steps)], ck / "resume"))
+    by_step = {h["step"]: h["loss"] for h in hist}
+    resumed = [(h["step"], h["loss"], by_step[h["step"]]) for h in tr2["history"]]
+    worst = max(abs(l2 - l1) / abs(l1) for _, l2, l1 in resumed)
+    check([s for s, _, _ in resumed] == list(range(resume_at + 1, steps)),
+          f"18d: the resumed run ran steps {[s for s, _, _ in resumed][:3]}...")
+    check(worst <= EX_RESUME_REL, f"18d: resumed losses {worst:.3e} from the first run's")
+    print(f"  ok 18d: resumed from step {resume_at}, steps {resume_at + 1}-{steps - 1}'s "
+          f"losses within {worst:.3e} relative of the first run's (limit {EX_RESUME_REL:g})",
+          flush=True)
+    rec["18d"] = {"launches": got, "params": params, "losses": losses, "step_ms": step_ms,
+                  "tokens_per_s": tokens / step_ms * 1e3, "peak_bytes": peak, "wall_s": wall,
+                  "first5": first, "last20": last, "entropy_floor": floor, "log_vocab": log_v,
+                  "learned": learned, "resume_worst_rel": worst}
+    del tr, tr2
+    free()
+    end("18d", t0)
+    t0 = begin("18e", f"examples/train_lm_torch.py --sparse --steps {EX_SPARSE_STEPS}")
+    ts, got = counted(lambda: train(["--sparse", "--steps", str(EX_SPARSE_STEPS)],
+                                    ck / "sparse"))
+    ls = [h["loss"] for h in ts["history"]]
+    print(f"  18e: the structured sparse FFN's losses {ls[0]:.4f} -> {ls[-1]:.4f} (mean of "
+          f"the first 5 {np.mean(ls[:5]):.4f}, of the last 5 {np.mean(ls[-5:]):.4f}); "
+          f"launches {got or '{}'}", flush=True)
+    check(all(np.isfinite(ls)) and ls[-1] < ls[0] and np.mean(ls[-5:]) < np.mean(ls[:5]),
+          "18e: the sparse FFN's losses are not finite and falling")
+    rec["18e"] = {"launches": got, "losses": ls}
+    del ts
+    free()
+    end("18e", t0)
+
+    # -- 18f: deepseek-67b and llama3-405b at the depth one card holds ------
+    chk = ServingChecks(dev, rec, reduced)
+    block = (32, 32) if reduced else (128, 128)
+    path = "tensor cores" if bf16_tensor_core_path(*block) else "CUDA cores"
+    sff = SparseFFNConfig(kind="bcsr", block=block)
+    rng = np.random.default_rng(18)
+
+    @contextlib.contextmanager
+    def timing():
+        """Allocation stacks off while 18f times: recording one costs host
+        time inside the CUDA-event timings.  Blocks allocated here print no
+        stack in ``memory_note``."""
+        if cuda:
+            torch.cuda.memory._record_memory_history(enabled=None)
+        try:
+            yield
+        finally:
+            if cuda:
+                torch.cuda.memory._record_memory_history(max_entries=100_000)
+
+    if cuda:
+        torch.cuda.memory._record_memory_history(max_entries=100_000)
+    for arch in SERVE_ARCHES:
+        full = (get_reduced if reduced else get_config)(arch)
+        layers, reckoned = vl_layers(full)
+        cfg = dataclasses.replace(full, n_layers=layers)
+        r = rec.setdefault(arch, {"layers": layers, "of": full.n_layers,
+                                  "reckoned_gb": reckoned / 1e9})
+        prng = np.random.default_rng(0)
+        prompts = [prng.integers(0, cfg.vocab, LM_PROMPT).astype(np.int32)
+                   for _ in range(LM_REQUESTS)]
+        lmb = LMBench(dev, prompts)
+        label = f"18f {arch}"
+        base = torch.cuda.memory_allocated() if cuda else 0
+        t0 = chk.begin(label, f"{arch} bf16 at full width (d {cfg.d_model}, {cfg.n_heads} "
+                              f"heads over {cfg.n_kv_heads} kv heads, d_ff {cfg.d_ff}, vocab "
+                              f"{cfg.vocab}), cut to {layers} of {full.n_layers} layers: "
+                              f"reckoned {reckoned / 1e9:.2f} GB of weights [{smi}]")
+        r["cli"] = chk.cli(full, reduced=True)
+        model = lm.init_model(cfg, 0, device=dev)
+        r["params"] = lm.param_count(model)
+        with timing():
+            r["dense"] = chk.served(cfg, model, lmb)
+            r["dense"]["bounds"] = av_bounds(cfg, model, r["dense"]["times"], {})
+        # bf16 against float32 at the served depth: reported, not held (C.22)
+        full_dev = rel_dev(chk.first_logits(cfg, model, prompts),
+                           streamed_first_logits(cfg, model, prompts))
+        r["bf16_vs_f32_served_depth"] = full_dev
+        print(f"  {arch}, {layers} layers (the served depth): bf16 first-token logits "
+              f"deviate {min(full_dev):.4e}-{max(full_dev):.4e} x max|logits| from float32 "
+              "blocks streamed one at a time (reported, not held)", flush=True)
+        del model
+        lmb.free()
+        # the first BF16_CHECK_LAYERS layers, built afresh from seed 0 (the
+        # served model's own: the layers are drawn in order), since a copy
+        # beside the served model would not fit
+        cut = dataclasses.replace(cfg, n_layers=min(BF16_CHECK_LAYERS, layers))
+        model_cut = lm.init_model(cut, 0, device=dev)
+        cut_f = dataclasses.replace(cut, dtype=torch.float32)
+        # bf16 against its float32 copy, the copy made from the host after
+        # the bf16 model is freed (llama3-405b's two together take 63.6 GB)
+        bf = chk.first_logits(cut, model_cut, prompts)
+        host = {k: v.cpu() for k, v in model_cut.state_dict().items()}
+        del model_cut
+        lmb.free()
+        model_cut_f = lm.LM(cut_f, dev)
+        model_cut_f.load_state_dict(host)
+        del host
+        f32 = chk.first_logits(cut_f, model_cut_f, prompts)
+        dv = rel_dev(bf, f32)
+        eq = float((bf.argmax(-1) == f32.argmax(-1)).float().mean())
+        r["bf16_vs_f32"] = {"layers": cut.n_layers, "dev_rel": dv, "limit": LM_BF16_LIMIT,
+                            "held": True, "equal_first_tokens": eq}
+        print(f"  {arch}, {cut.n_layers} of {layers} layers: bf16 first-token logits "
+              f"deviate {min(dv):.4e}-{max(dv):.4e} x max|logits| from the float32 copy, "
+              f"equal first tokens {eq * 100:.1f} %; held to {LM_BF16_LIMIT:g}", flush=True)
+        check(max(dv) <= LM_BF16_LIMIT, f"18f {arch}: bf16 deviates {max(dv):.3e} x "
+                                        "max|logits| from float32")
+        del bf, f32
+        # the streamed float32 forward is the model's own on the float32 copy:
+        # only the summation order differs (8 prompts at once against one)
+        stream_dev = max(rel_dev(streamed_first_logits(cut_f, model_cut_f, prompts),
+                                 chk.first_logits(cut_f, model_cut_f, prompts)))
+        check(stream_dev <= LM_CONSISTENCY, f"18f {arch}: the streamed float32 logits "
+                                            f"are {stream_dev:.3e} from prefill's on the "
+                                            "float32 copy")
+        print(f"  ok the streamed float32 forward on the {cut.n_layers}-layer float32 copy: "
+              f"{stream_dev:.3e} x max|logits| from its prefill", flush=True)
+        r["consistency"] = chk.consistency(cut_f, model_cut_f, prompts, "18f")
+        del model_cut_f
+        if cuda:
+            r["memory/dense"] = memory_note(f"{label} dense", base, log)
+        cfg_b = dataclasses.replace(cfg, sparse_ffn=sff)
+        model_b = lm.init_model(cfg_b, 0, device=dev)
+        weights = ffn_weights(model_b.blocks[0].ffn, cfg_b)
+        kerrs = {}
+        for which, (args, n_cb) in weights.items():
+            kerrs.update(check_bf16_products(f"{arch} {which}", args, n_cb, SERVE_KS, rng,
+                                             dev, path, key=f"{arch}/{which}"))
+        counters = ("bcsr_spmm_bf16", "bcsr_spmm_bf16_mma")
+        with timing():
+            r["bcsr"] = chk.served(cfg_b, model_b, lmb, per_pass={c: 2 * layers for c in
+                                                                   counters} if cuda else None)
+            r["bcsr"]["bounds"] = av_bounds(cfg_b, model_b, r["bcsr"]["times"], {})
+        r["bcsr"]["kernel_checks"] = kerrs
+        served = r["bcsr"]["serve"]["launches"]
+        launches.update(served)
+        if cuda and not reduced:
+            for which, (args, n_cb) in weights.items():
+                dense = densify(args, n_cb)
+                with timing():
+                    rows.extend(bf16_time_rows(
+                        f"{arch} FFN {which}", args, n_cb, dense, SERVE_KS, rng,
+                        lmb.median_ms, path, max_abs_err=max(kerrs.values()),
+                        launches=int(served.get("bcsr_spmm_bf16_mma", 0))))
+                del dense
+        del model_b, weights, args  # the loop's last operands too
+        lmb.free()
+        if cuda:
+            r["memory/bcsr"] = memory_note(f"{label} bcsr", base, log)
+        chk.end(label, t0)
+    if cuda:
+        torch.cuda.memory._record_memory_history(enabled=None)
+    log.failures += chk.failures
+
+    tmp.cleanup()
+    rec["rows"] = rows
+    rec["launches"] = dict(launches)
+    rec["total_s"] = time.perf_counter() - t_phase
+    print(f"phase 18: launches {dict(launches)}; wall time {rec['total_s']:.1f}s [{smi}]",
+          flush=True)
+    if log.failures:
+        fail("phase 18: " + "; ".join(log.failures))
+    return dict(launches)
+
+
+def examples_main(out_path: str) -> None:
+    """``python3 chip_smoke.py --examples-phase OUT``: phase 18 in a fresh
+    process, its record to OUT."""
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: phase 18 needs a card")
+    record: dict = {}
+    launches = examples_phase(torch.device("cuda"), record)
+    Path(out_path).write_text(json.dumps({"examples": record["examples"],
+                                          "launches": launches}, default=str))
+
+
 def run_subphase(flag: str, key: str, label: str, record: dict) -> dict:
     """Phase ``label`` in a fresh process (``chip_smoke.py FLAG OUT``)
     after this one's cached blocks are freed; its launches (all 0), with
@@ -4418,6 +4959,17 @@ def main() -> None:
     record["mesh_train_launches"] = launches16
     phase_done("mesh_train", t0)
 
+    # -- phase 18: the public surface and the examples' twins, in a fresh
+    # process; launches counted over the twins' runs and 18f's serving runs.
+    # It runs second, while this process still holds no tensor: llama3-405b
+    # at its served depth with one float32 block streamed beside it peaks
+    # near 61 GB, which phases 1-14's ≈ 14 GB and their graph pools would
+    # not leave free.  Its rows join the table at the end.
+    t0 = time.perf_counter()
+    launches18 = run_subphase("--examples-phase", "examples", "18", record)
+    rows18 = record["examples"].pop("rows")
+    phase_done("examples", t0)
+
     # -- shared inputs ----------------------------------------------------
     t0 = time.perf_counter()
     mats = {name: generate(name, scale=1.0) for name in ("cant", "ldoor")}
@@ -4447,22 +4999,7 @@ def main() -> None:
         return fn(abs_csr[name], x.abs(), n_rows=mats[name].shape[0])
 
     def check(what: str, got, ref, scale) -> float:
-        got = torch.as_tensor(got, device=dev).double()
-        ref = torch.as_tensor(ref, device=dev).double()
-        scale = torch.as_tensor(scale, device=dev).double()
-        if got.shape != ref.shape or not bool(torch.isfinite(got).all()):
-            fail(f"{what}: shape {tuple(got.shape)} vs {tuple(ref.shape)} or "
-                 "non-finite output")
-        err = (got - ref).abs()
-        bad = err > TOL * scale
-        if bool(bad.any()):
-            i = int(torch.argmax((err - TOL * scale).flatten()))
-            fail(f"{what}: {int(bad.sum())} entries off, worst at {i}: "
-                 f"err {float(err.flatten()[i]):.3e} > "
-                 f"{TOL:g} * {float(scale.flatten()[i]):.3e}")
-        m = float(err.max()) if err.numel() else 0.0
-        print(f"  ok {what}: max_abs_err {m:.3e}")
-        return m
+        return row_held(None, what, got, ref, scale)
 
     def oracle(name: str, x_host: np.ndarray):
         A = A64[name]
@@ -6183,6 +6720,17 @@ def main() -> None:
         row["dryrun_launches"] = int(launches17.get(row["name"], 0))
     phase_done("dryrun", t0)
 
+    # -- phase 18's rows and launches, merged now that every phase has counted
+    record["examples_launches"] = launches18
+    for row in rows18:  # the twins' shapes and the two models' FFN shapes
+        for key in ("solver_launches", "fleet_launches", "mesh_launches", "lm_launches",
+                    "moe_launches", "hybrid_launches", "av_launches", "train_launches",
+                    "mesh_train_launches", "dryrun_launches"):
+            row[key] = int(record.get(key, {}).get(row["name"], 0))
+    kernels.extend(rows18)
+    for row in kernels:
+        row["examples_launches"] = int(launches18.get(row["name"], 0))
+
     record["kernels"] = kernels
     record["card"] = smi
     record["total_s"] = round(time.perf_counter() - t_start, 3)
@@ -6213,5 +6761,7 @@ if __name__ == "__main__":
         mesh_train_main(sys.argv[2])
     elif sys.argv[1:2] == ["--dryrun-phase"]:
         dryrun_main(sys.argv[2])
+    elif sys.argv[1:2] == ["--examples-phase"]:
+        examples_main(sys.argv[2])
     else:
         main()

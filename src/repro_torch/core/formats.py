@@ -13,7 +13,9 @@ add:
 * the SELL sorting window doubles as the load-balancing unit.
 
 All construction happens in numpy on the host and is byte-identical to the
-JAX package's; ``.to_device(device)`` returns a dict of torch tensors.
+JAX package's; ``.to_device(device)`` returns a dict of torch tensors, and
+``.device(device="cuda")`` the dict the port's tiers and kernels read (the
+JAX package's ``.device()`` keys, and what the port adds to them).
 """
 from __future__ import annotations
 
@@ -22,6 +24,8 @@ from typing import Tuple
 
 import numpy as np
 import torch
+
+from .device import resolve
 
 Array = np.ndarray
 
@@ -86,6 +90,19 @@ class CSRMatrix:
             {"indptr": self.indptr, "indices": self.indices, "data": self.data},
             device,
         )
+
+    def device(self, device="cuda") -> dict[str, torch.Tensor]:
+        """``indptr``, ``indices`` and ``data`` on ``device``, and the int64
+        row ``offsets`` that ``core.spmv.spmv_csr`` sums over
+        (``core.spmv.csr_prepare``).
+
+        The JAX package's ``device()`` takes no argument, since JAX puts
+        arrays on its default device.  The port's names the device, as
+        every entry point of the port does: ``"cuda"`` by default, raising
+        without a card, ``"cpu"`` for the plain versions on the host."""
+        from .spmv import csr_prepare
+
+        return csr_prepare(self, resolve(device))
 
     def validate(self) -> None:
         m, n = self.shape
@@ -236,6 +253,18 @@ class BCSRMatrix:
             device,
         )
 
+    def device(self, device="cuda") -> dict[str, torch.Tensor]:
+        """``kernels.ops.bcsr_prepare``'s dict on ``device``: the JAX
+        package's ``indptr``, ``block_cols``, ``block_rows`` and ``blocks``,
+        with one explicit zero block at column 0 in each block row that
+        stores none (the fill-in both packages' kernel paths give), and the
+        static ``grid_shape``, ``block_shape`` and ``shape`` that
+        ``kernels.ops.bcsr_spmm`` reads.  The device argument is the
+        port's, as in :meth:`CSRMatrix.device`."""
+        from repro_torch.kernels.ops import bcsr_prepare
+
+        return bcsr_prepare(self, resolve(device))
+
     def fill_ratio(self) -> float:
         """nnz / stored values — the paper's block-density metric."""
         nnz = int(np.count_nonzero(self.blocks))
@@ -321,6 +350,19 @@ class SELLMatrix:
             {"cols": self.cols, "vals": self.vals, "row_perm": self.row_perm},
             device,
         )
+
+    def device(self, device="cuda") -> dict[str, torch.Tensor]:
+        """``kernels.ops.sell_prepare``'s dict on ``device``: the JAX
+        package's ``cols``, ``vals`` and ``row_perm``, the chunk count padded
+        with empty chunks (``row_perm`` -1) to a multiple of ``chunk_tile``
+        (8), ``cols`` and ``vals`` held as the logical (n_chunks, C, W)
+        views of slot-major (n_chunks, W, C) storage, because the SELL
+        kernel refuses a row-major operand; beside them ``chunk_w``, each
+        chunk's width, and the static ``shape`` and ``chunk_tile``.  The
+        device argument is the port's, as in :meth:`CSRMatrix.device`."""
+        from repro_torch.kernels.ops import sell_prepare
+
+        return sell_prepare(self, device=resolve(device))
 
 
 def sell_from_csr(

@@ -18,6 +18,9 @@
   row longer than j, so the step count is the longest row, not nnz.
 * ``symmetrize``/``spd_shift`` — host constructors of the solver
   workloads: (A + A^T)/2, and a diagonally dominant SPD shift of it.
+* ``spmv``/``spmm`` — the JAX package's explicit dispatch over prepared
+  format dicts (``fmt``, ``impl``), for callers that hold such dicts;
+  ``SparseOperator.build`` is the tuned way in.
 
 The hand-written CUDA kernels live in :mod:`repro_torch.kernels`; these
 tiers share no code with them.
@@ -42,6 +45,8 @@ __all__ = [
     "spmm_sell",
     "spmm_bcsr_dense",
     "unpermute",
+    "spmv",
+    "spmm",
 ]
 
 
@@ -88,16 +93,20 @@ def csr_scalar_prepare(a, device) -> dict[str, Any]:
     rows sorted by descending length (stable), their first nonzero, and per
     slot j the number of rows longer than j (a host list)."""
     dev = csr_prepare(a, device)
-    indptr = np.asarray(a.indptr, dtype=np.int64)
+    dev.update(_slot_schedule(a.indptr, device))
+    return dev
+
+
+def _slot_schedule(indptr, device) -> dict[str, Any]:
+    indptr = np.asarray(indptr, dtype=np.int64)
     lengths = np.diff(indptr)
     order = np.argsort(-lengths, kind="stable")
     neg_sorted = -lengths[order]  # ascending
     max_len = int(-neg_sorted[0]) if lengths.size else 0
     active = np.searchsorted(neg_sorted, -np.arange(max_len), side="left")
-    dev["order"] = torch.as_tensor(order, device=device)
-    dev["start_sorted"] = torch.as_tensor(indptr[:-1][order], device=device)
-    dev["active"] = [int(c) for c in active]
-    return dev
+    return {"order": torch.as_tensor(order, device=device),
+            "start_sorted": torch.as_tensor(indptr[:-1][order], device=device),
+            "active": [int(c) for c in active]}
 
 
 def spmv_csr_scalar(csr: dict[str, Any], x: torch.Tensor, *, n_rows: int) -> torch.Tensor:
@@ -203,3 +212,76 @@ def spd_shift(a, margin: float = 1.0):
         [np.where(off, s.data, np.abs(s.data)), np.full(s.shape[0], shift, s.data.dtype)]
     )
     return csr_from_coo(s.shape, r, c, v)
+
+
+# ---------------------------------------------------------------------------
+# Dispatch over prepared format dicts (the JAX package's back-compat layer)
+# ---------------------------------------------------------------------------
+_IMPLS = ("vector", "scalar", "cuda")
+
+
+def _check_impl(impl: str) -> None:
+    if impl == "pallas":
+        raise ValueError(
+            "impl='pallas' names the JAX package's TPU kernels; the port's "
+            "hand-written kernels are impl='cuda'")
+    if impl not in _IMPLS:
+        raise ValueError(f"unknown impl {impl!r}; one of {_IMPLS}")
+
+
+def spmv(fmt: str, mat: dict[str, Any], x: torch.Tensor, *, n_rows: int,
+         impl: str = "vector") -> torch.Tensor:
+    """y = A @ x for a prepared ``mat`` in format ``fmt``, dispatched as the
+    JAX package's ``repro.core.spmv.spmv``: ``"csr"`` (the dict of
+    ``CSRMatrix.device`` or :func:`csr_prepare`; ``impl="scalar"`` for the
+    one-term-a-step tier), ``"sell"`` (``impl="cuda"`` launches the
+    SELL kernel on the dict of ``SELLMatrix.device`` or
+    ``kernels.ops.sell_prepare``; the plain tier otherwise) and
+    ``"merge"``.  The JAX package's ``impl="pallas"`` is ``"cuda"`` here and
+    raises ``ValueError``.  As every kernel wrapper, ``"cuda"`` runs the
+    plain version only for CPU tensors and never falls back on a card."""
+    _check_impl(impl)
+    if fmt == "csr":
+        if impl == "scalar":
+            mat = mat if "active" in mat else {
+                **mat, **_slot_schedule(mat["indptr"].cpu().numpy(), x.device)}
+            return spmv_csr_scalar(mat, x, n_rows=n_rows)
+        return spmv_csr(mat, x, n_rows=n_rows)
+    if fmt == "sell":
+        if impl == "cuda":
+            from repro_torch.kernels import ops as kops
+
+            return kops.sell_spmv(mat, x)
+        return spmv_sell(mat, x, n_rows=n_rows)
+    if fmt == "merge":
+        from repro_torch.kernels.merge_spmv import merge_spmv
+
+        return merge_spmv(mat, x)
+    raise ValueError(f"unknown format for spmv: {fmt}")
+
+
+def spmm(fmt: str, mat: dict[str, Any], x: torch.Tensor, *, n_rows: int,
+         impl: str = "vector") -> torch.Tensor:
+    """Y = A @ X, dispatched as the JAX package's ``repro.core.spmv.spmm``:
+    ``"csr"``, ``"sell"``, ``"merge"`` and ``"bcsr"``.  As there, the two
+    BCSR impls take X differently: the plain tier (``spmm_bcsr_dense``)
+    takes it pre-blocked, (n_col_blocks, bk, k), and ``n_rows`` block rows,
+    and returns (n_block_rows, bm, k); ``impl="cuda"`` launches the BCSR
+    kernel (``kernels.ops.bcsr_spmm``) on an unblocked (n, k) X and
+    returns (m, k).  ``"pallas"`` raises, as in :func:`spmv`."""
+    _check_impl(impl)
+    if fmt == "csr":
+        return spmm_csr(mat, x, n_rows=n_rows)
+    if fmt == "sell":
+        return spmm_sell(mat, x, n_rows=n_rows)
+    if fmt == "merge":
+        from repro_torch.kernels.merge_spmv import merge_spmm
+
+        return merge_spmm(mat, x)
+    if fmt == "bcsr":
+        if impl == "cuda":
+            from repro_torch.kernels import ops as kops
+
+            return kops.bcsr_spmm(mat, x)
+        return spmm_bcsr_dense(mat, x, n_block_rows=n_rows)
+    raise ValueError(f"unknown format for spmm: {fmt}")

@@ -1,6 +1,7 @@
 """Plain torch oracles for the kernels, written independently of them.
 
-Counterparts of ``repro.kernels.ref.bcsr_spmm_ref`` and ``sell_spmv_ref``:
+Counterparts of ``repro.kernels.ref.bcsr_spmm_ref``, ``sell_spmv_ref`` and
+``banded_attention_scores_ref``:
 deliberately the dumbest correct thing (an explicit loop over stored blocks;
 a gather and a sum in sorted row order), sharing no code with the kernels'
 plain versions.
@@ -9,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["bcsr_spmm_ref", "sell_spmv_ref"]
+__all__ = ["bcsr_spmm_ref", "sell_spmv_ref", "banded_attention_scores_ref"]
 
 
 def bcsr_spmm_ref(blocks, block_rows, block_cols, x_blocked, n_block_rows):
@@ -34,3 +35,17 @@ def sell_spmv_ref(cols, vals, x):
     *sorted* row order (the caller un-permutes).
     """
     return (vals * x[cols.long()]).sum(dim=-1).reshape(-1)
+
+
+def banded_attention_scores_ref(q, k, window):
+    """Banded QK^T for the sliding-window attention check.
+
+    q, k: (seq, d).  Returns (seq, seq) scores, -inf outside the causal band
+    (j <= i and i - j < window).
+    """
+    seq = q.shape[0]
+    scores = q @ k.T
+    i = torch.arange(seq, device=q.device)[:, None]
+    j = torch.arange(seq, device=q.device)[None, :]
+    mask = (j <= i) & (i - j < window)
+    return scores.masked_fill(~mask, float("-inf"))

@@ -1,4 +1,5 @@
-"""Optimizers: AdamW with configurable state dtypes."""
+"""Optimizers: AdamW with configurable state dtypes, and the int8
+error-feedback gradient reduction (``compress``)."""
 from .adamw import (  # noqa: F401
     OptimConfig,
     adamw_init,
@@ -7,3 +8,4 @@ from .adamw import (  # noqa: F401
     global_norm,
     lr_schedule,
 )
+from .compress import ef_compressed_psum, quantize_int8  # noqa: F401

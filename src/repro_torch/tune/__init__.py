@@ -10,14 +10,21 @@ search, on a plan :mod:`predict` transfers from the cache.
 from .candidates import (
     BCSR_BLOCKS,
     DEFAULT_PRUNE_FACTOR,
+    MERGE_CHUNKS,
+    REORDER_METHODS,
+    SCHEDULES,
     SELL_SIGMAS,
     SOLVER_STEP_AMORTIZE,
     SOLVER_VEC_PASSES,
     Candidate,
+    bcsr_block_count,
     enumerate_candidates,
+    enumerate_mesh_candidates,
     estimate_cost,
     make,
     prune,
+    sell_padded_slots,
+    split_reorder,
 )
 from .features import FEATURE_NAMES, MatrixFeatures, extract, feature_vector
 from .operator import (
@@ -36,7 +43,7 @@ from .operator import (
 )
 from .plan import PLAN_VERSION, Plan, PlanCache, default_cache, fingerprint
 from .predict import PREDICT_RADIUS, Prediction, predict_candidate
-from .timing import time_fn
+from .timing import TIMED, WARMUP, time_fn
 
 __all__ = [
     "BCSR_BLOCKS",
@@ -44,20 +51,27 @@ __all__ = [
     "DEFAULT_PRUNE_FACTOR",
     "FEATURE_NAMES",
     "InaccurateTier",
+    "MERGE_CHUNKS",
     "MatrixFeatures",
     "NoSpMMTier",
     "PLAN_VERSION",
     "PREDICT_RADIUS",
     "Plan",
     "PlanCache",
-    "PrepCache",
     "Prediction",
+    "PrepCache",
+    "REORDER_METHODS",
+    "SCHEDULES",
     "SELL_SIGMAS",
     "SOLVER_STEP_AMORTIZE",
     "SOLVER_VEC_PASSES",
     "SparseOperator",
+    "TIMED",
+    "WARMUP",
+    "bcsr_block_count",
     "default_cache",
     "enumerate_candidates",
+    "enumerate_mesh_candidates",
     "estimate_cost",
     "evict_prepared",
     "extract",
@@ -71,7 +85,9 @@ __all__ = [
     "prepare_cached",
     "prune",
     "runner",
+    "sell_padded_slots",
     "solver_step_probe",
     "sparse_rhs_runner",
+    "split_reorder",
     "time_fn",
 ]

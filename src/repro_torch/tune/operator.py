@@ -1081,6 +1081,10 @@ class SparseOperator:
         # An SpMV-tuned operator applied to a matrix: CSR fallback.
         return spmm_csr(self._csr_fallback(), x, n_rows=self.shape[0])
 
+    def matvec(self, x) -> torch.Tensor:
+        """``self @ x``, the JAX package's name for it."""
+        return self @ x
+
     def _csr_fallback(self) -> dict:
         if self._csr_dev is None:
             self._csr_dev = csr_prepare(self.a, self.device)

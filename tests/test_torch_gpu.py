@@ -1870,3 +1870,34 @@ def test_gpu_train_step_matches_its_op_analysis(cuda_device):
     assert an["cost"].flops / roofline.PEAK_FLOPS <= busy_s
     assert an["cost"].hbm_bytes / roofline.HBM_BW <= busy_s
     assert not _build.LAUNCHES
+
+
+@pytest.mark.gpu
+def test_gpu_quickstart_twin_launches_and_holds_its_kernels(cuda_device):
+    """``examples/quickstart_torch.py`` on the card (its default device):
+    the SELL kernel and the float32 BCSR kernel launch, and their products,
+    the tuned operator's and the engine's are within 1e-5 (|A| |x|)_i of a
+    float64 oracle and of the plain tier; the engine records no event."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "examples" / "quickstart_torch.py"
+    spec = importlib.util.spec_from_file_location("example_quickstart_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    _build.reset_launches()
+    out = mod.main([])
+    launches = dict(_build.LAUNCHES)
+    assert launches.get("sell_spmv", 0) >= 1 and launches.get("bcsr_spmm", 0) >= 1, launches
+    a = out["a"]
+    A = sp.csr_matrix((a.data.astype(np.float64), a.indices, a.indptr), shape=a.shape)
+    x, X = out["x"].cpu().numpy(), out["X"].cpu().numpy()
+    for key in ("y_k", "y_t"):
+        assert out[key].device.type == "cuda"
+        assert_rowtol(out[key].cpu().numpy(), A @ x.astype(np.float64), a, x, key)
+        assert_rowtol(out[key].cpu().numpy(), out["y"].cpu().numpy(), a, x, key)
+    assert_rowtol(out["Y_k"].cpu().numpy(), A @ X.astype(np.float64), a, X, "Y_k")
+    assert_rowtol(out["Y_k"].cpu().numpy(), out["Y"].cpu().numpy(), a, X, "Y_k")
+    for xi, yi in zip(out["engine_xs"], out["engine_ys"]):
+        assert_rowtol(yi.cpu().numpy(), A @ xi.astype(np.float64), a, xi, "engine")
+    assert not {"batch_failed", "demote", "batch_abandoned"} & set(out["engine_events"])

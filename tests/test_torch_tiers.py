@@ -7,6 +7,7 @@ estimates with and without RCM variants, and a build that searches them.
 The merge limit per row i is 1e-5 (|A| |x|)_i + 8 * 2**-24 * max|P|, with
 max|P| the largest float64 prefix sum of the products in CSR order; every
 other tier is held to 1e-5 (|A| |x|)_i."""
+import importlib
 import types
 
 import jax.numpy as jnp
@@ -27,7 +28,7 @@ from repro.kernels import merge_spmv as jmerge
 import repro_torch.tune as tt
 from repro_torch import interop
 from repro_torch.core import reorder as treorder
-from repro_torch.core import spmv as tspmv
+tspmv = importlib.import_module("repro_torch.core.spmv")  # the facade's spmv is the dispatcher
 from repro_torch.core.formats import csr_from_dense
 from repro_torch.data.suite import generate
 from repro_torch.kernels import merge_spmv as tmerge
