@@ -53,23 +53,29 @@ scipy; imports nothing of JAX or of the JAX package.  Phases:
    to read once each chunk stops at its width ``chunk_w``;
 6. sparse right-hand sides (SpMSpV) on the power-law graphs webbase-1M and
    torso1 at scale 1.0, x sorted unique indices from ``default_rng``:
-   the fused expand-and-scatter kernel against its plain version
-   (expansion + ``index_add_``) at all four engine buckets on webbase-1M
-   and at nnz(x) = n/256 and n/4 on torso1; then, with the launch counts
+   the SpMSpV kernel (its four passes: count, scan, place, sum) against
+   its plain version (expansion + ``index_add_``, stream-ordered) on a CPU
+   copy of the same operands, bit for bit and the same bits on a second
+   launch, and against float64 at 1e-5 (|A| |x|)_i, at all four engine
+   buckets on webbase-1M and at nnz(x) = n/256 and n/4 on torso1; then, with the launch counts
    set to 0, ``SparseOperator.build(webbase, x_nnz=B)`` at the four
    default buckets, a pinned ``spmspv/cuda`` operator, a tuned
    ``SparseEngine`` answering 65 ``submit_sparse`` requests (one thicker
    than n/4, which goes to the dense k=1 lane) and an engine whose sparse
    lane is pinned to ``spmspv/cuda`` at ``async_depth`` 2 and 0, all
    against a scipy float64 oracle; the pinned lane must run no eager
-   expansion (counted), and ``torch.profiler`` lists the device work of
-   one pinned request; last the fused kernel's times at every checked
-   bucket beside its plain version (the old two-step device time),
-   ``index_add_`` on the pre-expanded stream (the library call), one
-   cuSPARSE ``torch.mv`` on the densified x, a whole ``apply_sparse`` and
-   the bound 8*T + 16*B + 4*m bytes.  The atomics reorder each row's sum: a
-   row that breaks 1e-5 * (|A| |x|)_i is printed with its term count k_i
-   and held to k_i * 2**-24 * (|A| |x|)_i instead;
+   expansion (counted), the pinned engine at ``async_depth`` 2 must give
+   the bits it gives at 0 on all 65 requests, and ``torch.profiler`` lists
+   the device work of one pinned request: the kernel's four passes, once
+   each; last the kernel's times at every checked bucket beside its plain
+   version (the old two-step device time), ``index_add_`` on the
+   pre-expanded stream (the library call), one cuSPARSE ``torch.mv`` on the
+   densified x, a whole ``apply_sparse`` and the bound 8*T + 16*B + 4*m
+   bytes, and at nnz(x) = n/4 on each graph the device time of each pass
+   (``torch.profiler``).  The engines'
+   answers against float64: a row that breaks 1e-5 * (|A| |x|)_i is
+   printed with its term count k_i and held to k_i * 2**-24 * (|A| |x|)_i
+   instead;
 7. the remaining serving tiers, reordering, supervision and overload:
    (a) ``merge/scan[chunk=2048|16384]`` at k = 1 on cant, ldoor and
    webbase-1M and at k = 4 on cant, and ``csr/scalar`` on cant, pinned,
@@ -85,8 +91,8 @@ scipy; imports nothing of JAX or of the JAX package.  Phases:
    and kernels serve again after promotion, and a real refused launch
    (BCSR blocks off their 16-byte boundary) fails its batch's futures with
    no retry and no demotion, and a faulted sparse bucket on webbase-1M
-   (pinned ``spmspv/cuda``) whose repair probe must launch the fused
-   kernel once before its promotion; (d) ``max_queue`` under each
+   (pinned ``spmspv/cuda``) whose repair probe must run the SpMSpV
+   kernel's four passes once before its promotion; (d) ``max_queue`` under each
    policy with ``shed_after_s``, a ``BrownoutController`` and an
    ``engine.overload`` delay: every future resolves (served at 1e-5, or a
    typed ``OverloadError``), the widest bucket serves through
@@ -232,9 +238,11 @@ scipy; imports nothing of JAX or of the JAX package.  Phases:
    ``moe_apply``, each output within 1e-5 (|A| |x|)_i of the products
    behind it (``moe._combine_scale``: A the experts' wo, x the gate-weighted
    h and, to first order, what the gate and up products' reordering can
-   move it by), with exactly one
-   ``spmspv_scatter`` launch per token that keeps a slot (one per
-   ``apply_sparse`` call where nothing drops); (b) a float32 copy (TF32
+   move it by), and bit for bit equal to the same combine
+   (``moe_combine_spmspv``) of the same operands through the plain version
+   on the CPU, with exactly ``SCATTER_LAUNCHES`` (4) ``spmspv_scatter``
+   launches per token that keeps a slot (one ``apply_sparse`` call each
+   where nothing drops); (b) a float32 copy (TF32
    off) at capacity_factor E / top_k: prefill + 15 decode steps equal
    ``forward`` within 1e-3 max|logits|, one replay of a 4-slot server's
    decode graph equals eager ``decode_step`` bit for bit (logits and
@@ -393,8 +401,8 @@ scipy; imports nothing of JAX or of the JAX package.  Phases:
    the chain's entropy floor less 0.05, and below the first 5's by 1 nat
    (the cut) or ``EX_LEARN_NATS`` (12 layers; the JAX package's drops at
    both depths, ``tests/witness_train_lm.py``), step ms, tokens/s and the
-   allocator peak, then a run resumed from its step-250 checkpoint whose losses
-   equal the first run's within 1e-5; (e) ``train_lm --sparse --steps
+   allocator peak; the cut run resumed from its step-250 checkpoint, whose
+   losses equal its first run's within 1e-5; (e) ``train_lm --sparse --steps
    20``: finite and falling; (f) deepseek-67b and llama3-405b at full
    width and the depth ``vl_layers`` reckons (32 of 95 and 6 of 126), each
    freed before the next: ``serve --arch --reduced``, a 4-slot server of
@@ -2401,6 +2409,7 @@ def moe_ssm_phase(dev, record: dict, *, reduced: bool = False) -> dict:
 
     from repro_torch.configs import get_config, get_reduced
     from repro_torch.kernels import _build
+    from repro_torch.kernels.spmspv import SCATTER_LAUNCHES
     from repro_torch.models import lm
     from repro_torch.models import moe as moe_mod
 
@@ -2443,7 +2452,8 @@ def moe_ssm_phase(dev, record: dict, *, reduced: bool = False) -> dict:
     rec["combine"] = {}
     for cf in (E / k, cfg.moe.capacity_factor):
         mcfg = dataclasses.replace(cfg.moe, capacity_factor=cf)
-        _, dest, _, _, _, C = moe_mod._dispatch_expert_outputs(p32, x, mcfg, aux=False)
+        out_flat, dest, weights, _, _, C = moe_mod._dispatch_expert_outputs(
+            p32, x, mcfg, aux=False)
         # (|A| |x|)_i of the products behind each output: the experts' wo
         # against the gate-weighted h (and what reordering the gate and up
         # products' sums can move h by)
@@ -2458,6 +2468,14 @@ def moe_ssm_phase(dev, record: dict, *, reduced: bool = False) -> dict:
         wall = time.perf_counter() - t1
         launches = dict(_build.LAUNCHES)
         moe_launches.update(launches)
+        # the same combine of the dispatch's operands through the plain
+        # version on the CPU, whose index_add_ sums in stream order
+        t1 = time.perf_counter()
+        y_plain = moe_mod.moe_combine_spmspv(out_flat.cpu(), dest.cpu(), weights.cpu(),
+                                             impl="cuda")
+        wall_plain = time.perf_counter() - t1
+        n_diff = int((y.cpu().view(torch.int32) != y_plain.view(torch.int32)).sum())
+        del out_flat, weights
         no_drop = cf >= E / k
         ref = (moe_mod.moe_apply_dense_ref(p32, x, mcfg) if no_drop
                else moe_mod.moe_apply(p32, x, mcfg, aux=False)[0])
@@ -2468,10 +2486,15 @@ def moe_ssm_phase(dev, record: dict, *, reduced: bool = False) -> dict:
         err = (y.double() - ref.double()).abs()
         ratio = float((err / scale.clamp_min(1e-300)).max())
         what = ("moe_apply_dense_ref" if no_drop else "moe_apply")
-        if cuda and (launches.get("spmspv_scatter", 0) != nonempty
+        if cuda and (launches.get("spmspv_scatter", 0) != nonempty * SCATTER_LAUNCHES
                      or set(launches) != {"spmspv_scatter"}):
             fail(f"12c cf={cf}: launches {launches}, expected spmspv_scatter = "
-                 f"{nonempty} (one per token with a kept slot) and nothing else")
+                 f"{nonempty * SCATTER_LAUNCHES} ({SCATTER_LAUNCHES} per token with a "
+                 f"kept slot) and nothing else")
+        if n_diff:
+            fail(f"12c cf={cf}: the combine through the kernel differs in {n_diff} "
+                 "entries' bits from the same combine through the plain version on "
+                 "the CPU")
         if no_drop and (dropped or nonempty != b * s_):
             fail(f"12c cf={cf}: {dropped} slots dropped where none may")
         if not bool((err <= TOL * scale).all()):
@@ -2479,15 +2502,18 @@ def moe_ssm_phase(dev, record: dict, *, reduced: bool = False) -> dict:
                  f"{ratio:.3e} (|A| |x|)_i at worst (limit {TOL:g})")
         rec["combine"][f"cf{cf:g}"] = {
             "C": C, "dropped_slots": dropped, "tokens": b * s_, "launches": launches,
+            "bits_differing_from_cpu_plain": n_diff,
             "apply_sparse_calls": b * s_, "nonempty_tokens": nonempty,
             "max_abs_err": float(err.max()), "worst_ratio": ratio,
-            "spmspv_wall_s": wall, "moe_apply_wall_s": wall_apply, "oracle": what}
+            "spmspv_wall_s": wall, "cpu_plain_combine_wall_s": wall_plain,
+            "moe_apply_wall_s": wall_apply, "oracle": what}
         print(f"  ok capacity_factor {cf:g} (C = {C}, {dropped} slots dropped): the "
-              f"combine through the kernel == {what} within {TOL:g} (|A| |x|)_i (worst "
+              f"combine through the kernel == the plain combine on the CPU bit for bit, "
+              f"and == {what} within {TOL:g} (|A| |x|)_i (worst "
               f"{ratio:.3e}, max_abs_err {float(err.max()):.3e}); launches {launches} "
               f"for {b * s_} apply_sparse calls ({nonempty} with a kept slot); host-side "
               f"{wall:.2f}s against moe_apply's {wall_apply * 1e3:.2f} ms", flush=True)
-        del y, ref, err, scale
+        del y, y_plain, ref, err, scale
     del p32, x, src
     chk.end("12c", t0)
 
@@ -3594,6 +3620,7 @@ MESH_RESTORE_SHAPE = (1, 4, 2)  # 16d: the factorization a checkpoint is restore
 MESH_KEEP = 16  # 16a: labels kept in each row of the first data half (all in the second)
 EF_LEAVES = ("blocks.0.attn.wq", "blocks.1.ffn.wo", "ln_f.g")  # 16e's gradients
 MESH_FIT = 0.92  # 16c: the share of the card's free bytes the reckoned peak may take
+MESH_TIMED_LAYERS = 20  # 16c: qwen1.5-4b's depth cut to half, for the script's time limit
 
 
 def profile_spans(events, name: str) -> dict:
@@ -3830,7 +3857,7 @@ def mesh_train_phase(dev, record: dict, *, reduced: bool = False) -> dict:
         return n * (4 * el + 8) + acts
 
     free_b = torch.cuda.mem_get_info(dev)[0] if cuda else None
-    depth = full.n_layers
+    depth = min(full.n_layers, MESH_TIMED_LAYERS)
     while cuda and depth > 1 and reckon(depth) > MESH_FIT * free_b:
         depth -= 1
     cfg_c = full if depth == full.n_layers else dataclasses.replace(full, n_layers=depth)
@@ -4596,8 +4623,8 @@ def examples_phase(dev, record: dict, *, reduced: bool = False) -> dict:
                                              n_kv_heads=2, d_ff=128, vocab=64)
         mod.SEQ, steps, resume_at = 32, 60, 50
     t0 = begin("18d", f"examples/train_lm_torch.py --big --steps {steps}, its depth cut to "
-                      f"{EX_CUT_LAYERS} layers, then whole and resumed from its "
-                      f"step-{resume_at} checkpoint")
+                      f"{EX_CUT_LAYERS} layers and resumed from its step-{resume_at} "
+                      "checkpoint, then whole")
 
     def train(argv, ckpt):
         return mod.main(argv + ["--ckpt-dir", str(ckpt)] + device)
@@ -4625,14 +4652,29 @@ def examples_phase(dev, record: dict, *, reduced: bool = False) -> dict:
     big = mod.BIG_DIMS
     mod.BIG_DIMS = dict(big, n_layers=EX_CUT_LAYERS)
     cut, _ = counted(lambda: train(["--big", "--steps", str(steps)], ck / "cut"))
-    mod.BIG_DIMS = big
     cut_losses = [h["loss"] for h in cut["history"]]
     log_v = float(np.log(cut["cfg"].vocab))
     cut_first, cut_last, cut_ok = learning(f"--big cut to {EX_CUT_LAYERS} layers", cut_losses,
                                            cut["entropy_floor"], log_v, EX_CUT_LEARN_NATS)
     rec["18d_cut"] = {"layers": EX_CUT_LAYERS, "losses": cut_losses, "first5": cut_first,
                       "last20": cut_last, "learned": cut_ok}
-    del cut
+    # the cut run resumed from its step-resume_at checkpoint (a cut step
+    # takes a fraction of a whole one's time)
+    (ck / "resume").mkdir()
+    shutil.copytree(ck / "cut" / f"step_{resume_at:08d}",
+                    ck / "resume" / f"step_{resume_at:08d}")
+    tr2, _ = counted(lambda: train(["--big", "--steps", str(steps)], ck / "resume"))
+    mod.BIG_DIMS = big
+    by_step = {h["step"]: h["loss"] for h in cut["history"]}
+    resumed = [(h["step"], h["loss"], by_step[h["step"]]) for h in tr2["history"]]
+    worst = max(abs(l2 - l1) / abs(l1) for _, l2, l1 in resumed)
+    check([s for s, _, _ in resumed] == list(range(resume_at + 1, steps)),
+          f"18d: the resumed run ran steps {[s for s, _, _ in resumed][:3]}...")
+    check(worst <= EX_RESUME_REL, f"18d: resumed losses {worst:.3e} from the first run's")
+    print(f"  ok 18d: the {EX_CUT_LAYERS}-layer cut resumed from step {resume_at}, steps "
+          f"{resume_at + 1}-{steps - 1}'s losses within {worst:.3e} relative of its first "
+          f"run's (limit {EX_RESUME_REL:g})", flush=True)
+    del cut, tr2
     t_run = time.perf_counter()
     tr, got = counted(lambda: train(["--big", "--steps", str(steps)], ck / "run"))
     wall = time.perf_counter() - t_run
@@ -4649,24 +4691,11 @@ def examples_phase(dev, record: dict, *, reduced: bool = False) -> dict:
           f"{losses[-1]:.4f}, entropy floor {floor:.4f}", flush=True)
     check(all(np.isfinite(losses)) and len(hist) == steps, "18d: a loss is not finite")
     first, last, learned = learning("--big", losses, floor, log_v, EX_LEARN_NATS)
-    (ck / "resume").mkdir()
-    shutil.copytree(ck / "run" / f"step_{resume_at:08d}",
-                    ck / "resume" / f"step_{resume_at:08d}")
-    tr2, got2 = counted(lambda: train(["--big", "--steps", str(steps)], ck / "resume"))
-    by_step = {h["step"]: h["loss"] for h in hist}
-    resumed = [(h["step"], h["loss"], by_step[h["step"]]) for h in tr2["history"]]
-    worst = max(abs(l2 - l1) / abs(l1) for _, l2, l1 in resumed)
-    check([s for s, _, _ in resumed] == list(range(resume_at + 1, steps)),
-          f"18d: the resumed run ran steps {[s for s, _, _ in resumed][:3]}...")
-    check(worst <= EX_RESUME_REL, f"18d: resumed losses {worst:.3e} from the first run's")
-    print(f"  ok 18d: resumed from step {resume_at}, steps {resume_at + 1}-{steps - 1}'s "
-          f"losses within {worst:.3e} relative of the first run's (limit {EX_RESUME_REL:g})",
-          flush=True)
     rec["18d"] = {"launches": got, "params": params, "losses": losses, "step_ms": step_ms,
                   "tokens_per_s": tokens / step_ms * 1e3, "peak_bytes": peak, "wall_s": wall,
                   "first5": first, "last20": last, "entropy_floor": floor, "log_vocab": log_v,
                   "learned": learned, "resume_worst_rel": worst}
-    del tr, tr2
+    del tr
     free()
     end("18d", t0)
     t0 = begin("18e", f"examples/train_lm_torch.py --sparse --steps {EX_SPARSE_STEPS}")
@@ -4880,6 +4909,8 @@ def main() -> None:
     )
     from repro_torch.kernels import spmspv as kspmspv
     from repro_torch.kernels.spmspv import (
+        SCATTER_LAUNCHES,
+        SCATTER_PASSES,
         expand_products,
         pad_sparse_rhs,
         spmspv_prepare,
@@ -5633,9 +5664,11 @@ def main() -> None:
         mask[idx] = 1.0
         return G64[name] @ x64, G_abs[name] @ np.abs(x64), G_pat[name] @ mask
 
-    def check_sparse(what: str, got, ref, scale, terms, quiet=False) -> float:
+    def check_sparse(what: str, got, ref, scale, terms, quiet=False,
+                     fallback=True) -> float:
         """Per row |got - ref| <= 1e-5 * scale_i; a row that breaks it is
-        printed with its term count k_i and held to k_i * 2**-24 * scale_i."""
+        printed with its term count k_i and, with ``fallback``, held to
+        k_i * 2**-24 * scale_i (else it fails)."""
         got = torch.as_tensor(got, device=dev).double()
         ref = torch.as_tensor(ref, device=dev).double()
         scale = torch.as_tensor(scale, device=dev).double()
@@ -5651,6 +5684,8 @@ def main() -> None:
             print(f"  {what}: {int((err > lim).sum())} rows break 1e-5, worst row "
                   f"{i}: err {float(err[i]):.3e}, (|A||x|)_i {float(scale[i]):.3e}, "
                   f"k_i = {int(terms[i])} terms; limit becomes k_i * 2^-24")
+            if not fallback:
+                fail(f"{what}: row {i} breaks 1e-5 (|A| |x|)_i")
             lim = torch.clamp(terms * 2.0**-24, min=TOL) * scale
             used = "k_i*2^-24"
             if bool((err > lim).any()):
@@ -5663,11 +5698,15 @@ def main() -> None:
             print(f"  ok {what}: max_abs_err {worst:.3e} (limit {used})")
         return worst
 
-    # 6a: the fused kernel against its plain version on the card
+    # 6a: the kernel against its plain version on a CPU copy, bit for bit
+    def differing_bits(got, want) -> int:
+        return int((got.cpu().view(torch.int32) != want.cpu().view(torch.int32)).sum())
+
     sp_preps, sp_cases = {}, []
     for name, g in graphs.items():
         m_, n_ = g.shape
         prep = spmspv_prepare(g, device=dev)
+        prep_cpu = spmspv_prepare(g, device="cpu")
         for B in buckets if name == "webbase-1M" else (n_ // 256, n_ // 4):
             idx, val = sparse_x(n_, B)
             xi, xv = pad_sparse_rhs(idx, val, B, n_)
@@ -5675,20 +5714,35 @@ def main() -> None:
             T = op["total"]
             y = spmspv_scatter(prep, op["xi"], op["xv"], op["offs"], op["first"],
                                total=T, tile=op["tile"])
-            yp = spmspv_scatter_plain(prep, op["xi"], op["xv"], T)
+            y2 = spmspv_scatter(prep, op["xi"], op["xv"], op["offs"], op["first"],
+                                total=T, tile=op["tile"])
             torch.cuda.synchronize()
-            _, scale, _ = sparse_oracle(name, idx, val)
-            rows, _ = expand_products(prep, op["xi"], op["xv"], work_bucket(T, g.nnz))
+            yp = spmspv_scatter_plain(prep_cpu, op["xi"].cpu(), op["xv"].cpu(), T)
+            y64, scale, _ = sparse_oracle(name, idx, val)
+            rows, _ = expand_products(prep_cpu, op["xi"].cpu(), op["xv"].cpu(),
+                                      work_bucket(T, g.nnz))
             terms = torch.bincount(rows[:T].long(), minlength=m_)
             n_blocks = op["first"].shape[0] - 1
-            errs[f"spmspv_scatter/{name}/B{B}"] = check_sparse(
-                f"spmspv_scatter {name} x_nnz={B} (T={T}, tile={op['tile']}, "
-                f"{n_blocks} blocks, max k_i {int(terms.max())})", y, yp, scale,
-                terms)
+            shift, n_tiles = kspmspv.row_tiles(m_, T)
+            what = (f"spmspv_scatter {name} x_nnz={B} (T={T}, tile={op['tile']}, "
+                    f"{n_blocks} blocks, {n_tiles} row tiles of {1 << shift}, max k_i "
+                    f"{int(terms.max())})")
+            if tuple(y.shape) != (m_,) or not bool(torch.isfinite(y).all()):
+                fail(f"{what}: shape {tuple(y.shape)} or non-finite output")
+            n_diff, n_rerun = differing_bits(y, yp), differing_bits(y2, y)
+            if n_diff or n_rerun:
+                fail(f"{what}: {n_diff} rows differ in their bits from the plain "
+                     f"version on the CPU, {n_rerun} from the first launch")
+            errs[f"spmspv_scatter/{name}/B{B}"] = float((y.cpu() - yp).abs().max())
+            f64 = check_sparse(f"{what} vs float64", y, y64, scale, terms,
+                               quiet=True, fallback=False)
+            print(f"  ok {what}: bit for bit with the plain version on the CPU and "
+                  f"on a second launch; vs float64 max_abs_err {f64:.3e}, every row "
+                  "within 1e-5 (|A| |x|)_i")
             sp_cases.append((name, B, idx, val))
-            del rows, y, yp, op
+            del rows, y, y2, yp, op
         sp_preps[name] = prep
-        del prep
+        del prep, prep_cpu
     torch.cuda.empty_cache()
     phase_done("spmspv_kernel_vs_plain", t0)
 
@@ -5765,7 +5819,7 @@ def main() -> None:
              f"{summary['by_bucket']}")
     ys_by_depth = {}
     pin_cache = PlanCache()  # the second engine loads the first one's plans
-    # The pinned lane runs the fused kernel alone: count every eager
+    # The pinned lane runs the kernel alone: count every eager
     # expansion made while its engines serve (the plain version's).
     expansions = [0]
     expand_eager = kspmspv.expand_products
@@ -5795,12 +5849,15 @@ def main() -> None:
     if expansions[0]:
         fail(f"the pinned spmspv/cuda lane ran {expansions[0]} eager expansions")
     record["spmspv_pinned_eager_expansions"] = expansions[0]
+    # every request, the oversize one on the dense k=1 lane included
     for j, (ya, ys_) in enumerate(zip(ys_by_depth[2], ys_by_depth[0])):
-        o = sp_oracles[j]
-        check_sparse(f"pinned engine request {j}: async vs sync", ya, ys_, o[1],
-                     o[2], quiet=True)
-    print("  ok pinned engine: async_depth=2 agrees with async_depth=0 within "
-          "the tolerance (the scatter's atomics make it not bitwise)")
+        if differing_bits(ya, ys_):
+            fail(f"pinned engine request {j}: async_depth=2 differs from "
+                 f"async_depth=0 in {differing_bits(ya, ys_)} rows' bits")
+    print(f"  ok pinned engine: async_depth=2 equals async_depth=0 bit for bit on "
+          f"all {len(sp_reqs)} requests ({len(sp_reqs) - 1} sparse, 1 on the dense "
+          f"k=1 lane)")
+    record["spmspv_pinned_async_equals_sync_bits"] = True
     lap("pinned engines checked")
     # The device work of one pinned request, as the profiler lists it.
     pin = SparseOperator.from_candidate(web, pinned_sp, x_nnz=buckets[0], device=dev)
@@ -5820,14 +5877,17 @@ def main() -> None:
         device_work = [f"profiler failed: {e!r}"]
     print(f"  one pinned request, device work by the profiler: {device_work}")
     record["spmspv_one_request_device_work"] = device_work
-    if _build.LAUNCHES["spmspv_scatter"] != before + 1:
-        fail("one pinned sparse request did not launch the fused kernel once")
+    if _build.LAUNCHES["spmspv_scatter"] != before + SCATTER_LAUNCHES:
+        fail(f"one pinned sparse request did not launch the kernel's "
+             f"{SCATTER_LAUNCHES} passes once each")
     kernels_seen = [w for w in device_work if "memcpy" not in w.lower()
                     and "memset" not in w.lower()]
     if device_work and not device_work[0].startswith("profiler failed") and (
-            len(kernels_seen) > 2
-            or sum("spmspv_scatter" in w for w in kernels_seen) != 1):
-        fail(f"one pinned sparse request ran other device kernels: {kernels_seen}")
+            len(kernels_seen) != SCATTER_LAUNCHES
+            or any(sum(f"spmspv_scatter_{p_}" in w for w in kernels_seen) != 1
+                   for p_ in SCATTER_PASSES)):
+        fail(f"one pinned sparse request ran other device kernels than the "
+             f"{SCATTER_PASSES} passes once each: {kernels_seen}")
     del pin
     lap("one pinned request profiled")
     eng_sp.close()
@@ -5837,7 +5897,7 @@ def main() -> None:
     sp_launches = dict(_build.LAUNCHES)
     print(f"  launches over phase 6b: {sp_launches}")
     if sp_launches.get("spmspv_scatter", 0) <= 0:
-        fail("the fused kernel spmspv_scatter was never launched on the sparse-RHS "
+        fail("the kernel spmspv_scatter was never launched on the sparse-RHS "
              "main path")
     record["spmspv_launches"] = sp_launches
     sp_tmp.cleanup()
@@ -5863,9 +5923,28 @@ def main() -> None:
             ts.append((time.perf_counter() - t_) * 1e3)
         return float(np.median(ts))
 
+    def pass_device_ms(fn) -> dict:
+        """Median device ms of each of the kernel's passes over REPS calls,
+        L2 flushed before each (the profiler's kernel records)."""
+        try:
+            from torch.profiler import ProfilerActivity, profile
+
+            with profile(activities=[ProfilerActivity.CUDA]) as prof_:
+                for _ in range(REPS):
+                    flush.zero_()
+                    fn()
+                torch.cuda.synchronize()
+            per = {p_: [e.device_time for e in prof_.events()
+                        if e.device_type == torch.autograd.DeviceType.CUDA
+                        and f"spmspv_scatter_{p_}" in e.name] for p_ in SCATTER_PASSES}
+            return {p_: float(np.median(v)) / 1e3 if v else None for p_, v in per.items()}
+        except RuntimeError as e:  # a measurement, not the path: record it
+            return {"profiler failed": repr(e)}
+
     for _ in range(2000):  # bring the clocks back up after the profiler's pause
         flush.zero_()
     torch.cuda.synchronize()
+    pass_jobs = []  # profiled after every timing, so none follows a pause
     for name in graphs:
         g, prep = graphs[name], sp_preps[name]
         m_, n_ = g.shape
@@ -5891,8 +5970,10 @@ def main() -> None:
                 "source": "src/repro_torch/kernels/csrc/spmspv_scatter.cu",
                 "replaces": "src/repro/kernels/spmspv.py:212",
                 "shape": f"{name} x_nnz={B} T={T} tile={op['tile']} "
-                         f"blocks={op['first'].shape[0] - 1}",
+                         f"blocks={op['first'].shape[0] - 1} row_tiles="
+                         f"{kspmspv.row_tiles(m_, T)[1]}",
                 "launches": int(sp_launches.get("spmspv_scatter", 0)),
+                "launches_per_request": SCATTER_LAUNCHES,
                 "max_abs_err": errs[f"spmspv_scatter/{name}/B{B}"],
                 "ms": time_ms(lambda: spmspv_scatter(
                     prep, op["xi"], op["xv"], op["offs"], op["first"], total=T,
@@ -5910,7 +5991,6 @@ def main() -> None:
                 "G": G,
                 "expand_ms": time_ms(lambda: expand_products(prep, op["xi"], op["xv"],
                                                              G)),
-                "zero_fill_ms": time_ms(lambda: torch.zeros(m_, device=dev)),
                 "apply_sparse_ms": wall_ms(lambda: pin.apply_sparse(idx, val)),
                 # the whole request's host steps, each on the host clock
                 "host_validate_pad_ms": wall_ms(lambda: pad_sparse_rhs(
@@ -5921,9 +6001,14 @@ def main() -> None:
                     tile=op["tile"])),
                 "cusparse_dense_mv_ms": time_ms(lambda: torch.mv(A_lib, x_dense)),
             }
+            if B == n_ // 4:  # the largest bucket of each matrix, by pass
+                pass_jobs.append((row, lambda prep=prep, op=op, T=T: spmspv_scatter(
+                    prep, op["xi"], op["xv"], op["offs"], op["first"], total=T,
+                    tile=op["tile"])))
             kernels.append(row)
-            print(f"  spmspv_scatter [{row['shape']}]: {row['ms']:.4f} ms (zero "
-                  f"fill {row['zero_fill_ms']:.4f} + fused kernel), plain "
+            print(f"  spmspv_scatter [{row['shape']}]: {row['ms']:.4f} ms "
+                  f"({SCATTER_LAUNCHES} launches {'+'.join(SCATTER_PASSES)}, no zero "
+                  f"fill), plain "
                   f"(expand + index_add_) {row['plain_ms']:.4f}, expand alone "
                   f"{row['expand_ms']:.4f}, index_add_ on the expanded stream "
                   f"{row['library_ms']:.4f}, bound {row['bound_ms']:.4f} "
@@ -5937,6 +6022,14 @@ def main() -> None:
             del rows, prods, pin, op
         del A_lib
     del sp_preps
+    for row, fn in pass_jobs:
+        row["pass_device_ms"] = pass_device_ms(fn)
+        print(f"  spmspv_scatter [{row['shape']}]: device ms by pass "
+              f"{row['pass_device_ms']}", flush=True)
+    del pass_jobs
+    for _ in range(2000):  # bring the clocks back up after the profiler's pause
+        flush.zero_()
+    torch.cuda.synchronize()
     phase_done("spmspv_times", t0)
 
     # -- phase 7: the remaining tiers, reordering, supervision, overload ---
@@ -6142,8 +6235,8 @@ def main() -> None:
                  [req_host[0]])
     # A faulted sparse bucket on webbase-1M, pinned to spmspv/cuda: it
     # demotes to the densified csr/vector fallback, and the repair probe
-    # that promotes it back runs a product, so the fused kernel launches
-    # exactly once between the demotion and the next request.
+    # that promotes it back runs a product, so the kernel's passes launch
+    # exactly once each between the demotion and the next request.
     B7 = buckets[0]
     cache7 = PlanCache()  # the pinned plan, searched here so the engine loads it
     SparseOperator.build(web, x_nnz=B7, cache=cache7, candidates=[pinned_sp],
@@ -6179,8 +6272,9 @@ def main() -> None:
     record["supervised"]["sparse_probe"] = {"events": kinds_s,
                                             "probe_launches": probe_launches,
                                             "after_next_request": after_launches}
-    if kinds_s != ["batch_failed", "demote", "promote"] or probe_launches != 1 \
-            or after_launches != 2:
+    if kinds_s != ["batch_failed", "demote", "promote"] \
+            or probe_launches != SCATTER_LAUNCHES \
+            or after_launches != 2 * SCATTER_LAUNCHES:
         fail(f"the sparse bucket's repair probe ran no product: events {kinds_s}, "
              f"launches {probe_launches} then {after_launches}")
     for label, y_ in (("on the fallback", y7), ("after promotion", y7b)):

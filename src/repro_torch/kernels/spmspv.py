@@ -6,18 +6,26 @@ The Azad–Buluc bucket SpMSpV, as the JAX package shapes it:
   starts and lengths plus the row/value streams), because a sparse x
   touches *columns*; a virtual length-0 sentinel column at index ``n``
   makes padded x slots free.  The arrays equal ``repro``'s.
-* :func:`spmspv_scatter` launches ``csrc/spmspv_scatter.cu``, one kernel
-  that expands the touched columns and scatters their products,
-  ``y[rows[src]] += vals[src] * xv[slot]`` for the true products only.  It
-  replaces the TPU kernel ``repro.kernels.spmspv.spmspv_scatter_pallas``
-  together with the expansion that feeds it.  The host gives it the
-  cumulative touched-column offsets (:func:`touched_offsets`) and each
-  block's first slot (:func:`scatter_plan`).
+* :func:`spmspv_scatter` launches ``csrc/spmspv_scatter.cu``: four passes
+  (``SCATTER_PASSES``) that expand the touched columns, sort their true
+  products stably into buckets of ``2**shift`` rows (:func:`row_tiles`),
+  and sum each bucket's rows one product after another.  Every y_i is then
+  the left-to-right float32 sum of row i's products in stream order
+  (ascending x slot, CSC order within a column), starting from +0.0: the
+  function the TPU kernel ``repro.kernels.spmspv.spmspv_scatter_pallas``
+  computes with its sequential slab loop, bit for bit, and the same every
+  run.  It replaces that kernel together with the expansion that feeds it.
+  The host gives it the cumulative touched-column offsets
+  (:func:`touched_offsets`) and each block's first slot
+  (:func:`scatter_plan`).
 * :func:`spmspv_scatter_plain` is its plain torch version:
   :func:`expand_products` expands the touched columns into a ``(rows,
   products)`` stream padded to a *work bucket* G from a geometric ladder
   (:func:`work_bucket`), exactly as ``repro`` does, and one ``index_add_``
-  adds its true products.
+  adds its true products.  On the CPU that ``index_add_`` adds in stream
+  order, so it equals the kernel bit for bit; on a card it is an atomic
+  ``index_add_`` whose order changes from run to run, so there only the
+  kernel is bitwise repeatable.
 
 Padding conventions: x slots pad with the sentinel column ``n`` and value
 0; product lanes past the true total carry (row 0, value 0).  An all-zero
@@ -31,6 +39,7 @@ value.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import numpy as np
 import torch
@@ -41,10 +50,14 @@ from .ops import from_arrays
 __all__ = [
     "WORK_BUCKET_BASE",
     "WORK_BUCKET_GROWTH",
-    "SCATTER_MAX_PER_THREAD",
-    "SCATTER_THREADS",
+    "SCATTER_LAUNCHES",
+    "SCATTER_MAX_TILE",
+    "SCATTER_MAX_TILES",
+    "SCATTER_PASSES",
+    "SCATTER_SMEM_TILE_ROWS",
     "expand_products",
     "pad_sparse_rhs",
+    "row_tiles",
     "scatter_plan",
     "spmspv_bind",
     "spmspv_prepare",
@@ -61,10 +74,16 @@ __all__ = [
 WORK_BUCKET_BASE = 256
 WORK_BUCKET_GROWTH = 4
 
-# The fused kernel's block: threads, and products a thread takes at most
-# (csrc/spmspv_scatter.cu: kThreads, kMaxPer).
-SCATTER_THREADS = 128
-SCATTER_MAX_PER_THREAD = 4
+# The kernel's passes, in launch order; a request with T > 0 true products
+# launches each once, and one with none launches nothing.
+SCATTER_PASSES = ("count", "scan", "place", "sum")
+SCATTER_LAUNCHES = len(SCATTER_PASSES)
+# Products a block (one warp) takes at most, row tiles at most, and rows a
+# tile sums in shared memory at most (csrc/spmspv_scatter.cu: kMaxTile,
+# kMaxTiles, 1 << kSmemTileShift); a larger tile sums its rows in y itself.
+SCATTER_MAX_TILE = 1024
+SCATTER_MAX_TILES = 1024
+SCATTER_SMEM_TILE_ROWS = 8192
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
@@ -133,10 +152,11 @@ def spmspv_prepare(a, *, device) -> dict:
     """
     m, n = a.shape
     nnz = int(a.indptr[-1])
-    if nnz >= 2**31:
+    if nnz >= 2**31 or m >= 2**31:
         raise OverflowError(
-            f"spmspv tier: nnz={nnz} overflows the int32 CSC offsets; this "
-            "matrix needs row-partitioned shards each below 2**31 nnz"
+            f"spmspv tier: nnz={nnz} or m={m} overflows the int32 CSC offsets "
+            "and rows; this matrix needs row-partitioned shards each below "
+            "2**31 rows and nnz"
         )
     lengths = np.diff(np.asarray(a.indptr))
     rows_of = np.repeat(np.arange(m, dtype=np.int64), lengths)
@@ -195,9 +215,10 @@ def expand_products(prep: dict, xi: torch.Tensor, xv: torch.Tensor, G: int):
 
 def spmspv_scatter_plain(prep: dict, xi: torch.Tensor, xv: torch.Tensor,
                          total: int) -> torch.Tensor:
-    """The fused kernel's function in plain torch: :func:`expand_products`
-    into the work bucket, then one ``index_add_`` over the first ``total``
-    true products (the padded tail is never added)."""
+    """The kernel's function in plain torch: :func:`expand_products` into
+    the work bucket, then one ``index_add_`` over the first ``total`` true
+    products (the padded tail is never added).  In stream order on the CPU;
+    in an order that changes from run to run on a card."""
     m, _ = prep["shape"]
     rows, prods = expand_products(prep, xi, xv, work_bucket(total, prep["nnz"]))
     y = torch.zeros(m, dtype=prods.dtype, device=prods.device)
@@ -219,24 +240,24 @@ def touched_offsets(col_len: np.ndarray, xi: np.ndarray, out=None) -> np.ndarray
     return offs
 
 
-def scatter_plan(offs: np.ndarray, slab: int = 4096, n_sm: int = 132,
+def scatter_plan(offs: np.ndarray, slab: int = 4096,
                  out=None) -> tuple[int, np.ndarray]:
-    """How the fused kernel splits the T = offs[-1] products: (tile,
-    first).  Block b takes products [b * tile, (b + 1) * tile); ``first``
+    """How the kernel splits the T = offs[-1] products: (tile, first).
+    Block b (one warp) takes products [b * tile, (b + 1) * tile); ``first``
     (n_blocks + 1,) int32 holds the slot of each block's first product and,
     last, the slot of product T - 1, so block b's products lie in slots
-    first[b] .. first[b + 1].  The tile is sized to the card: 1 to
-    ``SCATTER_MAX_PER_THREAD`` products for each of the block's
-    ``SCATTER_THREADS`` threads, as few as give 16 blocks per SM, capped at
-    ``slab``.  ``first`` is written into the start of ``out`` when given."""
+    first[b] .. first[b + 1].  The tile is sqrt(T) rounded up to a warp's
+    32, within [32, ``SCATTER_MAX_TILE``] and capped at ``slab``: about as
+    many blocks as :func:`row_tiles` gives row tiles, so the count matrix
+    (blocks x row tiles) stays near T entries.  ``first`` is written into
+    the start of ``out`` when given."""
     total = int(offs[-1])
     if total == 0:
         first = np.zeros(1, np.int32) if out is None else out[:1]
         first[0] = 0
-        return SCATTER_THREADS, first
-    per = -(-total // (SCATTER_THREADS * 16 * max(int(n_sm), 1)))
-    per = min(max(per, 1), SCATTER_MAX_PER_THREAD)
-    tile = min(SCATTER_THREADS * per, max(int(slab), 1))
+        return 32, first
+    tile = -(-math.isqrt(total) // 32) * 32
+    tile = min(max(tile, 32), SCATTER_MAX_TILE, max(int(slab), 1))
     n_blocks = -(-total // tile)
     starts = np.empty(n_blocks + 1, np.int32)  # the same dtype as offs: no cast
     np.multiply(np.arange(n_blocks), tile, out=starts[:-1], casting="unsafe")
@@ -245,6 +266,22 @@ def scatter_plan(offs: np.ndarray, slab: int = 4096, n_sm: int = 132,
     np.subtract(np.searchsorted(offs, starts, side="right"), 1, out=first,
                 casting="unsafe")
     return tile, first
+
+
+def row_tiles(m: int, total: int) -> tuple[int, int]:
+    """The kernel's row tiles for an m-row y (m < 2**31) and T = ``total``
+    products: (shift, n_tiles), n_tiles = ceil(m / 2**shift) tiles of
+    2**shift rows.  About sqrt(T) tiles of 32 to ``SCATTER_SMEM_TILE_ROWS``
+    rows (summed in shared memory); where m needs more than
+    ``SCATTER_MAX_TILES`` of those, ``SCATTER_MAX_TILES`` tiles at most of
+    as many rows as it takes (summed in y itself)."""
+    target = max(math.isqrt(int(total)), 1)
+    shift = 5
+    while (1 << shift) < SCATTER_SMEM_TILE_ROWS and (target << shift) < m:
+        shift += 1
+    while (SCATTER_MAX_TILES << shift) < m:
+        shift += 1
+    return shift, -(-int(m) >> shift)
 
 
 def spmspv_scatter(
@@ -257,15 +294,20 @@ def spmspv_scatter(
     total: int,
     tile: int,
 ) -> torch.Tensor:
-    """y (m,) = A @ x for the padded sparse x (xi, xv): the fused
-    expand-and-scatter kernel over the ``total`` true products.
+    """y (m,) = A @ x for the padded sparse x (xi, xv) over the ``total``
+    true products, each row summed in stream order (the module's note).
 
     ``offs`` and ``first`` come from :func:`touched_offsets` and
     :func:`scatter_plan` on the host, which also give ``total`` and
-    ``tile``, so nothing here waits on a device value.  On CPU tensors the
-    plain version runs (it needs only xi, xv and total).  Under grad, with
-    ``xv`` or A's values requiring grad, it raises on either device
-    (``_build.refuse_autograd``): the kernel has no backward."""
+    ``tile``, so nothing here waits on a device value.  On a card one C
+    call launches the ``SCATTER_LAUNCHES`` passes in order on the current
+    stream, checking each launch right after it, into one scratch tensor
+    taken with ``torch.empty``; each launched pass counts once as
+    ``spmspv_scatter``, and a refused one raises.  With no product nothing
+    launches.  On CPU tensors the plain version runs (it needs only xi, xv
+    and total).  Under grad, with ``xv`` or A's values requiring grad, it
+    raises on either device (``_build.refuse_autograd``): the kernel has no
+    backward."""
     B = xi.shape[0]
     n_blocks = -(-int(total) // max(int(tile), 1))
     if xi.dim() != 1 or tuple(xv.shape) != (B,) or tuple(offs.shape) != (B + 1,):
@@ -289,45 +331,50 @@ def spmspv_scatter(
                            (prep["rows"], "rows", torch.int32),
                            (prep["vals"], "vals", torch.float32)):
         _build.expect(t, name, dtype, dev, 1)
-    if int(tile) > SCATTER_THREADS * SCATTER_MAX_PER_THREAD:
+    if int(tile) > SCATTER_MAX_TILE:
         raise ValueError(
-            f"tile {tile} exceeds {SCATTER_THREADS * SCATTER_MAX_PER_THREAD} "
-            "products a block (scatter_plan)"
+            f"tile {tile} exceeds {SCATTER_MAX_TILE} products a block (scatter_plan)"
         )
-    y = torch.zeros(m, dtype=torch.float32, device=dev)
+    total, tile = int(total), int(tile)
     if total == 0:
-        return y
-    fn = _build.function(
-        "spmspv_scatter", "spmspv_scatter_launch",
-        [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
-    )
+        return torch.zeros(m, dtype=torch.float32, device=dev)
+    shift, n_tiles = row_tiles(m, total)
+    # [counts (n_blocks x n_tiles) | tot | tile_start | ticket | bucket rows
+    #  | bucket products]
+    scratch = torch.empty(n_blocks * n_tiles + 2 * n_tiles + 2 + 2 * total,
+                          dtype=torch.int32, device=dev)
+    y = torch.empty(m, dtype=torch.float32, device=dev)  # the sum pass writes every row
+    fn = _build.function("spmspv_scatter", "spmspv_scatter_launch",
+                         [_P] * 9 + [_I] * 6 + [_P, _P])
+    launched = ctypes.c_int(0)
     with torch.cuda.device(dev):
         code = fn(prep["col_start"].data_ptr(), prep["rows"].data_ptr(),
                   prep["vals"].data_ptr(), xi.data_ptr(), xv.data_ptr(),
-                  offs.data_ptr(), first.data_ptr(), y.data_ptr(), int(total),
-                  int(tile), n_blocks, _build.stream(dev))
-    _build.check("spmspv_scatter", code, "spmspv_scatter launch")
-    _build.count("spmspv_scatter")
+                  offs.data_ptr(), first.data_ptr(), scratch.data_ptr(), y.data_ptr(),
+                  m, total, tile, n_blocks, shift, n_tiles, ctypes.byref(launched),
+                  _build.stream(dev))
+    for _ in range(launched.value):  # each launch checked in C right after it
+        _build.count("spmspv_scatter")
+    _build.check("spmspv_scatter", code, "spmspv_scatter launch, "
+                 f"{SCATTER_PASSES[min(launched.value, SCATTER_LAUNCHES - 1)]} pass")
     return y
 
 
-def stage_sparse(prep: dict, xi, xv, *, slab: int = 4096, n_sm: int = 132) -> dict:
-    """The fused kernel's operands for one padded sparse x given as HOST
-    arrays: ``xi``, ``xv``, ``offs`` and ``first`` on the prep's device,
-    written into one int32 host buffer and sent in one host-to-device copy,
-    beside ``total`` and ``tile``, as :func:`spmspv_scatter` takes them.
-    ``n_sm`` sizes the tile (the card's SM count)."""
+def stage_sparse(prep: dict, xi, xv, *, slab: int = 4096) -> dict:
+    """The kernel's operands for one padded sparse x given as HOST arrays:
+    ``xi``, ``xv``, ``offs`` and ``first`` on the prep's device, written
+    into one int32 host buffer and sent in one host-to-device copy, beside
+    ``total`` and ``tile``, as :func:`spmspv_scatter` takes them."""
     col_len = prep["col_len_np"]
     B = int(np.shape(xi)[0])
     # [xi | xv bits | offs | first]; the blocks are at most nnz / tile_min
-    max_blocks = -(-max(int(prep["nnz"]), 1) // min(SCATTER_THREADS,
-                                                    max(int(slab), 1)))
+    max_blocks = -(-max(int(prep["nnz"]), 1) // min(32, max(int(slab), 1)))
     buf = np.empty(3 * B + 2 + max_blocks, np.int32)
     xi_h, offs = buf[:B], buf[2 * B:3 * B + 1]
     np.clip(np.asarray(xi), 0, col_len.size - 1, out=xi_h, casting="unsafe")
     buf[B:2 * B] = np.asarray(xv, dtype=np.float32).view(np.int32)
     touched_offsets(col_len, xi_h, out=offs)
-    tile, first = scatter_plan(offs, slab, n_sm, out=buf[3 * B + 1:])
+    tile, first = scatter_plan(offs, slab, out=buf[3 * B + 1:])
     used = 3 * B + 1 + first.shape[0]
     d = torch.from_numpy(buf[:used]).to(prep["rows"].device)
     return {"xi": d[:B], "xv": d[B:2 * B].view(torch.float32),
@@ -340,17 +387,14 @@ def spmspv_bind(prep: dict, x_nnz: int, *, impl: str = "ref", slab: int = 4096):
 
     Per call the host gathers ``col_len_np[xi]`` into the cumulative
     offsets (the true product count T is the last), and copies what the
-    device needs in one transfer.  ``impl="cuda"`` runs the fused kernel
-    (zero fill + one launch; ``slab`` caps the products a block takes),
-    ``impl="ref"`` the plain version (expansion into the work bucket, then
-    ``index_add_``).
+    device needs in one transfer.  ``impl="cuda"`` runs the kernel
+    (``SCATTER_LAUNCHES`` launches; ``slab`` caps the products a block
+    takes), ``impl="ref"`` the plain version (expansion into the work
+    bucket, then ``index_add_``).
     """
     if impl not in ("ref", "cuda"):
         raise ValueError(f"unknown spmspv impl {impl!r}: ref or cuda")
     bucket = int(x_nnz)
-    device = prep["rows"].device
-    n_sm = (torch.cuda.get_device_properties(device).multi_processor_count
-            if device.type == "cuda" else 132)
 
     def fn(sx):
         xi, xv = sx
@@ -359,7 +403,7 @@ def spmspv_bind(prep: dict, x_nnz: int, *, impl: str = "ref", slab: int = 4096):
                 f"sparse operand has shape {np.shape(xi)}; this runner takes "
                 f"({bucket},) padded slots (pad_sparse_rhs)"
             )
-        op = stage_sparse(prep, xi, xv, slab=slab, n_sm=n_sm)
+        op = stage_sparse(prep, xi, xv, slab=slab)
         if impl == "cuda":
             return spmspv_scatter(prep, op["xi"], op["xv"], op["offs"],
                                   op["first"], total=op["total"], tile=op["tile"])

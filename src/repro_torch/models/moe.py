@@ -18,7 +18,7 @@ all add into its last row, which is discarded, so only that row depends on
 the order of the device's atomic adds.
 
 :func:`moe_apply_spmspv` serves the combine through the sparse stack
-(``fmt="spmspv"``, the fused SpMSpV kernel on a card): per token, its kept
+(``fmt="spmspv"``, the SpMSpV kernel on a card): per token, its kept
 (dest, weight) pairs are a sparse right-hand side of the (d × E·C+1)
 slot-output operand.  It is host-side per token, for tests and the smoke
 test; the serving path is :func:`moe_apply`.
@@ -46,6 +46,7 @@ __all__ = [
     "moe_apply",
     "moe_apply_dense_ref",
     "moe_apply_spmspv",
+    "moe_combine_spmspv",
 ]
 
 PARTITIONS = ("ep", "tp")
@@ -220,30 +221,42 @@ def moe_apply_spmspv(p: MoE, x: torch.Tensor, cfg: MoEConfig, *,
     Per batch row the transposed slot outputs (d × E*C+1) become a CSR
     operand pinned to ``make("spmspv", impl)`` at nnz(x) = top_k, and each
     token's kept (dest, weight) pairs, sorted, are one ``apply_sparse``.
-    ``impl="cuda"`` launches the fused SpMSpV kernel on a card (its plain
-    version on CPU tensors); ``"ref"`` is the plain version.  The dispatch
-    is :func:`moe_apply`'s own, so where nothing drops this equals
+    ``impl="cuda"`` launches the SpMSpV kernel on a card (its plain version
+    on CPU tensors); ``"ref"`` is the plain version.  The dispatch is
+    :func:`moe_apply`'s own, so where nothing drops this equals
     :func:`moe_apply_dense_ref`.  Host-side per token: tests only.
     """
+    out_flat, dest, weights, _, _, _ = _dispatch_expert_outputs(p, x, cfg, aux=False)
+    return moe_combine_spmspv(out_flat, dest, weights, impl=impl)
+
+
+def moe_combine_spmspv(out_flat: torch.Tensor, dest: torch.Tensor,
+                       weights: torch.Tensor, *, impl: str = "cuda") -> torch.Tensor:
+    """:func:`moe_apply_spmspv`'s combine alone, on ``out_flat``'s device:
+    ``_dispatch_expert_outputs``'s out_flat (b, E*C+1, d), dest (b, s*k)
+    and weights (b, s, k) -> y (b, s, d) float32.  On CPU operands the
+    kernel tier runs its plain version, so the same operands give the
+    kernel's bits there."""
     from repro_torch.core.formats import csr_from_dense
     from repro_torch.tune import SparseOperator, make
 
-    b, s, d = x.shape
-    E, k = cfg.n_experts, cfg.top_k
-    out_flat, dest, weights, _, _, C = _dispatch_expert_outputs(p, x, cfg, aux=False)
+    b, s, k = weights.shape
+    d = out_flat.shape[-1]
+    n_slots = out_flat.shape[1] - 1  # E * C: the zero row dropped slots point at
+    device = out_flat.device
     dest_np = dest.reshape(b, s, k).cpu().numpy()
     w_np = weights.float().reshape(b, s, k).cpu().numpy()
     out_np = out_flat.float().cpu().numpy()  # (b, E*C+1, d)
-    y = torch.zeros((b, s, d), dtype=torch.float32, device=x.device)
+    y = torch.zeros((b, s, d), dtype=torch.float32, device=device)
     for bi in range(b):
         # columns are slots; the zero row E*C leaves the CSR pattern, and
         # the dropped slots that point at it leave the right-hand side
         a_T = csr_from_dense(np.ascontiguousarray(out_np[bi].T))
         op = SparseOperator.from_candidate(a_T, make("spmspv", impl), x_nnz=k,
-                                           device=x.device)
+                                           device=device)
         for t in range(s):
             di, wv = dest_np[bi, t], w_np[bi, t]
-            kept = di < E * C
+            kept = di < n_slots
             di, wv = di[kept], wv[kept]
             order = np.argsort(di)  # kept dests are distinct (expert, rank)
             y[bi, t] = op.apply_sparse(di[order].astype(np.int64), wv[order])

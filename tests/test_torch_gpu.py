@@ -4,9 +4,9 @@ Marked ``gpu``: the fixture skips them when no CUDA device is visible.  The
 file imports nothing of JAX, so it also runs on a machine with a card and
 no JAX:  ``PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py``.
 Tolerance per row i: |kernel - plain| <= 1e-5 * (|A| |x|)_i, since only the
-summation order differs.  The fused SpMSpV kernel's atomics reorder each
-row's k_i terms, so for it the limit is the larger of that and k_i * 2**-24
-* (|A| |x|)_i, the worst case of a reordered float32 sum.
+summation order differs.  The SpMSpV kernel sums each row in stream order,
+as its plain version does on the CPU, so it is held to that plain version
+on a CPU copy of the same operands bit for bit, and to float64 at 1e-5.
 """
 import numpy as np
 import pytest
@@ -19,13 +19,16 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels.bcsr_spmm import bcsr_spmm, bcsr_spmm_plain
 from repro_torch.kernels.spmspv import (
-    expand_products,
+    SCATTER_LAUNCHES,
+    SCATTER_MAX_TILE,
+    SCATTER_MAX_TILES,
+    SCATTER_SMEM_TILE_ROWS,
     pad_sparse_rhs,
+    row_tiles,
     spmspv_prepare,
     spmspv_scatter,
     spmspv_scatter_plain,
     stage_sparse,
-    work_bucket,
 )
 from repro_torch.tune import PlanCache, SparseOperator, make
 from repro_torch.kernels.sell_spmv import (
@@ -330,12 +333,18 @@ def _fused(prep, op):
                           total=op["total"], tile=op["tile"])
 
 
-def _terms(prep, op):
-    """k_i: the touched terms of each row, from the plain expansion."""
-    G = work_bucket(op["total"], prep["nnz"])
-    rows, _ = expand_products(prep, op["xi"], op["xv"], G)
-    return torch.bincount(rows[:op["total"]].long(),
-                          minlength=prep["shape"][0]).cpu().numpy()
+def _plain_on_cpu(a, op):
+    """The plain version (expansion + index_add_, in stream order) on a CPU
+    copy of the kernel's operands."""
+    prep = spmspv_prepare(a, device="cpu")
+    return spmspv_scatter_plain(prep, op["xi"].cpu(), op["xv"].cpu(), op["total"])
+
+
+def _assert_bits(got, want, what=""):
+    got = got.cpu().contiguous().view(torch.int32)
+    want = want.cpu().contiguous().view(torch.int32)
+    assert got.shape == want.shape, what
+    assert torch.equal(got, want), (what, int((got != want).sum()))
 
 
 @pytest.mark.gpu
@@ -343,32 +352,108 @@ def _terms(prep, op):
                                        ("webbase-1M", 4), ("torso1", 256),
                                        ("torso1", 4)])
 def test_gpu_spmspv_scatter_matches_plain(cuda_device, name, frac):
-    """The fused expand-and-scatter kernel against its plain version
-    (expansion + index_add_) at three densities, the hub column included."""
+    """The SpMSpV kernel against its plain version (expansion + index_add_)
+    on a CPU copy at three densities, the hub column included: bit for bit,
+    and the same bits on a second launch; within 1e-5 of float64."""
     a, x, prep, xi, xv = _sparse_case(name, frac, cuda_device)
     op = stage_sparse(prep, xi, xv)
     assert op["total"] > 0
     before = _build.LAUNCHES["spmspv_scatter"]
     y = _fused(prep, op)
-    yp = spmspv_scatter_plain(prep, op["xi"], op["xv"], op["total"])
-    assert _build.LAUNCHES["spmspv_scatter"] == before + 1
-    terms = _terms(prep, op)
-    assert_rowtol(y.cpu().numpy(), yp.cpu().numpy(), a, x, name, terms=terms)
+    assert _build.LAUNCHES["spmspv_scatter"] == before + SCATTER_LAUNCHES
+    _assert_bits(y, _plain_on_cpu(a, op), name)
+    _assert_bits(_fused(prep, op), y, f"{name}: second launch")
     assert_rowtol(y.cpu().numpy(), sp.csr_matrix(
         (a.data.astype(np.float64), a.indices, a.indptr), shape=a.shape) @ x,
-        a, x, name, terms=terms)
+        a, x, name)
     # an all-sentinel x has no products: no launch, exact zeros
+    before = _build.LAUNCHES["spmspv_scatter"]
     z = stage_sparse(prep, np.full_like(xi, a.shape[1]), np.zeros_like(xv))
     assert z["total"] == 0
     assert not bool(_fused(prep, z).any())
-    assert _build.LAUNCHES["spmspv_scatter"] == before + 1
+    assert _build.LAUNCHES["spmspv_scatter"] == before
+
+
+@pytest.mark.gpu
+def test_gpu_spmspv_hub_row_spans_blocks_and_tiles(cuda_device):
+    """A row with a product in every touched column (20 000 of them) spans
+    many blocks of the stream and leaves its row tile's bucket far longer
+    than a block: summed in stream order, bit for bit with the plain
+    version on the CPU, with -0.0 products kept out of the result's sign."""
+    rng = np.random.default_rng(11)
+    m, n = 50_000, 30_000
+    A = sp.random(m, n, density=2e-4, random_state=3, format="lil", dtype=np.float32)
+    A[17, :] = rng.standard_normal(n).astype(np.float32)  # the hub row
+    A[40_000, :] = 0.0
+    A[40_000, 5] = -1.0  # the row's only product below is -1.0 * +0.0
+    A = sp.csr_matrix(A)
+    A.eliminate_zeros()
+    A.sort_indices()
+    a = tf.CSRMatrix((m, n), A.indptr.astype(np.int32), A.indices.astype(np.int32),
+                     A.data.astype(np.float32))
+    idx = np.union1d(np.sort(rng.choice(n, size=20_000, replace=False)), [5])
+    val = rng.standard_normal(idx.size).astype(np.float32)
+    val[np.searchsorted(idx, 5)] = 0.0
+    prep = spmspv_prepare(a, device=cuda_device)
+    xi, xv = pad_sparse_rhs(idx.astype(np.int64), val, idx.size, n)
+    op = stage_sparse(prep, xi, xv)
+    assert op["tile"] <= SCATTER_MAX_TILE < 20_000
+    y = _fused(prep, op)
+    yp = _plain_on_cpu(a, op)
+    _assert_bits(y, yp, "hub row")
+    _assert_bits(_fused(prep, op), y, "hub row: second launch")
+    assert int(y[40_000:40_001].cpu().view(torch.int32)[0]) == 0  # +0.0
+    x = np.zeros(n, np.float32)
+    x[idx] = val
+    assert_rowtol(y.cpu().numpy(), A.astype(np.float64) @ x, a, x, "hub row")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("extra", [0, 1, 40_000_000])
+def test_gpu_spmspv_tall_y_past_the_shared_memory_tiles(cuda_device, extra):
+    """A y of SCATTER_MAX_TILES * SCATTER_SMEM_TILE_ROWS rows (the largest
+    whose tiles sum in shared memory) and past it (tiles summed in y
+    itself), products in the first and last rows and a row spread over many
+    blocks: bit for bit with the plain version on the CPU, on two launches,
+    every untouched row +0.0."""
+    rng = np.random.default_rng(13)
+    m, n = SCATTER_MAX_TILES * SCATTER_SMEM_TILE_ROWS + extra, 3000
+    hub = m - 20_000
+    rows = np.concatenate([rng.integers(0, m, 5000), [0, m - 1], np.full(n, hub)])
+    cols = np.concatenate([rng.integers(0, n, 5002), np.arange(n)])
+    A = sp.csr_matrix((rng.standard_normal(rows.size).astype(np.float32), (rows, cols)),
+                      shape=(m, n))
+    A.sum_duplicates()
+    A.sort_indices()
+    a = tf.CSRMatrix((m, n), A.indptr.astype(np.int32), A.indices.astype(np.int32),
+                     A.data.astype(np.float32))
+    idx = np.union1d(rng.choice(n, size=2000, replace=False), cols[5000:5002])
+    val = rng.standard_normal(idx.size).astype(np.float32)
+    prep = spmspv_prepare(a, device=cuda_device)
+    xi, xv = pad_sparse_rhs(idx.astype(np.int64), val, idx.size, n)
+    op = stage_sparse(prep, xi, xv)
+    shift = row_tiles(m, op["total"])[0]
+    assert ((1 << shift) > SCATTER_SMEM_TILE_ROWS) == (extra > 0)
+    _build.reset_launches()
+    y = _fused(prep, op)
+    assert _build.LAUNCHES["spmspv_scatter"] == SCATTER_LAUNCHES
+    yp = _plain_on_cpu(a, op)
+    _assert_bits(y, yp, f"m = {m}")
+    _assert_bits(_fused(prep, op), y, f"m = {m}: second launch")
+    assert float(y[hub]) != 0.0 and float(y[m - 1]) != 0.0
+    touched = np.zeros(m, bool)
+    touched[A[:, idx].nonzero()[0]] = True
+    assert not y.cpu().view(torch.int32)[torch.from_numpy(~touched)].any()  # +0.0
+    x = np.zeros(n, np.float32)
+    x[idx] = val
+    assert_rowtol(y.cpu().numpy(), A.astype(np.float64) @ x, a, x, f"m = {m}")
 
 
 @pytest.mark.gpu
 def test_gpu_spmspv_long_runs_of_empty_columns(cuda_device):
     """A block whose products cross more slots than it stages in shared
     memory (thousands of empty touched columns between two full ones)
-    searches device memory instead, with the same answer."""
+    searches device memory instead, with the same bits."""
     rng = np.random.default_rng(9)
     m, n = 4000, 6000
     d = sp.random(m, n, density=0.002, random_state=1, format="csc",
@@ -389,10 +474,9 @@ def test_gpu_spmspv_long_runs_of_empty_columns(cuda_device):
     first = op["first"].cpu().numpy()
     assert np.diff(first).max() > 1024  # a block spans more than it stages
     y = _fused(prep, op)
-    yp = spmspv_scatter_plain(prep, op["xi"], op["xv"], op["total"])
-    terms = _terms(prep, op)
-    assert_rowtol(y.cpu().numpy(), yp.cpu().numpy(), a, x, terms=terms)
-    assert_rowtol(y.cpu().numpy(), A.astype(np.float64) @ x, a, x, terms=terms)
+    _assert_bits(y, _plain_on_cpu(a, op))
+    _assert_bits(_fused(prep, op), y, "second launch")
+    assert_rowtol(y.cpu().numpy(), A.astype(np.float64) @ x, a, x)
 
 
 @pytest.mark.gpu
@@ -404,14 +488,17 @@ def test_gpu_spmspv_refused_launch_raises(cuda_device, monkeypatch):
     with pytest.raises(ValueError, match="xi is on cpu"):
         spmspv_scatter(prep, op["xi"].cpu(), op["xv"], op["offs"], op["first"],
                        total=op["total"], tile=op["tile"])
+    big = 2 * SCATTER_MAX_TILE
     with pytest.raises(ValueError, match="exceeds"):
         spmspv_scatter(prep, op["xi"], op["xv"], op["offs"],
-                       op["first"][: -(-op["total"] // 1024) + 1],
-                       total=op["total"], tile=1024)
+                       op["first"][: -(-op["total"] // big) + 1],
+                       total=op["total"], tile=big)
     _build.ensure_built()
     monkeypatch.setattr(_build, "function", lambda *args: (lambda *cargs: 1))
-    with pytest.raises(RuntimeError, match="spmspv_scatter launch: CUDA error 1"):
+    before = _build.LAUNCHES["spmspv_scatter"]
+    with pytest.raises(RuntimeError, match="spmspv_scatter launch, count pass: CUDA error 1"):
         _fused(prep, op)
+    assert _build.LAUNCHES["spmspv_scatter"] == before  # a refused pass is not counted
     cands = [make("csr", "vector"), make("spmspv", "cuda", slab=4096)]
     with pytest.raises(RuntimeError, match="spmspv/cuda.*CUDA error 1"):
         SparseOperator.build(a, x_nnz=a.shape[1] // 256, cache=PlanCache(),
@@ -591,8 +678,9 @@ def test_gpu_unfaulted_engine_records_no_supervisor_event(cuda_device):
 def test_gpu_sparse_repair_probe_launches_the_fused_kernel(cuda_device):
     """A faulted sparse bucket pinned to spmspv/cuda demotes to the dense
     fallback; the repair probe that promotes it back runs a product, so it
-    launches the fused kernel (the only launch between demotion and
-    promotion: the fallback serves through csr/vector)."""
+    launches the SpMSpV kernel's passes once each (the only launches
+    between demotion and promotion: the fallback serves through
+    csr/vector)."""
     import time as _time
 
     from repro_torch.runtime.engine import SparseEngine
@@ -625,9 +713,9 @@ def test_gpu_sparse_repair_probe_launches_the_fused_kernel(cuda_device):
         _time.sleep(0.01)
     assert sup.promotions == 1
     assert [e.kind for e in sup.events] == ["batch_failed", "demote", "promote"]
-    assert _build.LAUNCHES["spmspv_scatter"] == 1  # the probe's product
+    assert _build.LAUNCHES["spmspv_scatter"] == SCATTER_LAUNCHES  # the probe's product
     y2 = eng.submit_sparse(idx, val).result(timeout=10)
-    assert _build.LAUNCHES["spmspv_scatter"] == 2
+    assert _build.LAUNCHES["spmspv_scatter"] == 2 * SCATTER_LAUNCHES
     eng.close()
     for got in (y, y2):
         assert_rowtol(got.cpu().numpy(), _oracle(a, xd), a, xd,
@@ -1356,12 +1444,14 @@ def test_gpu_decode_graph_equals_eager_decode(cuda_device):
 @pytest.mark.gpu
 @pytest.mark.parametrize("top_k,n_experts", [(2, 8), (1, 4)])
 def test_gpu_moe_combine_through_the_spmspv_kernel(cuda_device, top_k, n_experts):
-    """The port's ``moe_apply_spmspv(impl="cuda")`` launches the fused
-    SpMSpV kernel once per token that keeps a slot, and at capacity_factor
-    E / top_k (nothing drops) agrees with ``moe_apply_dense_ref`` within
-    1e-5 of ``moe._combine_scale`` (the (|A| |x|)_i of the products behind
-    each output, float32); at 1.25 it agrees with ``moe_apply`` the same
-    way."""
+    """The port's ``moe_apply_spmspv(impl="cuda")`` launches the SpMSpV
+    kernel's passes once per token that keeps a slot, and at
+    capacity_factor E / top_k (nothing drops) agrees with
+    ``moe_apply_dense_ref`` within 1e-5 of ``moe._combine_scale`` (the
+    (|A| |x|)_i of the products behind each output, float32); at 1.25 it
+    agrees with ``moe_apply`` the same way.  The combine of one set of
+    operands through the kernel equals it through the plain version on the
+    CPU bit for bit."""
     from repro_torch.models import moe
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1378,12 +1468,16 @@ def test_gpu_moe_combine_through_the_spmspv_kernel(cuda_device, top_k, n_experts
         # a token whose every slot dropped has no product: no launch
         nonempty = int((dest.reshape(2, 12, top_k)
                         < n_experts * moe.moe_capacity(12, cfg)).any(-1).sum())
-        assert _build.LAUNCHES["spmspv_scatter"] == nonempty
+        assert _build.LAUNCHES["spmspv_scatter"] == nonempty * SCATTER_LAUNCHES
         assert nonempty == 24 or cf < n_experts / top_k
         ref = (moe.moe_apply_dense_ref(p, x, cfg) if cf >= n_experts / top_k
                else moe.moe_apply(p, x, cfg)[0])
         err = (y.double() - ref.double()).abs()
         assert bool((err <= TOL * scale).all()), float((err - TOL * scale).max())
+        out_flat, dest, weights = moe._dispatch_expert_outputs(p, x, cfg, aux=False)[:3]
+        _assert_bits(moe.moe_combine_spmspv(out_flat, dest, weights),
+                     moe.moe_combine_spmspv(out_flat.cpu(), dest.cpu(), weights.cpu()),
+                     f"combine cf={cf}")
 
 
 @pytest.mark.gpu
@@ -1777,13 +1871,14 @@ def test_gpu_kernel_wrappers_and_the_cuda_tier_ffn_refuse_autograd(cuda_device):
                                   total=st["total"], tile=st["tile"])),
     )
     for name, x, call in calls:
+        once = SCATTER_LAUNCHES if name == "spmspv_scatter" else 1
         _build.reset_launches()
         y = call(x)
-        assert _build.LAUNCHES[name] == 1, name
+        assert _build.LAUNCHES[name] == once, name
         x.requires_grad_(True)
         with pytest.raises(NotImplementedError, match=name):
             call(x)
-        assert _build.LAUNCHES[name] == 1, name  # the refused call launched nothing
+        assert _build.LAUNCHES[name] == once, name  # the refused call launched nothing
         with torch.no_grad():
             assert torch.equal(call(x), y), name
     cfg = dataclasses.replace(_tiny_lm_cfg(), sparse_ffn=SparseFFNConfig(

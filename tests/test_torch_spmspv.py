@@ -2,14 +2,15 @@
 
 Same seeded numpy inputs on both sides: the CSC prepare, the work-bucket
 ladder and the product expansion must equal ``repro``'s bit for bit, the
-validation texts must match, the host plan of the fused expand-and-scatter
-kernel (offsets, true total, each block's first slot) must imply exactly
-``repro``'s expanded stream, and the fused wrapper (its plain version on
-the CPU) must agree with ``repro``'s expansion + Pallas scatter in
-interpret mode (``spmspv_pallas_fn``) on the same padded x, carried across
-with ``repro_torch.interop``.  Tolerance
-per row i: |port - repro| <= 1e-5 * (|A| |x|)_i, since only the summation
-order differs.  Then the tuner (enumeration, byte model, every candidate
+validation texts must match, and the host plan of the SpMSpV kernel
+(offsets, true total, each block's first slot, the row tiles) walked in
+numpy through the kernel's four passes must bucket exactly ``repro``'s
+expanded stream in stream order and sum it to ``repro``'s y.  The wrapper
+(its plain version on the CPU) must equal ``repro``'s expansion + Pallas
+scatter in interpret mode (``spmspv_pallas_fn``) on the same padded x,
+carried across with ``repro_torch.interop``, bit for bit: both add each
+row's products in stream order from +0.0.  Against float64 the tolerance
+per row i is |port - f64| <= 1e-5 * (|A| |x|)_i.  Then the tuner (enumeration, byte model, every candidate
 through ``from_candidate(x_nnz=)`` and ``op @ (idx, val)``, the plan cache)
 against ``repro``'s and a float64 oracle.
 """
@@ -22,6 +23,7 @@ import pytest
 import torch
 
 import repro.tune as jt
+from repro.core.formats import csr_from_coo as j_csr_coo
 from repro.core.formats import csr_from_dense as j_csr_from_dense
 from repro.kernels import spmspv as jsp
 
@@ -154,7 +156,7 @@ def test_expand_products_equal_repro_bit_for_bit(nx, bucket):
 
 
 # ---------------------------------------------------------------------------
-# The fused expand-and-scatter (spmspv_scatter_pallas + its expansion)
+# The SpMSpV kernel (spmspv_scatter_pallas + its expansion)
 # ---------------------------------------------------------------------------
 def hub_dense(seed, m=1500, n=64):
     """A column of m entries (a hub spanning many blocks), two empty
@@ -171,6 +173,15 @@ def plan_case(case):
     if case == "hub":
         d = hub_dense(20)
         return d, np.array([3, 7, 20, 21, 40]), np.float32([0.5, -2.0, 1.0, 3.0, 0.25]), 128
+    if case == "long_row":
+        # row 5 holds a product in every touched column: 2000 of them, past
+        # the most a block takes (SCATTER_MAX_TILE) and spread over many blocks
+        rng = np.random.default_rng(23)
+        d = ((rng.random((40, 3000)) < 0.01) * rng.standard_normal((40, 3000))).astype(
+            np.float32)
+        d[5] = rng.standard_normal(3000).astype(np.float32)
+        idx = np.sort(rng.choice(3000, size=2000, replace=False))
+        return d, idx, rng.standard_normal(2000).astype(np.float32), 4096
     d = rand_dense(21, m=120, n=96, density=0.12)
     if case == "empty_x":
         return d, np.zeros(0, np.int64), np.zeros(0, np.float32), 4096
@@ -178,33 +189,81 @@ def plan_case(case):
         d[:, 10:60] = 0.0  # every touched column in between is empty
         idx = np.array([2, 10, 11, 30, 59, 60, 95])
         return d, idx, np.linspace(-1, 1, idx.size).astype(np.float32), 4096
+    if case == "neg_zero":
+        # x_2 = +0.0: row 7's only product is -1.5 * +0.0 = -0.0, row 9's
+        # only one +0.0, and row 11 starts from -0.0 before its others
+        d[7], d[9] = 0.0, 0.0
+        d[7, 2], d[9, 2], d[11, 2] = -1.5, 2.0, -1.0
+        idx = np.array([2, 10, 30, 59, 60, 95])
+        val = np.float32([0.0, 0.5, -1.0, 2.0, 0.25, -3.0])
+        return d, idx, val, 4096
     idx, val, _ = sparse_x(22, 96, 40)
     return d, idx, val, 256
 
 
-def emulate_fused_walk(prep, xi, xv, offs, first, tile):
-    """The kernel's indexing in numpy: block b walks products
-    [b*tile, (b+1)*tile) and finds each one's slot between first[b] and
-    first[b+1].  Returns the (rows, products) stream it adds, in t order."""
+def emulate_kernel(prep, xi, xv, offs, first, tile):
+    """The kernel's four passes in numpy.  Block b walks products
+    [b*tile, (b+1)*tile), finding each one's slot between first[b] and
+    first[b+1]; ``count`` tallies them per row tile, ``scan`` turns the
+    tallies into each block's place in each tile's bucket, ``place`` writes
+    them 32 at a time, a lane ranked after the lower lanes of its tile, and
+    ``sum`` adds each bucket in order into +0.0 rows, one float32 rounding
+    a product.  Returns (stream rows, stream products, bucket rows, bucket
+    products, tile_start, shift, y)."""
     col_start, rows = prep["col_start"].numpy(), prep["rows"].numpy()
-    vals, total = prep["vals"].numpy(), int(offs[-1])
-    out_rows, out_prods = [], []
+    vals, total, m = prep["vals"].numpy(), int(offs[-1]), prep["shape"][0]
+    blocks = []
     for b in range(first.size - 1):
         lo, hi = int(first[b]), int(first[b + 1])
+        r_b, p_b = [], []
         for t in range(b * tile, min(total, (b + 1) * tile)):
             s = lo + int(np.searchsorted(offs[lo:hi + 1], t, side="right")) - 1
             assert lo <= s <= hi and offs[s] <= t < offs[s + 1]
             src = col_start[xi[s]] + t - offs[s]
-            out_rows.append(rows[src])
-            out_prods.append(np.float32(vals[src]) * np.float32(xv[s]))
-    return np.array(out_rows, np.int32), np.array(out_prods, np.float32)
+            r_b.append(rows[src])
+            p_b.append(np.float32(vals[src]) * np.float32(xv[s]))
+        blocks.append((np.array(r_b, np.int64), np.array(p_b, np.float32)))
+    y = np.zeros(m, np.float32)
+    if total == 0:
+        return (np.zeros(0, np.int32), np.zeros(0, np.float32), np.zeros(0, np.int32),
+                np.zeros(0, np.float32), np.zeros(1, np.int64), 0, y)
+    shift, n_tiles = tsp.row_tiles(m, total)
+    assert n_tiles == -(-m >> shift) <= tsp.SCATTER_MAX_TILES
+    counts = np.array([np.bincount(r_b >> shift, minlength=n_tiles) for r_b, _ in blocks])
+    tile_start = np.concatenate([[0], np.cumsum(counts.sum(0))])
+    base = tile_start[:-1] + np.cumsum(counts, axis=0) - counts  # (blocks, tiles)
+    b_rows = np.full(total, -1, np.int64)
+    b_prods = np.zeros(total, np.float32)
+    for (r_b, p_b), nxt in zip(blocks, base):
+        nxt = nxt.copy()
+        for j in range(0, r_b.size, 32):
+            key = r_b[j:j + 32] >> shift
+            rank = [int(np.sum(key[:lane] == key[lane])) for lane in range(key.size)]
+            pos = nxt[key] + rank
+            b_rows[pos], b_prods[pos] = r_b[j:j + 32], p_b[j:j + 32]
+            np.add.at(nxt, key, 1)
+    assert np.all(b_rows >= 0)  # every position written once
+    for i in range(total):
+        y[b_rows[i]] = np.float32(y[b_rows[i]] + b_prods[i])
+    stream_r = np.concatenate([r_b for r_b, _ in blocks]).astype(np.int32)
+    stream_p = np.concatenate([p_b for _, p_b in blocks])
+    return stream_r, stream_p, b_rows, b_prods, tile_start, shift, y
 
 
-@pytest.mark.parametrize("case", ["empty_x", "all_sentinel", "empty_columns", "hub",
-                                  "random"])
+def bits(y):
+    return np.asarray(y, np.float32).view(np.int32)
+
+
+PLAN_CASES = ["empty_x", "all_sentinel", "empty_columns", "hub", "random", "long_row",
+              "neg_zero"]
+
+
+@pytest.mark.parametrize("case", PLAN_CASES)
 def test_host_plan_equals_what_repro_expansion_implies(case):
     """offs, T and each block's first slot equal what repro's expansion
-    implies, and the kernel's walk over them adds exactly repro's stream."""
+    implies; the kernel's walk over them buckets exactly repro's stream,
+    each tile's bucket in stream order, and sums it to the stream-order
+    float32 sum of repro's products."""
     d, idx, val, slab = plan_case("empty_x" if case == "all_sentinel" else case)
     n = d.shape[1]
     bucket = 8 if case == "all_sentinel" else max(idx.size, 1) + 3
@@ -219,7 +278,7 @@ def test_host_plan_equals_what_repro_expansion_implies(case):
     tile, first = tsp.scatter_plan(offs, slab)
     n_blocks = -(-total // tile)
     assert first.shape == (n_blocks + 1,) and first.dtype == np.int32
-    assert 1 <= tile <= min(slab, tsp.SCATTER_THREADS * tsp.SCATTER_MAX_PER_THREAD)
+    assert 1 <= tile <= min(slab, tsp.SCATTER_MAX_TILE)
     t = np.arange(total)
     slot = np.searchsorted(offs, t, side="right") - 1  # the expansion's slot map
     if total:
@@ -228,21 +287,40 @@ def test_host_plan_equals_what_repro_expansion_implies(case):
         assert np.all(np.diff(first) >= 0)
     G = jsp.work_bucket(total, jprep["nnz"])
     jrows, jprods = jsp.expand_products(jprep, jnp.asarray(xi), jnp.asarray(xv), G)
-    rows, prods = emulate_fused_walk(prep, xi, xv, offs, first, tile)
-    np.testing.assert_array_equal(rows, np.asarray(jrows)[:total])
-    np.testing.assert_array_equal(prods.view(np.int32),
-                                  np.asarray(jprods)[:total].view(np.int32))
+    jrows, jprods = np.asarray(jrows)[:total], np.asarray(jprods)[:total]
+    rows, prods, b_rows, b_prods, tile_start, shift, y = emulate_kernel(
+        prep, xi, xv, offs, first, tile)
+    np.testing.assert_array_equal(rows, jrows)
+    np.testing.assert_array_equal(bits(prods), bits(jprods))
+    for k in range(tile_start.size - 1):  # bucket k = repro's stream of tile k, in order
+        of_k = (jrows >> shift) == k
+        np.testing.assert_array_equal(b_rows[tile_start[k]:tile_start[k + 1]], jrows[of_k])
+        np.testing.assert_array_equal(bits(b_prods[tile_start[k]:tile_start[k + 1]]),
+                                      bits(jprods[of_k]))
+    want_y = np.zeros(d.shape[0], np.float32)
+    for r, p in zip(jrows, jprods):
+        want_y[r] = np.float32(want_y[r] + p)
+    np.testing.assert_array_equal(bits(y), bits(want_y))
     if case == "hub":
         assert n_blocks >= 8 and np.sum(first[:-1] == first[1]) >= 6  # one hub
     if case == "empty_columns":
         assert np.sum(prep["col_len_np"][xi] == 0) >= 3
+    if case == "long_row":
+        starts = np.flatnonzero(jrows == 5)
+        assert starts.size > tsp.SCATTER_MAX_TILE
+        assert starts[-1] // tile - starts[0] // tile >= 8  # row 5 spans many blocks
+    if case == "neg_zero":
+        assert bits(jprods[jrows == 7]).tolist() == [np.int32(-2**31)]  # -0.0
+        assert bits(y)[7] == 0 and bits(y)[9] == 0  # +0.0
 
 
 @pytest.mark.parametrize("case,nx", [("random", 6), ("random", 40), ("hub", 5),
-                                     ("empty_columns", 7)])
+                                     ("empty_columns", 7), ("long_row", 2000),
+                                     ("neg_zero", 6)])
 def test_scatter_matches_pallas_scatter_on_repro_streams(case, nx):
-    """The fused wrapper (its plain version on the CPU) against repro's
-    spmspv_pallas_fn in interpret mode on the same padded (xi, xv)."""
+    """The wrapper (its plain version on the CPU) and the numpy walk of the
+    kernel against repro's spmspv_pallas_fn in interpret mode on the same
+    padded (xi, xv): equal bit for bit."""
     d, idx, val, slab = plan_case(case)
     if case == "random":
         idx, val, _ = sparse_x(5, d.shape[1], nx)
@@ -262,12 +340,80 @@ def test_scatter_matches_pallas_scatter_on_repro_streams(case, nx):
     y_port = tsp.spmspv_scatter(prep, op["xi"], op["xv"], op["offs"], op["first"],
                                 total=total, tile=op["tile"]).numpy()
     assert sum(_build.LAUNCHES.values()) == 0  # the plain version ran
-    assert_rowtol(y_port, y_pallas, d, x, "port vs pallas")
+    np.testing.assert_array_equal(bits(y_port), bits(y_pallas))
+    y_walk = emulate_kernel(prep, op["xi"].numpy(), op["xv"].numpy(), op["offs"].numpy(),
+                            op["first"].numpy(), op["tile"])[-1]
+    np.testing.assert_array_equal(bits(y_walk), bits(y_pallas))
     assert_rowtol(y_port, d.astype(np.float64) @ x, d, x, "port vs f64")
     # the bound runner gives the same y through either impl
     for impl in ("cuda", "ref"):
         fn = tsp.spmspv_bind(prep, nx, impl=impl, slab=slab)
-        np.testing.assert_array_equal(fn((jxi, jxv)).numpy(), y_port)
+        np.testing.assert_array_equal(bits(fn((jxi, jxv)).numpy()), bits(y_port))
+
+
+# the largest y whose row tiles all fit shared memory, then one row more
+SMEM_ROWS_MAX = tsp.SCATTER_MAX_TILES * tsp.SCATTER_SMEM_TILE_ROWS
+
+
+@pytest.mark.parametrize("m,total,want", [
+    (100, 10, (6, 2)),
+    (1_000_000, 1_006_062, (10, 977)),  # webbase-1M at n/4
+    (SMEM_ROWS_MAX, 1, (13, tsp.SCATTER_MAX_TILES)),
+    (SMEM_ROWS_MAX + 1, 1, (14, tsp.SCATTER_MAX_TILES // 2 + 1)),
+    (SMEM_ROWS_MAX + 1, 10**8, (14, tsp.SCATTER_MAX_TILES // 2 + 1)),
+    (2**31 - 1, 5, (21, tsp.SCATTER_MAX_TILES)),
+])
+def test_row_tiles_cover_any_int32_y(m, total, want):
+    """Row tiles cover every row of y exactly, at most SCATTER_MAX_TILES of
+    them: up to SMEM_ROWS_MAX rows in tiles that fit shared memory, past it
+    in larger tiles (which the kernel sums in y itself), up to 2**31 - 1."""
+    shift, n_tiles = tsp.row_tiles(m, total)
+    assert (shift, n_tiles) == want
+    assert 1 <= n_tiles <= tsp.SCATTER_MAX_TILES
+    assert (n_tiles - 1) << shift < m <= n_tiles << shift
+    assert ((1 << shift) <= tsp.SCATTER_SMEM_TILE_ROWS) == (m <= SMEM_ROWS_MAX)
+
+
+def test_prepare_refuses_a_y_past_int32_rows():
+    huge = types.SimpleNamespace(shape=(2**31, 4), indptr=np.array([0, 2]))
+    with pytest.raises(OverflowError, match="int32"):
+        tsp.spmspv_prepare(huge, device="cpu")
+
+
+def test_kernel_walk_on_a_y_past_the_shared_memory_tiles():
+    """A y of SMEM_ROWS_MAX + 1 rows, products in its first and last rows
+    and a row of 1 500 products spread over many blocks: the numpy walk of
+    the kernel (tiles of 2**14 rows) and the wrapper's plain version equal
+    repro's spmspv_pallas_fn in interpret mode bit for bit."""
+    m, n = SMEM_ROWS_MAX + 1, 2000
+    rng = np.random.default_rng(31)
+    rows = np.concatenate([rng.integers(0, m, 3000), [0, m - 1, m - 1],
+                           np.full(n, m - 20_000)])
+    cols = np.concatenate([rng.integers(0, n, 3003), np.arange(n)])
+    vals = rng.standard_normal(rows.size).astype(np.float32)
+    a = j_csr_coo((m, n), rows, cols, vals)
+    idx = np.union1d(rng.choice(n, size=1500, replace=False), cols[3000:3003])
+    val = rng.standard_normal(idx.size).astype(np.float32)
+    nx, slab = idx.size + 2, 4096
+    jprep = jsp.spmspv_prepare(a)
+    jxi, jxv = jsp.pad_sparse_rhs(idx, val, nx, n)
+    total = int(jprep["col_len_np"][jxi].sum())
+    G = jsp.work_bucket(total, jprep["nnz"])
+    y_pallas = np.asarray(jsp.spmspv_pallas_fn(jprep, G, slab, True)(
+        jnp.asarray(jxi), jnp.asarray(jxv)))
+    prep = carried(jprep)
+    op = tsp.stage_sparse(prep, jxi, jxv, slab=slab)
+    assert op["total"] == total
+    y_port = tsp.spmspv_scatter(prep, op["xi"], op["xv"], op["offs"], op["first"],
+                                total=total, tile=op["tile"]).numpy()
+    np.testing.assert_array_equal(bits(y_port), bits(y_pallas))
+    *_, tile_start, shift, y_walk = emulate_kernel(
+        prep, op["xi"].numpy(), op["xv"].numpy(), op["offs"].numpy(),
+        op["first"].numpy(), op["tile"])
+    assert 1 << shift > tsp.SCATTER_SMEM_TILE_ROWS
+    assert tile_start.size - 1 == -(-m >> shift)
+    np.testing.assert_array_equal(bits(y_walk), bits(y_pallas))
+    assert y_pallas[m - 20_000] != 0 and y_pallas[m - 1] != 0
 
 
 def test_empty_x_and_empty_matrix_give_exact_zeros():
@@ -291,7 +437,7 @@ def test_empty_x_and_empty_matrix_give_exact_zeros():
 
 def test_scatter_reads_only_the_true_products():
     """The plain version adds the first ``total`` products of the expanded
-    stream and none of the work bucket's padded tail; the fused plan's
+    stream and none of the work bucket's padded tail; the kernel plan's
     blocks cover exactly those products."""
     d = hub_dense(15, m=300, n=40)
     prep = tsp.spmspv_prepare(csr_from_dense(d), device="cpu")
