@@ -53,24 +53,29 @@ scipy; imports nothing of JAX or of the JAX package.  Phases:
    to read once each chunk stops at its width ``chunk_w``;
 6. sparse right-hand sides (SpMSpV) on the power-law graphs webbase-1M and
    torso1 at scale 1.0, x sorted unique indices from ``default_rng``:
-   the SpMSpV kernel (its four passes: count, scan, place, sum) against
-   its plain version (expansion + ``index_add_``, stream-ordered) on a CPU
-   copy of the same operands, bit for bit and the same bits on a second
-   launch, and against float64 at 1e-5 (|A| |x|)_i, at all four engine
-   buckets on webbase-1M and at nnz(x) = n/256 and n/4 on torso1; then, with the launch counts
+   the SpMSpV kernel (its passes ``SCATTER_PASSES``: offsets, count, scan,
+   place, sum) against its plain version (expansion + ``index_add_``,
+   stream-ordered) on a CPU copy of the same operands and against its
+   plain version on the card (a sort by row, one ``index_add_`` a rank),
+   bit for bit and the same bits on a second launch, and against float64
+   at 1e-5 (|A| |x|)_i, at all four engine buckets on webbase-1M, at
+   nnz(x) = n/256 and n/4 on torso1 and on a constructed operand whose 16
+   hub rows share one row tile (its kernel ms recorded); then, with the launch counts
    set to 0, ``SparseOperator.build(webbase, x_nnz=B)`` at the four
    default buckets, a pinned ``spmspv/cuda`` operator, a tuned
    ``SparseEngine`` answering 65 ``submit_sparse`` requests (one thicker
-   than n/4, which goes to the dense k=1 lane) and an engine whose sparse
-   lane is pinned to ``spmspv/cuda`` at ``async_depth`` 2 and 0, all
-   against a scipy float64 oracle; the pinned lane must run no eager
-   expansion (counted), the pinned engine at ``async_depth`` 2 must give
-   the bits it gives at 0 on all 65 requests, and ``torch.profiler`` lists
-   the device work of one pinned request: the kernel's four passes, once
-   each; last the kernel's times at every checked bucket beside its plain
-   version (the old two-step device time), ``index_add_`` on the
+   than n/4, which goes to the dense k=1 lane), engines on the tuned
+   plans and engines whose sparse lane is pinned to ``spmspv/cuda``, each
+   at ``async_depth`` 2 and 0, all against a scipy float64 oracle; the
+   pinned lane must run no eager expansion (counted), each lane at
+   ``async_depth`` 2 must give the bits it gives at 0 on all 65 requests,
+   and ``torch.profiler`` lists the device work of one pinned request: the
+   kernel's passes once each and one host-to-device copy; last the
+   kernel's times at every checked bucket beside its plain version,
+   ``index_add_`` on the
    pre-expanded stream (the library call), one cuSPARSE ``torch.mv`` on the
-   densified x, a whole ``apply_sparse`` and the bound 8*T + 16*B + 4*m
+   densified x, a whole ``apply_sparse`` (on the host clock, and split into
+   validate + pad, the copy, launch + run) and the bound 8*T + 16*B + 4*m
    bytes, and at nnz(x) = n/4 on each graph the device time of each pass
    (``torch.profiler``).  The engines'
    answers against float64: a row that breaks 1e-5 * (|A| |x|)_i is
@@ -92,7 +97,7 @@ scipy; imports nothing of JAX or of the JAX package.  Phases:
    (BCSR blocks off their 16-byte boundary) fails its batch's futures with
    no retry and no demotion, and a faulted sparse bucket on webbase-1M
    (pinned ``spmspv/cuda``) whose repair probe must run the SpMSpV
-   kernel's four passes once before its promotion; (d) ``max_queue`` under each
+   kernel's passes once each before its promotion; (d) ``max_queue`` under each
    policy with ``shed_after_s``, a ``BrownoutController`` and an
    ``engine.overload`` delay: every future resolves (served at 1e-5, or a
    typed ``OverloadError``), the widest bucket serves through
@@ -129,13 +134,12 @@ scipy; imports nothing of JAX or of the JAX package.  Phases:
    no retry).  Each kernel row gains ``solver_launches``;
 9. the fleet (``runtime.fleet.SparseFleet``) at scale 1.0 over cant, hood,
    pwtk (banded FEM), scircuit and webbase-1M (power-law), on a copy of
-   phase 4's plan cache, launches counted from 9a to 9f (the quiet
-   comparison builds left out): (a) admission on predicted plans under a
+   phase 4's plan cache, launches counted from 9a to 9f: (a) admission
+   on predicted plans under a
    900 MiB budget that evicts: per tenant and bucket where the plan came
    from, the prediction's distance, the plan, the accuracy check's time
    and the candidates passed over; no predicted plan was measured, none
-   on webbase-1M is merge; one cold ``build_multi`` of webbase-1M beside
-   its admission; (b) 64 requests to each tenant but scircuit (1 alone, 63
+   on webbase-1M is merge; (b) 64 requests to each tenant but scircuit (1 alone, 63
    interleaved), max_wait 1 ms, each within 1e-5 of scipy float64,
    ``sell_spmv`` and ``bcsr_spmm`` both launched, zero supervisor events,
    and each tenant's first-request latency (its k = 1 capture included);
@@ -145,7 +149,7 @@ scipy; imports nothing of JAX or of the JAX package.  Phases:
    the worker, every batch dispatched before the swap (through the old
    table's graphs) equal bit for bit to the old plans' eager closures on
    the same operands, the
-   retuned plans and medians beside a quiet build; (d) with the budget
+   retuned plans and medians; (d) with the budget
    full, the zero-traffic scircuit is evicted first and the allocator
    frees >= 90 % of its prepared bytes (slab and graph-pool bytes the
    budget does not count printed per tenant); webbase-1M, evicted, reactivates from the
@@ -240,7 +244,7 @@ scipy; imports nothing of JAX or of the JAX package.  Phases:
    h and, to first order, what the gate and up products' reordering can
    move it by), and bit for bit equal to the same combine
    (``moe_combine_spmspv``) of the same operands through the plain version
-   on the CPU, with exactly ``SCATTER_LAUNCHES`` (4) ``spmspv_scatter``
+   on the CPU, with exactly ``SCATTER_LAUNCHES`` (5) ``spmspv_scatter``
    launches per token that keeps a slot (one ``apply_sparse`` call each
    where nothing drops); (b) a float32 copy (TF32
    off) at capacity_factor E / top_k: prefill + 15 decode steps equal
@@ -363,7 +367,9 @@ scipy; imports nothing of JAX or of the JAX package.  Phases:
 17. The dry-run tools (``launch.op_analysis``, ``launch.dryrun``,
    ``launch.roofline``, ``core.traffic``; plain torch, no kernel) against
    the card, in a fresh process: (a) qwen1.5-4b's train step at full width
-   and depth (15a's cell: 8 x 128, AdamW with float32 moments, one device)
+   and ``DRY_TRAIN_LAYERS`` (20) of its 40 layers (15a's cell cut in depth
+   for the script's time limit: 8 x 128, AdamW with float32 moments, one
+   device)
    analysed on meta and run on the card under ``torch.profiler``
    (``with_flops``): the analyzer's matmul FLOPs within 0.1 % of the
    profiler's FLOPs of the ``aten::mm``, ``addmm``, ``bmm`` and ``baddbmm``
@@ -470,6 +476,66 @@ def smi_line() -> str:
     return out.stdout.strip().splitlines()[0] if out.stdout.strip() else "unknown"
 
 
+def hub_tile_operand():
+    """Phase 6a's constructed operand whose hub rows share one row tile more
+    than torso1's do: 16 consecutive rows each hold a product in 20 000 of
+    the touched columns (torso1's hub row at n/4 holds 4 162), so the
+    tile's bucket (320 000+) sorts in global scratch and 16 threads each
+    add one hub row.  Returns the CSR matrix, its scipy copy, the sparse x
+    (idx, val) and the hub rows; the same from seed 61 every run."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    from repro_torch.core.formats import CSRMatrix
+
+    rng = np.random.default_rng(61)
+    m, n, hub_cols = 400_000, 200_000, 20_000
+    cols = rng.choice(n, size=hub_cols, replace=False)
+    hub_rows = 200_000 + np.arange(16)
+    r = np.concatenate([rng.integers(0, m, 800_000), np.repeat(hub_rows, hub_cols)])
+    c = np.concatenate([rng.integers(0, n, 800_000), np.tile(cols, hub_rows.size)])
+    H = sp.csr_matrix((rng.standard_normal(r.size).astype(np.float32), (r, c)),
+                      shape=(m, n))
+    H.sum_duplicates()
+    H.sort_indices()
+    g = CSRMatrix((m, n), H.indptr.astype(np.int32), H.indices.astype(np.int32),
+                  H.data.astype(np.float32))
+    idx = np.union1d(cols, rng.choice(n, size=30_000, replace=False)).astype(np.int64)
+    val = rng.standard_normal(idx.size).astype(np.float32)
+    return g, H, idx, val, hub_rows
+
+
+def spmspv_pass_ms(fn, flush, reps: int = REPS) -> dict:
+    """Kernel 4's median device ms by pass over ``reps`` calls of fn(), the
+    L2 flushed before each, from the profiler's kernel records (every
+    kernel named ``spmspv_scatter_<pass>``, so any version of the kernel),
+    plus their sum as ``"total"``."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+    except RuntimeError as e:  # a measurement, not the path: record it
+        return {"profiler failed": repr(e)}
+    by_pass: dict = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA and "spmspv_scatter_" in e.name:
+            key = e.name.split("spmspv_scatter_")[1].split("<")[0].split("(")[0]
+            by_pass.setdefault(key, []).append(e.device_time / 1e3)
+    out = {k: float(np.median(v)) for k, v in by_pass.items()}
+    if out:
+        out["total"] = float(sum(out.values()))
+    for _ in range(2000):  # bring the clocks back up after the profiler's pause
+        flush.zero_()
+    torch.cuda.synchronize()
+    return out
+
+
 FLEET_TENANTS = ("cant", "hood", "pwtk", "scircuit", "webbase-1M")
 # Retuned in 9c: the power-law tenant.  A banded one (hood) beside it
 # roughly doubles phase 9's time on the card (PERF.md §4), so it is left out.
@@ -483,8 +549,7 @@ def fleet_phase(dev, scale: float, plans_text: str, record: dict,
                 admit_budget: int = FLEET_ADMIT_BUDGET) -> dict:
     """Phase 9: ``SparseFleet`` over five suite matrices at ``scale``.
 
-    Returns the kernel launches of the fleet's path (the quiet comparison
-    builds excluded).  Runs on the CPU too (``dev`` cpu, small ``scale``
+    Returns the kernel launches of the fleet's path.  Runs on the CPU too (``dev`` cpu, small ``scale``
     and ``admit_budget``), where the launch and allocator checks are
     skipped: that is its rehearsal."""
     import gc
@@ -547,25 +612,6 @@ def fleet_phase(dev, scale: float, plans_text: str, record: dict,
             if fl.step() == 0:
                 fl.flush()
 
-    excluded: dict = {}  # launches of the quiet comparison builds
-
-    def quiet_build(name: str) -> dict:
-        """A cold measured search of every bucket on an idle card (fresh
-        cache), its launches kept out of the fleet's count."""
-        before = dict(_build.LAUNCHES)
-        sync()
-        t0 = time.perf_counter()
-        ops = SparseOperator.build_multi(mats[name], ks=K_BUCKETS, cache=PlanCache(),
-                                         device=dev)
-        sync()
-        wall = time.perf_counter() - t0
-        for key, v in _build.LAUNCHES.items():
-            excluded[key] = excluded.get(key, 0) + v - before.get(key, 0)
-        return {"wall_s": wall, "buckets": {
-            k: {"plan": op.plan.candidate.key(), "measured_ms": op.plan.measured_s * 1e3,
-                "medians_ms": {c: v * 1e3 for c, v in op.measurements.items()}}
-            for k, op in ops.items()}}
-
     # -- 9a: admission on predicted plans --------------------------------
     t0 = time.perf_counter()
     print("phase 9a: fleet admission (plan cache, transfer, byte model), "
@@ -607,14 +653,6 @@ def fleet_phase(dev, scale: float, plans_text: str, record: dict,
     print(f"  admission: {rec['admission_stats']}")
     if s_["evictions"] < 1:
         fail("admission under the budget evicted nothing")
-    # one cold measured search beside the admission, on an idle card: it is
-    # also 9c's quiet build
-    quiet = {n: quiet_build(n) for n in FLEET_RETUNED}
-    rec["cold_build"] = quiet
-    for n, qb in quiet.items():
-        print(f"  cold build_multi of {n}: {qb['wall_s']:.2f}s against "
-              f"{adm[n]['admit_s']:.2f}s admission; plans "
-              f"{ {k: b['plan'] for k, b in qb['buckets'].items()} }", flush=True)
     record["phases_s"]["fleet_admission"] = round(time.perf_counter() - t0, 3)
 
     # -- 9b: serving ------------------------------------------------------
@@ -752,22 +790,12 @@ def fleet_phase(dev, scale: float, plans_text: str, record: dict,
     retune_rows = {}
     for n in FLEET_RETUNED:
         for k, op in engs[n].ops.items():
-            qb = quiet[n]["buckets"][k]
-            common = {c: (v * 1e3, qb["medians_ms"][c]) for c, v in op.measurements.items()
-                      if c in qb["medians_ms"] and np.isfinite(v)
-                      and np.isfinite(qb["medians_ms"][c])}
-            ratio = [a_ / b_ for a_, b_ in common.values() if b_ > 0]
             retune_rows[f"{n} k={k}"] = {
-                "retuned": op.plan.candidate.key(), "retuned_ms": op.plan.measured_s * 1e3,
-                "quiet": qb["plan"], "quiet_ms": qb["measured_ms"],
-                "median_ratio_under_load": float(np.median(ratio)) if ratio else None}
+                "retuned": op.plan.candidate.key(), "retuned_ms": op.plan.measured_s * 1e3}
             r_ = retune_rows[f"{n} k={k}"]
-            print(f"  {n} k={k}: retuned {r_['retuned']} {r_['retuned_ms']:.4f} ms; quiet "
-                  f"{r_['quiet']} {r_['quiet_ms']:.4f} ms; median ratio of common "
-                  f"candidates under load / quiet {r_['median_ratio_under_load']}")
+            print(f"  {n} k={k}: retuned {r_['retuned']} {r_['retuned_ms']:.4f} ms")
     rec["retune"] = {"wall_s": retune_wall, "rounds": rounds,
-                     "latency_ms_p50_p99": q, "buckets": retune_rows,
-                     "quiet_wall_s": {n: v["wall_s"] for n, v in quiet.items()}}
+                     "latency_ms_p50_p99": q, "buckets": retune_rows}
     del pre, last, old, pinned, batches, group, ys, xs_
     record["phases_s"]["fleet_retune"] = round(time.perf_counter() - t0, 3)
 
@@ -912,7 +940,7 @@ def fleet_phase(dev, scale: float, plans_text: str, record: dict,
     record["phases_s"]["fleet_cli"] = round(time.perf_counter() - t0, 3)
     tmp.cleanup()
     sync()
-    return {k: v - excluded.get(k, 0) for k, v in _build.LAUNCHES.items()}
+    return dict(_build.LAUNCHES)
 
 
 MESH_SHARDS = 4  # P of phase 10: on one card every shard shares it
@@ -3576,8 +3604,7 @@ def train_phase(dev, record: dict, *, reduced: bool = False) -> dict:
          lambda x: kops.sell_spmv_blocked_stacked(slabs, x)),
         ("bcsr_spmm", torch.ones(64, 3, device=dev), lambda x: kops.bcsr_spmm(bcsr, x)),
         ("spmspv_scatter", st["xv"].clone(),
-         lambda x: spmspv_scatter(spv, st["xi"], x, st["offs"], st["first"],
-                                  total=st["total"], tile=st["tile"])),
+         lambda x: spmspv_scatter(spv, st["xi"], x, st["flags"], st["plan"])),
     )
     f["wrappers"] = {}
     for name, x, call in wrappers:
@@ -4069,6 +4096,7 @@ def mesh_train_main(out_path: str) -> None:
 
 
 DRY_ARCH = "qwen1.5-4b"  # 17a, 17b: 15a's train cell and 11g's dense decode cell
+DRY_TRAIN_LAYERS = 20  # 17a: the train step at half of qwen1.5-4b's 40 layers (C.37)
 MATMUL_EVENTS = ("aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm")
 DRY_FLOPS_REL = 1e-3  # 17a, 17b: analyzer matmul FLOPs against the profiler's
 DRY_ARG_REL, DRY_TEMP_REL = 0.01, 0.15  # 17a: the state and the step's temporaries
@@ -4152,17 +4180,19 @@ def dryrun_phase(dev, record: dict, *, reduced: bool = False) -> dict:
         return out
 
     # -- 17a: 15a's train step, analysed on meta and profiled on the card --
+    # (at DRY_TRAIN_LAYERS of its 40 layers on the card, C.37)
+    cfg_a = cfg if reduced else dataclasses.replace(cfg, n_layers=DRY_TRAIN_LAYERS)
     free()
-    t0 = begin("17a", f"{DRY_ARCH} train step ({cfg.n_layers} layers, {TRAIN_BATCH} x "
+    t0 = begin("17a", f"{DRY_ARCH} train step ({cfg_a.n_layers} layers, {TRAIN_BATCH} x "
                       f"{TRAIN_SEQ}, AdamW float32 moments, one device): op_analysis on "
                       f"meta against the card")
     opt_cfg = OptimConfig(lr_peak=3e-4, warmup_steps=1, total_steps=TRAIN_STEPS)
     meta_batch = {k: torch.empty((TRAIN_BATCH, TRAIN_SEQ), dtype=torch.int32, device="meta")
                   for k in ("tokens", "labels")}
     t_an = time.perf_counter()
-    an = dryrun.analyze_train_step(cfg, meta_batch, opt_cfg)
+    an = dryrun.analyze_train_step(cfg_a, meta_batch, opt_cfg)
     an_s = time.perf_counter() - t_an
-    meta_model = lm.init_model(cfg, device="meta")
+    meta_model = lm.init_model(cfg_a, device="meta")
     meta_params = lm.trainable(meta_model)
     meta_grads = {n: torch.empty_like(p) for n, p in meta_params.items()}
     meta_opt = adamw_init(meta_params, opt_cfg)
@@ -4170,13 +4200,13 @@ def dryrun_phase(dev, record: dict, *, reduced: bool = False) -> dict:
         adamw_update(meta_grads, meta_opt, meta_params, opt_cfg)
     upd = an_upd.cost()
     mem0 = torch.cuda.memory_allocated(dev) if cuda else 0
-    model = lm.init_model(cfg, 0, device=dev)
+    model = lm.init_model(cfg_a, 0, device=dev)
     opt_state = adamw_init(lm.trainable(model), opt_cfg)
     sync()
     state_bytes = (torch.cuda.memory_allocated(dev) - mem0) if cuda else None
-    data = MarkovTokens(cfg.vocab, batch=TRAIN_BATCH, seq=TRAIN_SEQ, seed=0)
+    data = MarkovTokens(cfg_a.vocab, batch=TRAIN_BATCH, seq=TRAIN_SEQ, seed=0)
     batch = {k: torch.as_tensor(v, device=dev) for k, v in data.batch_at(0).items()}
-    step = trainer.make_train_step(cfg, opt_cfg)
+    step = trainer.make_train_step(cfg_a, opt_cfg)
     model, opt_state, _ = step(model, opt_state, batch)  # warm-up
     sync()
     base = torch.cuda.memory_allocated(dev) if cuda else 0
@@ -4197,14 +4227,14 @@ def dryrun_phase(dev, record: dict, *, reduced: bool = False) -> dict:
     # where the temporaries peak (reported): the forward and backward, then
     # the update, each on the card and traced on meta
     with OpAnalyzer() as an_fb:
-        trainer._grads_of(cfg, meta_model, meta_params, meta_batch)
+        trainer._grads_of(cfg_a, meta_model, meta_params, meta_batch)
     pieces = {"fb_traced": an_fb.peak_bytes, "update_traced": an_upd.peak_bytes}
     if cuda:
         params = lm.trainable(model)
         sync()
         base = torch.cuda.memory_allocated(dev)
         torch.cuda.reset_peak_memory_stats(dev)
-        _, _, grads = trainer._grads_of(cfg, model, params, batch)
+        _, _, grads = trainer._grads_of(cfg_a, model, params, batch)
         sync()
         pieces["fb_card"] = torch.cuda.max_memory_allocated(dev) - base
         base = torch.cuda.memory_allocated(dev)
@@ -5702,6 +5732,40 @@ def main() -> None:
     def differing_bits(got, want) -> int:
         return int((got.cpu().view(torch.int32) != want.cpu().view(torch.int32)).sum())
 
+    def check_kernel(what: str, prep, prep_cpu, xi, xv, y64, scale, m_: int):
+        """The kernel on staged operands, twice, against the plain version on
+        a CPU copy and the plain version on the card (the deterministic
+        ``spmspv/ref``), bit for bit, and float64 at 1e-5 with no fallback.
+        Returns (staged op, y, max |y - plain|, k_i)."""
+        op = stage_sparse(prep, xi, xv)
+        y = spmspv_scatter(prep, op["xi"], op["xv"], op["flags"], op["plan"])
+        y2 = spmspv_scatter(prep, op["xi"], op["xv"], op["flags"], op["plan"])
+        y_ref = spmspv_scatter_plain(prep, op["xi"], op["xv"])
+        torch.cuda.synchronize()
+        yp = spmspv_scatter_plain(prep_cpu, op["xi"].cpu(), op["xv"].cpu())
+        T = int(prep_cpu["col_len"][op["xi"].cpu().long()].sum())
+        rows, _ = expand_products(prep_cpu, op["xi"].cpu(), op["xv"].cpu(),
+                                  work_bucket(T, prep_cpu["nnz"]))
+        terms = torch.bincount(rows[:T].long(), minlength=m_)
+        plan = op["plan"]
+        cs = kspmspv.chunk_shift(T, plan.chunk_shift)
+        what = (f"{what} (T={T} of t_max {plan.t_max}, {-(-T >> cs)} chunks of {1 << cs}, "
+                f"{plan.n_tiles} row tiles of {1 << plan.shift}, max k_i {int(terms.max())})")
+        if tuple(y.shape) != (m_,) or not bool(torch.isfinite(y).all()):
+            fail(f"{what}: shape {tuple(y.shape)} or non-finite output")
+        n_diff, n_rerun, n_ref = (differing_bits(y, yp), differing_bits(y2, y),
+                                  differing_bits(y_ref, yp))
+        if n_diff or n_rerun or n_ref:
+            fail(f"{what}: {n_diff} rows differ in their bits from the plain version on "
+                 f"the CPU, {n_rerun} from the first launch, and the plain version on "
+                 f"the card in {n_ref}")
+        f64 = check_sparse(f"{what} vs float64", y, y64, scale, terms, quiet=True,
+                           fallback=False)
+        print(f"  ok {what}: bit for bit with the plain version on the CPU, on a second "
+              f"launch and with the plain version on the card; vs float64 max_abs_err "
+              f"{f64:.3e}, every row within 1e-5 (|A| |x|)_i")
+        return op, y, float((y.cpu() - yp).abs().max()), terms
+
     sp_preps, sp_cases = {}, []
     for name, g in graphs.items():
         m_, n_ = g.shape
@@ -5710,39 +5774,35 @@ def main() -> None:
         for B in buckets if name == "webbase-1M" else (n_ // 256, n_ // 4):
             idx, val = sparse_x(n_, B)
             xi, xv = pad_sparse_rhs(idx, val, B, n_)
-            op = stage_sparse(prep, xi, xv)
-            T = op["total"]
-            y = spmspv_scatter(prep, op["xi"], op["xv"], op["offs"], op["first"],
-                               total=T, tile=op["tile"])
-            y2 = spmspv_scatter(prep, op["xi"], op["xv"], op["offs"], op["first"],
-                                total=T, tile=op["tile"])
-            torch.cuda.synchronize()
-            yp = spmspv_scatter_plain(prep_cpu, op["xi"].cpu(), op["xv"].cpu(), T)
             y64, scale, _ = sparse_oracle(name, idx, val)
-            rows, _ = expand_products(prep_cpu, op["xi"].cpu(), op["xv"].cpu(),
-                                      work_bucket(T, g.nnz))
-            terms = torch.bincount(rows[:T].long(), minlength=m_)
-            n_blocks = op["first"].shape[0] - 1
-            shift, n_tiles = kspmspv.row_tiles(m_, T)
-            what = (f"spmspv_scatter {name} x_nnz={B} (T={T}, tile={op['tile']}, "
-                    f"{n_blocks} blocks, {n_tiles} row tiles of {1 << shift}, max k_i "
-                    f"{int(terms.max())})")
-            if tuple(y.shape) != (m_,) or not bool(torch.isfinite(y).all()):
-                fail(f"{what}: shape {tuple(y.shape)} or non-finite output")
-            n_diff, n_rerun = differing_bits(y, yp), differing_bits(y2, y)
-            if n_diff or n_rerun:
-                fail(f"{what}: {n_diff} rows differ in their bits from the plain "
-                     f"version on the CPU, {n_rerun} from the first launch")
-            errs[f"spmspv_scatter/{name}/B{B}"] = float((y.cpu() - yp).abs().max())
-            f64 = check_sparse(f"{what} vs float64", y, y64, scale, terms,
-                               quiet=True, fallback=False)
-            print(f"  ok {what}: bit for bit with the plain version on the CPU and "
-                  f"on a second launch; vs float64 max_abs_err {f64:.3e}, every row "
-                  "within 1e-5 (|A| |x|)_i")
+            op, y, err, _ = check_kernel(f"spmspv_scatter {name} x_nnz={B}", prep, prep_cpu,
+                                         xi, xv, y64, scale, m_)
+            errs[f"spmspv_scatter/{name}/B{B}"] = err
             sp_cases.append((name, B, idx, val))
-            del rows, y, y2, yp, op
+            del op, y
         sp_preps[name] = prep
         del prep, prep_cpu
+    # the constructed tile of hub rows (hub_tile_operand)
+    hub_g, H, idx_h, val_h, hub_rows = hub_tile_operand()
+    m_h, n_h = hub_g.shape
+    x_h = np.zeros(n_h)
+    x_h[idx_h] = val_h
+    H64 = H.astype(np.float64)
+    prep_h = spmspv_prepare(hub_g, device=dev)
+    op_h, y_h, _, terms_h = check_kernel(
+        f"spmspv_scatter hub tile x_nnz={idx_h.size}", prep_h,
+        spmspv_prepare(hub_g, device="cpu"), *pad_sparse_rhs(idx_h, val_h, idx_h.size, n_h),
+        H64 @ x_h, abs(H64) @ np.abs(x_h), m_h)
+    if len({int(r) >> op_h["plan"].shift for r in hub_rows}) != 1:
+        fail("the hub tile's 16 hub rows do not share one row tile")
+    record["spmspv_hub_tile"] = {
+        "shape": f"{m_h}x{n_h}, 16 hub rows of 20000 products in one tile of "
+                 f"{1 << op_h['plan'].shift} rows, x_nnz={idx_h.size}",
+        "max_k_i": int(terms_h.max()),
+        "ms": time_ms(lambda: spmspv_scatter(prep_h, op_h["xi"], op_h["xv"], op_h["flags"],
+                                             op_h["plan"]))}
+    print(f"  spmspv_scatter hub tile: {record['spmspv_hub_tile']}", flush=True)
+    del H, H64, hub_g, prep_h, op_h, y_h, terms_h
     torch.cuda.empty_cache()
     phase_done("spmspv_kernel_vs_plain", t0)
 
@@ -5817,6 +5877,27 @@ def main() -> None:
     if summary["by_bucket"] != {1: 1}:
         fail(f"the oversize request did not take the dense k=1 lane: "
              f"{summary['by_bucket']}")
+    # The tuned lane async == sync: engines on the tuned plans (from the
+    # cache, no search) take all 65 requests at once at async_depth 2, then
+    # one at a time at 0; both give the same bits.
+    tuned_by_depth = {}
+    for depth in (2, 0):
+        eng_ = SparseEngine(web, ks=(1,), ops={1: eng_sp.ops[1]}, cache=sp_cache,
+                            device=dev, async_depth=depth)
+        futs_ = [eng_.submit_sparse(i_, v_) for i_, v_ in sp_reqs]
+        eng_.drain()
+        tuned_by_depth[depth] = [f.result() for f in futs_]
+        eng_.close()
+        assert_unfaulted(f"tuned sparse engine async_depth={depth}", eng_)
+    for j, (ya, ys_) in enumerate(zip(*tuned_by_depth.values())):
+        if differing_bits(ya, ys_):
+            fail(f"tuned engine request {j}: async_depth=2 differs from async_depth=0 "
+                 f"in {differing_bits(ya, ys_)} rows' bits")
+    print(f"  ok tuned engine: async_depth=2 equals async_depth=0 bit for bit on all "
+          f"{len(sp_reqs)} requests (plans {sparse_plans})")
+    record["spmspv_tuned_async_equals_sync_bits"] = True
+    del tuned_by_depth
+    lap("tuned engines async and sync checked")
     ys_by_depth = {}
     pin_cache = PlanCache()  # the second engine loads the first one's plans
     # The pinned lane runs the kernel alone: count every eager
@@ -5882,12 +5963,15 @@ def main() -> None:
              f"{SCATTER_LAUNCHES} passes once each")
     kernels_seen = [w for w in device_work if "memcpy" not in w.lower()
                     and "memset" not in w.lower()]
+    copies = [w for w in device_work if "memcpy" in w.lower() or "memset" in w.lower()]
     if device_work and not device_work[0].startswith("profiler failed") and (
             len(kernels_seen) != SCATTER_LAUNCHES
             or any(sum(f"spmspv_scatter_{p_}" in w for w in kernels_seen) != 1
-                   for p_ in SCATTER_PASSES)):
-        fail(f"one pinned sparse request ran other device kernels than the "
-             f"{SCATTER_PASSES} passes once each: {kernels_seen}")
+                   for p_ in SCATTER_PASSES)
+            or len(copies) != 1 or "htod" not in copies[0].lower()):
+        fail(f"one pinned sparse request ran other device work than the "
+             f"{SCATTER_PASSES} passes once each and one host-to-device copy: "
+             f"{device_work}")
     del pin
     lap("one pinned request profiled")
     eng_sp.close()
@@ -5923,24 +6007,6 @@ def main() -> None:
             ts.append((time.perf_counter() - t_) * 1e3)
         return float(np.median(ts))
 
-    def pass_device_ms(fn) -> dict:
-        """Median device ms of each of the kernel's passes over REPS calls,
-        L2 flushed before each (the profiler's kernel records)."""
-        try:
-            from torch.profiler import ProfilerActivity, profile
-
-            with profile(activities=[ProfilerActivity.CUDA]) as prof_:
-                for _ in range(REPS):
-                    flush.zero_()
-                    fn()
-                torch.cuda.synchronize()
-            per = {p_: [e.device_time for e in prof_.events()
-                        if e.device_type == torch.autograd.DeviceType.CUDA
-                        and f"spmspv_scatter_{p_}" in e.name] for p_ in SCATTER_PASSES}
-            return {p_: float(np.median(v)) / 1e3 if v else None for p_, v in per.items()}
-        except RuntimeError as e:  # a measurement, not the path: record it
-            return {"profiler failed": repr(e)}
-
     for _ in range(2000):  # bring the clocks back up after the profiler's pause
         flush.zero_()
     torch.cuda.synchronize()
@@ -5956,30 +6022,36 @@ def main() -> None:
                 continue
             xi, xv = pad_sparse_rhs(idx, val, B, n_)
             op = stage_sparse(prep, xi, xv)
-            T = op["total"]
+            plan = op["plan"]
+            T = int(prep["col_len_np"][xi].sum())
+            cs = kspmspv.chunk_shift(T, plan.chunk_shift)
             G = work_bucket(T, g.nnz)
             rows, prods = expand_products(prep, op["xi"], op["xv"], G)
             x_dense = torch.zeros(n_, device=dev)
             x_dense[torch.as_tensor(idx, device=dev)] = torch.as_tensor(val, device=dev)
             pin = SparseOperator.from_candidate(g, pinned_sp, x_nnz=B, device=dev)
+            stager = kspmspv.SparseStager(prep, plan)
             fn_bytes, ops_ = 8 * T + 16 * B + 4 * m_, 2 * T
             bytes_s, ops_s = fn_bytes / HBM_BYTES_PER_S, ops_ / FP32_FLOPS
+
+            def run(prep=prep, op=op):
+                return spmspv_scatter(prep, op["xi"], op["xv"], op["flags"], op["plan"])
+
             row = {
                 "name": "spmspv_scatter",
                 "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/spmspv_scatter.cu",
                 "replaces": "src/repro/kernels/spmspv.py:212",
-                "shape": f"{name} x_nnz={B} T={T} tile={op['tile']} "
-                         f"blocks={op['first'].shape[0] - 1} row_tiles="
-                         f"{kspmspv.row_tiles(m_, T)[1]}",
+                "shape": f"{name} x_nnz={B} T={T} t_max={plan.t_max} chunks="
+                         f"{-(-T >> cs)}x{1 << cs} row_tiles={plan.n_tiles}x"
+                         f"{1 << plan.shift}",
                 "launches": int(sp_launches.get("spmspv_scatter", 0)),
                 "launches_per_request": SCATTER_LAUNCHES,
+                "scratch_bytes": 4 * plan.scratch_words,
                 "max_abs_err": errs[f"spmspv_scatter/{name}/B{B}"],
-                "ms": time_ms(lambda: spmspv_scatter(
-                    prep, op["xi"], op["xv"], op["offs"], op["first"], total=T,
-                    tile=op["tile"])),
-                "plain_ms": time_ms(lambda: spmspv_scatter_plain(
-                    prep, op["xi"], op["xv"], T)),
+                "ms": time_ms(run),
+                # the deterministic plain tier: sort by row, one add a rank
+                "plain_ms": time_ms(lambda: spmspv_scatter_plain(prep, op["xi"], op["xv"])),
                 "bound_ms": max(bytes_s, ops_s) * 1e3,
                 "bound_by": "bytes" if bytes_s >= ops_s else "operations",
                 "bytes": int(fn_bytes),
@@ -5995,41 +6067,34 @@ def main() -> None:
                 # the whole request's host steps, each on the host clock
                 "host_validate_pad_ms": wall_ms(lambda: pad_sparse_rhs(
                     *validate_sparse_rhs(idx, val, n_), B, n_)),
-                "host_stage_and_copy_ms": wall_ms(lambda: stage_sparse(prep, xi, xv)),
-                "launch_and_run_ms": wall_ms(lambda: spmspv_scatter(
-                    prep, op["xi"], op["xv"], op["offs"], op["first"], total=T,
-                    tile=op["tile"])),
+                "host_copy_ms": wall_ms(lambda: stager(xi, xv)),
+                "launch_and_run_ms": wall_ms(run),
                 "cusparse_dense_mv_ms": time_ms(lambda: torch.mv(A_lib, x_dense)),
             }
             if B == n_ // 4:  # the largest bucket of each matrix, by pass
-                pass_jobs.append((row, lambda prep=prep, op=op, T=T: spmspv_scatter(
-                    prep, op["xi"], op["xv"], op["offs"], op["first"], total=T,
-                    tile=op["tile"])))
+                pass_jobs.append((row, run))
             kernels.append(row)
             print(f"  spmspv_scatter [{row['shape']}]: {row['ms']:.4f} ms "
                   f"({SCATTER_LAUNCHES} launches {'+'.join(SCATTER_PASSES)}, no zero "
-                  f"fill), plain "
-                  f"(expand + index_add_) {row['plain_ms']:.4f}, expand alone "
+                  f"fill), plain (sort by row, an index_add_ a rank) "
+                  f"{row['plain_ms']:.4f}, expand alone "
                   f"{row['expand_ms']:.4f}, index_add_ on the expanded stream "
                   f"{row['library_ms']:.4f}, bound {row['bound_ms']:.4f} "
                   f"({row['bound_by']}); whole apply_sparse "
                   f"{row['apply_sparse_ms']:.4f} ms (host clock: validate + pad "
-                  f"{row['host_validate_pad_ms']:.4f}, stage + copy "
-                  f"{row['host_stage_and_copy_ms']:.4f}, launch + run "
+                  f"{row['host_validate_pad_ms']:.4f}, copy "
+                  f"{row['host_copy_ms']:.4f}, launch + run "
                   f"{row['launch_and_run_ms']:.4f}) vs cuSPARSE mv on the densified "
                   f"x {row['cusparse_dense_mv_ms']:.4f} ms; launches "
                   f"{row['launches']}", flush=True)
-            del rows, prods, pin, op
+            del rows, prods, pin, op, stager
         del A_lib
     del sp_preps
     for row, fn in pass_jobs:
-        row["pass_device_ms"] = pass_device_ms(fn)
+        row["pass_device_ms"] = spmspv_pass_ms(fn, flush)
         print(f"  spmspv_scatter [{row['shape']}]: device ms by pass "
               f"{row['pass_device_ms']}", flush=True)
     del pass_jobs
-    for _ in range(2000):  # bring the clocks back up after the profiler's pause
-        flush.zero_()
-    torch.cuda.synchronize()
     phase_done("spmspv_times", t0)
 
     # -- phase 7: the remaining tiers, reordering, supervision, overload ---
@@ -6726,7 +6791,7 @@ def main() -> None:
     # -- phase 9: the fleet, launches counted -----------------------------
     t0 = time.perf_counter()
     launches9 = fleet_phase(dev, 1.0, plans4, record)
-    print(f"  launches over phase 9 (the quiet comparison builds excluded): {launches9}")
+    print(f"  launches over phase 9: {launches9}")
     record["fleet_launches"] = launches9
     for key in ("sell_spmv", "bcsr_spmm"):
         if launches9.get(key, 0) <= 0:
@@ -6844,6 +6909,77 @@ def main() -> None:
     }))
 
 
+def spmspv_times_main(out_path: str, src: str) -> None:
+    """Kernel 4 alone, in a fresh process, for a tree's ``src`` given on the
+    command line: this checkout's, or an unpacked earlier commit's, so two
+    versions are timed in turns in one call on one card.  It goes through
+    the bound request (``spmspv_bind(prep, B, impl="cuda")``), which every
+    version has, at phase 6a's six shapes and its hub tile: per shape the
+    device ms by pass and their sum (:func:`spmspv_pass_ms`) and the
+    request on the host clock; then the
+    measured search of ``SparseOperator.build(x_nnz=n/4)`` on webbase-1M and
+    torso1 (its wall seconds and what it measured).  To ``out_path``."""
+    sys.path.insert(0, str(Path(src).resolve()))
+    import numpy as np
+    import torch
+
+    from repro_torch.data.suite import generate
+    from repro_torch.kernels import spmspv as ksp
+    from repro_torch.tune import PlanCache, SparseOperator
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this timing needs a card")
+    dev = torch.device("cuda")
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.int32, device=dev)
+    out = {"src": str(Path(ksp.__file__).resolve()), "card": smi_line(), "rows": [],
+           "searches": {}}
+
+    def one(label, g, idx, val, B):
+        m_, n_ = g.shape
+        prep = ksp.spmspv_prepare(g, device=dev)
+        xi, xv = ksp.pad_sparse_rhs(idx, val, B, n_)
+        request = ksp.spmspv_bind(prep, B, impl="cuda")
+        for _ in range(3):
+            request((xi, xv))
+        torch.cuda.synchronize()
+        wall = []
+        for _ in range(REPS):
+            flush.zero_()
+            torch.cuda.synchronize()
+            t_ = time.perf_counter()
+            request((xi, xv))
+            torch.cuda.synchronize()
+            wall.append((time.perf_counter() - t_) * 1e3)
+        by_pass = spmspv_pass_ms(lambda: request((xi, xv)), flush)
+        row = {"shape": label, "device_ms": by_pass.get("total"),
+               "request_ms": float(np.median(wall)), "pass_device_ms": by_pass}
+        out["rows"].append(row)
+        print(f"  {row}", flush=True)
+
+    graphs = {name: generate(name, scale=1.0) for name in ("webbase-1M", "torso1")}
+    for name, g in graphs.items():
+        n_ = g.shape[1]
+        for B in ((n_ // 256, n_ // 64, n_ // 16, n_ // 4) if name == "webbase-1M"
+                  else (n_ // 256, n_ // 4)):
+            rng = np.random.default_rng(0)  # 6a's x
+            idx = np.sort(rng.choice(n_, size=B, replace=False)).astype(np.int64)
+            one(f"{name} x_nnz={B}", g, idx, rng.standard_normal(B).astype(np.float32), B)
+    hub_g, _, idx_h, val_h, _ = hub_tile_operand()
+    one(f"hub tile x_nnz={idx_h.size}", hub_g, idx_h, val_h, idx_h.size)
+    for name, g in graphs.items():
+        with tempfile.TemporaryDirectory(prefix="spmspv_times_") as tmp:
+            t_ = time.perf_counter()
+            op = SparseOperator.build(g, x_nnz=g.shape[1] // 4,
+                                      cache=PlanCache(Path(tmp) / "plans.json"), device=dev)
+            out["searches"][f"{name} x_nnz={g.shape[1] // 4}"] = {
+                "build_s": time.perf_counter() - t_, "plan": op.plan.candidate.key(),
+                "measured_ms": {k: v * 1e3 for k, v in op.measurements.items()}}
+            print(f"  search {name}: {out['searches'][f'{name} x_nnz={g.shape[1] // 4}']}",
+                  flush=True)
+    Path(out_path).parent.mkdir(parents=True, exist_ok=True)
+    Path(out_path).write_text(json.dumps(out, indent=1) + "\n")
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--mesh-device-ops"]:
         mesh_device_ops(sys.argv[2])
@@ -6857,5 +6993,7 @@ if __name__ == "__main__":
         dryrun_main(sys.argv[2])
     elif sys.argv[1:2] == ["--examples-phase"]:
         examples_main(sys.argv[2])
+    elif sys.argv[1:2] == ["--spmspv-times"]:
+        spmspv_times_main(sys.argv[2], sys.argv[3])
     else:
         main()

@@ -56,7 +56,9 @@ def from_arrays(fmt: str, arrays: dict, meta: dict, device) -> dict[str, Any]:
     ``fmt`` is ``"bcsr"``, ``"sell"``, ``"sell_blocked"`` (one SELL per
     column slab; ``arrays = {"slabs": [...], "bounds": ...}``),
     ``"sell_blocked_stacked"`` or ``"spmspv"`` (the CSC view; its host
-    ``col_len_np`` is kept beside the tensors).  What the CUDA kernels walk
+    ``col_len_np`` is kept beside the tensors, and ``top_len_np``, the sums
+    of the k longest columns for k = 0 .. n, which bound the products of
+    any k distinct touched columns).  What the CUDA kernels walk
     is derived here from the arrays themselves, so a dict carried across
     from ``repro`` gets it too: the BCSR block-row pointer from the
     row-sorted ``block_rows``, and the chunk widths ``chunk_w`` of SELL and
@@ -121,6 +123,10 @@ def from_arrays(fmt: str, arrays: dict, meta: dict, device) -> dict[str, Any]:
         prep = {key: t(arrays[key])
                 for key in ("col_start", "col_len", "rows", "vals")}
         prep["col_len_np"] = np.array(arrays["col_len"], dtype=np.int32)
+        n = int(meta["shape"][1])
+        top = np.zeros(n + 1, dtype=np.int64)
+        np.cumsum(np.sort(prep["col_len_np"][:n])[::-1], out=top[1:])
+        prep["top_len_np"] = top
         prep["shape"] = tuple(int(v) for v in meta["shape"])
         prep["nnz"] = int(meta["nnz"])
         return prep

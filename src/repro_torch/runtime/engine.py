@@ -40,10 +40,10 @@ waits for a wide bucket to fill.
 up to the smallest of ``x_nnz_buckets`` (default n/256, n/64, n/16, n/4)
 and runs the ``kind="spmspv"`` plan tuned for that bucket, built on first
 use.  Sparse requests dispatch at once, one per launch, and share the
-in-flight window.  Their sums go through atomics on the card, so an async
-and a synchronous engine agree within float32 rounding there, not bit for
-bit; a request thicker than the largest bucket is densified onto the dense
-k = 1 lane.
+in-flight window.  Every sparse tier sums each row in a fixed order (the
+SpMSpV kernel and its plain version in stream order), so async and
+synchronous engines agree bit for bit here too; a request thicker than
+the largest bucket is densified onto the dense k = 1 lane.
 
 **Supervision** (``runtime.supervisor``).  A batch that fails — its launch
 raises, its device work faults, or (``nan_guard=True``) the on-device

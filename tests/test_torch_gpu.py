@@ -6,7 +6,9 @@ no JAX:  ``PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py``.
 Tolerance per row i: |kernel - plain| <= 1e-5 * (|A| |x|)_i, since only the
 summation order differs.  The SpMSpV kernel sums each row in stream order,
 as its plain version does on the CPU, so it is held to that plain version
-on a CPU copy of the same operands bit for bit, and to float64 at 1e-5.
+on a CPU copy of the same operands bit for bit, and to float64 at 1e-5;
+so is its plain version on the card (a stable sort by row, then one
+``index_add_`` per rank within the row).
 """
 import numpy as np
 import pytest
@@ -20,11 +22,12 @@ from repro_torch.kernels import ops as tops
 from repro_torch.kernels.bcsr_spmm import bcsr_spmm, bcsr_spmm_plain
 from repro_torch.kernels.spmspv import (
     SCATTER_LAUNCHES,
-    SCATTER_MAX_TILE,
     SCATTER_MAX_TILES,
     SCATTER_SMEM_TILE_ROWS,
     pad_sparse_rhs,
-    row_tiles,
+    scatter_plan,
+    sort_cap,
+    spmspv_bind,
     spmspv_prepare,
     spmspv_scatter,
     spmspv_scatter_plain,
@@ -329,15 +332,14 @@ def _sparse_case(name, frac, device):
 
 
 def _fused(prep, op):
-    return spmspv_scatter(prep, op["xi"], op["xv"], op["offs"], op["first"],
-                          total=op["total"], tile=op["tile"])
+    return spmspv_scatter(prep, op["xi"], op["xv"], op["flags"], op["plan"])
 
 
 def _plain_on_cpu(a, op):
     """The plain version (expansion + index_add_, in stream order) on a CPU
     copy of the kernel's operands."""
     prep = spmspv_prepare(a, device="cpu")
-    return spmspv_scatter_plain(prep, op["xi"].cpu(), op["xv"].cpu(), op["total"])
+    return spmspv_scatter_plain(prep, op["xi"].cpu(), op["xv"].cpu())
 
 
 def _assert_bits(got, want, what=""):
@@ -347,6 +349,25 @@ def _assert_bits(got, want, what=""):
     assert torch.equal(got, want), (what, int((got != want).sum()))
 
 
+def _sparse_checks(a, prep, xi, xv, x, what):
+    """The kernel once through the request path's staging: SCATTER_LAUNCHES
+    launches, bit for bit with the plain version on a CPU copy and on a
+    second launch of the same staged operands, within 1e-5 of float64; the
+    plain version on the card bit for bit with the CPU's too."""
+    op = stage_sparse(prep, xi, xv)
+    before = _build.LAUNCHES["spmspv_scatter"]
+    y = _fused(prep, op)
+    assert _build.LAUNCHES["spmspv_scatter"] == before + SCATTER_LAUNCHES
+    yp = _plain_on_cpu(a, op)
+    _assert_bits(y, yp, what)
+    _assert_bits(_fused(prep, op), y, f"{what}: second launch")
+    _assert_bits(spmspv_scatter_plain(prep, op["xi"], op["xv"]), yp,
+                 f"{what}: the plain version on the card")
+    assert_rowtol(y.cpu().numpy(), sp.csr_matrix(
+        (a.data.astype(np.float64), a.indices, a.indptr), shape=a.shape) @ x, a, x, what)
+    return op, y
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("name,frac", [("webbase-1M", 256), ("webbase-1M", 16),
                                        ("webbase-1M", 4), ("torso1", 256),
@@ -354,32 +375,23 @@ def _assert_bits(got, want, what=""):
 def test_gpu_spmspv_scatter_matches_plain(cuda_device, name, frac):
     """The SpMSpV kernel against its plain version (expansion + index_add_)
     on a CPU copy at three densities, the hub column included: bit for bit,
-    and the same bits on a second launch; within 1e-5 of float64."""
+    and the same bits on a second launch; within 1e-5 of float64.  An x
+    with no nonzero launches nothing."""
     a, x, prep, xi, xv = _sparse_case(name, frac, cuda_device)
-    op = stage_sparse(prep, xi, xv)
-    assert op["total"] > 0
+    _sparse_checks(a, prep, xi, xv, x, name)
     before = _build.LAUNCHES["spmspv_scatter"]
-    y = _fused(prep, op)
-    assert _build.LAUNCHES["spmspv_scatter"] == before + SCATTER_LAUNCHES
-    _assert_bits(y, _plain_on_cpu(a, op), name)
-    _assert_bits(_fused(prep, op), y, f"{name}: second launch")
-    assert_rowtol(y.cpu().numpy(), sp.csr_matrix(
-        (a.data.astype(np.float64), a.indices, a.indptr), shape=a.shape) @ x,
-        a, x, name)
-    # an all-sentinel x has no products: no launch, exact zeros
-    before = _build.LAUNCHES["spmspv_scatter"]
-    z = stage_sparse(prep, np.full_like(xi, a.shape[1]), np.zeros_like(xv))
-    assert z["total"] == 0
-    assert not bool(_fused(prep, z).any())
-    assert _build.LAUNCHES["spmspv_scatter"] == before
+    empty_x = spmspv_bind(prep, xi.size, impl="cuda")(
+        (np.full_like(xi, a.shape[1]), np.zeros_like(xv)))
+    assert not bool(empty_x.any()) and _build.LAUNCHES["spmspv_scatter"] == before
 
 
 @pytest.mark.gpu
 def test_gpu_spmspv_hub_row_spans_blocks_and_tiles(cuda_device):
     """A row with a product in every touched column (20 000 of them) spans
-    many blocks of the stream and leaves its row tile's bucket far longer
-    than a block: summed in stream order, bit for bit with the plain
-    version on the CPU, with -0.0 products kept out of the result's sign."""
+    many chunks of the stream and leaves its row tile's bucket longer than
+    the shared-memory sort (the global-memory path): summed in stream
+    order, bit for bit with the plain version on the CPU (and the card's),
+    with -0.0 products kept out of the result's sign."""
     rng = np.random.default_rng(11)
     m, n = 50_000, 30_000
     A = sp.random(m, n, density=2e-4, random_state=3, format="lil", dtype=np.float32)
@@ -396,25 +408,52 @@ def test_gpu_spmspv_hub_row_spans_blocks_and_tiles(cuda_device):
     val[np.searchsorted(idx, 5)] = 0.0
     prep = spmspv_prepare(a, device=cuda_device)
     xi, xv = pad_sparse_rhs(idx.astype(np.int64), val, idx.size, n)
-    op = stage_sparse(prep, xi, xv)
-    assert op["tile"] <= SCATTER_MAX_TILE < 20_000
-    y = _fused(prep, op)
-    yp = _plain_on_cpu(a, op)
-    _assert_bits(y, yp, "hub row")
-    _assert_bits(_fused(prep, op), y, "hub row: second launch")
-    assert int(y[40_000:40_001].cpu().view(torch.int32)[0]) == 0  # +0.0
     x = np.zeros(n, np.float32)
     x[idx] = val
-    assert_rowtol(y.cpu().numpy(), A.astype(np.float64) @ x, a, x, "hub row")
+    op, y = _sparse_checks(a, prep, xi, xv, x, "hub row")
+    assert 1 << op["plan"].shift <= SCATTER_SMEM_TILE_ROWS
+    assert int(y[40_000:40_001].cpu().view(torch.int32)[0]) == 0  # +0.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_hubs,per_hub,step", [(8, 8000, 8), (300, 300, 1)])
+def test_gpu_spmspv_hub_rows_share_one_tile(cuda_device, n_hubs, per_hub, step):
+    """Hub rows in one row tile: eight of 8 000 products, or 300 of 300
+    (more long rows than a tile lists for its warps, so some are a
+    thread's sum).  The tile's bucket (64 000 or 90 000+) sorts in global
+    scratch and each hub row is one warp's sum; bit for bit with the plain
+    version on the CPU and the card, on two launches."""
+    rng = np.random.default_rng(12)
+    m, n = 200_000, 60_000
+    hubs = 98_304 + np.arange(0, n_hubs * step, step)  # in one 512-row tile or larger
+    cols = rng.choice(n, size=per_hub, replace=False)
+    rows = np.concatenate([rng.integers(0, m, 600_000), np.repeat(hubs, cols.size)])
+    cc = np.concatenate([rng.integers(0, n, 600_000), np.tile(cols, hubs.size)])
+    A = sp.csr_matrix((rng.standard_normal(rows.size).astype(np.float32), (rows, cc)),
+                      shape=(m, n))
+    A.sum_duplicates()
+    A.sort_indices()
+    a = tf.CSRMatrix((m, n), A.indptr.astype(np.int32), A.indices.astype(np.int32),
+                     A.data.astype(np.float32))
+    idx = np.union1d(cols, rng.choice(n, size=4000, replace=False)).astype(np.int64)
+    val = rng.standard_normal(idx.size).astype(np.float32)
+    prep = spmspv_prepare(a, device=cuda_device)
+    xi, xv = pad_sparse_rhs(idx, val, idx.size, n)
+    x = np.zeros(n, np.float32)
+    x[idx] = val
+    op, y = _sparse_checks(a, prep, xi, xv, x, "hub rows")
+    shift = op["plan"].shift
+    assert len({int(r) >> shift for r in hubs}) == 1 and shift >= 9
+    assert n_hubs * per_hub > sort_cap(shift)
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("extra", [0, 1, 40_000_000])
 def test_gpu_spmspv_tall_y_past_the_shared_memory_tiles(cuda_device, extra):
     """A y of SCATTER_MAX_TILES * SCATTER_SMEM_TILE_ROWS rows (the largest
-    whose tiles sum in shared memory) and past it (tiles summed in y
+    whose tiles sort in shared memory) and past it (tiles summed in y
     itself), products in the first and last rows and a row spread over many
-    blocks: bit for bit with the plain version on the CPU, on two launches,
+    chunks: bit for bit with the plain version on the CPU, on two launches,
     every untouched row +0.0."""
     rng = np.random.default_rng(13)
     m, n = SCATTER_MAX_TILES * SCATTER_SMEM_TILE_ROWS + extra, 3000
@@ -432,8 +471,7 @@ def test_gpu_spmspv_tall_y_past_the_shared_memory_tiles(cuda_device, extra):
     prep = spmspv_prepare(a, device=cuda_device)
     xi, xv = pad_sparse_rhs(idx.astype(np.int64), val, idx.size, n)
     op = stage_sparse(prep, xi, xv)
-    shift = row_tiles(m, op["total"])[0]
-    assert ((1 << shift) > SCATTER_SMEM_TILE_ROWS) == (extra > 0)
+    assert ((1 << op["plan"].shift) > SCATTER_SMEM_TILE_ROWS) == (extra > 0)
     _build.reset_launches()
     y = _fused(prep, op)
     assert _build.LAUNCHES["spmspv_scatter"] == SCATTER_LAUNCHES
@@ -451,9 +489,10 @@ def test_gpu_spmspv_tall_y_past_the_shared_memory_tiles(cuda_device, extra):
 
 @pytest.mark.gpu
 def test_gpu_spmspv_long_runs_of_empty_columns(cuda_device):
-    """A block whose products cross more slots than it stages in shared
-    memory (thousands of empty touched columns between two full ones)
-    searches device memory instead, with the same bits."""
+    """A chunk whose products cross thousands of touched empty columns
+    marks its slots over many rounds of its block, with the same bits; an
+    x touching only empty columns (T = 0) launches the passes, which write
+    zeros."""
     rng = np.random.default_rng(9)
     m, n = 4000, 6000
     d = sp.random(m, n, density=0.002, random_state=1, format="csc",
@@ -470,33 +509,59 @@ def test_gpu_spmspv_long_runs_of_empty_columns(cuda_device):
     x[idx] = val
     prep = spmspv_prepare(a, device=cuda_device)
     xi, xv = pad_sparse_rhs(idx, val, idx.size, n)
-    op = stage_sparse(prep, xi, xv)
-    first = op["first"].cpu().numpy()
-    assert np.diff(first).max() > 1024  # a block spans more than it stages
-    y = _fused(prep, op)
-    _assert_bits(y, _plain_on_cpu(a, op))
-    _assert_bits(_fused(prep, op), y, "second launch")
-    assert_rowtol(y.cpu().numpy(), A.astype(np.float64) @ x, a, x)
+    _sparse_checks(a, prep, xi, xv, x, "empty runs")
+    zi, zv = pad_sparse_rhs(np.arange(100, 110, dtype=np.int64), np.ones(10, np.float32),
+                            idx.size, n)
+    _build.reset_launches()
+    z = spmspv_bind(prep, idx.size, impl="cuda")((zi, zv))
+    assert _build.LAUNCHES["spmspv_scatter"] == SCATTER_LAUNCHES
+    _assert_bits(z, torch.zeros(m), "T = 0")
+
+
+@pytest.mark.gpu
+def test_gpu_spmspv_request_path_reuses_its_pinned_ring(cuda_device):
+    """Twelve requests through one bound runner with no synchronise between
+    them (the staging ring of 4 pinned buffers wraps three times): each
+    equals its own request staged alone, bit for bit, on both impls; xi
+    that repeat a column past the plan's t_max give NaN rows, not a write
+    out of bounds."""
+    a, _, prep, xi, xv = _sparse_case("webbase-1M", 64, cuda_device)
+    n, B = a.shape[1], xi.size
+    rng = np.random.default_rng(3)
+    reqs = []
+    for _ in range(12):
+        idx = np.sort(rng.choice(n, size=B - 5, replace=False)).astype(np.int64)
+        reqs.append(pad_sparse_rhs(idx, rng.standard_normal(idx.size).astype(np.float32),
+                                   B, n))
+    for impl in ("cuda", "ref"):
+        fn = spmspv_bind(prep, B, impl=impl)
+        ys = [fn(r) for r in reqs]
+        for r, y in zip(reqs, ys):
+            _assert_bits(y, _plain_on_cpu(a, stage_sparse(prep, *r)), impl)
+    lens = np.bincount(a.indices, minlength=n)
+    assert B * int(lens.max()) > scatter_plan(prep, B).t_max
+    dup = np.full(B, int(np.argmax(lens)), np.int32), np.ones(B, np.float32)
+    y = spmspv_bind(prep, B, impl="cuda")(dup)
+    assert bool(torch.isnan(y).all())
 
 
 @pytest.mark.gpu
 def test_gpu_spmspv_refused_launch_raises(cuda_device, monkeypatch):
-    """A refused launch raises, at the wrapper and in a search: the CUDA
-    path never hands its work to the plain version."""
+    """A refused launch raises, naming its pass, at the wrapper and in a
+    search: the CUDA path never hands its work to the plain version."""
     a, _, prep, xi, xv = _sparse_case("webbase-1M", 256, cuda_device)
     op = stage_sparse(prep, xi, xv)
     with pytest.raises(ValueError, match="xi is on cpu"):
-        spmspv_scatter(prep, op["xi"].cpu(), op["xv"], op["offs"], op["first"],
-                       total=op["total"], tile=op["tile"])
-    big = 2 * SCATTER_MAX_TILE
-    with pytest.raises(ValueError, match="exceeds"):
-        spmspv_scatter(prep, op["xi"], op["xv"], op["offs"],
-                       op["first"][: -(-op["total"] // big) + 1],
-                       total=op["total"], tile=big)
+        spmspv_scatter(prep, op["xi"].cpu(), op["xv"], op["flags"], op["plan"])
+    with pytest.raises(ValueError, match="flags must start on a 8-byte boundary"):
+        spmspv_scatter(prep, op["xi"], op["xv"],
+                       torch.zeros(op["flags"].numel() + 1, dtype=torch.int32,
+                                   device=cuda_device)[1:], op["plan"])
     _build.ensure_built()
     monkeypatch.setattr(_build, "function", lambda *args: (lambda *cargs: 1))
     before = _build.LAUNCHES["spmspv_scatter"]
-    with pytest.raises(RuntimeError, match="spmspv_scatter launch, count pass: CUDA error 1"):
+    with pytest.raises(RuntimeError,
+                       match="spmspv_scatter launch, offsets pass: CUDA error 1"):
         _fused(prep, op)
     assert _build.LAUNCHES["spmspv_scatter"] == before  # a refused pass is not counted
     cands = [make("csr", "vector"), make("spmspv", "cuda", slab=4096)]
@@ -1867,8 +1932,7 @@ def test_gpu_kernel_wrappers_and_the_cuda_tier_ffn_refuse_autograd(cuda_device):
          lambda x: tops.sell_spmv_blocked_stacked(slabs, x)),
         ("bcsr_spmm", torch.ones(64, 3, device=cuda_device), lambda x: tops.bcsr_spmm(bcsr, x)),
         ("spmspv_scatter", st["xv"].clone(),
-         lambda x: spmspv_scatter(spv, st["xi"], x, st["offs"], st["first"],
-                                  total=st["total"], tile=st["tile"])),
+         lambda x: spmspv_scatter(spv, st["xi"], x, st["flags"], st["plan"])),
     )
     for name, x, call in calls:
         once = SCATTER_LAUNCHES if name == "spmspv_scatter" else 1

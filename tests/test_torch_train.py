@@ -382,8 +382,7 @@ def _wrapper_calls():
          lambda x: ops.sell_spmv_blocked_stacked(slabs, x)),
         ("bcsr_spmm", torch.ones(64, 3), lambda x: ops.bcsr_spmm(bcsr, x)),
         ("spmspv_scatter", staged["xv"].clone(),
-         lambda x: spmspv_scatter(sp, staged["xi"], x, staged["offs"], staged["first"],
-                                  total=staged["total"], tile=staged["tile"])),
+         lambda x: spmspv_scatter(sp, staged["xi"], x, staged["flags"], staged["plan"])),
     )
 
 
