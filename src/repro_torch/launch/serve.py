@@ -196,8 +196,8 @@ def serve_sparse(args) -> None:
         f"  dispatches={s['dispatches']} by_bucket={s['by_bucket']} "
         f"occupancy={s['occupancy']:.2f} "
         f"(padding {s['padded_occupancy']:.2f} — not served work) "
-        f"latency mean/p50/p99 = {s['latency_mean_ms']:.2f}/"
-        f"{lat[len(lat) // 2] * 1e3:.2f}/{s['latency_p99_ms']:.2f} ms\n"
+        f"latency mean/p50/p99 = {float(np.mean(lat)) * 1e3:.2f}/"
+        f"{lat[len(lat) // 2] * 1e3:.2f}/{float(np.quantile(lat, 0.99)) * 1e3:.2f} ms\n"
         f"  plans={plans}\n"
         f"  ({src}; {raced} candidates pruned by racing)\n"
         f"  counters: rejected={s['rejected']} shed_oldest={s['shed_oldest']} "

@@ -28,7 +28,12 @@ The loop is asynchronous: ``step()`` enqueues a batch on the device and
 keeps up to ``async_depth`` (<= 2) batches in flight, each marked by a CUDA
 event recorded after its launch; a batch retires (futures filled, latency
 stamped, stats recorded) once its event has completed, strictly in FIFO
-order.  ``submit()`` returns a future — ``req.result(timeout=)`` blocks for
+order.  Each batch has an id; ``step()`` stamps the requests it takes with
+it and with the dispatch time (``EngineRequest.batch``, ``.t_dispatch``),
+so a request's queue wait (``t_dispatch - t_submit``) and its time in the
+engine (``t_done - t_dispatch``) are apart.  ``runtime.tracing``, when
+enabled, records the engine's spans and each batch's device times.
+``submit()`` returns a future — ``req.result(timeout=)`` blocks for
 exactly that request.  Async and synchronous (``async_depth=0``) engines
 run the same closures and kernels, so their dense results are bitwise equal.
 
@@ -117,6 +122,7 @@ from repro_torch.core.distributed import (
 from repro_torch.core.formats import CSRMatrix
 from repro_torch.core.partition import rows_balanced, stack_csr_shards
 from repro_torch.kernels.spmspv import pad_sparse_rhs, validate_sparse_rhs
+from repro_torch.runtime import tracing
 from repro_torch.runtime.executable import GraphPool, finite_guard, fused_batch_executable
 from repro_torch.runtime.faults import FaultPlan, InjectedFault, active_plan
 from repro_torch.runtime.overload import (
@@ -174,6 +180,9 @@ class EngineRequest:
     x: Any  # (n,) float32 tensor on the engine's device, or host (idx, val)
     t_submit: float
     t_done: float | None = None
+    # When step() took the request into a batch, and that batch's id.
+    t_dispatch: float | None = None
+    batch: int | None = None
     # k-bucket the request was dispatched in; a sparse request carries
     # ("spmspv", <x-nnz bucket>), so the two bucket spaces never collide.
     bucket: Any = None
@@ -231,13 +240,12 @@ class EngineStats:
     dispatched: dict = dataclasses.field(default_factory=dict)  # bucket -> #
     occupied_cols: int = 0  # real request columns dispatched (served work)
     padded_cols: int = 0  # zero columns added by bucket round-up (NOT work)
-    latencies_s: list = dataclasses.field(default_factory=list)
     # Sparse dispatches per x-nnz bucket ("spmspv<B>" keys).  They stay out
     # of the k-bucket occupancy figures: each serves exactly one request.
     sparse_dispatched: dict = dataclasses.field(default_factory=dict)
     # Supervision: a retried batch counts one retry per re-launch; a batch
     # the fallback chain could not serve counts its requests as failed
-    # (resolved, not served: they enter no latency or occupancy figure).
+    # (resolved, not served: they enter no occupancy figure).
     failed_requests: int = 0
     failed_batches: int = 0
     retries: int = 0
@@ -250,17 +258,15 @@ class EngineStats:
     shed_oldest: int = 0
     shed_deadline: int = 0
 
-    def record(self, bucket, n_real: int, lats: Iterable[float]) -> None:
+    def record(self, bucket, n_real: int) -> None:
         self.n_dispatches += 1
         if isinstance(bucket, tuple):  # ("spmspv", B)
             key = f"spmspv{bucket[1]}"
             self.sparse_dispatched[key] = self.sparse_dispatched.get(key, 0) + 1
-            self.latencies_s.extend(lats)
             return
         self.dispatched[bucket] = self.dispatched.get(bucket, 0) + 1
         self.occupied_cols += n_real
         self.padded_cols += bucket - n_real
-        self.latencies_s.extend(lats)
 
     @property
     def occupancy(self) -> float:
@@ -275,7 +281,8 @@ class EngineStats:
         return self.padded_cols / total if total else 0.0
 
     def summary(self) -> dict[str, Any]:
-        lats = np.asarray(self.latencies_s) if self.latencies_s else np.zeros(1)
+        """The counters; latencies are the requests' own (``latency_s``,
+        ``t_dispatch``), which their holder reads."""
         return {
             "requests": self.n_requests,
             "dispatches": self.n_dispatches,
@@ -285,8 +292,6 @@ class EngineStats:
             "padded_occupancy": round(self.padded_occupancy, 4),
             "served_cols": self.occupied_cols,
             "padded_cols": self.padded_cols,
-            "latency_mean_ms": round(float(lats.mean()) * 1e3, 3),
-            "latency_p99_ms": round(float(np.quantile(lats, 0.99)) * 1e3, 3),
             "failed_requests": self.failed_requests,
             "failed_batches": self.failed_batches,
             "retries": self.retries,
@@ -328,6 +333,7 @@ class SparseEngine:
     the results of unaffected batches hold.
     """
 
+    @tracing.traced("engine.build")
     def __init__(
         self,
         a: CSRMatrix,
@@ -429,11 +435,15 @@ class SparseEngine:
         self._sparse_ops: dict[int, SparseOperator] = {}
         self._sparse_execs: dict[int, Any] = {}
         self._queue: deque[EngineRequest] = deque()
-        # (ys, ok, event, poisoned, reqs, bucket, take): ok is the on-device
-        # finite flag (None without nan_guard), event marks the launch (None
-        # on CPU), poisoned is True when the engine.nan site fired.
+        # (ys, ok, event, poisoned, reqs, bucket, take, batch, marks): ok is
+        # the on-device finite flag (None without nan_guard), event marks the
+        # launch (None on CPU), poisoned is True when the engine.nan site
+        # fired, marks the batch's start and stacked timing events (None
+        # unless the tracer was on, on a card).
         self._inflight: deque[tuple] = deque()
         self._rid = 0
+        self._next_batch = 0
+        self._marks: tuple | None = None  # the last _launch's timing events
         self._cond = threading.Condition()
         self._serve_lock = threading.Lock()
         if self._brownout is not None:
@@ -613,7 +623,7 @@ class SparseEngine:
         self._rid += 1
         self.stats.n_requests += 1
         self._apply_pending_swap()
-        self._dispatch(("spmspv", bucket), [req])
+        self._dispatch(("spmspv", bucket), [req], self._stamp([req]))
         return req
 
     def _dtype_policy(self, what: str, dtype) -> None:
@@ -789,13 +799,29 @@ class SparseEngine:
         ):
             self._retire_ready()  # use the hold to resolve finished batches
             return 0
-        bucket, take = self._bucket_for(len(self._queue))
-        reqs = [self._queue.popleft() for _ in range(take)]
-        self._notify()  # queue space freed: wake blocked submitters
-        self._dispatch(bucket, reqs)
+        with tracing.span("engine.step") as sp:
+            bucket, take = self._bucket_for(len(self._queue))
+            reqs = [self._queue.popleft() for _ in range(take)]
+            self._notify()  # queue space freed: wake blocked submitters
+            batch = self._stamp(reqs)
+            if sp.on:
+                sp.attrs.update(batch=batch, bucket=bucket, take=take,
+                                first=reqs[0].rid, last=reqs[-1].rid)
+            self._dispatch(bucket, reqs, batch)
         return take
 
-    def _dispatch(self, bucket, reqs: list) -> None:
+    def _stamp(self, reqs: list) -> int:
+        """Give a batch its id and stamp its requests with the id and the
+        dispatch time; returns the id."""
+        batch = self._next_batch
+        self._next_batch += 1
+        t = time.perf_counter()
+        for req in reqs:
+            req.t_dispatch = t
+            req.batch = batch
+        return batch
+
+    def _dispatch(self, bucket, reqs: list, batch: int) -> None:
         """Launch one batch once the in-flight window has room; a launch
         that raises is recovered after older batches retire (FIFO)."""
         window = max(1, self.async_depth)
@@ -807,7 +833,7 @@ class SparseEngine:
             self.flush()
             self._recover(reqs, bucket, len(reqs), exc)
             return
-        self._inflight.append((*launched, reqs, bucket, len(reqs)))
+        self._inflight.append((*launched, reqs, bucket, len(reqs), batch, self._marks))
         if self.async_depth == 0:
             self._retire_one()
 
@@ -839,7 +865,8 @@ class SparseEngine:
             if stall > 0.0:
                 time.sleep(stall)  # a slow dispatch with a known cost
             faults.fire("engine.dispatch", engine=self.name, bucket=bucket)
-        xs = self._assemble(reqs, bucket)
+        with tracing.span("engine.assemble"):
+            xs = self._assemble(reqs, bucket)
         poisoned = (
             faults is not None
             and not sparse
@@ -847,12 +874,18 @@ class SparseEngine:
         )
         if poisoned:
             xs = (self._nan_column(),) + xs[1:]  # poison one column
-        out = fn(*xs)
-        ys, ok = out if isinstance(out, tuple) else (out, None)
-        event = None
-        if self.device.type == "cuda":
-            event = torch.cuda.Event()
-            event.record(torch.cuda.current_stream(self.device))
+        # The batch's device times (the tracer on, on a card): an event
+        # before the closure, the closure's between its stack and its plan,
+        # and the end event below, timed too.
+        start = tracing.device_event(self.device)
+        with tracing.span("engine.launch"):
+            out = fn(*xs)
+            ys, ok = out if isinstance(out, tuple) else (out, None)
+            event = None
+            if self.device.type == "cuda":
+                event = torch.cuda.Event(enable_timing=start is not None)
+                event.record(torch.cuda.current_stream(self.device))
+        self._marks = None if start is None else (start, tracing.take_stacked())
         return ys, ok, event, poisoned
 
     def _exec(self, bucket: int):
@@ -906,28 +939,33 @@ class SparseEngine:
 
     def _resolve(self, reqs: list, bucket, take: int, ys) -> int:
         t_done = time.perf_counter()
-        lats = []
         for i, req in enumerate(reqs):
             req._ys = ys
             req._col = i
             req.t_done = t_done
             req.bucket = bucket
-            lats.append(t_done - req.t_submit)
-        self.stats.record(bucket, take, lats)
+        self.stats.record(bucket, take)
         self.consecutive_failures = 0
         self._notify()
         return take
 
     def _retire_one(self) -> int:
         """Wait for the oldest in-flight batch and fill its futures; a batch
-        that failed on the device goes through :meth:`_recover`."""
-        *launched, reqs, bucket, take = self._inflight.popleft()
-        ys = launched[0]
-        try:
-            self._settle(bucket, *launched)
-        except Exception as exc:
-            return self._recover(reqs, bucket, take, exc)
-        return self._resolve(reqs, bucket, take, ys)
+        that failed on the device goes through :meth:`_recover`.  A batch
+        launched with timing events leaves its device times with the
+        tracer once its end event has completed."""
+        ys, ok, event, poisoned, reqs, bucket, take, batch, marks = self._inflight.popleft()
+        with tracing.span("engine.retire") as sp:
+            if sp.on:
+                sp.attrs["batch"] = batch
+            try:
+                self._settle(bucket, ys, ok, event, poisoned)
+            except Exception as exc:
+                return self._recover(reqs, bucket, take, exc)
+            if marks is not None and marks[1] is not None:
+                tracing.add_batch(batch, bucket, take, *marks, event)
+            with tracing.span("engine.resolve"):
+                return self._resolve(reqs, bucket, take, ys)
 
     # -- supervision: retry -> demote -> fail the futures -------------------
     def _supervised(self, exc: BaseException) -> bool:
@@ -1229,7 +1267,7 @@ class SparseEngine:
             abandoned = list(self._queue)
             self._queue.clear()
             while self._inflight:
-                abandoned.extend(self._inflight.popleft()[-3])
+                abandoned.extend(self._inflight.popleft()[4])
             for req in abandoned:
                 req.set_exception(exc)
             self.stats.failed_requests += len(abandoned)

@@ -85,6 +85,7 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.runtime import tracing
 
 __all__ = [
     "Captured",
@@ -352,30 +353,39 @@ def fused_batch_executable(
     On a card with ``captured`` the run is a CUDA graph over the slab, in
     ``pool`` (default: a pool of its own), and the closure exposes
     ``fn.slab``, ``fn.executable`` and ``fn.buffers``; otherwise a bucket
-    wider than 1 exposes its slab as ``fn.slab``."""
+    wider than 1 exposes its slab as ``fn.slab``.  Between the stack and
+    the plan the closure leaves the tracer its mark
+    (``tracing.mark_stacked``: nothing while the tracer is off)."""
     body = finite_guard(run) if guard else run
     if captured and device.type == "cuda":
         shape = (n,) if bucket == 1 else (n, bucket)
-        exe = Captured(body, torch.zeros(shape, dtype=torch.float32, device=device),
-                       pool=pool)
+        with tracing.span("executable.capture", {"bucket": bucket}):
+            exe = Captured(body, torch.zeros(shape, dtype=torch.float32, device=device),
+                           pool=pool)
         slab = exe.inputs[0]
 
         def replayed(*xs: torch.Tensor):
-            if bucket == 1:
-                slab.copy_(xs[0])
-            else:
-                torch.stack(xs, dim=1, out=slab)
-            return exe.replay()
+            with tracing.span("executable.stack"):
+                if bucket == 1:
+                    slab.copy_(xs[0])
+                else:
+                    torch.stack(xs, dim=1, out=slab)
+            tracing.mark_stacked(device)
+            with tracing.span("executable.replay"):
+                return exe.replay()
 
         replayed.slab, replayed.executable, replayed.buffers = slab, exe, exe.buffers
         return replayed
-    if bucket == 1:
+    if bucket == 1:  # nothing to stack: the plan itself, which leaves no mark
         return body
     slab = torch.empty((n, bucket), dtype=torch.float32, device=device)
 
     def fn(*xs: torch.Tensor) -> torch.Tensor:
-        torch.stack(xs, dim=1, out=slab)
-        return run(slab)
+        with tracing.span("executable.stack"):
+            torch.stack(xs, dim=1, out=slab)
+        tracing.mark_stacked(device)
+        with tracing.span("executable.run"):
+            return run(slab)
 
     out = finite_guard(fn) if guard else fn
     out.slab = slab

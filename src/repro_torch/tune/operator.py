@@ -53,6 +53,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import merge_spmv as kmerge
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import spmspv as kspmspv
+from repro_torch.runtime import tracing
 from repro_torch.runtime.executable import aot_compile
 from repro_torch.runtime.faults import active_plan
 
@@ -326,8 +327,18 @@ def prepare_cached(
         return prepare(a, cand, device=device, mesh=mesh, axis=axis,
                        prep_cache=prep_cache)
     device = torch.device(device)
-    key = (fp or fingerprint(a), _value_digest(a), cand.key(), str(device))
-    return _PREP_MEMO.get_or_build(key, lambda: prepare(a, cand, device=device))
+    with tracing.span("prepare", {"fmt": cand.fmt, "memo": "hit"}) as sp:
+        fp = fp or fingerprint(a)
+        with tracing.span("prepare.digest"):
+            digest = _value_digest(a)
+
+        def build() -> dict[str, Any]:
+            if sp.on:
+                sp.attrs["memo"] = "miss"
+            with tracing.span("prepare.format"):
+                return prepare(a, cand, device=device)
+
+        return _PREP_MEMO.get_or_build((fp, digest, cand.key(), str(device)), build)
 
 
 def runner(
@@ -610,6 +621,7 @@ class SparseOperator:
 
     # -- construction -------------------------------------------------------
     @classmethod
+    @tracing.traced("tune.build")
     def build(
         cls,
         a: CSRMatrix,
@@ -701,7 +713,9 @@ class SparseOperator:
             kk = max(int(x_nnz), 1)  # plan.k carries the x-nnz bucket
         device = resolve_on(device, mesh)
         sparse_kind = kind == "spmspv"
-        fp = fingerprint(a)
+        tracing.annotate(kind=kind, k=kk)
+        with tracing.span("tune.fingerprint"):
+            fp = fingerprint(a)
         backend = backend_name(device)
         mesh_shape: list[int] = []
         if mesh is not None:
@@ -712,125 +726,129 @@ class SparseOperator:
         scale = [int(a.shape[0]), int(a.shape[1]), int(a.nnz)]
         cache = default_cache() if cache is None else cache
         if not force_search:
-            plan = cache.get(fp, kind, kk, backend=backend, scale=scale,
-                             mesh_shape=mesh_shape)
+            with tracing.span("tune.lookup"):
+                plan = cache.get(fp, kind, kk, backend=backend, scale=scale,
+                                 mesh_shape=mesh_shape)
             if plan is not None:
+                tracing.annotate(from_cache=True)
                 return cls(
                     a, plan,
                     prepare_cached(a, plan.candidate, fp=fp, device=device, **on_mesh),
                     device=device, from_cache=True, mesh=mesh, axis=axis,
                 )
-        if device.type == "cuda":
-            _build.ensure_built()
+        tracing.annotate(from_cache=False)
+        with tracing.span("tune.search"):
+            if device.type == "cuda":
+                _build.ensure_built()
 
-        width = 1 if sparse_kind else kk  # the dense operand's width
-        feats = extract(a, k=width, x_nnz=kk if sparse_kind else None)
-        if candidates is not None:
-            cands = list(candidates)
-        elif mesh is not None:
-            cands = enumerate_mesh_candidates(feats, mesh_shape[0])
-        else:
-            cands = enumerate_candidates(
-                feats, kind, k=width,
-                reorders=REORDER_METHODS if include_reorder else (),
+            width = 1 if sparse_kind else kk  # the dense operand's width
+            feats = extract(a, k=width, x_nnz=kk if sparse_kind else None)
+            if candidates is not None:
+                cands = list(candidates)
+            elif mesh is not None:
+                cands = enumerate_mesh_candidates(feats, mesh_shape[0])
+            else:
+                cands = enumerate_candidates(
+                    feats, kind, k=width,
+                    reorders=REORDER_METHODS if include_reorder else (),
+                )
+            on_cpu = device.type == "cpu"
+            costs = {
+                c: estimate_cost(a, c, feats, k=width, on_cpu=on_cpu,
+                                 fused=solver_step, sparse_rhs=sparse_kind)
+                for c in cands
+            }
+            survivors = sorted(prune(costs, factor=prune_factor), key=costs.get)
+
+            rng = np.random.default_rng(seed)
+            if sparse_kind:
+                # One random sorted sparse x probes every survivor, as host
+                # arrays: the spmspv runners read them on the host.
+                n = a.shape[1]
+                nx = min(kk, n)
+                idx = np.sort(rng.choice(n, size=nx, replace=False)).astype(np.int64)
+                val = rng.standard_normal(nx).astype(np.float32)
+                x = kspmspv.pad_sparse_rhs(idx, val, kk, n)
+            else:
+                x = _dense_probe(a, kk, seed, device)
+
+            measurements: dict[str, float] = {}
+            failures: dict[str, Exception] = {}
+            best: tuple[float, Candidate, dict] | None = None
+            ref = None  # the probe's float64 product, made when first needed
+            n_raced = 0
+            # The first candidate (no best yet) gets the same warmup as the
+            # raced ones, so its lone first rep never eats lazy setup.
+            warmup_eff = max(warmup, 1) if race else warmup
+            for c in survivors:
+                stage = "prepare"
+                try:
+                    prep = prepare_cached(a, c, fp=fp, device=device, **on_mesh)
+                    stage = "run"
+                    if sparse_kind:
+                        fn = sparse_rhs_runner(a, c, prep, x_nnz=kk, device=device)
+                    else:
+                        fn = runner(a, c, prep, k=kk, mesh=mesh, axis=axis)
+                    # On a card the probe's few-microsecond axpys and dots are
+                    # host-launch bound, so its time ranks launch overhead, not
+                    # kernels: there the search times the bare product.
+                    probed = solver_step and device.type != "cuda"
+                    timed_fn = solver_step_probe(fn, kk) if probed else fn
+                    abort = RACE_FACTOR * best[0] if (race and best is not None) else None
+                    # The plain sparse tier on a card adds one rank of each row a
+                    # launch (about max k_i launches, tens of ms on a hub row):
+                    # one warm-up and one timed call rank it.
+                    once = sparse_kind and device.type == "cuda" and c.key() == "spmspv/ref"
+                    t = time_fn(timed_fn, x, warmup=1 if once else warmup_eff,
+                                timed=1 if once else timed, abort_above=abort, device=device)
+                    if not math.isinf(t) and (best is None or t < best[0]):
+                        if ref is None:
+                            ref = probe_reference(a, x, device=device)
+                        check_accuracy(c, fn(x), ref)
+                except Exception as exc:
+                    if not search_skips(exc, device, stage=stage):
+                        raise RuntimeError(
+                            f"candidate {c.key()} failed in the measured search on "
+                            f"{device}: {exc!r}"
+                        ) from exc
+                    measurements[c.key()] = math.inf
+                    failures[c.key()] = exc
+                    continue
+                measurements[c.key()] = t
+                if math.isinf(t):
+                    n_raced += 1
+                    continue
+                if best is None or t < best[0]:
+                    best = (t, c, prep)
+            if best is None:
+                raise RuntimeError(
+                    f"measured search found no usable candidate for kind={kind!r} "
+                    f"k={kk} ({len(survivors)} survivors, {len(failures)} failed: "
+                    f"{ {key: repr(e) for key, e in failures.items()} })"
+                )
+            t_best, c_best, prep_best = best
+            plan = Plan(
+                fingerprint=fp,
+                kind=kind,
+                fmt=c_best.fmt,
+                impl=c_best.impl,
+                params=_plan_params(c_best),
+                est_cost=costs[c_best],
+                measured_s=t_best,
+                n_candidates=len(cands),
+                n_measured=len(survivors),
+                k=kk,
+                backend=backend,
+                scale=scale,
+                n_raced=n_raced,
+                features=feats.to_dict(),
+                mesh_shape=mesh_shape,
             )
-        on_cpu = device.type == "cpu"
-        costs = {
-            c: estimate_cost(a, c, feats, k=width, on_cpu=on_cpu,
-                             fused=solver_step, sparse_rhs=sparse_kind)
-            for c in cands
-        }
-        survivors = sorted(prune(costs, factor=prune_factor), key=costs.get)
-
-        rng = np.random.default_rng(seed)
-        if sparse_kind:
-            # One random sorted sparse x probes every survivor, as host
-            # arrays: the spmspv runners read them on the host.
-            n = a.shape[1]
-            nx = min(kk, n)
-            idx = np.sort(rng.choice(n, size=nx, replace=False)).astype(np.int64)
-            val = rng.standard_normal(nx).astype(np.float32)
-            x = kspmspv.pad_sparse_rhs(idx, val, kk, n)
-        else:
-            x = _dense_probe(a, kk, seed, device)
-
-        measurements: dict[str, float] = {}
-        failures: dict[str, Exception] = {}
-        best: tuple[float, Candidate, dict] | None = None
-        ref = None  # the probe's float64 product, made when first needed
-        n_raced = 0
-        # The first candidate (no best yet) gets the same warmup as the
-        # raced ones, so its lone first rep never eats lazy setup.
-        warmup_eff = max(warmup, 1) if race else warmup
-        for c in survivors:
-            stage = "prepare"
-            try:
-                prep = prepare_cached(a, c, fp=fp, device=device, **on_mesh)
-                stage = "run"
-                if sparse_kind:
-                    fn = sparse_rhs_runner(a, c, prep, x_nnz=kk, device=device)
-                else:
-                    fn = runner(a, c, prep, k=kk, mesh=mesh, axis=axis)
-                # On a card the probe's few-microsecond axpys and dots are
-                # host-launch bound, so its time ranks launch overhead, not
-                # kernels: there the search times the bare product.
-                probed = solver_step and device.type != "cuda"
-                timed_fn = solver_step_probe(fn, kk) if probed else fn
-                abort = RACE_FACTOR * best[0] if (race and best is not None) else None
-                # The plain sparse tier on a card adds one rank of each row a
-                # launch (about max k_i launches, tens of ms on a hub row):
-                # one warm-up and one timed call rank it.
-                once = sparse_kind and device.type == "cuda" and c.key() == "spmspv/ref"
-                t = time_fn(timed_fn, x, warmup=1 if once else warmup_eff,
-                            timed=1 if once else timed, abort_above=abort, device=device)
-                if not math.isinf(t) and (best is None or t < best[0]):
-                    if ref is None:
-                        ref = probe_reference(a, x, device=device)
-                    check_accuracy(c, fn(x), ref)
-            except Exception as exc:
-                if not search_skips(exc, device, stage=stage):
-                    raise RuntimeError(
-                        f"candidate {c.key()} failed in the measured search on "
-                        f"{device}: {exc!r}"
-                    ) from exc
-                measurements[c.key()] = math.inf
-                failures[c.key()] = exc
-                continue
-            measurements[c.key()] = t
-            if math.isinf(t):
-                n_raced += 1
-                continue
-            if best is None or t < best[0]:
-                best = (t, c, prep)
-        if best is None:
-            raise RuntimeError(
-                f"measured search found no usable candidate for kind={kind!r} "
-                f"k={kk} ({len(survivors)} survivors, {len(failures)} failed: "
-                f"{ {key: repr(e) for key, e in failures.items()} })"
+            cache.put(plan)
+            return cls(
+                a, plan, prep_best, device=device, from_cache=False, features=feats,
+                measurements=measurements, search_failures=failures, mesh=mesh, axis=axis,
             )
-        t_best, c_best, prep_best = best
-        plan = Plan(
-            fingerprint=fp,
-            kind=kind,
-            fmt=c_best.fmt,
-            impl=c_best.impl,
-            params=_plan_params(c_best),
-            est_cost=costs[c_best],
-            measured_s=t_best,
-            n_candidates=len(cands),
-            n_measured=len(survivors),
-            k=kk,
-            backend=backend,
-            scale=scale,
-            n_raced=n_raced,
-            features=feats.to_dict(),
-            mesh_shape=mesh_shape,
-        )
-        cache.put(plan)
-        return cls(
-            a, plan, prep_best, device=device, from_cache=False, features=feats,
-            measurements=measurements, search_failures=failures, mesh=mesh, axis=axis,
-        )
 
     @classmethod
     def from_candidate(
